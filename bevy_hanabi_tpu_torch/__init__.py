@@ -6,11 +6,15 @@ expression graph, modifiers' data, assets, spawners) is a copy of the JAX
 package's jax-free modules, and an asset crosses between the packages as
 JSON (``EffectAsset.from_json(jax_asset.to_json())``).
 
-The ported slice is the benchmark headline frame: ``gradient_effect``
-stepped by :class:`CompiledEffect` and rendered by the tile rasterizer
-(``tile_slots=1``, ``blend``), whose hot regions are hand-written CUDA
-kernels for Hopper (``csrc/``, built on first use). Every device tensor
-lives where ``CompiledEffect(asset, device=...)`` puts it.
+Ported so far: the benchmark headline frame (``gradient_effect`` stepped by
+:class:`CompiledEffect` and rendered by the tile rasterizer, ``tile_slots=1``,
+``blend``) and the firework event tree (``firework_effect`` →
+``firework_trail_effect`` through :class:`HanabiScene`'s ``add``,
+``update``, ``update_chunk`` and ``render``, GPU spawn events, ``add``
+blending). The hot regions are hand-written CUDA kernels for Hopper
+(``csrc/``, built on first use). Every device tensor lives where
+``CompiledEffect(asset, device=...)`` or ``HanabiScene(device=...)`` puts
+it.
 """
 
 from .values import (  # noqa: F401
@@ -32,6 +36,8 @@ from .asset import (  # noqa: F401
     SimulationSpace,
 )
 from .compiler import SimParams  # noqa: F401
+from .properties import EffectProperties, Property  # noqa: F401
+from .time import EffectSimulationClock  # noqa: F401
 from .cpu_value import CpuValue  # noqa: F401
 from .gradient import Gradient, GradientKey  # noqa: F401
 from .graph import ExprWriter, Module  # noqa: F401
@@ -40,5 +46,8 @@ from . import modifiers  # noqa: F401
 from .modifiers import *  # noqa: F401,F403
 from .runtime.effect import CompiledEffect, StepInputs  # noqa: F401
 from .runtime.pool import ParticlePool  # noqa: F401
+from .runtime.events import EventBuffer  # noqa: F401
+from .runtime.scene import EffectInstance, HanabiScene  # noqa: F401
 from .render.camera import CameraParams, look_at, perspective  # noqa: F401
 from .render.raster import RasterConfig, rasterize  # noqa: F401
+from .render.renderer import EffectRenderer  # noqa: F401

@@ -232,8 +232,11 @@ class InitContext(EvalContext):
 class UpdateContext(EvalContext):
     """Update-pass evaluation (reference: ShaderWriter in Update context).
 
-    ``alive`` is reassigned by :meth:`kill`. GPU spawn events are not
-    ported: an effect that emits them is refused by ``CompiledEffect``.
+    ``alive`` is reassigned by :meth:`kill`; ``was_alive`` is the mask at
+    pass start (used by ``EventEmitCondition::OnDie``, reference
+    modifier/mod.rs:692). Emitted GPU spawn events accumulate in
+    :attr:`events_out` as ``(channel, mask, count)`` tuples consumed by the
+    runtime; ``count`` is uint32 in the int64 carrier.
     """
 
     context_name = "update"
@@ -243,6 +246,7 @@ class UpdateContext(EvalContext):
         if self.alive is None:
             raise ValueError("UpdateContext requires an alive mask")
         self.was_alive = self.alive
+        self.events_out: list = []
 
     def kill(self, mask: torch.Tensor) -> None:
         """Kill particles where ``mask`` is True (reference: is_alive=false)."""
@@ -260,9 +264,14 @@ class UpdateContext(EvalContext):
             del self._memo[h]
 
     def emit_events(self, channel: int, count, condition: str) -> None:
-        raise NotImplementedError(
-            "UpdateContext.emit_events: GPU spawn events are not ported"
-        )
+        if condition == "always":
+            mask = self.alive
+        elif condition == "on_die":
+            mask = self.was_alive & ~self.alive
+        else:
+            raise ValueError(f"unknown event emit condition {condition!r}")
+        count = rng.as_u32(count).expand(mask.shape)
+        self.events_out.append((channel, mask, count))
 
 
 class RenderContext(EvalContext):

@@ -1,13 +1,14 @@
-// tile_blend: the per-tile bounded BLEND loop of the tile rasterizer.
+// tile_blend: the per-tile bounded BLEND / ADD loop of the tile rasterizer.
 //
 // Replaces bevy_hanabi_tpu/render/raster.py:620-911 (`blend_one` / `body`,
-// the alpha_mode == "blend" branch, no texture, depth, triangles,
-// roundness or antialiasing). The JAX package leaves it to XLA on the TPU,
-// which streams the whole [nt, T, T, 4] framebuffer through device memory
-// once per group of `blend_unroll` entries; it has no Pallas kernel.
+// the alpha_mode == "blend" and "add" branches, raster.py:832-843; no
+// texture, depth, triangles, roundness or antialiasing). The JAX package
+// leaves it to XLA on the TPU, which streams the whole [nt, T, T, 4]
+// framebuffer through device memory once per group of `blend_unroll`
+// entries; it has no Pallas kernel.
 //
 // Input: window [nt, M, 10] f32 rows (cx, cy, h1x, h1y, h2x, h2y, r, g, b,
-// a), the tile's entries back to front, and has [nt, M] bool. Output: fb
+// a), the tile's entries in blend order, and has [nt, M] bool. Output: fb
 // [nt, T, T, 4] f32.
 //
 // Bound on the H100: the framebuffer traffic the XLA loop pays is gone —
@@ -19,7 +20,12 @@
 // microseconds), not bandwidth-bound.
 //
 // Design: one CTA per tile, T*T threads, one pixel each. The loop runs
-// m = 0..M-1 back to front in the JAX package's order. The guards are kept:
+// m = 0..M-1 in the JAX package's entry order (back to front for BLEND; the
+// fast paths' order for ADD, whose f32 sums then round as JAX's do). The
+// blend equation is a template parameter. ADD is rgb = rgb_s*a + rgb_d and
+// alpha = min(a + a_d, 1); the JAX loop applies that min on every entry,
+// covered or not, so the kernel clamps the background alpha once before
+// the loop, which gives the same result. The guards are kept:
 // the det clamp that is not sign-preserving (raster.py:629-630), the
 // |u|,|v| <= 1 test, and coverage-zero lanes leave the pixel untouched,
 // which is exactly what the JAX package's zero-coverage `where`
@@ -34,6 +40,7 @@ namespace {
 
 constexpr int kRow = 10;
 
+template <bool kAdd>
 __global__ void tile_blend_kernel(const float* __restrict__ window,
                                   const uint8_t* __restrict__ has,
                                   float4* __restrict__ fb,
@@ -52,6 +59,7 @@ __global__ void tile_blend_kernel(const float* __restrict__ window,
   const float px = (float)((tile % ntx) * T + j) + 0.5f;
   const float py = (float)((tile / ntx) * T + i) + 0.5f;
   float4 d = background;
+  if (kAdd && M > 0) d.w = d.w > 1.0f ? 1.0f : d.w;
   for (int m = 0; m < M; ++m) {
     if (!hs[m]) continue;
     const float* r = rows + m * kRow;
@@ -64,11 +72,19 @@ __global__ void tile_blend_kernel(const float* __restrict__ window,
     const float v = (-a1y * dx + a1x * dy) / det;
     if (!(fabsf(u) <= 1.0f && fabsf(v) <= 1.0f)) continue;
     const float a = r[9];  // alpha * coverage, coverage == 1 here
-    const float ia = 1.0f - a;
-    d.x = r[6] * a + d.x * ia;
-    d.y = r[7] * a + d.y * ia;
-    d.z = r[8] * a + d.z * ia;
-    d.w = a + d.w * ia;
+    if (kAdd) {
+      d.x = r[6] * a + d.x;
+      d.y = r[7] * a + d.y;
+      d.z = r[8] * a + d.z;
+      const float s = a + d.w;
+      d.w = s > 1.0f ? 1.0f : s;  // min(s, 1) that keeps a NaN, as jnp.minimum
+    } else {
+      const float ia = 1.0f - a;
+      d.x = r[6] * a + d.x * ia;
+      d.y = r[7] * a + d.y * ia;
+      d.z = r[8] * a + d.z * ia;
+      d.w = a + d.w * ia;
+    }
   }
   fb[(int64_t)tile * blockDim.x + threadIdx.x] = d;
 }
@@ -76,11 +92,13 @@ __global__ void tile_blend_kernel(const float* __restrict__ window,
 }  // namespace
 
 extern "C" int hanabi_tile_blend(const void* window, const void* has, void* fb, int nt, int M,
-                                 int T, int ntx, const float* background, void* stream) {
+                                 int T, int ntx, const float* background, int add_mode,
+                                 void* stream) {
   float4 bg = make_float4(background[0], background[1], background[2], background[3]);
   if (nt > 0) {
     size_t smem = (size_t)M * kRow * sizeof(float) + (size_t)M;
-    tile_blend_kernel<<<nt, T * T, smem, (cudaStream_t)stream>>>(
+    auto kernel = add_mode ? tile_blend_kernel<true> : tile_blend_kernel<false>;
+    kernel<<<nt, T * T, smem, (cudaStream_t)stream>>>(
         (const float*)window, (const uint8_t*)has, (float4*)fb, M, T, ntx, bg);
   }
   return (int)cudaGetLastError();

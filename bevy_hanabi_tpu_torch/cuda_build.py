@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library
-with a plain C interface, loaded with :mod:`ctypes`. The library goes to
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` process, all
+started together, and the objects link into one shared library with a
+plain C interface, loaded with :mod:`ctypes`. The library goes to
 ``build/`` at the repository root (ignored by git), named by a hash of the
 sources and flags, and is built on first use in the process: a fresh
 checkout builds it in seconds, and an edited source rebuilds. Nothing is
@@ -9,6 +10,8 @@ compiled at import time.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+The kernel wrappers share :func:`check_tensor`, :func:`current_stream` and
+the :class:`Kernel` record that lists each kernel for ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -21,8 +24,18 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Callable, NamedTuple
 
-__all__ = ["build", "library", "check", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = [
+    "build",
+    "library",
+    "check",
+    "check_tensor",
+    "current_stream",
+    "Kernel",
+    "BUILD_DIR",
+    "NVCC_FLAGS",
+]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
@@ -32,7 +45,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -43,9 +56,41 @@ _SIGNATURES = {
     "hanabi_gather_rows": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
     # (position, axis_x, axis_y, alive, color, tile, depth, rows, n, params, ntx, nty, stream)
     "hanabi_project_bin": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
-    # (window, has, fb, nt, M, T, ntx, background, stream)
-    "hanabi_tile_blend": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # (window, has, fb, nt, M, T, ntx, background, add_mode, stream)
+    "hanabi_tile_blend": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # (mask, count, payload, out_slot, out_count, out_payload, num_events, scratch, n, W, stream)
+    "hanabi_event_compact": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
 }
+
+
+class Kernel(NamedTuple):
+    """A CUDA kernel of the port: its wrapper (which counts its launches in
+    ``wrapper.launches``), its plain PyTorch version, its source, and the
+    TPU kernel (or XLA region of the JAX package) it replaces."""
+
+    wrapper: Callable
+    plain: Callable
+    source: str
+    replaces: str
+
+
+def check_tensor(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def current_stream() -> int:
+    """PyTorch's current CUDA stream, as the ``void*`` the C entry points take."""
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
 
 
 def _nvcc() -> str:
@@ -81,30 +126,41 @@ def _library_path() -> Path:
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the library unless it already exists.
 
-    The compiler's report (registers, shared memory, spills per kernel) is
-    kept beside the library as ``<name>.log``."""
+    One ``nvcc -c`` per source runs in parallel, then one link. The
+    compilers' report (registers, shared memory, spills per kernel) is kept
+    beside the library as ``<name>.log``."""
     out = _library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+    nvcc = _nvcc()
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{s.stem}.o" for s in cu]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                text=True,
+            )
+            for s, o in zip(cu, objs)
+        ]
+        logs = [(s.name, p.communicate()[0], p.returncode) for s, p in zip(cu, procs)]
+        report = "".join(f"== {name}\n{text}" for name, text, _ in logs)
+        out.with_suffix(".log").write_text(report)
+        failed = [name for name, _, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{report}")
+        tmp = Path(tmpdir) / out.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
             capture_output=True,
             text=True,
         )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 

@@ -1,3 +1,3 @@
 """Ported benchmark effects."""
 
-from .benchmarks import gradient_effect  # noqa: F401
+from .benchmarks import firework_effect, firework_trail_effect, gradient_effect  # noqa: F401

@@ -13,8 +13,10 @@ from .base import (  # noqa: F401
     modifier_from_json,
     register_modifier,
 )
+from .accel import AccelModifier, RadialAccelModifier, TangentAccelModifier  # noqa: F401
 from .attr import InheritAttributeModifier, SetAttributeModifier  # noqa: F401
 from .event import EmitSpawnEventModifier, EventEmitCondition  # noqa: F401
+from .force import ConformToSphereModifier, LinearDragModifier  # noqa: F401
 from .output import (  # noqa: F401
     ColorBlendMask,
     ColorBlendMode,

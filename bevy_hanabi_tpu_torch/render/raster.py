@@ -1,16 +1,17 @@
 """Tile-binned particle splat rasterizer (port of ``bevy_hanabi_tpu/render/raster.py``).
 
 The same **bin → sort → bounded per-tile blend** pipeline as the JAX
-package, for ``tile_slots=1`` and the ordered ``blend`` path:
+package, for ``tile_slots=1`` with the ``blend`` and ``add`` equations:
 
 1. :func:`project_bin` (CUDA kernel) projects every quad, tests it against
    the screen, bins it into the tile holding its centre and packs its blend
    row ``[cx, cy, h1x, h1y, h2x, h2y, r, g, b, a]``;
-2. :func:`sort_tiles` packs ``(tile << depth_bits) | far-first depth`` keys
-   and sorts them (plain torch: CUB's radix sort); ``searchsorted`` of the
-   tile bounds gives each tile's run;
-3. :func:`gather_rows` (CUDA kernel, the port of the TPU row gather) fetches
-   the nearest ``M`` rows of every tile, back to front;
+2. :func:`sort_tiles` packs the JAX package's 32-bit keys — ``(tile |
+   far-first depth)`` on the ordered path, one of the three fast variants
+   of :func:`fast_mode` for ``add`` — and sorts them (plain torch: CUB's
+   radix sort); ``searchsorted`` of the tile bounds gives each tile's run;
+3. :func:`~..ops.gather.gather_rows` (CUDA kernel, the port of the TPU row
+   gather) fetches ``M`` rows of every tile in blend order;
 4. :func:`tile_blend` (CUDA kernel) blends each tile in one CTA, one thread
    per pixel.
 
@@ -24,12 +25,16 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Any, Callable, NamedTuple, Sequence, Tuple
+from typing import Any, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import cuda_build
+from ..cuda_build import Kernel
+from ..cuda_build import check_tensor as _check
+from ..cuda_build import current_stream as _stream
+from ..ops.gather import gather_rows
 from ..ops.linalg import mat4_mul
 from .camera import CameraParams
 from .extract import ParticleDrawData
@@ -37,12 +42,11 @@ from .extract import ParticleDrawData
 __all__ = [
     "RasterConfig",
     "rasterize",
-    "gather_rows",
-    "gather_rows_plain",
     "project_bin",
     "project_bin_plain",
     "tile_blend",
     "tile_blend_plain",
+    "fast_mode",
     "sort_tiles",
     "window_index",
     "untile",
@@ -98,50 +102,6 @@ class RasterConfig:
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]`` row gather (plain version of :func:`gather_rows`)."""
-    return table.index_select(0, idx)
-
-
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``out[j] = table[idx[j]]`` for an f32 ``[N, F]`` table and int32 ``[M]``
-    indices in ``[0, N)``. Port of the TPU kernel ``pallas_gather``."""
-    if table.dim() != 2:
-        raise ValueError(f"table must be [N, F], got shape {tuple(table.shape)}")
-    _check(table, "table", torch.float32, table.shape, table.device)
-    if idx.dim() != 1:
-        raise ValueError(f"idx must be [M], got shape {tuple(idx.shape)}")
-    _check(idx, "idx", torch.int32, idx.shape, table.device)
-    if not table.is_cuda:
-        return gather_rows_plain(table, idx)
-    n, f = table.shape
-    out = torch.empty((idx.shape[0], f), dtype=torch.float32, device=table.device)
-    code = cuda_build.library().hanabi_gather_rows(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], n, f, _stream()
-    )
-    cuda_build.check(code, "gather_rows")
-    gather_rows.launches += 1
-    return out
-
-
-gather_rows.launches = 0
 
 
 def _project_params(view, proj, viewport, raster_size, T):
@@ -241,8 +201,14 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
 project_bin.launches = 0
 
 
-def tile_blend_plain(window, has, T, ntx, nty, background):
-    """Plain version of :func:`tile_blend`: raster.py:620-911, blend only."""
+BLEND_MODES = ("blend", "add")
+
+
+def tile_blend_plain(window, has, T, ntx, nty, background, mode="blend"):
+    """Plain version of :func:`tile_blend`: raster.py:620-911, the ``blend``
+    and ``add`` equations (raster.py:832-843)."""
+    if mode not in BLEND_MODES:
+        raise ValueError(f"tile_blend: mode must be one of {BLEND_MODES}, got {mode!r}")
     nt, M, _ = window.shape
     dev = window.device
     ar = torch.arange(T, dtype=torch.int32, device=dev)
@@ -269,17 +235,25 @@ def tile_blend_plain(window, has, T, ntx, nty, background):
         covered = coverage[..., None] > 0.0
         a = torch.where(covered, (col[:, None, None, 3] * coverage)[..., None], 0.0)
         rgb_s = torch.where(covered, col[:, None, None, :3], 0.0)
-        rgb = rgb_s * a + fb[..., :3] * (1.0 - a)
-        alpha = a + fb[..., 3:4] * (1.0 - a)
+        if mode == "blend":
+            rgb = rgb_s * a + fb[..., :3] * (1.0 - a)
+            alpha = a + fb[..., 3:4] * (1.0 - a)
+        else:
+            rgb = rgb_s * a + fb[..., :3]
+            alpha = torch.clamp(a + fb[..., 3:4], max=1.0)
         fb = torch.cat([rgb, alpha], dim=-1)
     return fb.contiguous()
 
 
-def tile_blend(window, has, T, ntx, nty, background):
-    """Blend each tile's window back to front into ``fb`` [nt, T, T, 4].
+def tile_blend(window, has, T, ntx, nty, background, mode="blend"):
+    """Blend each tile's window, entry m = 0 first, into ``fb`` [nt, T, T, 4].
 
-    ``window`` f32 [nt, M, 10] blend rows (entry m = 0 is the farthest),
-    ``has`` bool [nt, M] marks real entries; ``background`` RGBA."""
+    ``window`` f32 [nt, M, 10] blend rows (back to front for ``blend``; in
+    the fast paths' order for ``add``), ``has`` bool [nt, M] marks real
+    entries; ``background`` RGBA; ``mode`` the equation, ``"blend"`` or
+    ``"add"``."""
+    if mode not in BLEND_MODES:
+        raise ValueError(f"tile_blend: mode must be one of {BLEND_MODES}, got {mode!r}")
     dev = window.device
     nt = ntx * nty
     if window.dim() != 3:
@@ -290,39 +264,26 @@ def tile_blend(window, has, T, ntx, nty, background):
     if len(background) != 4:
         raise ValueError("background must be RGBA")
     if not window.is_cuda:
-        return tile_blend_plain(window, has, T, ntx, nty, background)
+        return tile_blend_plain(window, has, T, ntx, nty, background, mode)
     if not 1 <= T * T <= 1024:
         raise ValueError(f"tile_blend runs one thread per pixel: T*T must be <= 1024, got T={T}")
     fb = torch.empty((nt, T, T, 4), dtype=torch.float32, device=dev)
     bg = np.asarray(background, np.float32)
     code = cuda_build.library().hanabi_tile_blend(
         window.data_ptr(), has.data_ptr(), fb.data_ptr(), nt, M, T, ntx,
-        bg.ctypes.data_as(ctypes.c_void_p), _stream(),
+        bg.ctypes.data_as(ctypes.c_void_p), int(mode == "add"), _stream(),
     )
     cuda_build.check(code, "tile_blend")
     tile_blend.launches += 1
+    if mode == "add":
+        tile_blend.launches_add += 1
     return fb
 
 
 tile_blend.launches = 0
-
-class Kernel(NamedTuple):
-    """A CUDA kernel of the raster path: its wrapper, plain version, source,
-    and the TPU kernel (or XLA region of the JAX package) it replaces."""
-
-    wrapper: Callable
-    plain: Callable
-    source: str
-    replaces: str
-
+tile_blend.launches_add = 0  # the launches in ADD mode, counted among ``launches``
 
 KERNELS = {
-    "gather_rows": Kernel(
-        gather_rows,
-        gather_rows_plain,
-        "bevy_hanabi_tpu_torch/csrc/gather_rows.cu",
-        "experiments/pallas_gather_bench.py:64",
-    ),
     "project_bin": Kernel(
         project_bin,
         project_bin_plain,
@@ -343,35 +304,83 @@ KERNELS = {
 # ---------------------------------------------------------------------------
 
 
-def sort_tiles(tile: torch.Tensor, depth: torch.Tensor, nt: int):
-    """Order entries by (tile ascending, depth far-first): raster.py:361-423.
+def fast_mode(config: RasterConfig, alpha_mode: str, num_entries: int):
+    """The variant the JAX package picks statically (raster.py:336-358):
+    ``None`` for the ordered path, else the order-independent fast path
+    ``"first"`` (key = tile | entry index), ``"depth"`` (key = tile |
+    coarse near-first depth | entry index, when >= 4 slack bits fit) or
+    ``"payload"`` (key = tile | exact near-first depth, particle index
+    carried beside it)."""
+    if not (config.order_independent_fast and alpha_mode in ("add", "multiply")):
+        return None
+    tile_bits = max(1, int(np.ceil(np.log2(config.num_tiles + 2))))
+    idx_bits = max(1, int(np.ceil(np.log2(max(num_entries, 2)))))
+    slack = 32 - tile_bits - idx_bits
+    if config.overflow_policy == "first" and slack >= 0:
+        return "first"
+    if slack >= 4:
+        return "depth"
+    return "payload"
 
-    Depth quantizes to the bits left under the tile id; the packed key
-    needs ``tile_bits + depth_bits`` = 32 bits and the sentinel tile ``nt``
-    sets bit 31, so keys are int64. Returns ``(pidx_sorted int64 [N],
-    starts [nt], ends [nt])``."""
-    tile_bits = max(1, int(np.ceil(np.log2(nt + 2))))
-    depth_bits = min(22, 32 - tile_bits)
+
+def _quant_depth(depth: torch.Tensor, depth_bits: int) -> torch.Tensor:
+    """Entry depths quantized ascending (near = small) to ``depth_bits``
+    (raster.py:361-371), as int64."""
     finite = depth > -torch.inf
     dmin = torch.where(finite, depth, torch.inf).min()
     dmax = torch.where(finite, depth, -torch.inf).max()
     span_d = torch.clamp(dmax - dmin, min=1e-9)
-    scale = (1 << depth_bits) - 1
-    dq = (torch.clamp((depth - dmin) / span_d, 0.0, 1.0) * float(scale)).to(torch.int64)
-    key = (tile.to(torch.int64) << depth_bits) | (scale - dq)
-    # Stable, unlike lax.sort: equal (tile | depth) keys may blend in another
-    # order than the JAX package's, which the checksum tolerance absorbs.
-    key_sorted, pidx_sorted = torch.sort(key, stable=True)
-    bound = torch.arange(nt + 1, dtype=torch.int64, device=tile.device) << depth_bits
+    scale = float((1 << depth_bits) - 1)
+    return (torch.clamp((depth - dmin) / span_d, 0.0, 1.0) * scale).to(torch.int64)
+
+
+def sort_tiles(tile: torch.Tensor, depth: torch.Tensor, nt: int, mode=None):
+    """Order entries by tile and, per tile, as ``mode`` wants (raster.py:361-423).
+
+    ``mode`` is :func:`fast_mode`'s: ``None`` orders each tile far-first
+    (the ordered path), ``"payload"`` near-first, and ``"first"`` /
+    ``"depth"`` sort one packed key that ends in the entry index. The keys
+    keep the JAX package's 32-bit layout (the sentinel tile ``nt`` may set
+    bit 31, so they ride int64), so the same entries survive an
+    overflowing tile. Returns ``(pidx_sorted int64 [N], starts [nt], ends
+    [nt])``."""
+    n = tile.shape[0]
+    tile_bits = max(1, int(np.ceil(np.log2(nt + 2))))
+    tile64 = tile.to(torch.int64)
+    if mode in ("first", "depth"):
+        idx_bits = max(1, int(np.ceil(np.log2(max(n, 2)))))
+        db = min(32 - tile_bits - idx_bits, 8) if mode == "depth" else 0
+        shift = db + idx_bits
+        key = (tile64 << shift) | torch.arange(n, dtype=torch.int64, device=tile.device)
+        if db:
+            key = key | (_quant_depth(depth, db) << idx_bits)
+        key_sorted = torch.sort(key).values  # unique keys: the order is fixed
+        # one slot per particle (tile_slots=1): the entry index is the particle
+        pidx_sorted = key_sorted & ((1 << idx_bits) - 1)
+    elif mode in (None, "payload"):
+        shift = min(22, 32 - tile_bits)
+        dq = _quant_depth(depth, shift)
+        if mode is None:
+            dq = ((1 << shift) - 1) - dq  # far first
+        key = (tile64 << shift) | dq
+        # Stable, unlike lax.sort: equal (tile | depth) keys may blend in
+        # another order than the JAX package's, which the checksum
+        # tolerance absorbs.
+        key_sorted, pidx_sorted = torch.sort(key, stable=True)
+    else:
+        raise ValueError(f"sort_tiles: unknown mode {mode!r}")
+    bound = torch.arange(nt + 1, dtype=torch.int64, device=tile.device) << shift
     r = torch.searchsorted(key_sorted, bound)
     return pidx_sorted, r[:-1], r[1:]
 
 
-def window_index(pidx_sorted, starts, ends, M: int):
-    """The nearest ``M`` entries of every tile, back to front (raster.py:488-506):
-    ``(pidx int32 [nt, M], has bool [nt, M])``."""
+def window_index(pidx_sorted, starts, ends, M: int, from_start: bool = False):
+    """``M`` entries of every tile in blend order (raster.py:488-506):
+    ``(pidx int32 [nt, M], has bool [nt, M])``. The ordered path takes the
+    END of each far-first run (the nearest M, back to front); the fast
+    paths take the START (``from_start``)."""
     n = pidx_sorted.shape[0]
-    base = torch.maximum(ends - M, starts)
+    base = starts if from_start else torch.maximum(ends - M, starts)
     raw = base[:, None] + torch.arange(M, dtype=base.dtype, device=base.device)[None, :]
     has = raw < ends[:, None]
     idx = torch.clamp(raw, max=n - 1)
@@ -403,12 +412,15 @@ def rasterize(
 ) -> torch.Tensor:
     """Render particles to a [height, width, 4] float32 image on the draw's device.
 
-    Ported: ``tile_slots=1`` with ``alpha_mode="blend"`` (the ordered path).
-    Every other branch of the JAX rasterizer raises ``NotImplementedError``.
+    Ported: ``tile_slots=1`` with ``alpha_mode="blend"`` (the ordered path)
+    and ``alpha_mode="add"`` (the three order-independent fast variants of
+    :func:`fast_mode`, or the ordered path with
+    ``order_independent_fast=False``). Every other branch of the JAX
+    rasterizer raises ``NotImplementedError``.
     """
     if config.tile_slots != 1:
         raise _unported(f"tile_slots={config.tile_slots} binning")
-    if alpha_mode != "blend":
+    if alpha_mode not in BLEND_MODES:
         raise _unported(f"alpha_mode={alpha_mode!r}")
     if config.antialias:
         raise _unported("antialias")
@@ -427,9 +439,10 @@ def rasterize(
         camera.view, camera.proj, camera.viewport, T, ntx, nty,
         raster_size=(config.width, config.height),
     )
-    pidx_sorted, starts, ends = sort_tiles(tile, depth, nt)
+    mode = fast_mode(config, alpha_mode, tile.shape[0])
+    pidx_sorted, starts, ends = sort_tiles(tile, depth, nt, mode)
     M = config.max_entries_per_tile
-    pidx, has = window_index(pidx_sorted, starts, ends, M)
+    pidx, has = window_index(pidx_sorted, starts, ends, M, from_start=mode is not None)
     window = gather_rows(rows, pidx.reshape(-1)).reshape(nt, M, ROW)
-    fb = tile_blend(window, has, T, ntx, nty, config.background)
+    fb = tile_blend(window, has, T, ntx, nty, config.background, alpha_mode)
     return untile(fb, config)

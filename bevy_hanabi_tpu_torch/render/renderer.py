@@ -1,0 +1,99 @@
+"""Pool → image for one effect, and layer compositing
+(port of ``bevy_hanabi_tpu/render/renderer.py``).
+
+:func:`composite_by_mode` is ported whole. :class:`EffectRenderer` is ported
+as far as :meth:`HanabiScene.render`'s single-effect pass needs it: no
+textures, no depth test, no ribbons or meshes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+from ..asset import EffectAsset
+from ..compiler import SimParams
+from ..runtime.pool import ParticlePool
+from .camera import CameraParams
+from .extract import extract_draw_data
+from .raster import RasterConfig, rasterize
+
+__all__ = ["EffectRenderer", "composite_by_mode"]
+
+
+def composite_by_mode(img, framebuffer, alpha_mode: str):
+    """Composite a pre-rendered effect layer onto a framebuffer using the
+    effect's blend equation (the dst factors of asset.rs:212-240):
+
+    * ``add``: dst accumulates (src blended with ONE dst factor), so the
+      layer's premultiplied sums simply add; no dst attenuation.
+    * ``multiply``: the layer (rendered over a neutral WHITE transparent
+      background) is a per-pixel modulation factor for dst.
+    * everything else ("blend"/"premultiply"/"opaque"/"mask"): "over".
+    """
+    if alpha_mode == "add":
+        rgb = framebuffer[..., :3] + img[..., :3]
+        alpha = torch.clamp(framebuffer[..., 3:4] + img[..., 3:4], max=1.0)
+    elif alpha_mode == "multiply":
+        rgb = framebuffer[..., :3] * img[..., :3]
+        alpha = framebuffer[..., 3:4]
+    else:
+        a = img[..., 3:4]
+        rgb = img[..., :3] + framebuffer[..., :3] * (1.0 - a)
+        alpha = a + framebuffer[..., 3:4] * (1.0 - a)
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+def neutral_background(alpha_mode: str):
+    """The clear colour a layer is rendered over before compositing: white
+    transparent for ``multiply``, black transparent otherwise."""
+    return (1.0, 1.0, 1.0, 0.0) if alpha_mode == "multiply" else (0.0, 0.0, 0.0, 0.0)
+
+
+class EffectRenderer:
+    """Renders one effect's pool with its render modifiers applied."""
+
+    def __init__(self, asset: EffectAsset, config: RasterConfig, textures: Sequence[Any] = ()) -> None:
+        if textures:
+            raise NotImplementedError("EffectRenderer: textures are not ported")
+        self.asset = asset
+        self.config = config
+        self._aligned = False
+        self.textures = ()
+        self._alpha_mode = asset.alpha_mode.kind
+
+    def render(
+        self,
+        pool: ParticlePool,
+        camera: CameraParams,
+        sim: SimParams = None,
+        properties: Optional[Dict[str, Any]] = None,
+        transform: Optional[Any] = None,
+        framebuffer: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Rasterize the pool; optionally composite over ``framebuffer``
+        with the effect's own blend equation. The raster grid follows the
+        camera viewport (a mismatched config is aligned on first use). The
+        depth test (``scene_depth`` / ``return_depth``) is not ported."""
+        if not self._aligned:
+            vw, vh = camera.viewport
+            if (self.config.width, self.config.height) != (vw, vh):
+                self.config = dataclasses.replace(self.config, width=vw, height=vh)
+            self._aligned = True
+        draw = extract_draw_data(
+            self.asset,
+            pool,
+            camera,
+            sim=sim if sim is not None else SimParams(),
+            properties=properties or {},
+            transform=transform,
+        )
+        config = self.config
+        if framebuffer is not None:
+            config = dataclasses.replace(config, background=neutral_background(self._alpha_mode))
+        img = rasterize(draw, camera, config, alpha_mode=self._alpha_mode)
+        if framebuffer is not None:
+            img = composite_by_mode(img, framebuffer, self._alpha_mode)
+        return img

@@ -1,4 +1,6 @@
-"""Pools and compiled effects."""
+"""Pools, compiled effects, event buffers and the scene."""
 
 from .pool import ParticlePool  # noqa: F401
 from .effect import CompiledEffect, StepInputs  # noqa: F401
+from .events import EventBuffer  # noqa: F401
+from .scene import EffectInstance, HanabiScene  # noqa: F401

@@ -10,7 +10,13 @@ Spawn without atomics: dead lanes are ranked by exclusive cumsum; lanes
 with rank < S become this frame's spawns, seeded with
 ``pcg_hash(rank ^ pcg_hash(frame_seed))`` exactly like the JAX package.
 
-GPU spawn events (event-linked assets) are not ported: such assets raise.
+GPU spawn events: a step returns ``(pool, events_out)`` with one
+:class:`~.events.EventBuffer` per emitted channel, and a child effect
+consumes its parent's previous-frame buffer (``events_in``): its spawn
+request is the buffer's device-side total, so no step reads back from the
+device. :meth:`CompiledEffect.make_family_chunk_step` runs a whole
+parent→child tree for K frames with the pending buffers carried between
+frames. The ``mesh=`` sharded build is not ported.
 """
 
 from __future__ import annotations
@@ -22,10 +28,12 @@ import numpy as np
 import torch
 
 from ..asset import EffectAsset, MotionIntegration, SimulationSpace
+from ..attributes import ParticleLayout
 from ..compiler import InitContext, SimParams, UpdateContext
 from ..ops import rng
 from ..ops.compaction import exclusive_rank
 from ..ops.linalg import affine3, rotate3
+from .events import EventBuffer, build_event_buffer, consume_events
 from .pool import ParticlePool, to_device
 
 __all__ = ["CompiledEffect", "StepInputs", "identity_transform"]
@@ -61,13 +69,53 @@ class CompiledEffect:
     """An :class:`EffectAsset` bound to a device, stepping its pools.
 
     ``device`` is required: the port never defaults to the CPU on the card
-    path. Pools passed to :meth:`step`, :meth:`step_chunk` and
-    :meth:`step_render_chunk` are updated in place (their tensors are
-    replaced, the JAX package donates them): do not keep using the input
-    pool's old tensors after a step.
+    path. Use :meth:`get` to share one instance between effect instances of
+    the same asset. ``parent_layout`` marks an effect that consumes GPU
+    spawn events from a parent of that layout; ``parent_const_count`` the
+    parent channel's constant emit count (``rank // K`` map);
+    ``payload_attrs`` restricts the payload this effect's own events
+    capture. Pools passed to the step methods are updated in place (their
+    tensors are replaced, the JAX package donates them): do not keep using
+    the input pool's old tensors after a step.
     """
 
-    def __init__(self, asset: EffectAsset, device) -> None:
+    _CACHE: "dict" = {}
+
+    @staticmethod
+    def get(
+        asset: EffectAsset,
+        device,
+        parent_layout: Optional[ParticleLayout] = None,
+        parent_const_count: Optional[int] = None,
+        payload_attrs: Optional[tuple] = None,
+        mesh=None,
+    ) -> "CompiledEffect":
+        """The shared instance for this asset signature, parent layout,
+        constant count, payload restriction and device (effect.py:96-102)."""
+        key = (
+            asset.signature(),
+            parent_layout.signature() if parent_layout else None,
+            parent_const_count,
+            payload_attrs,
+            torch.device(device),
+        )
+        fx = CompiledEffect._CACHE.get(key)
+        if fx is None:
+            fx = CompiledEffect(
+                asset, device, parent_layout, parent_const_count, payload_attrs, mesh=mesh
+            )
+            CompiledEffect._CACHE[key] = fx
+        return fx
+
+    def __init__(
+        self,
+        asset: EffectAsset,
+        device,
+        parent_layout: Optional[ParticleLayout] = None,
+        parent_const_count: Optional[int] = None,
+        payload_attrs: Optional[tuple] = None,
+        mesh=None,
+    ) -> None:
         self.asset = asset
         self.device = torch.device(device)
         self.layout = asset.particle_layout()
@@ -78,12 +126,35 @@ class CompiledEffect:
                 "modifier (e.g. SetPositionSphereModifier or "
                 "SetAttributeModifier(A.POSITION, ...))"
             )
-        if asset.num_event_channels():
-            raise NotImplementedError(
-                f"effect {asset.name!r} is event-linked; GPU spawn events are not ported"
-            )
         if self.layout.contains("ribbon_id"):
             raise NotImplementedError(f"effect {asset.name!r} draws ribbons, which are not ported")
+        if mesh is not None:
+            raise NotImplementedError(
+                "CompiledEffect(mesh=...): the sharded event build is not ported"
+            )
+        self.parent_layout = parent_layout
+        self.consumes_events = parent_layout is not None
+        self.parent_const_count = parent_const_count
+        self.payload_attrs = (
+            tuple(sorted(payload_attrs)) if payload_attrs is not None else None
+        )
+        self.num_event_channels = asset.num_event_channels()
+
+        # attributes actually read from the parent (InheritAttributeModifier
+        # + parent_attr expression reads): payload gathers are limited to
+        # these (effect.py:182-199)
+        inherited = set()
+        if self.consumes_events:
+            from ..modifiers.attr import InheritAttributeModifier
+
+            for m in asset.init_modifiers + asset.update_modifiers + asset.render_modifiers:
+                if isinstance(m, InheritAttributeModifier):
+                    inherited.add(m.attribute)
+            for i in range(1, len(asset.module) + 1):
+                if asset.module.get(i).kind == "parent_attribute":
+                    inherited.add(asset.module.get(i).name)
+        self._inherited_attrs = tuple(sorted(inherited))
+
         has = self.layout.contains
         self._has_age = has("age")
         self._has_lifetime = has("lifetime")
@@ -101,16 +172,42 @@ class CompiledEffect:
             self.layout, capacity or self.asset.capacity, self.device, poison=poison
         )
 
+    def make_empty_events(self, capacity: Optional[int] = None) -> EventBuffer:
+        """Empty event buffer shaped for THIS effect's emissions (payload
+        restricted to ``payload_attrs``), on this effect's device."""
+        return EventBuffer.empty(
+            capacity or self.asset.capacity,
+            self.layout,
+            attrs=self.payload_attrs,
+            device=self.device,
+        )
+
     # -- public step -------------------------------------------------------
 
-    def step(self, pool: ParticlePool, inputs: StepInputs, sim: SimParams) -> ParticlePool:
-        """Advance one frame; returns the (updated) pool."""
-        return self._step(pool, inputs, sim)
+    def step(
+        self,
+        pool: ParticlePool,
+        inputs: StepInputs,
+        sim: SimParams,
+        events_in: Optional[EventBuffer] = None,
+        parent_pool: Optional[ParticlePool] = None,
+    ):
+        """Advance one frame. Returns ``(pool, events_out)`` where
+        ``events_out`` is a dict channel→EventBuffer for child effects
+        (empty for an effect that emits nothing)."""
+        return self._step(pool, inputs, sim, events_in, parent_pool)
+
+    def _refuse_events(self, method: str) -> None:
+        if self.num_event_channels or self.consumes_events:
+            raise ValueError(f"{method} does not support event-linked effects")
 
     def step_chunk(self, pool: ParticlePool, inputs_stacked: StepInputs, sims_stacked: SimParams):
-        """Advance K frames; every leaf of the stacked inputs has a leading [K] axis."""
+        """Advance K frames; every leaf of the stacked inputs has a leading
+        [K] axis. Only for effects without event channels (events need the
+        family chunk, :meth:`make_family_chunk_step`)."""
+        self._refuse_events("step_chunk")
         for inputs, sim in _unstack(inputs_stacked, sims_stacked):
-            pool = self._step(pool, inputs, sim)
+            pool, _ = self._step(pool, inputs, sim, None, None)
         return pool
 
     def step_render_chunk(
@@ -130,13 +227,14 @@ class CompiledEffect:
         from ..render.extract import extract_draw_data
         from ..render.raster import rasterize
 
+        self._refuse_events("step_render_chunk")
         alpha_mode = self.asset.alpha_mode.kind
         if self.asset.mesh is not None:
             raise NotImplementedError("step_render_chunk: mesh particles are not ported")
         img = torch.zeros((config.height, config.width, 4), dtype=torch.float32, device=self.device)
         sums = []
         for inputs, sim in _unstack(inputs_stacked, sims_stacked):
-            pool = self._step(pool, inputs, sim)
+            pool, _ = self._step(pool, inputs, sim, None, None)
             draw = extract_draw_data(
                 self.asset,
                 pool,
@@ -149,6 +247,43 @@ class CompiledEffect:
             img = rasterize(draw, camera, config, alpha_mode=alpha_mode, textures=list(textures))
             sums.append(img.sum())
         return pool, img, torch.stack(sums)
+
+    @staticmethod
+    def make_family_chunk_step(members):
+        """A K-frame step over an event-linked effect tree (effect.py:436-497).
+
+        ``members``: topologically ordered (parents first) sequence of
+        ``(fx, parent_index, channel)`` — ``parent_index`` indexes into
+        ``members`` (None for roots); ``channel`` is the event channel the
+        member consumes from its parent. Returns
+        ``fn(carry, member_inputs_K, sims_K) -> (pools, pendings)`` where
+        ``carry = (tuple(pools), tuple(pendings))`` and ``pendings[i]`` is
+        member i's emitted-events dict ``{channel: EventBuffer}``.
+
+        Within each frame every member consumes its parent's PREVIOUS-frame
+        buffer (the reference's one-frame latency, vfx_init.wgsl:123-129)
+        and contributes its own emissions for the next frame. The JAX
+        package's ``lax.scan`` is a Python loop over the frames here; no
+        frame reads back from the device.
+        """
+        fxs = tuple(m[0] for m in members)
+        parent_idx = tuple(m[1] for m in members)
+        chans = tuple(m[2] for m in members)
+
+        def fam_chunk(carry, member_inputs, sims):
+            pools, pendings = list(carry[0]), tuple(carry[1])
+            frames = [list(_unstack(ins, sims)) for ins in member_inputs]
+            for j in range(len(frames[0]) if frames else 0):
+                new_pendings = []
+                for i, fx in enumerate(fxs):
+                    ev_in = None if parent_idx[i] is None else pendings[parent_idx[i]][chans[i]]
+                    inputs, sim = frames[i][j]
+                    pools[i], ev_out = fx._step(pools[i], inputs, sim, ev_in, None)
+                    new_pendings.append(ev_out)
+                pendings = tuple(new_pendings)
+            return tuple(pools), pendings
+
+        return fam_chunk
 
     @staticmethod
     def stack_frames(inputs_list, sims_list):
@@ -176,7 +311,14 @@ class CompiledEffect:
 
     # -- body ---------------------------------------------------------------
 
-    def _step(self, pool: ParticlePool, inputs: StepInputs, sim: SimParams) -> ParticlePool:
+    def _step(
+        self,
+        pool: ParticlePool,
+        inputs: StepInputs,
+        sim: SimParams,
+        events_in: Optional[EventBuffer],
+        parent_pool: Optional[ParticlePool],
+    ):
         dev = pool.device
         n = pool.alive.shape[-1]
         slot_ids = torch.arange(n, dtype=rng.U32, device=dev)
@@ -185,7 +327,24 @@ class CompiledEffect:
         dead = ~pool.alive
         free_rank = exclusive_rank(dead)  # 0-based among dead
         num_free = torch.sum(dead, dtype=torch.int32)
-        spawn_total = torch.clamp(num_free, max=int(inputs.spawn_count))
+
+        parent_payload: Dict[str, torch.Tensor] = {}
+        if self.consumes_events:
+            if events_in is None:
+                raise ValueError(
+                    f"effect {self.asset.name!r} consumes GPU spawn events; pass events_in"
+                )
+            parent_slot, requested, parent_payload = consume_events(
+                events_in,
+                free_rank,
+                attrs=self._inherited_attrs,
+                const_count=self.parent_const_count,
+            )
+            # the request is a device scalar: no readback
+            spawn_total = torch.minimum(requested, num_free)
+        else:
+            # the root's request is host data
+            spawn_total = torch.clamp(num_free, max=int(inputs.spawn_count))
         spawn_mask = dead & (free_rank < spawn_total)
 
         # ---- init pass ----
@@ -199,12 +358,27 @@ class CompiledEffect:
         if "particle_counter" in defaults:
             defaults["particle_counter"] = (pool.counter + free_rank.to(rng.U32)) & 0xFFFFFFFF
 
+        # Inherited attributes come from the event payload (captured at
+        # emission — immune to parent slot recycling); a parent_pool gather
+        # remains as fallback for payload-less buffers.
+        parent_particle = None
+        if self.consumes_events and self._inherited_attrs:
+            if parent_payload:
+                parent_particle = parent_payload
+            elif parent_pool is not None:
+                parent_particle = {
+                    k: parent_pool.attrs[k][parent_slot]
+                    for k in self._inherited_attrs
+                    if k in parent_pool.attrs
+                }
+
         ictx = InitContext(
             self.asset.module,
             defaults,
             spawn_seed,
             sim=sim,
             properties=inputs.properties,
+            parent_particle=parent_particle,
             particle_index=slot_ids,
         )
         for m in self.asset.init_modifiers:
@@ -251,11 +425,31 @@ class CompiledEffect:
         if self._integrate and self.asset.motion_integration is MotionIntegration.POST_UPDATE:
             uctx.particle["position"] = uctx.particle["position"] + uctx.particle["velocity"] * dt
 
+        # ---- emitted events, aggregated per channel ----
+        events_out: Dict[int, EventBuffer] = {}
+        if self.num_event_channels:
+            per_channel: Dict[int, torch.Tensor] = {}
+            for channel, mask, count in uctx.events_out:
+                contrib = torch.where(mask, count, 0)
+                per_channel[channel] = (per_channel.get(channel, 0) + contrib) & 0xFFFFFFFF
+            if self.payload_attrs is None:
+                captured = uctx.particle
+            else:
+                captured = {k: uctx.particle[k] for k in self.payload_attrs if k in uctx.particle}
+            for channel in range(self.num_event_channels):
+                counts = per_channel.get(channel)
+                if counts is None:
+                    events_out[channel] = self.make_empty_events(n)
+                else:
+                    events_out[channel] = build_event_buffer(
+                        counts > 0, counts, parent_attrs=captured
+                    )
+
         pool.attrs = uctx.particle
         pool.alive = uctx.alive
         pool.seed = uctx.seed
         pool.counter = counter
-        return pool
+        return pool, events_out
 
 
 def _unstack(inputs_stacked: StepInputs, sims_stacked: SimParams):

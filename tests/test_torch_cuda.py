@@ -7,18 +7,21 @@ runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest`` because ``tests/conftest.py`` configures JAX.)
-Tolerances: the gather must be bit-exact; ``project_bin`` must give equal
-tiles and depths (both versions round op for op, the library is built with
-``-fmad=false``); ``tile_blend`` within 1e-5 absolute.
+Tolerances: the gather and ``event_compact`` must be bit-exact;
+``project_bin`` must give equal tiles and depths (both versions round op for
+op, the library is built with ``-fmad=false``); ``tile_blend`` (BLEND and
+ADD) within 1e-5 absolute.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from bevy_hanabi_tpu_torch import CompiledEffect, RasterConfig, SimParams, StepInputs
-from bevy_hanabi_tpu_torch.models import gradient_effect
+from bevy_hanabi_tpu_torch import CompiledEffect, HanabiScene, RasterConfig, SimParams, StepInputs
+from bevy_hanabi_tpu_torch.models import firework_effect, firework_trail_effect, gradient_effect
+from bevy_hanabi_tpu_torch.ops import gather
 from bevy_hanabi_tpu_torch.render import raster
+from bevy_hanabi_tpu_torch.runtime import events
 from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
 
 pytestmark = pytest.mark.cuda
@@ -51,10 +54,10 @@ def test_gather_rows_is_bit_exact(cuda):
     r = np.random.default_rng(0)
     table = torch.from_numpy(r.standard_normal((1 << 20, 10)).astype(np.float32)).to(cuda)
     idx = torch.from_numpy(r.integers(0, 1 << 20, 65536).astype(np.int32)).to(cuda)
-    before = raster.gather_rows.launches
-    out = raster.gather_rows(table, idx)
-    assert raster.gather_rows.launches == before + 1
-    assert torch.equal(out, raster.gather_rows_plain(table, idx))
+    before = gather.gather_rows.launches
+    out = gather.gather_rows(table, idx)
+    assert gather.gather_rows.launches == before + 1
+    assert torch.equal(out, gather.gather_rows_plain(table, idx))
 
 
 def test_project_bin_and_tile_blend_match_plain(cuda):
@@ -68,7 +71,7 @@ def test_project_bin_and_tile_blend_match_plain(cuda):
     assert float((got[2] - want[2]).abs().max()) <= 1e-3
     pidx_sorted, starts, ends = raster.sort_tiles(want[0], want[1], cfg.num_tiles)
     pidx, has = raster.window_index(pidx_sorted, starts, ends, cfg.max_entries_per_tile)
-    window = raster.gather_rows_plain(want[2], pidx.reshape(-1)).reshape(cfg.num_tiles, -1, raster.ROW)
+    window = gather.gather_rows_plain(want[2], pidx.reshape(-1)).reshape(cfg.num_tiles, -1, raster.ROW)
     bg = (0.1, 0.0, 0.0, 1.0)
     fb = raster.tile_blend(window, has, cfg.tile_size, cfg.tiles_x, cfg.tiles_y, bg)
     fb_p = raster.tile_blend_plain(window, has, cfg.tile_size, cfg.tiles_x, cfg.tiles_y, bg)
@@ -77,7 +80,7 @@ def test_project_bin_and_tile_blend_match_plain(cuda):
 
 def test_wrappers_refuse_mixed_devices(cuda):
     with pytest.raises(ValueError, match="cuda"):
-        raster.gather_rows(torch.zeros((4, 10), device=cuda), torch.zeros(2, dtype=torch.int32))
+        gather.gather_rows(torch.zeros((4, 10), device=cuda), torch.zeros(2, dtype=torch.int32))
 
 
 def test_small_frame_on_the_card_matches_the_cpu(cuda):
@@ -100,3 +103,70 @@ def test_small_frame_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(pool_g.to_numpy()[2], pool_c.to_numpy()[2])
     for a, b in zip(sums_g.cpu().tolist(), sums_c.tolist()):
         assert abs(a - b) <= 0.005 * abs(b)
+
+
+@pytest.mark.parametrize("n,active_share", [(65536, 0.03), (5000, 0.5), (1_500_000, 0.2)])
+def test_event_compact_is_bit_exact(cuda, n, active_share):
+    # 65536 is the rocket pool; 1.5M lanes take more than one chunk of the
+    # single-block scan of block counts
+    r = np.random.default_rng(n)
+    mask = torch.from_numpy(r.random(n) < active_share).to(cuda)
+    count = torch.from_numpy(r.integers(0, 5, n).astype(np.int64)).to(cuda)
+    payload = torch.from_numpy(r.integers(-(2**31), 2**31, (n, 3)).astype(np.int32)).to(cuda)
+    before = events.event_compact.launches
+    got = events.event_compact(mask, count, payload)
+    assert events.event_compact.launches == before + 1
+    want = events.event_compact_plain(mask, count, payload)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bg", [(0.0, 0.0, 0.0, 0.0), (0.1, 0.0, 0.2, 1.5)])
+def test_tile_blend_add_matches_plain(cuda, bg):
+    view, proj, t = _draw(8192, cuda, seed=3)
+    cfg = raster.RasterConfig(128, 128, tile_slots=1)
+    tile, depth, rows = raster.project_bin_plain(
+        t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
+        view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y,
+    )
+    mode = raster.fast_mode(cfg, "add", tile.shape[0])
+    pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, cfg.num_tiles, mode)
+    pidx, has = raster.window_index(pidx_sorted, starts, ends, cfg.max_entries_per_tile, from_start=True)
+    window = gather.gather_rows_plain(rows, pidx.reshape(-1)).reshape(cfg.num_tiles, -1, raster.ROW)
+    args = (window, has, cfg.tile_size, cfg.tiles_x, cfg.tiles_y, bg, "add")
+    before = (raster.tile_blend.launches, raster.tile_blend.launches_add)
+    fb = raster.tile_blend(*args)
+    assert (raster.tile_blend.launches, raster.tile_blend.launches_add) == (before[0] + 1, before[1] + 1)
+    fb_p = raster.tile_blend_plain(*args)
+    assert float((fb - fb_p).abs().max()) <= 1e-5
+
+
+def test_firework_tree_on_the_card_matches_the_cpu(cuda):
+    """The 2k -> 8k firework tree, 30 updates of 1/20 s (rockets die and
+    trails spawn from their events): alive masks and PCG seeds bit for bit,
+    positions and velocities of the alive lanes rtol 1e-2 / atol 1e-3, and
+    the rendered ADD frame's checksum within 0.5%."""
+
+    def run(device):
+        s = HanabiScene(seed=17, device=device)
+        s.add(firework_effect(2048), "rocket")
+        s.add(firework_trail_effect(8192), "trail", parent="rocket")
+        for _ in range(30):
+            s.update(1.0 / 20.0)
+        cam = CameraParams(look_at((0, 2, 8), (0, 2, 0)), perspective(0.9, 1.0, 0.1, 100.0), (128, 128))
+        return s, s.render(cam, RasterConfig(128, 128, tile_slots=1))
+
+    s_g, img_g = run(cuda)
+    s_c, img_c = run("cpu")
+    assert s_c["trail"].alive_count() > 0
+    for name in ("rocket", "trail"):
+        attrs_g, alive_g, seed_g, _ = s_g[name].pool.to_numpy()
+        attrs_c, alive_c, seed_c, _ = s_c[name].pool.to_numpy()
+        np.testing.assert_array_equal(alive_g, alive_c)
+        np.testing.assert_array_equal(seed_g, seed_c)
+        # a trail inherits its rocket's position through the payload gather
+        for attr in ("position", "velocity"):
+            np.testing.assert_allclose(attrs_g[attr][alive_c], attrs_c[attr][alive_c], rtol=1e-2, atol=1e-3)
+    assert torch.isfinite(img_g).all()
+    a, b = float(img_g.sum()), float(img_c.sum())
+    assert abs(a - b) <= 0.005 * abs(b)

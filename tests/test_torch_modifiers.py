@@ -262,3 +262,79 @@ def test_size_over_lifetime_matches_jax(width):
     modj.apply_render(mj, cj)
     modt.apply_render(mt, ct)
     _close(ct.size, cj.size)
+
+
+# ---- accel / force modifiers and event emission (update context) -----------
+
+UPDATE_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _update_pair(mj, mt, data, alive):
+    sim = dict(time=0.5, delta_time=1.0 / 30.0)
+    return _ctx_pair(
+        "UpdateContext", mj, mt, data,
+        j={"sim": comp_j.SimParams(**sim), "alive": jnp.asarray(alive)},
+        t={"sim": comp_t.SimParams(**sim), "alive": torch.from_numpy(alive)},
+    )
+
+
+UPDATE_MODIFIERS = {
+    "accel": lambda w, pkg, A: pkg.AccelModifier(w.lit((0.0, -6.0, 0.5)).expr()),
+    "radial_accel": lambda w, pkg, A: pkg.RadialAccelModifier(
+        w.lit((0.1, 0.2, -0.3)).expr(), (w.attr(A.AGE) * 0.5 - 1.0).expr()
+    ),
+    "tangent_accel": lambda w, pkg, A: pkg.TangentAccelModifier(
+        w.lit((0.0, 0.0, 0.0)).expr(), w.lit((0.0, 1.0, 0.0)).expr(), w.lit(2.5).expr()
+    ),
+    "linear_drag": lambda w, pkg, A: pkg.LinearDragModifier((w.attr(A.LIFETIME) * 4.0).expr()),
+    "conform_to_sphere": lambda w, pkg, A: pkg.ConformToSphereModifier(
+        w.lit((0.0, 1.0, 0.0)).expr(), w.lit(1.0).expr(), w.lit(10.0).expr(),
+        w.lit(30.0).expr(), w.lit(5.0).expr(),
+    ),
+    "conform_to_sphere_shell": lambda w, pkg, A: pkg.ConformToSphereModifier(
+        w.lit((0.0, 0.0, 0.0)).expr(), w.lit(1.5).expr(), w.lit(1.0).expr(),
+        w.lit(20.0).expr(), w.lit(3.0).expr(), w.lit(0.3).expr(), w.lit(4.0).expr(),
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UPDATE_MODIFIERS))
+def test_accel_and_force_modifiers_match_jax(name):
+    # rtol 1e-5: the same f32 op sequence; sqrt and division may differ by
+    # an ULP between XLA's and PyTorch's CPU kernels, amplified by the
+    # normalizations
+    (mj, modj), (mt, modt) = _modifier_pair(
+        lambda w, pkg: UPDATE_MODIFIERS[name](w, pkg, pkg.attributes)
+    )
+    data = _inputs(21)
+    alive = np.random.default_rng(22).random(N) < 0.8
+    cj, ct = _update_pair(mj, mt, data, alive)
+    modj.apply(mj, cj)
+    modt.apply(mt, ct)
+    np.testing.assert_allclose(
+        ct.particle["velocity"].numpy(), np.asarray(cj.particle["velocity"]), **UPDATE_TOL
+    )
+
+
+@pytest.mark.parametrize("condition", ["ON_DIE", "ALWAYS"])
+@pytest.mark.parametrize("count", ["literal", "per_particle"])
+def test_emit_events_masks_match_jax(condition, count):
+    def build(w, pkg):
+        c = w.lit(4, pkg.UINT) if count == "literal" else (w.attr(pkg.attributes.AGE) * 2.0).cast(pkg.UINT)
+        return pkg.EmitSpawnEventModifier(getattr(pkg.EventEmitCondition, condition), c.expr(), 1)
+
+    (mj, modj), (mt, modt) = _modifier_pair(build)
+    data = _inputs(23)
+    alive = np.random.default_rng(24).random(N) < 0.7
+    dies = np.random.default_rng(25).random(N) < 0.2
+    cj, ct = _update_pair(mj, mt, data, alive)
+    cj.kill(jnp.asarray(dies))
+    ct.kill(torch.from_numpy(dies))
+    modj.apply(mj, cj)
+    modt.apply(mt, ct)
+    ((ch_j, mask_j, cnt_j),) = cj.events_out
+    ((ch_t, mask_t, cnt_t),) = ct.events_out
+    assert ch_j == ch_t == 1
+    np.testing.assert_array_equal(mask_t.numpy(), np.asarray(mask_j))
+    np.testing.assert_array_equal(cnt_t.numpy().astype(np.uint32), np.asarray(cnt_j))
+    assert mask_t.any() and not mask_t.all()

@@ -117,3 +117,21 @@ def test_no_tf32_matmuls():
 
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.parametrize("n", [1, 1000, 8192, 12289])
+def test_inclusive_sum_bit_exact(n):
+    # 8192 takes the JAX package's blocked [B, 4096] form; the port is flat.
+    x = np.random.default_rng(n + 1).integers(0, 9, n).astype(np.int32)
+    got = ct.inclusive_sum(torch.from_numpy(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(cj.inclusive_sum(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("n,out_size", [(1000, None), (8192, None), (4096, 100)])
+def test_compact_indices_bit_exact(n, out_size):
+    mask = np.random.default_rng(n + 2).random(n) < 0.3
+    idx_t, count_t = ct.compact_indices(torch.from_numpy(mask), out_size)
+    idx_j, count_j = cj.compact_indices(jnp.asarray(mask), out_size)
+    assert idx_t.dtype == torch.int32 and int(count_t) == int(count_j)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))

@@ -120,16 +120,56 @@ def test_create_pool_matches_jax(poison):
 
 
 def test_event_linked_assets_raise():
+    # as in the JAX package, the K-frame chunks refuse event-linked effects:
+    # their events need the family chunk (HanabiScene.update_chunk)
     import bevy_hanabi_tpu_torch as bt
 
     w = bt.ExprWriter()
     asset = gradient_effect(64)
     asset.update(bt.EmitSpawnEventModifier(bt.EventEmitCondition.ON_DIE, w.lit(2, bt.UINT).expr()))
-    with pytest.raises(NotImplementedError, match="event"):
-        CompiledEffect(asset, device="cpu")
+    fx = CompiledEffect(asset, device="cpu")
+    frames = fx.stack_frames(*_frames(StepInputs, SimParams))
+    with pytest.raises(ValueError, match="event"):
+        fx.step_chunk(fx.create_pool(), *frames)
+    with pytest.raises(ValueError, match="event"):
+        fx.step_render_chunk(
+            fx.create_pool(), *frames, _camera(CameraParams), RasterConfig(128, 128, tile_slots=1)
+        )
+
+
+@pytest.mark.parametrize("effect", ["gradient", "firework"])
+def test_step_returns_pool_and_events_like_jax(effect):
+    from bevy_hanabi_tpu.models import firework_effect as firework_j
+    from bevy_hanabi_tpu_torch.models import firework_effect
+    from bevy_hanabi_tpu_torch.runtime.events import EventBuffer
+
+    make_j, make_t = {"gradient": (gradient_j, gradient_effect), "firework": (firework_j, firework_effect)}[effect]
+    fx_j = EffectJ(make_j(256))
+    out_j = fx_j.step(fx_j.create_pool(), InputsJ.make(64, 3), SimJ(delta_time=2.0))
+    fx_t = CompiledEffect(make_t(256), device="cpu")
+    out_t = fx_t.step(fx_t.create_pool(), StepInputs.make(64, 3), SimParams(delta_time=2.0))
+    assert isinstance(out_t, tuple) and len(out_t) == len(out_j) == 2
+    (pool_j, ev_j), (pool_t, ev_t) = out_j, out_t
+    assert isinstance(ev_t, dict) and sorted(ev_t) == sorted(ev_j)
+    assert sorted(ev_t) == ([] if effect == "gradient" else [0])
+    assert all(isinstance(b, EventBuffer) for b in ev_t.values())
+    for b_t, b_j in ((ev_t[k], ev_j[k]) for k in ev_j):
+        assert int(b_t.num_events) == int(b_j.num_events)
+        np.testing.assert_array_equal(b_t.count.numpy().astype(np.uint32), np.asarray(b_j.count))
+    np.testing.assert_array_equal(pool_t.to_numpy()[1], np.asarray(pool_j.alive))
 
 
 # ---- (f) the asset crosses as JSON; the port needs no JAX -------------------
+
+
+@pytest.mark.parametrize("effect", ["firework_effect", "firework_trail_effect"])
+def test_firework_effect_json_is_equal_in_both_packages(effect):
+    import bevy_hanabi_tpu.models as mj
+    import bevy_hanabi_tpu_torch.models as mt
+
+    make_j, make_t = getattr(mj, effect), getattr(mt, effect)
+    assert make_t(1 << 20).to_json() == make_j(1 << 20).to_json()
+    assert make_t(4096).signature() == make_j(4096).signature()
 
 
 def test_gradient_effect_json_is_equal_in_both_packages():
@@ -142,6 +182,7 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None; sys.modules['bevy_hanabi_tpu'] = None\n"
         "import bevy_hanabi_tpu_torch, bevy_hanabi_tpu_torch.models\n"
         "import bevy_hanabi_tpu_torch.render.raster, bevy_hanabi_tpu_torch.cuda_build\n"
+        "import bevy_hanabi_tpu_torch.runtime.scene, bevy_hanabi_tpu_torch.render.renderer\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
