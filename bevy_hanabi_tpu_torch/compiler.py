@@ -367,6 +367,8 @@ def _eval(module: Module, e: Expr, ctx: EvalContext) -> torch.Tensor:
         if op is BuiltInOp.ALPHA_CUTOFF:
             if ctx.alpha_cutoff is None:
                 raise ValueError("alpha_cutoff only available in render context")
+            if isinstance(ctx.alpha_cutoff, torch.Tensor):  # the per-particle mask cutoff
+                return ctx.alpha_cutoff
             return ctx.const(ctx.alpha_cutoff, torch.float32)
         if op is BuiltInOp.IS_ALIVE:
             if ctx.alive is None:

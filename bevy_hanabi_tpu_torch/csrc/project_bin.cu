@@ -3,16 +3,26 @@
 //
 // Replaces bevy_hanabi_tpu/render/raster.py:241-292 (the tile_slots=1
 // branch of steps 1-2, with `_project` at raster.py:148-176) and the row
-// stack of raster.py:516-529/586. The JAX package leaves this region to XLA
+// stack of raster.py:516-586. The JAX package leaves this region to XLA
 // on the TPU; it has no Pallas kernel.
 //
-// Per particle it reads 3 vec3 + 1 bool + 1 vec4 = 53 B and writes the tile
-// id, the depth and one 10-float row = 48 B: ~100 MB per frame at 1M
-// particles, so it is bound by device-memory bandwidth (~30 us at 3.35
-// TB/s). The design keeps everything in one pass: the three projections
-// (centre and both half-axis points), the screen test and the binning all
-// stay in registers, and the 4x4 matrices ride in the kernel parameters
-// (constant bank), so the only device traffic is the particle streams.
+// The row is [cx, cy, h1x, h1y, h2x, h2y, r, g, b, a] (10 floats): the
+// projected quad and the colour. A pass whose blend variant reads more (a
+// depth test, MASK, the painter's SCENE) asks for 13-float rows, which append
+// the view distance the depth test reads (raster.py:578-580) and the two
+// painter columns (the mask cutoff and the blend-mode id, raster.py:549-555),
+// copied from the optional `extra` [N, 2] input (zeros without it). So plain
+// BLEND and ADD passes write and gather no column they never read, and every
+// variant's window is still one gather of one row table.
+//
+// Per particle it reads 3 vec3 + 1 bool + 1 vec4 (+ 2 f32) = 53-61 B and
+// writes the tile id, the depth and one 10- or 13-float row = 48-60 B:
+// ~100-120 MB per frame at 1M particles, so it is bound by device-memory
+// bandwidth (~30-35 us at 3.35 TB/s). The design keeps everything in one
+// pass: the three projections (centre and both half-axis points), the
+// screen test and the binning all stay in registers, and the 4x4 matrices
+// ride in the kernel parameters (constant bank), so the only device traffic
+// is the particle streams.
 //
 // Numerics: the op order is the JAX package's, and the library is built
 // with -fmad=false so no multiply-add is contracted; the tile floors at
@@ -59,10 +69,11 @@ __global__ void project_bin_kernel(const float* __restrict__ position,
                                    const float* __restrict__ axis_y,
                                    const uint8_t* __restrict__ alive,
                                    const float* __restrict__ color,
+                                   const float* __restrict__ extra,
                                    int32_t* __restrict__ tile_out,
                                    float* __restrict__ depth_out,
                                    float* __restrict__ rows,
-                                   int n, ProjectParams p) {
+                                   int n, int row, ProjectParams p) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float px = position[3 * i], py = position[3 * i + 1], pz = position[3 * i + 2];
@@ -88,7 +99,7 @@ __global__ void project_bin_kernel(const float* __restrict__ position,
   }
   tile_out[i] = tile;
   depth_out[i] = valid ? c.dist : -INFINITY;
-  float* r = rows + 10 * (int64_t)i;
+  float* r = rows + row * (int64_t)i;
   r[0] = c.x;
   r[1] = c.y;
   r[2] = h1x;
@@ -99,15 +110,23 @@ __global__ void project_bin_kernel(const float* __restrict__ position,
   r[7] = color[4 * i + 1];
   r[8] = color[4 * i + 2];
   r[9] = color[4 * i + 3];
+  if (row == 13) {
+    r[10] = c.dist;
+    r[11] = extra ? extra[2 * (int64_t)i] : 0.0f;
+    r[12] = extra ? extra[2 * (int64_t)i + 1] : 0.0f;
+  }
 }
 
 }  // namespace
 
 // params: mvp[16], view row 2 [4], vp_w, vp_h, width, height, tile (25 floats)
+// extra: [n, 2] f32 (cutoff, mode) or NULL; row: floats per row, 10 or 13
 extern "C" int hanabi_project_bin(const void* position, const void* axis_x, const void* axis_y,
-                                  const void* alive, const void* color, void* tile_out,
-                                  void* depth_out, void* rows, int n, const float* params,
-                                  int ntx, int nty, void* stream) {
+                                  const void* alive, const void* color, const void* extra,
+                                  void* tile_out,
+                                  void* depth_out, void* rows, int n, int row,
+                                  const float* params, int ntx, int nty, void* stream) {
+  if (row != 10 && row != 13) return (int)cudaErrorInvalidValue;
   ProjectParams p;
   for (int k = 0; k < 16; ++k) p.mvp[k] = params[k];
   for (int k = 0; k < 4; ++k) p.view2[k] = params[16 + k];
@@ -123,8 +142,9 @@ extern "C" int hanabi_project_bin(const void* position, const void* axis_x, cons
     const int threads = 256;
     project_bin_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         (const float*)position, (const float*)axis_x, (const float*)axis_y,
-        (const uint8_t*)alive, (const float*)color, (int32_t*)tile_out, (float*)depth_out,
-        (float*)rows, n, p);
+        (const uint8_t*)alive, (const float*)color, (const float*)extra, (int32_t*)tile_out,
+        (float*)depth_out,
+        (float*)rows, n, row, p);
   }
   return (int)cudaGetLastError();
 }

@@ -54,10 +54,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (table, idx, out, n_out, n_table, F, stream)
     "hanabi_gather_rows": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
-    # (position, axis_x, axis_y, alive, color, tile, depth, rows, n, params, ntx, nty, stream)
-    "hanabi_project_bin": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
-    # (window, has, fb, nt, M, T, ntx, background, add_mode, stream)
-    "hanabi_tile_blend": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # (position, axis_x, axis_y, alive, color, extra, tile, depth, rows, n, row, params, ntx,
+    #  nty, stream)
+    "hanabi_project_bin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
+    # (window, has, fb_in, depth_in, fb, depth_out, nt, M, T, ntx, background, eq,
+    #  depth_test, write_depth, stream)
+    "hanabi_tile_blend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],
     # (mask, count, payload, out_slot, out_count, out_payload, num_events, scratch, n, W, stream)
     "hanabi_event_compact": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
 }

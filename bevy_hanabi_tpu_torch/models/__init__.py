@@ -1,3 +1,8 @@
 """Ported benchmark effects."""
 
-from .benchmarks import firework_effect, firework_trail_effect, gradient_effect  # noqa: F401
+from .benchmarks import (  # noqa: F401
+    firework_effect,
+    firework_trail_effect,
+    gradient_effect,
+    spawn_gravity_effect,
+)

@@ -1,6 +1,7 @@
 """Benchmark effects (port of ``bevy_hanabi_tpu/models/benchmarks.py``).
 
-Ported so far: ``gradient_effect`` (the benchmark headline's effect) and
+Ported so far: ``gradient_effect`` (the benchmark headline's effect),
+``spawn_gravity_effect`` (the opaque effect of the painter device gate) and
 the firework event tree, ``firework_effect`` with its trail child
 ``firework_trail_effect``. The definitions are the JAX package's, so both
 packages build equal assets (``to_json`` agrees).
@@ -30,7 +31,29 @@ from ..modifiers import (
 )
 from ..spawn import SpawnerSettings
 
-__all__ = ["gradient_effect", "firework_effect", "firework_trail_effect"]
+__all__ = ["spawn_gravity_effect", "gradient_effect", "firework_effect", "firework_trail_effect"]
+
+
+def spawn_gravity_effect(capacity: int = 32768, rate: float = 8192.0) -> EffectAsset:
+    """BASELINE config 1 (examples/spawn.rs): rate spawner + gravity."""
+    w = ExprWriter()
+    w.add_property("gravity", (0.0, -3.0, 0.0))
+    return (
+        EffectAsset("spawn", capacity, SpawnerSettings.rate(rate), w.finish())
+        .init(SetAttributeModifier(A.AGE, w.lit(0.0).expr()))
+        .init(SetAttributeModifier(A.LIFETIME, w.lit(4.0).expr()))
+        .init(
+            SetPositionSphereModifier(
+                w.lit((0.0, 0.0, 0.0)).expr(), w.lit(0.5).expr(), ShapeDimension.VOLUME
+            )
+        )
+        .init(
+            SetVelocitySphereModifier(
+                w.lit((0.0, 0.0, 0.0)).expr(), w.lit(2.0).uniform(w.lit(4.0)).expr()
+            )
+        )
+        .update(AccelModifier(w.prop("gravity").expr()))
+    )
 
 
 def gradient_effect(capacity: int = 32768) -> EffectAsset:

@@ -23,6 +23,8 @@ from .output import (  # noqa: F401
     ColorOverLifetimeModifier,
     OrientMode,
     OrientModifier,
+    SetColorModifier,
+    SetSizeModifier,
     SizeOverLifetimeModifier,
 )
 from .position import SetPositionSphereModifier  # noqa: F401

@@ -2,8 +2,8 @@
 
 These run in a :class:`~bevy_hanabi_tpu_torch.compiler.RenderContext` and
 mutate its per-particle render outputs. Ported so far: ``OrientModifier``,
-``ColorOverLifetimeModifier`` and ``SizeOverLifetimeModifier``, with the
-enums their fields use.
+``SetColorModifier``, ``ColorOverLifetimeModifier``, ``SetSizeModifier`` and
+``SizeOverLifetimeModifier``, with the enums their fields use.
 """
 
 from __future__ import annotations
@@ -15,13 +15,16 @@ from typing import Optional
 import torch
 
 from ..attributes import Attribute
+from ..cpu_value import CpuValue
 from ..gradient import Gradient
 from .base import Modifier, ModifierContext, register_field_enum, register_modifier
 
 __all__ = [
     "ColorBlendMode",
     "ColorBlendMask",
+    "SetColorModifier",
     "ColorOverLifetimeModifier",
+    "SetSizeModifier",
     "SizeOverLifetimeModifier",
     "OrientMode",
     "OrientModifier",
@@ -63,6 +66,62 @@ def blend_color(current, new, blend: ColorBlendMode, mask: ColorBlendMask):
     return torch.stack(chans, dim=-1)
 
 
+def _eval_cpu_value(ctx, v, lanes: int):
+    """Evaluate a CpuValue per particle: constants broadcast, uniform ranges
+    draw from the per-lane PCG stream (output.py:90-103)."""
+    dev = ctx.device
+    if isinstance(v, CpuValue):
+        if v.is_uniform:
+            from ..ops import rng
+
+            a = torch.as_tensor(v.value, dtype=torch.float32, device=dev)
+            b = torch.as_tensor(v.upper, dtype=torch.float32, device=dev)
+            ctx.seed, r = rng.rand_vec(ctx.seed, lanes)
+            return a + r * (b - a)
+        v = v.value
+    return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+
+@register_modifier
+@dataclass
+class SetColorModifier(Modifier):
+    """Set a single base color for all particles (output.rs:229), with a
+    blend mode and a channel write mask (output.rs:233-236)."""
+
+    color: CpuValue  # vec4
+    blend: ColorBlendMode = ColorBlendMode.OVERWRITE
+    mask: ColorBlendMask = ColorBlendMask.RGBA
+
+    CONTEXT = ModifierContext.RENDER
+    ATTRIBUTES = ()
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not isinstance(self.color, CpuValue):
+            self.color = CpuValue.single(tuple(self.color))
+
+    def to_json(self):
+        return {
+            "type": type(self).__name__,
+            "color": self.color.to_json(),
+            "blend": self.blend.value,
+            "mask": int(self.mask),
+        }
+
+    @classmethod
+    def from_json(cls, data):
+        return cls(
+            CpuValue.from_json(data["color"]),
+            ColorBlendMode(data.get("blend", "overwrite")),
+            ColorBlendMask(data.get("mask", 15)),
+        )
+
+    def apply_render(self, module, ctx) -> None:
+        c = _eval_cpu_value(ctx, self.color, 4)
+        new = c.expand(ctx.num_particles, 4)
+        ctx.color = blend_color(ctx.color, new, self.blend, self.mask)
+
+
 @register_modifier
 @dataclass
 class ColorOverLifetimeModifier(Modifier):
@@ -79,6 +138,36 @@ class ColorOverLifetimeModifier(Modifier):
         life_ratio = ctx.get_attr("age") / ctx.get_attr("lifetime")
         sampled = self.gradient.sample_torch(life_ratio)
         ctx.color = blend_color(ctx.color, sampled, self.blend, self.mask)
+
+
+@register_modifier
+@dataclass
+class SetSizeModifier(Modifier):
+    """Set a single world-space size for all particles (output.rs:379)."""
+
+    size: CpuValue  # vec3
+
+    CONTEXT = ModifierContext.RENDER
+    ATTRIBUTES = ()
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not isinstance(self.size, CpuValue):
+            s = self.size
+            if isinstance(s, (int, float)):
+                s = (float(s),) * 3
+            self.size = CpuValue.single(tuple(s))
+
+    def to_json(self):
+        return {"type": type(self).__name__, "size": self.size.to_json()}
+
+    @classmethod
+    def from_json(cls, data):
+        return cls(CpuValue.from_json(data["size"]))
+
+    def apply_render(self, module, ctx) -> None:
+        s = _eval_cpu_value(ctx, self.size, 3)
+        ctx.size = s.expand(ctx.num_particles, 3)
 
 
 @register_modifier

@@ -3,7 +3,8 @@
 Cameras are authored on the host: ``view`` and ``proj`` are 4x4 numpy (or
 torch) matrices. The derived quantities render modifiers read are small
 float32 CPU tensors computed with the JAX package's closed forms; callers
-move them to the particles' device.
+move them to the particles' device. The frustum helpers that drive culling
+are host numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +17,14 @@ import torch
 
 from ..ops.linalg import affine4_inv
 
-__all__ = ["CameraParams", "look_at", "perspective"]
+__all__ = [
+    "CameraParams",
+    "look_at",
+    "perspective",
+    "orthographic",
+    "frustum_planes",
+    "aabb_in_frustum",
+]
 
 
 def _host_f32(m) -> np.ndarray:
@@ -108,3 +116,42 @@ def perspective(fov_y: float, aspect: float, near: float, far: float) -> np.ndar
     m[2, 3] = near * far / (near - far)
     m[3, 2] = -1.0
     return m
+
+
+def orthographic(
+    left: float, right: float, bottom: float, top: float, near: float, far: float
+) -> np.ndarray:
+    """Orthographic projection (2D camera analogue), depth to [0, 1]."""
+    m = np.zeros((4, 4), np.float32)
+    m[0, 0] = 2.0 / (right - left)
+    m[1, 1] = 2.0 / (top - bottom)
+    m[2, 2] = 1.0 / (near - far)
+    m[0, 3] = -(right + left) / (right - left)
+    m[1, 3] = -(top + bottom) / (top - bottom)
+    m[2, 3] = near / (near - far)
+    m[3, 3] = 1.0
+    return m
+
+
+def frustum_planes(camera: CameraParams) -> np.ndarray:
+    """Six world-space frustum planes of ``camera``, rows of [6, 4]
+    ``(a, b, c, d)`` with ``a*x + b*y + c*z + d >= 0`` inside
+    (Gribb-Hartmann from clip-from-world; depth maps to [0, 1], so the near
+    plane is clip row 2 itself)."""
+    def f64(m):
+        return np.asarray(m.detach().cpu().numpy() if isinstance(m, torch.Tensor) else m, np.float64)
+
+    m = f64(camera.proj) @ f64(camera.view)
+    return np.stack(
+        [m[3] + m[0], m[3] - m[0], m[3] + m[1], m[3] - m[1], m[2], m[3] - m[2]]
+    ).astype(np.float32)
+
+
+def aabb_in_frustum(planes: np.ndarray, mn, mx) -> bool:
+    """Conservative AABB-vs-frustum test: False only when the box is fully
+    outside some plane (the positive-vertex test)."""
+    mn = np.asarray(mn, np.float32)
+    mx = np.asarray(mx, np.float32)
+    n = planes[:, :3]
+    p = np.where(n > 0.0, mx[None, :], mn[None, :])
+    return bool(np.all((n * p).sum(axis=1) + planes[:, 3] >= 0.0))

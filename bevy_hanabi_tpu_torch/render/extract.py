@@ -1,15 +1,17 @@
 """Render extraction: pool → per-particle draw data
 (port of ``bevy_hanabi_tpu/render/extract.py``).
 
-Global-space quads only so far: default colour, size and camera-facing
-axes, the render modifiers, and screen-space size. Local-space effects and
-the alpha-mask cutoff raise ``NotImplementedError``; the modifiers that
+Global-space quads: default colour, size and camera-facing axes, the render
+modifiers, screen-space size, and the per-particle alpha-mask cutoff.
+:func:`concat_painter_draws` merges quad draw sets into one painter draw
+set. Local-space effects raise ``NotImplementedError``; the modifiers that
 would fill the other draw columns (roundness, flipbook, textures, ribbons,
 meshes) are not ported, so no asset of the port can ask for them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, List, Optional
 
@@ -21,7 +23,13 @@ from ..ops.linalg import mat4_mul, mvp_w
 from ..runtime.pool import ParticlePool
 from .camera import CameraParams
 
-__all__ = ["ParticleDrawData", "extract_draw_data"]
+__all__ = [
+    "ParticleDrawData",
+    "extract_draw_data",
+    "concat_draws",
+    "PAINTER_MODE_IDS",
+    "concat_painter_draws",
+]
 
 
 @dataclass
@@ -33,6 +41,10 @@ class ParticleDrawData:
     axis_y: Any  # [N,3] world, scaled by size.y
     color: Any  # [N,4] linear RGBA (HDR allowed)
     alive: Any  # bool[N]
+    alpha_cutoff: Any = None  # [N] per-particle mask cutoff (AlphaMode::Mask)
+    # [N] per-entry blend mode id for the painter pass (alpha_mode="scene"):
+    # PAINTER_MODE_IDS. None everywhere else.
+    mode_id: Any = None
 
 
 def extract_draw_data(
@@ -54,8 +66,6 @@ def extract_draw_data(
     particle = dict(pool.attrs)
     if asset.simulation_space is SimulationSpace.LOCAL and transform is not None:
         raise NotImplementedError("extract_draw_data: local-space effects are not ported")
-    if getattr(asset.alpha_mode, "mask_cutoff", None) is not None:
-        raise NotImplementedError("extract_draw_data: the alpha-mask cutoff is not ported")
 
     ctx = RenderContext(
         asset.module,
@@ -107,6 +117,13 @@ def extract_draw_data(
     ctx.axis_y = rot[:, 1].expand(n, 3)
     ctx.axis_z = rot[:, 2].expand(n, 3)
 
+    # ---- alpha-mask cutoff, per particle (extract.py:307-318) ----
+    alpha_cutoff = None
+    cutoff_handle = asset.alpha_mode.mask_cutoff
+    if cutoff_handle is not None:
+        alpha_cutoff = ctx.eval(cutoff_handle).to(torch.float32).expand(n).contiguous()
+        ctx.alpha_cutoff = alpha_cutoff
+
     for m in asset.render_modifiers:
         m.apply_render(asset.module, ctx)
 
@@ -130,4 +147,59 @@ def extract_draw_data(
         axis_y=ctx.axis_y * sz[:, 1:2],
         color=ctx.color,
         alive=pool.alive,
+        alpha_cutoff=alpha_cutoff,
     )
+
+
+def concat_draws(draws) -> ParticleDrawData:
+    """The required quad columns of ``draws`` concatenated into one draw set
+    (the scene's batch pass, scene.py:2605-2636). The optional columns are
+    left out: a batch never holds a mask effect, and the painter columns are
+    :func:`concat_painter_draws`'."""
+    return ParticleDrawData(
+        **{f: torch.cat([getattr(d, f) for d in draws])
+           for f in ("position", "axis_x", "axis_y", "color", "alive")}
+    )
+
+
+# Blend-mode ids carried per entry by the painter pass (raster.py
+# alpha_mode="scene"): one global back-to-front sort blends every effect's
+# entries with per-entry equations.
+PAINTER_MODE_IDS = {
+    "blend": 0,
+    "premultiply": 1,
+    "add": 2,
+    "multiply": 3,
+    "opaque": 4,
+    "mask": 5,
+}
+
+
+def concat_painter_draws(draws, kinds, textures_per_draw=None) -> ParticleDrawData:
+    """Concatenate per-effect quad draw sets into ONE painter draw set
+    (extract.py:394-619, the quad branch).
+
+    ``kinds`` are the effects' alpha-mode kinds, becoming the per-entry
+    ``mode_id`` column; mask effects contribute their per-particle
+    ``alpha_cutoff`` (others pad 0, never read). The JAX package also
+    merges ribbon segments, mesh triangles, a texture atlas and Lambert
+    lighting here; none of those is ported, so textures raise."""
+    if textures_per_draw is not None and any(textures_per_draw):
+        raise NotImplementedError(
+            "concat_painter_draws: the painter texture atlas is not ported"
+        )
+    cutoff = torch.cat(
+        [
+            d.alpha_cutoff
+            if d.alpha_cutoff is not None
+            else torch.zeros(d.alive.shape, dtype=torch.float32, device=d.alive.device)
+            for d in draws
+        ]
+    )
+    mode_id = torch.cat(
+        [
+            torch.full(d.alive.shape, PAINTER_MODE_IDS[k], dtype=torch.int32, device=d.alive.device)
+            for d, k in zip(draws, kinds)
+        ]
+    )
+    return dataclasses.replace(concat_draws(draws), alpha_cutoff=cutoff, mode_id=mode_id)

@@ -1,11 +1,16 @@
 """Tile-binned particle splat rasterizer (port of ``bevy_hanabi_tpu/render/raster.py``).
 
 The same **bin → sort → bounded per-tile blend** pipeline as the JAX
-package, for ``tile_slots=1`` with the ``blend`` and ``add`` equations:
+package, for ``tile_slots=1``, with the ``blend``, ``add``, ``opaque``,
+``mask`` and painter (``scene``) equations, the depth test against a scene
+depth plane, the depth plane written by opaque and mask passes, and a
+seeded framebuffer:
 
 1. :func:`project_bin` (CUDA kernel) projects every quad, tests it against
-   the screen, bins it into the tile holding its centre and packs its blend
-   row ``[cx, cy, h1x, h1y, h2x, h2y, r, g, b, a]``;
+   the screen, bins it into the tile holding its centre and packs its row
+   ``[cx, cy, h1x, h1y, h2x, h2y, r, g, b, a]``, with ``[depth, cutoff,
+   mode]`` appended where the pass's blend variant reads them
+   (:func:`row_width`);
 2. :func:`sort_tiles` packs the JAX package's 32-bit keys — ``(tile |
    far-first depth)`` on the ordered path, one of the three fast variants
    of :func:`fast_mode` for ``add`` — and sorts them (plain torch: CUB's
@@ -13,7 +18,7 @@ package, for ``tile_slots=1`` with the ``blend`` and ``add`` equations:
 3. :func:`~..ops.gather.gather_rows` (CUDA kernel, the port of the TPU row
    gather) fetches ``M`` rows of every tile in blend order;
 4. :func:`tile_blend` (CUDA kernel) blends each tile in one CTA, one thread
-   per pixel.
+   per pixel, its depth plane in registers.
 
 Every kernel wrapper has a plain PyTorch version beside it, used only for
 tensors on the CPU; for CUDA tensors the wrapper launches its kernel (or
@@ -42,6 +47,7 @@ from .extract import ParticleDrawData
 __all__ = [
     "RasterConfig",
     "rasterize",
+    "row_width",
     "project_bin",
     "project_bin_plain",
     "tile_blend",
@@ -50,10 +56,14 @@ __all__ = [
     "sort_tiles",
     "window_index",
     "untile",
+    "to_tiles",
     "KERNELS",
 ]
 
-ROW = 10  # floats per blend row: cx, cy, h1x, h1y, h2x, h2y, r, g, b, a
+# floats per window row: cx, cy, h1x, h1y, h2x, h2y, r, g, b, a (ROW_QUAD),
+# then depth, cutoff, mode (ROW) for the variants that read them
+ROW_QUAD, ROW = 10, 13
+COL_DEPTH, COL_CUTOFF, COL_MODE = 10, 11, 12
 
 
 @dataclass(frozen=True)
@@ -119,9 +129,17 @@ def _project_params(view, proj, viewport, raster_size, T):
     return mvp, view_t, params
 
 
+def _check_row(row, extra):
+    if row not in (ROW_QUAD, ROW):
+        raise ValueError(f"project_bin: rows are {ROW_QUAD} or {ROW} floats wide, got {row}")
+    if extra is not None and row != ROW:
+        raise ValueError(f"project_bin: the cutoff and mode columns need {ROW}-float rows")
+
+
 def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewport,
-                      T, ntx, nty, raster_size=None):
-    """Plain version of :func:`project_bin`: raster.py:241-292 + 516-529."""
+                      T, ntx, nty, raster_size=None, extra=None, row=ROW):
+    """Plain version of :func:`project_bin`: raster.py:241-292 + 516-586."""
+    _check_row(row, extra)
     mvp, view_t, params = _project_params(view, proj, viewport, raster_size or viewport, T)
     mvp, view_t = mvp.to(position.device), view_t.to(position.device)
     width, height = (float(v) for v in params[22:24])
@@ -159,21 +177,28 @@ def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewpo
     nt = ntx * nty
     tile = torch.where(valid, tcy * ntx + tcx, nt).to(torch.int32)
     depth = torch.where(valid, dist, -torch.inf)
-    rows = torch.stack([cx, cy, h1x, h1y, h2x, h2y], dim=1)
-    rows = torch.cat([rows, color], dim=1).contiguous()
-    return tile, depth, rows
+    cols = [torch.stack([cx, cy, h1x, h1y, h2x, h2y], dim=1), color]
+    if row == ROW:
+        if extra is None:
+            extra = torch.zeros((position.shape[0], 2), dtype=torch.float32, device=position.device)
+        cols += [dist[:, None], extra]
+    return tile, depth, torch.cat(cols, dim=1).contiguous()
 
 
 def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
-                T, ntx, nty, raster_size=None):
+                T, ntx, nty, raster_size=None, extra=None, row=ROW):
     """Project, screen-test and centre-tile-bin N particle quads.
 
     ``position``/``axis_x``/``axis_y`` f32 [N, 3], ``alive`` bool [N],
     ``color`` f32 [N, 4]; ``view``/``proj`` host 4x4 matrices;
     ``viewport`` the camera's (width, height) and ``raster_size`` the
-    raster's (defaults to the viewport). Returns ``tile`` int32 [N]
-    (``ntx * nty`` where invalid), ``depth`` f32 [N] (view distance,
-    ``-inf`` where invalid) and ``rows`` f32 [N, 10]."""
+    raster's (defaults to the viewport); ``row`` the floats per row:
+    :data:`ROW` (13, with the depth, cutoff and mode columns) or
+    :data:`ROW_QUAD` (10, without); ``extra`` an optional f32 [N, 2] of
+    (mask cutoff, painter mode id) per particle for 13-float rows, zeros
+    without it. Returns ``tile`` int32 [N] (``ntx * nty`` where invalid),
+    ``depth`` f32 [N] (view distance, ``-inf`` where invalid) and ``rows``
+    f32 [N, row]."""
     dev = position.device
     n = position.shape[0]
     _check(position, "position", torch.float32, (n, 3), dev)
@@ -181,16 +206,20 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
     _check(axis_y, "axis_y", torch.float32, (n, 3), dev)
     _check(alive, "alive", torch.bool, (n,), dev)
     _check(color, "color", torch.float32, (n, 4), dev)
+    if extra is not None:
+        _check(extra, "extra", torch.float32, (n, 2), dev)
+    _check_row(row, extra)
     if not position.is_cuda:
         return project_bin_plain(position, axis_x, axis_y, alive, color, view, proj,
-                                 viewport, T, ntx, nty, raster_size)
+                                 viewport, T, ntx, nty, raster_size, extra, row)
     _, _, params = _project_params(view, proj, viewport, raster_size or viewport, T)
     tile = torch.empty((n,), dtype=torch.int32, device=dev)
     depth = torch.empty((n,), dtype=torch.float32, device=dev)
-    rows = torch.empty((n, ROW), dtype=torch.float32, device=dev)
+    rows = torch.empty((n, row), dtype=torch.float32, device=dev)
     code = cuda_build.library().hanabi_project_bin(
         position.data_ptr(), axis_x.data_ptr(), axis_y.data_ptr(), alive.data_ptr(), color.data_ptr(),
-        tile.data_ptr(), depth.data_ptr(), rows.data_ptr(), n,
+        None if extra is None else extra.data_ptr(),
+        tile.data_ptr(), depth.data_ptr(), rows.data_ptr(), n, row,
         params.ctypes.data_as(ctypes.c_void_p), ntx, nty, _stream(),
     )
     cuda_build.check(code, "project_bin")
@@ -201,21 +230,47 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
 project_bin.launches = 0
 
 
-BLEND_MODES = ("blend", "add")
+# the equations of tile_blend, by the id its kernel takes
+BLEND_MODES = ("blend", "add", "opaque", "mask", "scene")
 
 
-def tile_blend_plain(window, has, T, ntx, nty, background, mode="blend"):
-    """Plain version of :func:`tile_blend`: raster.py:620-911, the ``blend``
-    and ``add`` equations (raster.py:832-843)."""
+def row_width(mode: str, depth_test: bool) -> int:
+    """Floats per window row that ``tile_blend``'s variant reads:
+    :data:`ROW` where it reads the depth, cutoff or mode column (a depth
+    test, ``mask``, ``scene``), else :data:`ROW_QUAD`."""
+    return ROW if depth_test or mode in ("mask", "scene") else ROW_QUAD
+
+
+def _blend_flags(mode, depth_test, write_depth):
+    """Validate an equation and its depth flags (the kernel's variants)."""
     if mode not in BLEND_MODES:
         raise ValueError(f"tile_blend: mode must be one of {BLEND_MODES}, got {mode!r}")
+    if mode == "scene" and not (depth_test and write_depth):
+        raise ValueError("tile_blend: the scene equation always tests and writes depth")
+    if write_depth and not (depth_test and mode in ("opaque", "mask", "scene")):
+        raise ValueError("tile_blend: only a depth-tested opaque, mask or scene pass writes depth")
+
+
+def tile_blend_plain(window, has, T, ntx, nty, background, mode="blend", framebuffer=None,
+                     scene_depth=None, depth_test=False, write_depth=False):
+    """Plain version of :func:`tile_blend`: raster.py:620-911 on the
+    columns of :data:`ROW`, in the JAX package's form (every lane through
+    the equation, zero coverage as ``where``). Reads only the columns the
+    variant reads, so the window may be :func:`row_width` wide or wider."""
+    _blend_flags(mode, depth_test, write_depth)
     nt, M, _ = window.shape
     dev = window.device
     ar = torch.arange(T, dtype=torch.int32, device=dev)
     tiles = torch.arange(nt, dtype=torch.int32, device=dev)
     py = ((tiles // ntx)[:, None, None] * T + ar[None, :, None]).to(torch.float32) + 0.5
     px = ((tiles % ntx)[:, None, None] * T + ar[None, None, :]).to(torch.float32) + 0.5
-    fb = torch.tensor(background, dtype=torch.float32, device=dev).expand(nt, T, T, 4)
+    if framebuffer is not None:
+        fb = framebuffer
+    else:
+        fb = torch.tensor(background, dtype=torch.float32, device=dev).expand(nt, T, T, 4)
+    if scene_depth is None:
+        scene_depth = torch.full((nt, T, T), torch.inf, dtype=torch.float32, device=dev)
+    dbuf = scene_depth if write_depth else None
     for m in range(M):
         r = window[:, m, :]
         col = r[:, 6:10]
@@ -230,58 +285,116 @@ def tile_blend_plain(window, has, T, ntx, nty, background, mode="blend"):
         inside = (torch.abs(u) <= 1.0) & (torch.abs(v) <= 1.0)
         inside &= has[:, m, None, None]
         coverage = inside.to(torch.float32)
+        if depth_test:
+            frag_d = r[:, COL_DEPTH, None, None]
+            vis = frag_d <= (dbuf if dbuf is not None else scene_depth)
+            inside &= vis
+            coverage = coverage * vis.to(torch.float32)
         # Zero-coverage lanes contribute EXACTLY zero even when the row is
         # non-finite (raster.py:822-828).
         covered = coverage[..., None] > 0.0
-        a = torch.where(covered, (col[:, None, None, 3] * coverage)[..., None], 0.0)
+        src_a = col[:, None, None, 3]
+        a = torch.where(covered, (src_a * coverage)[..., None], 0.0)
         rgb_s = torch.where(covered, col[:, None, None, :3], 0.0)
+        rgb_d, a_d = fb[..., :3], fb[..., 3:4]
+        cutoff = r[:, COL_CUTOFF, None, None] if mode in ("mask", "scene") else None
         if mode == "blend":
-            rgb = rgb_s * a + fb[..., :3] * (1.0 - a)
-            alpha = a + fb[..., 3:4] * (1.0 - a)
-        else:
-            rgb = rgb_s * a + fb[..., :3]
-            alpha = torch.clamp(a + fb[..., 3:4], max=1.0)
+            rgb = rgb_s * a + rgb_d * (1.0 - a)
+            alpha = a + a_d * (1.0 - a)
+        elif mode == "add":
+            rgb = rgb_s * a + rgb_d
+            alpha = torch.clamp(a + a_d, max=1.0)
+        elif mode in ("opaque", "mask"):
+            write = inside
+            if mode == "mask":
+                write = write & (src_a >= cutoff)
+            wr = write[..., None]
+            rgb = torch.where(wr, rgb_s, rgb_d)
+            alpha = torch.where(wr, 1.0, a_d)
+            if dbuf is not None:
+                dbuf = torch.where(write, frag_d, dbuf)
+        else:  # scene: raster.py:856-895
+            mid = r[:, COL_MODE]
+            b_, p_, a_, m_ = ((mid == float(k))[:, None, None, None] for k in range(4))
+            is_o = (mid == 4.0)[:, None, None]
+            is_k = (mid == 5.0)[:, None, None]
+            cov1 = coverage[..., None]
+            one_m_a = 1.0 - a
+            cs = torch.where(b_ | a_, a, 0.0) + torch.where(p_, cov1, 0.0)
+            cd = torch.where(b_ | p_ | m_, one_m_a, 0.0) + torch.where(a_, 1.0, 0.0)
+            cm = torch.where(m_, a, 0.0)
+            rgb_t = rgb_s * cs + rgb_d * cd + rgb_s * rgb_d * cm
+            al_t = (
+                torch.where(b_ | p_, a + a_d * one_m_a, 0.0)
+                + torch.where(a_, torch.clamp(a + a_d, max=1.0), 0.0)
+                + torch.where(m_, a_d, 0.0)
+            )
+            write = inside & (is_o | (is_k & (src_a >= cutoff)))
+            wr = write[..., None]
+            opq4 = (is_o | is_k)[..., None]
+            rgb = torch.where(opq4, torch.where(wr, rgb_s, rgb_d), rgb_t)
+            alpha = torch.where(opq4, torch.where(wr, 1.0, a_d), al_t)
+            dbuf = torch.where(write, frag_d, dbuf)
         fb = torch.cat([rgb, alpha], dim=-1)
-    return fb.contiguous()
+    fb = fb.contiguous()
+    return (fb, dbuf.contiguous()) if write_depth else fb
 
 
-def tile_blend(window, has, T, ntx, nty, background, mode="blend"):
+def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=None,
+               scene_depth=None, depth_test=False, write_depth=False):
     """Blend each tile's window, entry m = 0 first, into ``fb`` [nt, T, T, 4].
 
-    ``window`` f32 [nt, M, 10] blend rows (back to front for ``blend``; in
-    the fast paths' order for ``add``), ``has`` bool [nt, M] marks real
-    entries; ``background`` RGBA; ``mode`` the equation, ``"blend"`` or
-    ``"add"``."""
-    if mode not in BLEND_MODES:
-        raise ValueError(f"tile_blend: mode must be one of {BLEND_MODES}, got {mode!r}")
+    ``window`` f32 [nt, M, W] rows, ``W = row_width(mode, depth_test)``
+    (:data:`ROW`; back to front on the
+    ordered path, in the fast paths' order for ``add``), ``has`` bool
+    [nt, M] marks real entries. ``mode`` is the equation (``"blend"``,
+    ``"add"``, ``"opaque"``, ``"mask"``, or ``"scene"``: per entry by its
+    mode column). The target starts as ``framebuffer`` (tiled f32
+    [nt, T, T, 4]) or else ``background`` (RGBA). ``depth_test`` discards
+    fragments behind the depth plane, which starts as ``scene_depth``
+    (tiled f32 [nt, T, T]) or else +inf; ``write_depth`` lets opaque and
+    mask writes move it and returns ``(fb, depth)``."""
+    _blend_flags(mode, depth_test, write_depth)
     dev = window.device
     nt = ntx * nty
+    width = row_width(mode, depth_test)
     if window.dim() != 3:
-        raise ValueError(f"window must be [nt, M, {ROW}], got shape {tuple(window.shape)}")
+        raise ValueError(f"window must be [nt, M, {width}], got shape {tuple(window.shape)}")
     M = window.shape[1]
-    _check(window, "window", torch.float32, (nt, M, ROW), dev)
+    _check(window, "window", torch.float32, (nt, M, width), dev)
     _check(has, "has", torch.bool, (nt, M), dev)
+    if framebuffer is not None:
+        _check(framebuffer, "framebuffer", torch.float32, (nt, T, T, 4), dev)
+    if scene_depth is not None:
+        _check(scene_depth, "scene_depth", torch.float32, (nt, T, T), dev)
     if len(background) != 4:
         raise ValueError("background must be RGBA")
     if not window.is_cuda:
-        return tile_blend_plain(window, has, T, ntx, nty, background, mode)
+        return tile_blend_plain(window, has, T, ntx, nty, background, mode, framebuffer,
+                                scene_depth, depth_test, write_depth)
     if not 1 <= T * T <= 1024:
         raise ValueError(f"tile_blend runs one thread per pixel: T*T must be <= 1024, got T={T}")
     fb = torch.empty((nt, T, T, 4), dtype=torch.float32, device=dev)
+    depth = torch.empty((nt, T, T), dtype=torch.float32, device=dev) if write_depth else None
     bg = np.asarray(background, np.float32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     code = cuda_build.library().hanabi_tile_blend(
-        window.data_ptr(), has.data_ptr(), fb.data_ptr(), nt, M, T, ntx,
-        bg.ctypes.data_as(ctypes.c_void_p), int(mode == "add"), _stream(),
+        window.data_ptr(), has.data_ptr(), ptr(framebuffer), ptr(scene_depth), fb.data_ptr(),
+        ptr(depth), nt, M, T, ntx, bg.ctypes.data_as(ctypes.c_void_p), BLEND_MODES.index(mode),
+        int(depth_test), int(write_depth), _stream(),
     )
     cuda_build.check(code, "tile_blend")
     tile_blend.launches += 1
-    if mode == "add":
-        tile_blend.launches_add += 1
-    return fb
+    tile_blend.launches_by_mode[mode] += 1
+    return (fb, depth) if write_depth else fb
 
 
 tile_blend.launches = 0
-tile_blend.launches_add = 0  # the launches in ADD mode, counted among ``launches``
+# the launches of each equation, counted among ``launches``
+tile_blend.launches_by_mode = dict.fromkeys(BLEND_MODES, 0)
 
 KERNELS = {
     "project_bin": Kernel(
@@ -388,10 +501,22 @@ def window_index(pidx_sorted, starts, ends, M: int, from_start: bool = False):
 
 
 def untile(fb: torch.Tensor, config: RasterConfig) -> torch.Tensor:
-    """[nt, T, T, 4] tiles -> [height, width, 4] image."""
+    """[nt, T, T, C] or [nt, T, T] tiles -> [height, width, C] or [height, width] image."""
     T, ntx, nty = config.tile_size, config.tiles_x, config.tiles_y
-    img = fb.reshape(nty, ntx, T, T, 4).permute(0, 2, 1, 3, 4).reshape(nty * T, ntx * T, 4)
+    c = fb.shape[3:]
+    img = fb.reshape((nty, ntx, T, T) + c).transpose(1, 2).reshape((nty * T, ntx * T) + c)
     return img[: config.height, : config.width]
+
+
+def to_tiles(img, config: RasterConfig, pad: float) -> torch.Tensor:
+    """[height, width, C] or [height, width] image -> contiguous [nt, T, T, C]
+    or [nt, T, T] tiles, padded to whole tiles with ``pad`` (raster.py:437-470)."""
+    T, ntx, nty = config.tile_size, config.tiles_x, config.tiles_y
+    img = torch.as_tensor(img, dtype=torch.float32)
+    c = img.shape[2:]
+    widths = (0, 0) * len(c) + (0, ntx * T - config.width, 0, nty * T - config.height)
+    img = torch.nn.functional.pad(img, widths, value=pad)
+    return img.reshape((nty, T, ntx, T) + c).transpose(1, 2).reshape((ntx * nty, T, T) + c).contiguous()
 
 
 def _unported(branch: str):
@@ -409,13 +534,20 @@ def rasterize(
     return_depth: bool = False,
     y_offset: Any = None,
     framebuffer: Any = None,
-) -> torch.Tensor:
+):
     """Render particles to a [height, width, 4] float32 image on the draw's device.
 
-    Ported: ``tile_slots=1`` with ``alpha_mode="blend"`` (the ordered path)
-    and ``alpha_mode="add"`` (the three order-independent fast variants of
-    :func:`fast_mode`, or the ordered path with
-    ``order_independent_fast=False``). Every other branch of the JAX
+    Ported: ``tile_slots=1`` with the ``blend``, ``opaque``, ``mask`` and
+    painter (``"scene"``, per-entry ``draw.mode_id``) equations on the
+    ordered path, and ``add`` on the three order-independent fast variants
+    of :func:`fast_mode` (or the ordered path with
+    ``order_independent_fast=False``). ``scene_depth`` ([height, width]
+    view distances, +inf where empty) discards fragments behind it;
+    ``return_depth`` (opaque, mask, scene) also returns the [height, width]
+    depth of the nearest written fragment, seeded from ``scene_depth``;
+    ``framebuffer`` ([height, width, 4]) seeds the target instead of
+    ``config.background``. The mask cutoff is ``draw.alpha_cutoff`` per
+    particle, else ``alpha_cutoff``. Every other branch of the JAX
     rasterizer raises ``NotImplementedError``.
     """
     if config.tile_slots != 1:
@@ -426,23 +558,56 @@ def rasterize(
         raise _unported("antialias")
     if textures:
         raise _unported("texture sampling")
-    if scene_depth is not None or return_depth:
-        raise _unported("the depth test (scene_depth / return_depth)")
     if y_offset is not None:
         raise _unported("slice rendering (y_offset)")
-    if framebuffer is not None:
-        raise _unported("a seeded framebuffer")
+    painter = alpha_mode == "scene"
+    if painter and draw.mode_id is None:
+        raise ValueError(
+            'alpha_mode="scene" needs per-entry blend modes: populate draw.mode_id '
+            "(0=blend 1=premultiply 2=add 3=multiply 4=opaque 5=mask)"
+        )
+    if return_depth and alpha_mode not in ("opaque", "mask", "scene"):
+        raise ValueError(
+            "return_depth requires an opaque or mask alpha mode (transparent modes are "
+            "read-only depth clients, like the reference's Transparent3d phase)"
+        )
+    # the painter pass always threads a depth plane: its opaque and mask
+    # entries write depth mid-loop for the transparent entries after them
+    depth_test = scene_depth is not None or return_depth or painter
+    write_depth = return_depth or painter
 
     T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
-    tile, depth, rows = project_bin(
+    n = draw.position.shape[0]
+    dev = draw.position.device
+    extra = None
+    if alpha_mode in ("mask", "scene"):
+        cutoff = draw.alpha_cutoff
+        if cutoff is None:
+            cutoff = torch.full((n,), float(alpha_cutoff), dtype=torch.float32, device=dev)
+        mode_col = (
+            draw.mode_id.to(torch.float32)
+            if painter
+            else torch.zeros((n,), dtype=torch.float32, device=dev)
+        )
+        extra = torch.stack([cutoff.to(torch.float32), mode_col], dim=1)
+    row = row_width(alpha_mode, depth_test)
+    tile_ids, depth, rows = project_bin(
         draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(),
         camera.view, camera.proj, camera.viewport, T, ntx, nty,
-        raster_size=(config.width, config.height),
+        raster_size=(config.width, config.height), extra=extra, row=row,
     )
-    mode = fast_mode(config, alpha_mode, tile.shape[0])
-    pidx_sorted, starts, ends = sort_tiles(tile, depth, nt, mode)
+    mode = fast_mode(config, alpha_mode, n)
+    pidx_sorted, starts, ends = sort_tiles(tile_ids, depth, nt, mode)
     M = config.max_entries_per_tile
     pidx, has = window_index(pidx_sorted, starts, ends, M, from_start=mode is not None)
-    window = gather_rows(rows, pidx.reshape(-1)).reshape(nt, M, ROW)
-    fb = tile_blend(window, has, T, ntx, nty, config.background, alpha_mode)
+    window = gather_rows(rows, pidx.reshape(-1)).reshape(nt, M, row)
+    out = tile_blend(
+        window, has, T, ntx, nty, config.background, alpha_mode,
+        framebuffer=None if framebuffer is None else to_tiles(framebuffer, config, 0.0).to(dev),
+        scene_depth=None if scene_depth is None else to_tiles(scene_depth, config, torch.inf).to(dev),
+        depth_test=depth_test, write_depth=write_depth,
+    )
+    fb, dbuf = out if write_depth else (out, None)
+    if return_depth:
+        return untile(fb, config), untile(dbuf, config)
     return untile(fb, config)

@@ -2,8 +2,9 @@
 (port of ``bevy_hanabi_tpu/render/renderer.py``).
 
 :func:`composite_by_mode` is ported whole. :class:`EffectRenderer` is ported
-as far as :meth:`HanabiScene.render`'s single-effect pass needs it: no
-textures, no depth test, no ribbons or meshes.
+as far as :meth:`HanabiScene.render`'s single-effect pass needs it, the
+depth test and the written depth plane included: no textures, no ribbons
+or meshes.
 """
 
 from __future__ import annotations
@@ -72,11 +73,15 @@ class EffectRenderer:
         properties: Optional[Dict[str, Any]] = None,
         transform: Optional[Any] = None,
         framebuffer: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+        scene_depth: Optional[torch.Tensor] = None,
+        return_depth: bool = False,
+    ):
         """Rasterize the pool; optionally composite over ``framebuffer``
-        with the effect's own blend equation. The raster grid follows the
-        camera viewport (a mismatched config is aligned on first use). The
-        depth test (``scene_depth`` / ``return_depth``) is not ported."""
+        with the effect's own blend equation. ``scene_depth`` ([H, W] view
+        distances) occludes fragments behind it; ``return_depth=True``
+        (opaque and mask effects) returns ``(image, depth)``, the depth
+        plane seeded from ``scene_depth``. The raster grid follows the
+        camera viewport (a mismatched config is aligned on first use)."""
         if not self._aligned:
             vw, vh = camera.viewport
             if (self.config.width, self.config.height) != (vw, vh):
@@ -93,7 +98,15 @@ class EffectRenderer:
         config = self.config
         if framebuffer is not None:
             config = dataclasses.replace(config, background=neutral_background(self._alpha_mode))
-        img = rasterize(draw, camera, config, alpha_mode=self._alpha_mode)
+        out = rasterize(
+            draw,
+            camera,
+            config,
+            alpha_mode=self._alpha_mode,
+            scene_depth=scene_depth,
+            return_depth=return_depth,
+        )
+        img, depth = out if return_depth else (out, None)
         if framebuffer is not None:
             img = composite_by_mode(img, framebuffer, self._alpha_mode)
-        return img
+        return (img, depth) if return_depth else img

@@ -1,21 +1,24 @@
 """Scene orchestration: many effects, parent/child event routing, rendering
-(port of ``bevy_hanabi_tpu/runtime/scene.py``, the subset the firework
-event tree runs).
+(port of ``bevy_hanabi_tpu/runtime/scene.py``, without groups).
 
 A host-side registry of effect instances that each frame ticks spawners,
 routes last frame's GPU spawn events from parents to children (the same
 one-frame latency as the reference, vfx_init.wgsl:123-129), steps every
-instance, and composites renders back to front. The random streams draw in
-the JAX package's order — the scene RNG once per :meth:`HanabiScene.add`,
-each instance's RNG once per step, each spawner its own — so frame seeds
-and spawner ticks are bit-equal to the JAX package's.
+instance, and renders. The random streams draw in the JAX package's order —
+the scene RNG once per :meth:`HanabiScene.add`, each instance's RNG once per
+step, each spawner its own — so frame seeds and spawner ticks are bit-equal
+to the JAX package's.
 
-Ported: ``add`` (with parents), ``update``, ``update_chunk`` (one family
-chunk per event tree), and ``render`` through the split pipeline's
-transparent ``"batch"`` and ``"eff"`` passes. Every other branch raises
-``NotImplementedError`` naming itself: groups and sharding, cameras for
-culling, opaque and mask passes (the depth test), mesh particles, the
-painter pipeline, ``update_render_chunk``, ``render_views``, debug
+Ported: ``add`` (with parents), ``update`` (with ``cameras=`` frustum
+culling of WhenVisible effects), ``update_chunk`` (one family chunk per
+event tree), ``update_render_chunk`` for one camera, and ``render`` through
+both pipelines of the JAX package's render plan: the phase split (opaque
+and mask passes threading a depth plane, then transparent passes tested
+against it, same-blend runs batched) and the painter pass (every effect in
+one back-to-front sort with per-entry blend equations), ``scene_depth`` and
+``return_depth`` included. Every other branch raises
+``NotImplementedError`` naming itself: groups and sharding, ``cull_pad``,
+mesh particles, textures, ``render_views`` and multi-view chunks, debug
 validation, and hot reload (an asset edited after ``add``).
 """
 
@@ -28,7 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..asset import EffectAsset, SimulationCondition
+from ..asset import EffectAsset, SimulationCondition, SimulationSpace
 from ..properties import EffectProperties, Property
 from ..spawn import EffectSpawner
 from ..time import EffectSimulationClock
@@ -93,6 +96,12 @@ class HanabiScene:
         # family chunk steps for update_chunk, keyed by member names
         self._family_fn: Dict = {}
         self.debug = DebugSettings()
+        # frustum culling: pool AABBs cached per frame, and the latch that
+        # turns on render culling once the scene is camera-driven
+        self._aabb_frame = -1
+        self._aabb_cache: Dict[str, tuple] = {}
+        self._frustum_sim = False
+        self.render_culling: Optional[bool] = None
 
     # -- authoring-world API ------------------------------------------------
 
@@ -252,13 +261,93 @@ class HanabiScene:
                     "remove and re-add it"
                 )
 
+    # -- visibility: frustum vs pool AABB ----------------------------------
+    # As in the JAX package (scene.py:549-744, without groups and cull_pad):
+    # a WhenVisible effect's AABB is computed on the device from its pool
+    # (one masked min/max per effect, ONE readback for all of them, at most
+    # once per frame), unioned with the emitter position so a fresh effect
+    # is visible at its emitter, and padded to cover splat extents.
+
+    DEFAULT_CULL_PAD = 0.5
+
+    @staticmethod
+    def _cullable(asset) -> bool:
+        return asset.simulation_condition is SimulationCondition.WHEN_VISIBLE
+
+    def _refresh_aabbs(self) -> Dict[str, tuple]:
+        """The world AABB ``(min, max)`` of every cullable effect, describing
+        the pools as of frame start; computed at most once per frame."""
+        if self._aabb_frame == self._frame:
+            return self._aabb_cache
+        entries = [inst for inst in self._effects.values() if self._cullable(inst.asset)]
+        cache: Dict[str, tuple] = {}
+        if entries:
+            big = 3.0e38
+            boxes = []
+            for inst in entries:
+                m = inst.pool.alive[:, None]
+                pos = inst.pool.attrs["position"]
+                boxes.append(
+                    torch.stack([torch.where(m, pos, big).amin(0), torch.where(m, pos, -big).amax(0)])
+                )
+            res = torch.stack(boxes).cpu().numpy()  # the one readback
+            pad = self.DEFAULT_CULL_PAD
+            for inst, (mn, mx) in zip(entries, res):
+                tf = np.asarray(inst.transform, np.float32)
+                em = tf[:, 3]  # emitter world position
+                if inst.asset.simulation_space is SimulationSpace.LOCAL:
+                    # the box through R|t: centre transformed, extents through |R|
+                    if np.all(mn <= mx):
+                        c = tf[:, :3] @ ((mn + mx) * 0.5) + em
+                        e = np.abs(tf[:, :3]) @ ((mx - mn) * 0.5)
+                        mn, mx = c - e, c + e
+                    else:
+                        mn = np.full(3, 3.0e38, np.float32)
+                        mx = -mn
+                cache[inst.name] = (np.minimum(mn, em) - pad, np.maximum(mx, em) + pad)
+        self._aabb_cache = cache
+        self._aabb_frame = self._frame
+        return cache
+
+    def _culled_names(self, cameras, for_render: bool = False) -> set:
+        """Names of WhenVisible effects whose padded AABB is outside EVERY
+        given camera frustum. For render culling only once the scene is
+        camera-driven (``update(dt, cameras=...)`` or a render chunk has run),
+        unless ``render_culling`` overrides that latch."""
+        from ..render.camera import aabb_in_frustum, frustum_planes
+
+        cameras = list(cameras)
+        if not cameras:
+            return set()
+        render_cull = self._frustum_sim if self.render_culling is None else self.render_culling
+        if for_render and not render_cull:
+            return set()
+        names = {n for n, inst in self._effects.items() if self._cullable(inst.asset)}
+        if not names:
+            return set()
+        aabbs = self._refresh_aabbs()
+        planes = [frustum_planes(c) for c in cameras]
+        return {
+            n
+            for n in names
+            if n in aabbs and not any(aabb_in_frustum(p, aabbs[n][0], aabbs[n][1]) for p in planes)
+        }
+
     # -- simulation ----------------------------------------------------------
 
     def update(self, dt: float, cameras=None) -> None:
-        """Advance one frame (scene.py:1042-1127, without groups and cameras)."""
-        if cameras is not None:
-            raise _unported("update(cameras=...) frustum culling")
+        """Advance one frame (scene.py:1042-1127, without groups).
+
+        ``cameras`` (a camera or a sequence): a WhenVisible effect whose
+        padded pool/emitter AABB is outside every given frustum ticks no
+        spawner and does not step. Without ``cameras`` the manual
+        ``set_visible`` flag alone gates."""
         self._refuse_unported()
+        if cameras is not None and not isinstance(cameras, (list, tuple)):
+            cameras = [cameras]
+        if cameras:
+            self._frustum_sim = True
+        culled = self._culled_names(cameras) if cameras else set()
         sim = self.clock.advance(dt)
         self._frame += 1
         # Children consume events emitted by their parent's PREVIOUS step.
@@ -269,9 +358,8 @@ class HanabiScene:
         stepped: set = set()
         for name in self._order:
             inst = self._effects[name]
-            if (
-                inst.asset.simulation_condition is SimulationCondition.WHEN_VISIBLE
-                and not inst.visible
+            if inst.asset.simulation_condition is SimulationCondition.WHEN_VISIBLE and (
+                not inst.visible or name in culled
             ):
                 continue
             frame_seed = np.uint32(inst.rng.integers(0, 2**32))
@@ -307,19 +395,20 @@ class HanabiScene:
             inst = self._effects[inst.parent]
         return inst.name
 
-    def _collect_chunk_inputs(self, frames: int, dt: float, on_frame=None):
+    def _collect_chunk_inputs(self, frames: int, dt: float, on_frame=None, culled=frozenset()):
         """Host-side prep for a chunk (scene.py:1296-1391, without groups):
         freeze visibility, resolve event trees, precompute every frame's
         spawner ticks, seeds, transforms and property values.
 
         ``on_frame(scene, i)`` runs on the host before frame ``i``'s inputs
-        are captured."""
+        are captured. ``culled``: frustum-culled names, frozen for the chunk
+        like visibility; WhenVisible effects in it pause."""
 
         def family_paused(name):
-            root = self._effects[self._root_of(name)]
-            return (
-                root.asset.simulation_condition is SimulationCondition.WHEN_VISIBLE
-                and not root.visible
+            rname = self._root_of(name)
+            root = self._effects[rname]
+            return root.asset.simulation_condition is SimulationCondition.WHEN_VISIBLE and (
+                not root.visible or rname in culled
             )
 
         active_effects = [n for n in self._order if not family_paused(n)]
@@ -405,23 +494,93 @@ class HanabiScene:
                 inst.pool = pool
                 inst.last_events = pend
 
-    def update_render_chunk(self, *args, **kwargs):
-        raise _unported("update_render_chunk")
+    def update_render_chunk(
+        self,
+        frames: int,
+        dt: float,
+        camera,
+        config=None,
+        background=None,
+        scene_depth=None,
+        on_frame=None,
+        pipeline: str = "auto",
+    ):
+        """Advance AND render ``frames`` frames of the whole scene
+        (scene.py:1640-1858, one camera, without groups).
+
+        The JAX package's ``lax.scan`` is a K-frame Python loop here, which
+        only enqueues device work: each frame steps every member in scene
+        order (children consume their parent's PREVIOUS-frame events, as in
+        :meth:`update_chunk`), then renders the fresh pools through the render
+        plan frozen at call time (visibility, frustum culling, ordering,
+        batching and phases, like the JAX package). Returns ``(image,
+        checksums)``: the last frame's [H, W, 4] framebuffer and a [K] device
+        tensor of per-frame framebuffer sums; nothing reads back inside the
+        loop."""
+        if isinstance(camera, (list, tuple)):
+            raise _unported("update_render_chunk with a camera list (multi-view)")
+        self._refuse_unported()
+        config, background = self._frame_config(camera, config, background)
+        # the chunk is camera-driven by construction: WhenVisible gating on
+        self._frustum_sim = True
+        culled = self._culled_names([camera], for_render=True)
+        names, _, per_effect_inputs, sims = self._collect_chunk_inputs(
+            frames, dt, on_frame, culled=culled
+        )
+        insts = [self._effects[n] for n in names]
+        index = {n: i for i, n in enumerate(names)}
+        plan = self._scene_render_plan(insts, camera, pipeline, culled=culled)
+        bg = torch.tensor(background, dtype=torch.float32, device=self.device).expand(
+            config.height, config.width, 4
+        )
+        pendings = [
+            {
+                ch: inst.last_events.get(ch) or inst.fx.make_empty_events(inst.pool.capacity)
+                for ch in range(inst.fx.num_event_channels)
+            }
+            for inst in insts
+        ]
+        img = bg
+        sums = []
+        for j in range(frames):
+            new_pendings = []
+            for inst in insts:
+                ev_in = (
+                    None
+                    if inst.parent is None
+                    else pendings[index[inst.parent]][inst.child_channel]
+                )
+                inst.pool, ev_out = inst.fx._step(
+                    inst.pool, per_effect_inputs[inst.name][j], sims[j], ev_in, None
+                )
+                new_pendings.append(ev_out)
+            pendings = new_pendings
+            # the frame renderer of scene.py:1860-2097: the plan over the
+            # fresh pools, each effect with this frame's transform and
+            # properties
+            inputs = [(per_effect_inputs[n][j].transform, per_effect_inputs[n][j].properties)
+                      for n in names]
+            img = self._render_frame(insts, plan, inputs, sims[j], camera, config, bg, scene_depth)
+            sums.append(img.sum())
+        for inst, pend in zip(insts, pendings):
+            inst.last_events = pend
+        return img, (torch.stack(sums) if sums else torch.zeros(0, device=self.device))
 
     def render_views(self, *args, **kwargs):
         raise _unported("render_views")
 
     # -- rendering -------------------------------------------------------------
 
-    def _scene_render_plan(self, insts, camera, pipeline="auto"):
-        """The transparent passes of the split pipeline (scene.py:1499-1638,
-        without groups and culling): visible effects back to front by
-        emitter distance under ``camera``, same-blend runs batched into
-        ("batch", idxs, kind), a lone effect as ("eff", i, kind). Raises
-        where the JAX package's plan would need what is not ported: an
-        opaque or mask effect (the depth test), a mesh effect, or the
-        painter pipeline (asked for, or picked by the auto rule for two or
-        more passes)."""
+    def _scene_render_plan(self, insts, camera, pipeline="auto", culled=frozenset()):
+        """The render plan (scene.py:1499-1638, without groups): visible,
+        unculled effects back to front by emitter distance under ``camera``,
+        split into opaque/mask and transparent phases, each phase's
+        same-blend runs batched into ("batch", idxs, kind) and the rest as
+        ("eff", i, kind) (mask effects never batch). Returns
+        ``(opaque_passes, transp_passes)``. "auto" takes the painter pass,
+        the single descriptor ("painter", idxs, ()) in ``transp_passes``,
+        when the split plan has two or more passes; "painter" always does;
+        "split" never."""
         if pipeline not in ("auto", "split", "painter"):
             raise ValueError(f"pipeline must be 'auto', 'split' or 'painter'; got {pipeline!r}")
         view_h = np.asarray(camera.view)
@@ -431,25 +590,51 @@ class HanabiScene:
             t = np.asarray(insts[i].transform)[:, 3]
             return (-float(np.linalg.norm(cam_pos - t)), insts[i].asset.z_layer_2d)
 
-        vis_idx = sorted((i for i, inst in enumerate(insts) if inst.visible), key=dist_key)
-        if any(insts[i].asset.alpha_mode.kind in ("opaque", "mask") for i in vis_idx):
-            raise _unported("opaque and mask passes (they need the depth test)")
+        vis_idx = sorted(
+            (i for i, inst in enumerate(insts) if inst.visible and inst.name not in culled),
+            key=dist_key,
+        )
         if any(insts[i].asset.mesh is not None for i in vis_idx):
             raise _unported("mesh particles")
-        runs = []
-        for i in vis_idx:
-            kind = insts[i].asset.alpha_mode.kind
-            if runs and runs[-1][0] == kind:
-                runs[-1][1].append(i)
-            else:
-                runs.append([kind, [i]])
-        passes = [
-            ("batch", tuple(members), kind) if len(members) > 1 else ("eff", members[0], kind)
-            for kind, members in runs
-        ]
-        if pipeline == "painter" or (pipeline == "auto" and len(passes) >= 2):
-            raise _unported("the painter pipeline (the plan has >= 2 passes or it was asked for)")
-        return passes
+
+        def build_passes(idxs):
+            runs = []
+            for i in idxs:
+                kind = insts[i].asset.alpha_mode.kind
+                key = None if kind == "mask" else kind
+                if runs and key is not None and runs[-1][0] == key:
+                    runs[-1][1].append(i)
+                else:
+                    runs.append([key, [i]])
+            passes = []
+            for key, members in runs:
+                if key is not None and len(members) > 1:
+                    passes.append(("batch", tuple(members), key))
+                else:
+                    passes.extend(("eff", i, insts[i].asset.alpha_mode.kind) for i in members)
+            return tuple(passes)
+
+        opaque = [i for i in vis_idx if insts[i].asset.alpha_mode.is_opaque()]
+        opaque_passes = build_passes(opaque)
+        transp_passes = build_passes([i for i in vis_idx if i not in opaque])
+        n_passes = len(opaque_passes) + len(transp_passes)
+        if vis_idx and (pipeline == "painter" or (pipeline == "auto" and n_passes >= 2)):
+            return (), (("painter", tuple(vis_idx), ()),)
+        return opaque_passes, transp_passes
+
+    def _frame_config(self, camera, config, background):
+        """The raster config aligned to the camera viewport, and the clear
+        colour: ``background``, else ``config.background``, else opaque black."""
+        from ..render.raster import RasterConfig
+
+        vw, vh = camera.viewport
+        if background is None:
+            background = config.background if config is not None else (0.0, 0.0, 0.0, 1.0)
+        if config is None:
+            config = RasterConfig(width=vw, height=vh)
+        elif (config.width, config.height) != (vw, vh):
+            config = dataclasses.replace(config, width=vw, height=vh)
+        return config, background
 
     def render(
         self,
@@ -459,76 +644,127 @@ class HanabiScene:
         scene_depth=None,
         return_depth: bool = False,
         pipeline: str = "auto",
-    ) -> torch.Tensor:
-        """Composite all visible effects back to front by emitter distance
-        (scene.py:2347-2527) into a [height, width, 4] f32 image on the
-        scene's device. ``config`` defaults to a ``RasterConfig`` sized from
-        the camera viewport; a mismatched one is aligned to the viewport.
-        The clear colour is ``background``, else ``config.background``,
-        else opaque black."""
-        from ..render.raster import RasterConfig
-
-        if scene_depth is not None or return_depth:
-            raise _unported("render with the depth test (scene_depth / return_depth)")
+    ):
+        """Render every visible effect (scene.py:2347-2527) into a
+        [height, width, 4] f32 image on the scene's device, through the
+        plan of :meth:`_scene_render_plan`. ``config`` defaults to a
+        ``RasterConfig`` sized from the camera viewport; a mismatched one is
+        aligned to the viewport. ``scene_depth`` ([H, W] view distances,
+        +inf where empty) occludes particles behind it in every pass;
+        ``return_depth=True`` returns ``(image, depth)``, the scene depth
+        merged with everything the opaque and mask entries wrote."""
         self._refuse_unported()
-        vw, vh = camera.viewport
-        if background is None:
-            background = config.background if config is not None else (0.0, 0.0, 0.0, 1.0)
-        if config is None:
-            config = RasterConfig(width=vw, height=vh)
-        elif (config.width, config.height) != (vw, vh):
-            config = dataclasses.replace(config, width=vw, height=vh)
+        config, background = self._frame_config(camera, config, background)
         fb = torch.tensor(background, dtype=torch.float32, device=self.device).expand(
             config.height, config.width, 4
         )
-        sim = self.clock.sim_params()
-        insts_all = [self._effects[n] for n in self._order]
-        for tag, which, kind in self._scene_render_plan(insts_all, camera, pipeline):
-            if tag == "batch":
-                fb = self._render_batch([insts_all[i] for i in which], kind, camera, config, sim, fb)
-            else:
-                fb = self._render_effect(insts_all[which], camera, config, sim, fb)
-        return fb
+        insts = [self._effects[n] for n in self._order]
+        plan = self._scene_render_plan(
+            insts, camera, pipeline, culled=self._culled_names([camera], for_render=True)
+        )
+        inputs = [(inst.transform, inst.properties.as_dict()) for inst in insts]
+        return self._render_frame(
+            insts, plan, inputs, self.clock.sim_params(), camera, config, fb, scene_depth,
+            return_depth,
+        )
 
-    def _render_effect(self, inst, camera, config, sim, fb):
+    def _render_frame(self, insts, plan, inputs, sim, camera, config, fb, scene_depth=None,
+                      return_depth=False):
+        """Run a render plan onto ``fb``. ``inputs[i]`` is effect i's
+        (transform, properties). Phase split as the reference's render
+        phases: opaque and mask passes draw first threading the depth plane,
+        then the transparent passes test against it."""
+        opaque_passes, transp_passes = plan
+        if scene_depth is not None:
+            scene_depth = torch.as_tensor(scene_depth, dtype=torch.float32, device=self.device)
+        if transp_passes and transp_passes[0][0] == "painter":
+            idxs = transp_passes[0][1]
+            return self._render_painter(
+                [insts[i] for i in idxs], [inputs[i] for i in idxs], camera, config, sim, fb,
+                scene_depth, return_depth,
+            )
+        depth_acc = scene_depth
+        for desc in opaque_passes:
+            fb, depth_acc = self._run_pass(desc, insts, inputs, camera, config, sim, fb,
+                                           depth_acc, True)
+        if opaque_passes:
+            scene_depth = depth_acc
+        for desc in transp_passes:
+            fb, _ = self._run_pass(desc, insts, inputs, camera, config, sim, fb, scene_depth,
+                                   False)
+        if not return_depth:
+            return fb
+        if depth_acc is None:
+            depth_acc = torch.full((config.height, config.width), torch.inf, device=self.device)
+        return fb, depth_acc
+
+    def _run_pass(self, desc, insts, inputs, camera, config, sim, fb, depth, write_depth):
+        """One "eff" or "batch" pass: returns ``(fb, depth)``."""
+        tag, which, kind = desc
+        if tag == "batch":
+            out = self._render_batch(
+                [insts[i] for i in which], [inputs[i] for i in which], kind, camera, config,
+                sim, fb, depth, write_depth,
+            )
+        else:
+            out = self._render_effect(insts[which], inputs[which], camera, config, sim, fb,
+                                      depth, write_depth)
+        return out if write_depth else (out, depth)
+
+    def _render_effect(self, inst, inp, camera, config, sim, fb, scene_depth=None,
+                       return_depth=False):
         """The ``"eff"`` pass: one effect through its EffectRenderer."""
         from ..render.renderer import EffectRenderer
 
         if inst.renderer is None or inst.renderer.config != config:
             inst.renderer = EffectRenderer(inst.asset, config)
+        transform, props = inp
         return inst.renderer.render(
             inst.pool,
             camera,
             sim=sim,
-            properties=inst.properties.as_dict(),
-            transform=inst.transform,
+            properties=props,
+            transform=transform,
             framebuffer=fb,
+            scene_depth=scene_depth,
+            return_depth=return_depth,
         )
 
-    def _render_batch(self, insts, alpha_kind, camera, config, sim, fb):
+    def _render_batch(self, insts, inputs, alpha_kind, camera, config, sim, fb, scene_depth=None,
+                      return_depth=False):
         """Rasterize several same-blend-state effects in one pass: one
-        (tile, depth) sort for the whole batch (scene.py:2565-2656)."""
-        from ..render.extract import ParticleDrawData, extract_draw_data
+        (tile, depth) sort for the whole batch (scene.py:2565-2656) over the
+        concatenated required draw columns (mask effects never batch)."""
+        from ..render.extract import concat_draws, extract_draw_data
         from ..render.raster import rasterize
         from ..render.renderer import composite_by_mode, neutral_background
 
         cfg0 = dataclasses.replace(config, background=neutral_background(alpha_kind))
-        draws = [
-            extract_draw_data(
-                i.asset,
-                i.pool,
-                camera,
-                sim=sim,
-                properties=i.properties.as_dict(),
-                transform=i.transform,
-            )
-            for i in insts
-        ]
-        flat = ParticleDrawData(
-            *(
-                torch.cat([getattr(d, f.name) for d in draws])
-                for f in dataclasses.fields(ParticleDrawData)
-            )
-        )
-        out = rasterize(flat, camera, cfg0, alpha_mode=alpha_kind)
+        flat = concat_draws([
+            extract_draw_data(i.asset, i.pool, camera, sim=sim, properties=pr, transform=tr)
+            for i, (tr, pr) in zip(insts, inputs)
+        ])
+        out = rasterize(flat, camera, cfg0, alpha_mode=alpha_kind, scene_depth=scene_depth,
+                        return_depth=return_depth)
+        if return_depth:
+            img, depth = out
+            return composite_by_mode(img, fb, alpha_kind), depth
         return composite_by_mode(out, fb, alpha_kind)
+
+    def _render_painter(self, insts, inputs, camera, config, sim, fb, scene_depth=None,
+                        return_depth=False):
+        """Every visible effect in ONE painter pass (scene.py:2658-2769):
+        one global (tile, depth) sort, one window gather, one blend loop
+        whose per-entry mode ids select the equation; opaque and mask
+        entries write depth mid-loop. ``insts`` are in back-to-front emitter
+        order, which breaks sort ties only."""
+        from ..render.extract import concat_painter_draws, extract_draw_data
+        from ..render.raster import rasterize
+
+        draws = [
+            extract_draw_data(i.asset, i.pool, camera, sim=sim, properties=pr, transform=tr)
+            for i, (tr, pr) in zip(insts, inputs)
+        ]
+        flat = concat_painter_draws(draws, [i.asset.alpha_mode.kind for i in insts])
+        return rasterize(flat, camera, config, alpha_mode="scene", scene_depth=scene_depth,
+                         framebuffer=fb, return_depth=return_depth)

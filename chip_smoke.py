@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``bevy_hanabi_tpu_torch/csrc`` and runs
-the port's two main paths through its public entry points: the
-benchmark-headline frame and the firework event tree. It never imports JAX.
-Phases, each of which fails the run on any error:
+the port's three main paths through its public entry points: the
+benchmark-headline frame, the firework event tree, and the mixed scene
+(``HanabiScene.update_render_chunk``). It never imports JAX. Phases, each
+of which fails the run on any error:
 
 1. a CUDA device must be present; print its name and power limit;
 2. build the kernel library (nvcc, one process per source, ctypes);
@@ -43,13 +44,41 @@ Phases, each of which fails the run on any error:
       indices, with dying rockets' events pending) bit-exact; all timed.
 
 8. ``torch.profiler`` over 30 more firework frames: launches, copies and
-   synchronisations a frame, device time by op and by kernel.
+   synchronisations a frame, device time by op and by kernel;
+9. the JAX package's painter gate (bench.py:331-357): blend, add and opaque
+   effects, three ``update(1/60)`` and ``render(pipeline="painter")`` at
+   128x128 (``tile_slots=1``, the port's binning) on the card and on the
+   CPU: alive masks and PCG seeds bit-equal, checksums within 0.5%;
+10. a small mixed scene (opaque debris 1024, gradient 4096, rockets 512 ->
+    trails 2048) through twelve ``update_render_chunk(8, 1/60)`` on the card
+    and on the CPU, for the ``"auto"`` (painter) and ``"split"`` pipelines:
+    alive masks and PCG seeds of all four effects bit-equal, every frame's
+    checksum within 0.5%, and trails spawned from events;
+11. the full mixed scene (bench.py:672-774: debris 65 536 opaque, gradient
+    524 288, rockets 65 536 -> trails 262 144, 917 504 lanes) at 512x512:
+    warmed to steady state, then one untimed and three timed chunks of
+    K = 120 for ``"auto"``, ``"split"`` and ``"auto"`` with M = 128 (best of
+    three, frames/s); each pipeline's launch counters are set to 0 before
+    its chunks and must move for every kernel of that pipeline; the last
+    (``"auto"``, M = 128) frame is rendered again on the CPU through the
+    plain versions (checksums within 0.5%); then a ``"split"`` chunk ends
+    75 frames into a burst, with rockets and trails on screen, and its last
+    frame is rendered again on the CPU too. On that frame each kernel of
+    both pipelines is held against its plain version at the pass's own
+    shapes, and timed: the painter pass's ``project_bin`` (with the painter
+    columns), window gather and ``tile_blend`` SCENE at M = 64 and M = 128;
+    the split pipeline's depth-writing OPAQUE debris pass, then its BLEND
+    gradient pass and its ADD rocket + trail batch (the fast path), both
+    depth-tested against the debris pass's depth plane. Then
+    ``torch.profiler`` over 30 frames of ``update_render_chunk``.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
-headline's (``tile_blend`` in BLEND) and the firework's (``[firework]``,
-``tile_blend[add]``, ``event_compact``), then as its last line ``{"ok": true,
-"device": {...}}``. Exits non-zero, printing no result, when no CUDA device
-is available or any phase fails.
+headline's (``tile_blend`` in BLEND), the firework's (``[firework]``,
+``tile_blend[add]``, ``event_compact``) and the mixed scene's (``[mixed]``,
+``tile_blend[scene]``, ``tile_blend[scene,M=128]``, ``tile_blend[opaque]``,
+``tile_blend[blend,split]``, ``tile_blend[add,split]``), then as its last line
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
+no CUDA device is available or any phase fails.
 """
 
 from __future__ import annotations
@@ -73,6 +102,14 @@ FIREWORK_KERNELS = ("gather_rows", "project_bin", "tile_blend[add]", "event_comp
 FW_K = 240  # frames per firework chunk, as bench.py::bench_firework_events
 FW_INTO_BURST = 10  # frames into a 2 s burst period at which the timed chunks start
 FW_RENDER_AT = 75  # frames into a burst period at which the frame is rendered
+# every kernel of each pipeline of the mixed scene
+MIXED_KERNELS = {
+    "auto": ("gather_rows", "project_bin", "tile_blend[scene]", "event_compact"),
+    "split": ("gather_rows", "project_bin", "tile_blend[opaque]", "tile_blend", "tile_blend[add]",
+              "event_compact"),
+}
+MIXED_K = 8  # frames per chunk of the small mixed gate (phase 10)
+MIXED_M_WIDE = 128  # the third timing's max_entries_per_tile (bench.py:765)
 
 
 def fail(msg: str) -> None:
@@ -128,22 +165,24 @@ def chunk_inputs(fx, spawner, frame: int, k: int = K):
     return fx.stack_frames(inputs, sims)
 
 
-def compare_project_bin(pb_args, nt: int, label: str):
-    """``project_bin`` against its plain version on ``pb_args``: at most a
-    ``PROJECT_MISMATCH_MAX`` share of tiles/depths may differ, rows within
-    ``ROWS_ATOL``. Returns the result row and the plain outputs."""
+def compare_project_bin(pb_args, nt: int, label: str, row: int, extra=None):
+    """``project_bin`` against its plain version on ``pb_args``, with
+    ``row``-float rows: at most a ``PROJECT_MISMATCH_MAX`` share of
+    tiles/depths may differ, rows within ``ROWS_ATOL``. Returns the result
+    row and the plain outputs."""
     import torch
 
     from bevy_hanabi_tpu_torch.render import raster
 
-    tile_k, depth_k, rows_k = raster.project_bin(*pb_args)
-    tile_p, depth_p, rows_p = raster.project_bin_plain(*pb_args)
+    kw = dict(extra=extra, row=row)
+    tile_k, depth_k, rows_k = raster.project_bin(*pb_args, **kw)
+    tile_p, depth_p, rows_p = raster.project_bin_plain(*pb_args, **kw)
     torch.cuda.synchronize()
     bad = int(((tile_k != tile_p) | (depth_k != depth_p)).sum())
     rows_err = float((rows_k - rows_p).abs().nan_to_num(0.0).max())
     n = tile_p.shape[0]
     valid = int((tile_p < nt).sum())
-    print(f"{label}: {n} particles, {valid} binned on screen, "
+    print(f"{label}: {n} particles, {valid} binned on screen, {row}-float rows, "
           f"{bad} tile/depth mismatches, rows max abs err {rows_err:g}")
     if bad > PROJECT_MISMATCH_MAX * n:
         fail(f"{label}: {bad} of {n} tiles/depths differ from the plain version")
@@ -151,8 +190,8 @@ def compare_project_bin(pb_args, nt: int, label: str):
         fail(f"{label}: rows differ from the plain version (max abs err {rows_err:g})")
     row = {
         "max_abs_err": rows_err,
-        "ms": cuda_ms(lambda: raster.project_bin(*pb_args), 50),
-        "plain_ms": cuda_ms(lambda: raster.project_bin_plain(*pb_args), 10),
+        "ms": cuda_ms(lambda: raster.project_bin(*pb_args, **kw), 50),
+        "plain_ms": cuda_ms(lambda: raster.project_bin_plain(*pb_args, **kw), 10),
     }
     return row, (tile_p, depth_p, rows_p)
 
@@ -200,7 +239,9 @@ def compare_kernels(dev):
                cam.view, cam.proj, cam.viewport, T, ntx, nty)
     results = {}
 
-    results["project_bin"], (tile_p, depth_p, rows_p) = compare_project_bin(pb_args, nt, "project_bin")
+    # the BLEND pass reads no column past alpha: 10-float rows
+    results["project_bin"], (tile_p, depth_p, rows_p) = compare_project_bin(
+        pb_args, nt, "project_bin", raster.row_width("blend", False))
     n = draw.alive.shape[0]
 
     pidx_sorted, starts, ends = raster.sort_tiles(tile_p, depth_p, nt)
@@ -213,7 +254,7 @@ def compare_kernels(dev):
         "plain_ms": cuda_ms(lambda: gather.gather_rows_plain(rows_p, idx), 100),
     }
 
-    window = gather.gather_rows_plain(rows_p, idx).reshape(nt, M, raster.ROW)
+    window = gather.gather_rows_plain(rows_p, idx).reshape(nt, M, rows_p.shape[1])
     fb_k = raster.tile_blend(window, has, T, ntx, nty, cfg.background)
     fb_p = raster.tile_blend_plain(window, has, T, ntx, nty, cfg.background)
     torch.cuda.synchronize()
@@ -253,14 +294,18 @@ def small_frame(device):
 def reset_launches(kernels) -> None:
     for kernel in kernels.values():
         kernel.wrapper.launches = 0
-    kernels["tile_blend"].wrapper.launches_add = 0
+    by_mode = kernels["tile_blend"].wrapper.launches_by_mode
+    for mode in by_mode:
+        by_mode[mode] = 0
 
 
 def read_launches(kernels) -> dict:
-    """Launches by kernel, ``tile_blend`` split into BLEND and ADD."""
+    """Launches by kernel, ``tile_blend`` by equation: ``tile_blend`` is
+    BLEND, ``tile_blend[add]``, ``[opaque]``, ``[mask]``, ``[scene]`` the
+    others."""
     counts = {name: k.wrapper.launches for name, k in kernels.items()}
-    counts["tile_blend[add]"] = kernels["tile_blend"].wrapper.launches_add
-    counts["tile_blend"] -= counts["tile_blend[add]"]
+    for mode, n in kernels["tile_blend"].wrapper.launches_by_mode.items():
+        counts["tile_blend" if mode == "blend" else f"tile_blend[{mode}]"] = n
     return counts
 
 
@@ -378,29 +423,26 @@ def compare_tile_blend_add(scene, cam, config):
     """Phase 7b: ``project_bin``, the window gather and the ADD
     ``tile_blend`` against their plain versions on the scene's real 512x512
     frame (its one transparent batch pass, 327,680 entries)."""
-    import dataclasses
-
     import torch
 
     from bevy_hanabi_tpu_torch.ops import gather
     from bevy_hanabi_tpu_torch.render import raster
-    from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData, extract_draw_data
+    from bevy_hanabi_tpu_torch.render.extract import concat_draws, extract_draw_data
 
     sim = scene.clock.sim_params()
-    draws = [extract_draw_data(e.asset, e.pool, cam, sim=sim, transform=e.transform)
-             for e in scene.effects()]
-    draw = ParticleDrawData(*(torch.cat([getattr(d, f.name) for d in draws])
-                              for f in dataclasses.fields(ParticleDrawData)))
+    draw = concat_draws([extract_draw_data(e.asset, e.pool, cam, sim=sim, transform=e.transform)
+                         for e in scene.effects()])
     T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
     M = config.max_entries_per_tile
     pb_args = (draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(),
                cam.view, cam.proj, cam.viewport, T, ntx, nty)
-    pb_row, (tile, depth, rows) = compare_project_bin(pb_args, nt, "project_bin (firework)")
+    pb_row, (tile, depth, rows) = compare_project_bin(
+        pb_args, nt, "project_bin (firework)", raster.row_width("add", False))
     mode = raster.fast_mode(config, "add", tile.shape[0])
     pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, nt, mode)
     pidx, has = raster.window_index(pidx_sorted, starts, ends, M, from_start=True)
     compare_gather(rows, pidx.reshape(-1), "gather_rows (firework window)")
-    window = gather.gather_rows_plain(rows, pidx.reshape(-1)).reshape(nt, M, raster.ROW)
+    window = gather.gather_rows_plain(rows, pidx.reshape(-1)).reshape(nt, M, rows.shape[1])
     args = (window, has, T, ntx, nty, config.background, "add")
     fb_k = raster.tile_blend(*args)
     fb_p = raster.tile_blend_plain(*args)
@@ -491,17 +533,17 @@ def firework_tree(kernels, cam):
     return scene, results, launches
 
 
-def profile_firework(scene, frames: int = 30) -> None:
-    """Phase 8: launches, copies, synchronisations and device time by op
-    and by kernel over ``frames`` firework frames (``torch.profiler``)."""
+def profile_frames(label: str, run, frames: int = 30) -> None:
+    """Phases 8 and 11: launches, copies, synchronisations, the device's
+    busy share and device time by op and by kernel over ``frames`` frames
+    of ``run(frames)``, which ends in a readback (``torch.profiler``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        scene.update_chunk(frames, DT)
-        scene["trail"].alive_count()
+        run(frames)
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type.name == "CUDA"]
@@ -509,18 +551,333 @@ def profile_firework(scene, frames: int = 30) -> None:
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     copies = sum(e.count for e in events if e.key == "cudaMemcpyAsync")
     syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
-    print(f"profile: {frames} frames, wall {1e3 * wall:.2f} ms (profiled), device busy "
-          f"{device_us / 1e3:.3f} ms; per frame {launches / frames:.1f} launches, "
-          f"{copies / frames:.1f} cudaMemcpyAsync, {syncs / frames:.1f} cudaStreamSynchronize")
+    print(f"profile {label}: {frames} frames, wall {1e3 * wall:.2f} ms (profiled), device busy "
+          f"{device_us / 1e3:.3f} ms ({100.0 * device_us / 1e6 / wall:.1f}% of the wall); per frame "
+          f"{launches / frames:.1f} launches, {copies / frames:.1f} cudaMemcpyAsync, "
+          f"{syncs / frames:.1f} cudaStreamSynchronize")
     ops = sorted((e for e in events if e.key.startswith("aten::")),
                  key=lambda e: -e.device_time_total)
-    print("profile: aten ops by device time (ms a frame, calls a frame, host ms a frame)")
+    print(f"profile {label}: aten ops by device time (ms a frame, calls a frame, host ms a frame)")
     for e in ops[:10]:
         print(f"  {e.key:32s} {e.device_time_total / 1e3 / frames:8.4f} "
               f"{e.count / frames:6.1f} {e.cpu_time_total / 1e3 / frames:8.4f}")
-    print("profile: kernels by device time (ms a frame)")
+    print(f"profile {label}: kernels by device time (ms a frame)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / frames:8.4f}  {e.key[:110]}")
+
+
+def profile_firework(scene, frames: int = 30) -> None:
+    """Phase 8: ``profile_frames`` over ``frames`` firework frames."""
+
+    def run(k):
+        scene.update_chunk(k, DT)
+        scene["trail"].alive_count()
+
+    profile_frames("firework", run, frames)
+
+
+def gate_camera(eye_z: float = 6.0, fov: float = 0.9, far: float = 100.0):
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+
+    return CameraParams(look_at((0, 0, eye_z), (0, 0, 0)), perspective(fov, 1.0, 0.1, far), (128, 128))
+
+
+def compare_pools(card, cpu, names, label: str) -> None:
+    """Alive masks and PCG seeds of ``names``, card against CPU, bit for bit."""
+    import numpy as np
+
+    for name in names:
+        _, alive_g, seed_g, _ = card[name].pool.to_numpy()
+        _, alive_c, seed_c, _ = cpu[name].pool.to_numpy()
+        if not np.array_equal(alive_g, alive_c):
+            fail(f"{label}: {name} alive masks differ between the card and the CPU")
+        if not np.array_equal(seed_g, seed_c):
+            fail(f"{label}: {name} PCG seeds differ between the card and the CPU")
+
+
+def painter_gate():
+    """Phase 9: the JAX package's painter gate (bench.py:331-357), card
+    against CPU."""
+    from bevy_hanabi_tpu_torch import AlphaMode, HanabiScene, RasterConfig
+    from bevy_hanabi_tpu_torch.models import gradient_effect, spawn_gravity_effect
+
+    def run(device):
+        s = HanabiScene(seed=9, device=device)
+        s.add(gradient_effect(capacity=2048), "blend")
+        s.add(gradient_effect(capacity=2048).with_alpha_mode(AlphaMode.ADD), "add")
+        s.add(spawn_gravity_effect(capacity=1024, rate=2000.0).with_alpha_mode(AlphaMode.OPAQUE), "opq")
+        for _ in range(3):
+            s.update(DT)
+        img = s.render(gate_camera(), RasterConfig(128, 128, tile_slots=1), pipeline="painter")
+        return s, img
+
+    (card, img_g), (cpu, img_c) = run("cuda"), run("cpu")
+    compare_pools(card, cpu, ("blend", "add", "opq"), "painter gate")
+    s_g, s_c = float(img_g.sum()), float(img_c.sum())
+    print(f"painter gate 128x128: alive {[card[n].alive_count() for n in ('blend', 'add', 'opq')]}, "
+          f"checksum card {s_g:.6e} cpu {s_c:.6e}")
+    if not bool(img_g.isfinite().all()) or not checksum_close(s_g, s_c):
+        fail(f"painter gate: checksum {s_g} on the card vs {s_c} on the CPU")
+
+
+def debris_effect(capacity: int):
+    """The mixed scene's opaque debris, built as bench.py:702-723 builds it."""
+    from bevy_hanabi_tpu_torch import AlphaMode, EffectAsset, ExprWriter, SpawnerSettings
+    from bevy_hanabi_tpu_torch import attributes as A
+    from bevy_hanabi_tpu_torch.modifiers import (
+        SetAttributeModifier,
+        SetPositionSphereModifier,
+        SetSizeModifier,
+        SetVelocitySphereModifier,
+        ShapeDimension,
+    )
+
+    w = ExprWriter()
+    return (
+        EffectAsset("debris", capacity, SpawnerSettings.rate(capacity / 4.0), w.finish())
+        .init(SetPositionSphereModifier(w.module.lit((0.0, 0.0, 0.0)), w.module.lit(3.0),
+                                        ShapeDimension.VOLUME))
+        .init(SetVelocitySphereModifier(w.module.lit((0.0, 0.0, 0.0)), w.module.lit(1.0)))
+        .init(SetAttributeModifier(A.LIFETIME, w.lit(4.0).expr()))
+        .init(SetAttributeModifier(A.AGE, w.lit(0.0).expr()))
+        .init(SetAttributeModifier(A.HDR_COLOR, w.lit((0.9, 0.6, 0.2, 1.0)).expr()))
+        .render(SetSizeModifier((0.05,) * 3))
+        .with_alpha_mode(AlphaMode.OPAQUE)
+    )
+
+
+MIXED_NAMES = ("debris", "grad", "rocket", "trail")
+
+
+def mixed_scene(device, debris, grad, rockets, trails):
+    """The mixed scene of bench.py:724-728 at the given capacities."""
+    from bevy_hanabi_tpu_torch import HanabiScene
+    from bevy_hanabi_tpu_torch.models import firework_effect, firework_trail_effect, gradient_effect
+
+    scene = HanabiScene(seed=3, device=device)
+    scene.add(debris_effect(debris), "debris")
+    scene.add(gradient_effect(capacity=grad), "grad")
+    scene.add(firework_effect(capacity=rockets), "rocket")
+    scene.add(firework_trail_effect(capacity=trails), "trail", parent="rocket")
+    return scene
+
+
+def mixed_camera(size: int = 512):
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+
+    return CameraParams(
+        view=look_at([0.0, 0.0, 26.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+        proj=perspective(math.radians(60.0), 1.0, 0.1, 200.0),
+        viewport=(size, size),
+    )
+
+
+def mixed_gate():
+    """Phase 10: the small mixed scene through update_render_chunk, card
+    against CPU, for both pipelines."""
+    from bevy_hanabi_tpu_torch import RasterConfig
+
+    cam, cfg = mixed_camera(128), RasterConfig(128, 128, tile_slots=1)
+    for pipeline in ("auto", "split"):
+        card = mixed_scene("cuda", 1024, 4096, 512, 2048)
+        cpu = mixed_scene("cpu", 1024, 4096, 512, 2048)
+        for chunk in range(12):  # 96 frames: the first burst's rockets die, trails spawn
+            _, sums_g = card.update_render_chunk(MIXED_K, DT, cam, cfg, pipeline=pipeline)
+            _, sums_c = cpu.update_render_chunk(MIXED_K, DT, cam, cfg, pipeline=pipeline)
+            for k, (a, b) in enumerate(zip(sums_g.cpu().tolist(), sums_c.tolist())):
+                if not checksum_close(a, b):
+                    fail(f"mixed gate {pipeline}: chunk {chunk} frame {k}: checksum {a} on the card "
+                         f"vs {b} on the CPU")
+        compare_pools(card, cpu, MIXED_NAMES, f"mixed gate {pipeline}")
+        if int(cpu["trail"].pool.counter) == 0:
+            fail(f"mixed gate {pipeline}: no trail spawned: no event flowed")
+        print(f"mixed gate {pipeline}: {12 * MIXED_K} frames, alive "
+              f"{[card[n].alive_count() for n in MIXED_NAMES]}, masks and seeds bit-equal, last "
+              f"checksum card {float(sums_g[-1]):.6e} cpu {float(sums_c[-1]):.6e}")
+
+
+def compare_mixed_kernels(scene, cam, config):
+    """Phase 11: each kernel of both pipelines against its plain version at
+    the pass's own shapes on the full scene's frame: the painter pass's
+    ``project_bin`` (with the cutoff and mode columns), window gather and
+    ``tile_blend`` SCENE at M = 64 and M = 128; the split pipeline's
+    depth-writing OPAQUE debris pass, then its BLEND gradient pass and its
+    ADD rocket + trail batch, both depth-tested against the debris pass's
+    depth plane, as ``HanabiScene._render_frame`` threads it."""
+    import torch
+
+    from bevy_hanabi_tpu_torch.ops import gather
+    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render.extract import (
+        concat_draws,
+        concat_painter_draws,
+        extract_draw_data,
+    )
+
+    T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
+    M = config.max_entries_per_tile
+    sim = scene.clock.sim_params()
+    draws = {e.name: extract_draw_data(e.asset, e.pool, cam, sim=sim,
+                                       properties=e.properties.as_dict(), transform=e.transform)
+             for e in scene.effects()}
+    clear = (0.0, 0.0, 0.0, 0.0)  # a split pass's layer background (blend, add, opaque)
+    results = {}
+
+    def project(draw, label, row, extra=None):
+        pb_args = (draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(),
+                   cam.view, cam.proj, cam.viewport, T, ntx, nty)
+        return compare_project_bin(pb_args, nt, f"project_bin ({label})", row, extra)
+
+    def window(projected, label, m, mode=None):
+        tile, depth, rows = projected
+        pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, nt, mode)
+        pidx, has = raster.window_index(pidx_sorted, starts, ends, m, from_start=mode is not None)
+        idx = pidx.reshape(-1)
+        compare_gather(rows, idx, f"gather_rows ({label} window)")
+        gather_row = {
+            "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: gather.gather_rows(rows, idx), 100),
+            "plain_ms": cuda_ms(lambda: gather.gather_rows_plain(rows, idx), 100),
+        }
+        return gather_row, (gather.gather_rows_plain(rows, idx).reshape(nt, m, rows.shape[1]), has)
+
+    def blend_row(label, win, background, mode, **kw):
+        """Returns the result row and the kernel's depth plane (or None)."""
+        args = (*win, T, ntx, nty, background, mode)
+        write = kw.get("write_depth", False)
+        got = raster.tile_blend(*args, **kw)
+        want = raster.tile_blend_plain(*args, **kw)
+        torch.cuda.synchronize()
+        (fb_k, d_k), (fb_p, d_p) = (got, want) if write else ((got, None), (want, None))
+        err = float((fb_k - fb_p).abs().max())
+        depth_ok = not write or torch.equal(d_k, d_p)
+        entries = int(win[1].sum())
+        print(f"tile_blend {label}: {entries} window entries, max abs err {err:g}"
+              + (f", depth planes {'equal' if depth_ok else 'DIFFER'}" if write else ""))
+        if not (err <= BLEND_ATOL) or not depth_ok or entries == 0:
+            fail(f"tile_blend {label}: max abs err {err:g}, or the depth planes differ, or an "
+                 f"empty window")
+        return {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: raster.tile_blend(*args, **kw), 50),
+            "plain_ms": cuda_ms(lambda: raster.tile_blend_plain(*args, **kw), 3),
+        }, d_k
+
+    # the painter pass ("auto"): every effect in one window
+    effects = scene.effects()
+    painter = concat_painter_draws([draws[e.name] for e in effects],
+                                   [e.asset.alpha_mode.kind for e in effects])
+    extra = torch.stack([painter.alpha_cutoff, painter.mode_id.to(torch.float32)], dim=1)
+    results["project_bin[mixed]"], projected = project(
+        painter, f"painter, {painter.alive.shape[0]} entries", raster.row_width("scene", True), extra)
+    fb0 = raster.to_tiles(torch.tensor((0.0, 0.0, 0.0, 1.0), device=extra.device).expand(
+        config.height, config.width, 4), config, 0.0)
+    for m, name in ((M, "tile_blend[scene]"), (MIXED_M_WIDE, f"tile_blend[scene,M={MIXED_M_WIDE}]")):
+        gather_row, win = window(projected, f"painter M={m}", m)
+        if m == M:
+            results["gather_rows[mixed]"] = gather_row
+        results[name], _ = blend_row(f"scene M={m}", win, config.background, "scene",
+                                     framebuffer=fb0, depth_test=True, write_depth=True)
+
+    # the split pipeline: the opaque phase writes the depth plane that the
+    # transparent passes test against
+    wide = raster.row_width("opaque", True)
+    _, win = window(project(draws["debris"], "debris, opaque", wide)[1], "debris", M)
+    results["tile_blend[opaque]"], debris_depth = blend_row(
+        "opaque", win, clear, "opaque", depth_test=True, write_depth=True)
+    _, win = window(project(draws["grad"], "gradient, blend", wide)[1], "gradient", M)
+    results["tile_blend[blend,split]"], _ = blend_row(
+        "blend split", win, clear, "blend", scene_depth=debris_depth, depth_test=True)
+    batch = concat_draws([draws["rocket"], draws["trail"]])
+    mode = raster.fast_mode(config, "add", batch.alive.shape[0])
+    _, win = window(project(batch, "rocket + trail, add", wide)[1], "rocket + trail", M, mode)
+    results["tile_blend[add,split]"], _ = blend_row(
+        f"add split ({mode!r})", win, clear, "add", scene_depth=debris_depth, depth_test=True)
+    return results
+
+
+def rerender_on_cpu(scene, cam, config, pipeline: str, checksum: float, label: str) -> None:
+    """The scene's last frame again on the CPU through the plain versions,
+    from its pools and clock copied there: checksums within 0.5%."""
+    import copy
+
+    from bevy_hanabi_tpu_torch import ParticlePool
+
+    cpu = mixed_scene("cpu", 65536, 1 << 19, 65536, 262144)
+    cpu.clock = copy.deepcopy(scene.clock)
+    for name in MIXED_NAMES:
+        cpu[name].pool = ParticlePool.from_numpy(*scene[name].pool.to_numpy(), device="cpu")
+    t0 = time.perf_counter()
+    s_p = float(cpu.render(cam, config, pipeline=pipeline).sum())
+    print(f"mixed frame ({label}) re-rendered: card {checksum:.6e} vs cpu plain {s_p:.6e} "
+          f"({time.perf_counter() - t0:.1f} s on the CPU)")
+    if not checksum_close(checksum, s_p):
+        fail(f"mixed frame ({label}) checksum {checksum} on the card vs {s_p} on the CPU")
+
+
+def mixed_full(kernels):
+    """Phase 11: the full mixed scene through update_render_chunk."""
+    import dataclasses
+
+    import torch
+
+    from bevy_hanabi_tpu_torch import RasterConfig
+
+    cam = mixed_camera()
+    cfg = RasterConfig(width=512, height=512, tile_slots=1)
+    scene = mixed_scene("cuda", 65536, 1 << 19, 65536, 262144)
+    lanes = sum(e.pool.capacity for e in scene.effects())
+    t0 = time.perf_counter()
+    warm = (int(5.0 / DT) + K) // K + 1  # bench.py:738: past the longest lifetime
+    for _ in range(warm):
+        img, sums = scene.update_render_chunk(K, DT, cam, cfg)
+        float(sums[-1])
+    print(f"mixed scene ({lanes} lanes) warm-up: {warm * K} frames in {time.perf_counter() - t0:.2f} s, "
+          f"alive {[scene[n].alive_count() for n in MIXED_NAMES]}")
+    launches = {}
+    for label, c, pipeline in (
+        ("auto", cfg, "auto"),
+        ("split", cfg, "split"),
+        (f"auto M={MIXED_M_WIDE}", dataclasses.replace(cfg, max_entries_per_tile=MIXED_M_WIDE), "auto"),
+    ):
+        reset_launches(kernels)
+        scene.update_render_chunk(K, DT, cam, c, pipeline=pipeline)  # untimed, as bench.py:749
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, sums = scene.update_render_chunk(K, DT, cam, c, pipeline=pipeline)
+            checksum = float(sums[-1])  # readback: waits for the chunk
+            times.append(time.perf_counter() - t0)
+        launches[label] = read_launches(kernels)
+        best = min(times)
+        print(f"mixed scene {label}: {K} frames in {best:.4f} s: {K / best:.2f} frames/s "
+              f"({1e3 * best / K:.3f} ms a frame), chunk times (s) {times}, alive "
+              f"{scene.total_alive()}, checksum {checksum:.6e}")
+        print(f"launches in the {label} chunks (4 x {K} frames): {launches[label]}")
+        require_launches(launches[label], MIXED_KERNELS[pipeline], f"the mixed scene ({label})")
+    if not bool(img.isfinite().all()) or not checksum > 0.0 or tuple(img.shape) != (512, 512, 4):
+        fail("mixed scene frame is not finite, not positive or not 512x512x4")
+    # the last frame (auto, M=128) again on the CPU through the plain versions
+    rerender_on_cpu(scene, cam, c, "auto", checksum, f"auto M={MIXED_M_WIDE}")
+
+    # Every chunk above ends on a burst boundary, when no rocket or trail is
+    # alive; a split chunk ending 75 frames into a burst puts both on screen
+    # for the split frame's re-render and the kernel comparisons.
+    img, sums = scene.update_render_chunk(FW_RENDER_AT, DT, cam, cfg, pipeline="split")
+    checksum = float(sums[-1])
+    print(f"split frame {FW_RENDER_AT} frames into a burst: alive "
+          f"{[scene[n].alive_count() for n in MIXED_NAMES]}")
+    rerender_on_cpu(scene, cam, cfg, "split", checksum, "split")
+    results = compare_mixed_kernels(scene, cam, cfg)
+    for name, r in results.items():
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+
+    def run(k):
+        float(scene.update_render_chunk(k, DT, cam, cfg)[1][-1])
+
+    profile_frames("mixed", run)
+    return results, launches
 
 
 def main() -> int:
@@ -635,15 +992,38 @@ def main() -> int:
     # Phase 7: the 64k -> 256k firework tree.
     fw_scene, fw_results, fw_launches = firework_tree(kernels, cam)
     profile_firework(fw_scene)
+    del fw_scene
+
+    # Phases 9-11: the mixed scene.
+    painter_gate()
+    mixed_gate()
+    mx_results, mx_launches = mixed_full(kernels)
 
     results.update(fw_results)
+    results.update(mx_results)
     # name, kernel, launches: each row holds one path's launches and its
-    # comparison at that path's shapes (the headline's, then the firework's)
-    rows = [(name, name, launches[name]) for name in HEADLINE_KERNELS] + [
-        (f"{name}[firework]" if name in HEADLINE_KERNELS else name,
-         name.split("[")[0], fw_launches[name])
-        for name in FIREWORK_KERNELS
-    ]
+    # comparison at that path's shapes (the headline's, the firework's,
+    # then the mixed scene's, by pipeline)
+    rows = (
+        [(name, name, launches[name]) for name in HEADLINE_KERNELS]
+        + [
+            (f"{name}[firework]" if name in HEADLINE_KERNELS else name,
+             name.split("[")[0], fw_launches[name])
+            for name in FIREWORK_KERNELS
+        ]
+        + [
+            (f"{name}[mixed]", name, sum(n[name] for n in mx_launches.values()))
+            for name in ("project_bin", "gather_rows")
+        ]
+        + [
+            ("tile_blend[scene]", "tile_blend", mx_launches["auto"]["tile_blend[scene]"]),
+            (f"tile_blend[scene,M={MIXED_M_WIDE}]", "tile_blend",
+             mx_launches[f"auto M={MIXED_M_WIDE}"]["tile_blend[scene]"]),
+            ("tile_blend[opaque]", "tile_blend", mx_launches["split"]["tile_blend[opaque]"]),
+            ("tile_blend[blend,split]", "tile_blend", mx_launches["split"]["tile_blend"]),
+            ("tile_blend[add,split]", "tile_blend", mx_launches["split"]["tile_blend[add]"]),
+        ]
+    )
     kernel_rows = [
         {
             "name": name,

@@ -9,8 +9,10 @@ runs where only PyTorch is installed:
 (``--noconftest`` because ``tests/conftest.py`` configures JAX.)
 Tolerances: the gather and ``event_compact`` must be bit-exact;
 ``project_bin`` must give equal tiles and depths (both versions round op for
-op, the library is built with ``-fmad=false``); ``tile_blend`` (BLEND and
-ADD) within 1e-5 absolute.
+op, the library is built with ``-fmad=false``); ``tile_blend`` (every
+equation and depth variant) within 1e-5 absolute and its depth plane
+exactly; the mixed scene card against CPU with alive masks and PCG seeds
+bit for bit and checksums within 0.5%.
 """
 
 import numpy as np
@@ -65,13 +67,15 @@ def test_project_bin_and_tile_blend_match_plain(cuda):
     cfg = raster.RasterConfig(128, 128, tile_slots=1)
     args = (t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
             view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y)
-    got = raster.project_bin(*args)
-    want = raster.project_bin_plain(*args)
+    # the BLEND pass's rows: the quad and the colour only
+    got = raster.project_bin(*args, row=raster.ROW_QUAD)
+    want = raster.project_bin_plain(*args, row=raster.ROW_QUAD)
+    assert got[2].shape == (8192, raster.ROW_QUAD)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert float((got[2] - want[2]).abs().max()) <= 1e-3
     pidx_sorted, starts, ends = raster.sort_tiles(want[0], want[1], cfg.num_tiles)
     pidx, has = raster.window_index(pidx_sorted, starts, ends, cfg.max_entries_per_tile)
-    window = gather.gather_rows_plain(want[2], pidx.reshape(-1)).reshape(cfg.num_tiles, -1, raster.ROW)
+    window = gather.gather_rows_plain(want[2], pidx.reshape(-1)).reshape(cfg.num_tiles, -1, raster.ROW_QUAD)
     bg = (0.1, 0.0, 0.0, 1.0)
     fb = raster.tile_blend(window, has, cfg.tile_size, cfg.tiles_x, cfg.tiles_y, bg)
     fb_p = raster.tile_blend_plain(window, has, cfg.tile_size, cfg.tiles_x, cfg.tiles_y, bg)
@@ -127,16 +131,18 @@ def test_tile_blend_add_matches_plain(cuda, bg):
     cfg = raster.RasterConfig(128, 128, tile_slots=1)
     tile, depth, rows = raster.project_bin_plain(
         t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
-        view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y,
+        view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y, row=raster.ROW_QUAD,
     )
     mode = raster.fast_mode(cfg, "add", tile.shape[0])
     pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, cfg.num_tiles, mode)
     pidx, has = raster.window_index(pidx_sorted, starts, ends, cfg.max_entries_per_tile, from_start=True)
-    window = gather.gather_rows_plain(rows, pidx.reshape(-1)).reshape(cfg.num_tiles, -1, raster.ROW)
+    window = gather.gather_rows_plain(rows, pidx.reshape(-1)).reshape(cfg.num_tiles, -1, raster.ROW_QUAD)
     args = (window, has, cfg.tile_size, cfg.tiles_x, cfg.tiles_y, bg, "add")
-    before = (raster.tile_blend.launches, raster.tile_blend.launches_add)
+    before = (raster.tile_blend.launches, raster.tile_blend.launches_by_mode["add"])
     fb = raster.tile_blend(*args)
-    assert (raster.tile_blend.launches, raster.tile_blend.launches_add) == (before[0] + 1, before[1] + 1)
+    assert (raster.tile_blend.launches, raster.tile_blend.launches_by_mode["add"]) == (
+        before[0] + 1, before[1] + 1
+    )
     fb_p = raster.tile_blend_plain(*args)
     assert float((fb - fb_p).abs().max()) <= 1e-5
 
@@ -170,3 +176,117 @@ def test_firework_tree_on_the_card_matches_the_cpu(cuda):
     assert torch.isfinite(img_g).all()
     a, b = float(img_g.sum()), float(img_c.sum())
     assert abs(a - b) <= 0.005 * abs(b)
+
+
+def _window(cuda, mode, depth_test, seed=5, M=64):
+    """A real 128x128 window of ``mode`` from a random draw with cutoffs
+    and painter mode ids, in the variant's row width, plus a tiled scene
+    depth plane and framebuffer."""
+    view, proj, t = _draw(8192, cuda, seed=seed)
+    cfg = raster.RasterConfig(128, 128, tile_slots=1, max_entries_per_tile=M)
+    r = np.random.default_rng(seed)
+    extra = torch.from_numpy(np.stack([r.uniform(0, 1, 8192), r.integers(0, 6, 8192)], 1)
+                             .astype(np.float32)).to(cuda)
+    width = raster.row_width(mode, depth_test)
+    tile, depth, rows = raster.project_bin_plain(
+        t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
+        view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y,
+        extra=extra if width == raster.ROW else None, row=width,
+    )
+    pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, cfg.num_tiles, raster.fast_mode(cfg, mode, 8192))
+    pidx, has = raster.window_index(pidx_sorted, starts, ends, M, from_start=mode == "add")
+    window = gather.gather_rows_plain(rows, pidx.reshape(-1)).reshape(cfg.num_tiles, M, width)
+    sd = torch.from_numpy(np.where(r.random((128, 128)) < 0.5, r.uniform(4, 8, (128, 128)), np.inf)
+                          .astype(np.float32))
+    fb = torch.from_numpy(r.uniform(0, 1, (128, 128, 4)).astype(np.float32))
+    return (window, has, cfg.tile_size, cfg.tiles_x, cfg.tiles_y), (
+        raster.to_tiles(sd, cfg, np.inf).to(cuda), raster.to_tiles(fb, cfg, 0.0).to(cuda))
+
+
+@pytest.mark.parametrize(
+    "mode,depth_test,write_depth,seeded",
+    [
+        ("blend", False, False, True),
+        ("blend", True, False, True),
+        ("add", True, False, False),
+        ("opaque", False, False, False),
+        ("opaque", True, True, False),
+        ("mask", True, False, True),
+        ("mask", True, True, False),
+        ("scene", True, True, True),
+        ("scene", True, True, False),
+    ],
+)
+def test_tile_blend_variants_match_plain(cuda, mode, depth_test, write_depth, seeded):
+    args, (sd, fb) = _window(cuda, mode, depth_test)
+    kw = dict(framebuffer=fb if seeded else None, scene_depth=sd if depth_test else None,
+              depth_test=depth_test, write_depth=write_depth)
+    bg = (0.1, 0.0, 0.2, 1.0)
+    before = raster.tile_blend.launches_by_mode[mode]
+    got = raster.tile_blend(*args, bg, mode, **kw)
+    assert raster.tile_blend.launches_by_mode[mode] == before + 1
+    want = raster.tile_blend_plain(*args, bg, mode, **kw)
+    if write_depth:
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_project_bin_extra_columns_match_plain(cuda):
+    view, proj, t = _draw(8192, cuda, seed=2)
+    extra = torch.rand((8192, 2), device=cuda)
+    args = (t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
+            view, proj, (128, 128), 16, 8, 8)
+    got = raster.project_bin(*args, extra=extra)
+    want = raster.project_bin_plain(*args, extra=extra)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2][:, raster.COL_CUTOFF:], extra)
+    assert float((got[2] - want[2]).abs().max()) <= 1e-3
+    # the 10-float rows are the 13-float rows without the last three columns
+    narrow = raster.project_bin(*args, row=raster.ROW_QUAD)
+    assert torch.equal(narrow[0], got[0]) and torch.equal(narrow[1], got[1])
+    torch.testing.assert_close(narrow[2], got[2][:, : raster.ROW_QUAD], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("pipeline", ["auto", "split"])
+def test_mixed_scene_chunk_on_the_card_matches_the_cpu(cuda, pipeline):
+    """A small mixed scene (opaque debris 1024, gradient 4096, rockets 512 ->
+    trails 2048) through ``update_render_chunk(8, 1/10)`` twice."""
+    import math
+
+    from bevy_hanabi_tpu_torch import (AlphaMode, EffectAsset, ExprWriter, SetAttributeModifier,
+                                       SetPositionSphereModifier, SetSizeModifier,
+                                       SetVelocitySphereModifier, ShapeDimension, SpawnerSettings)
+    from bevy_hanabi_tpu_torch import attributes as A
+
+    def run(device):
+        w = ExprWriter()
+        debris = (
+            EffectAsset("debris", 1024, SpawnerSettings.rate(256.0), w.finish())
+            .init(SetPositionSphereModifier(w.module.lit((0.0, 0.0, 0.0)), w.module.lit(3.0),
+                                            ShapeDimension.VOLUME))
+            .init(SetVelocitySphereModifier(w.module.lit((0.0, 0.0, 0.0)), w.module.lit(1.0)))
+            .init(SetAttributeModifier(A.LIFETIME, w.lit(4.0).expr()))
+            .init(SetAttributeModifier(A.AGE, w.lit(0.0).expr()))
+            .init(SetAttributeModifier(A.HDR_COLOR, w.lit((0.9, 0.6, 0.2, 1.0)).expr()))
+            .render(SetSizeModifier((0.05,) * 3))
+            .with_alpha_mode(AlphaMode.OPAQUE)
+        )
+        s = HanabiScene(seed=3, device=device)
+        s.add(debris, "debris")
+        s.add(gradient_effect(4096), "grad")
+        s.add(firework_effect(512), "rocket")
+        s.add(firework_trail_effect(2048), "trail", parent="rocket")
+        cam = CameraParams(look_at((0, 0, 26), (0, 0, 0)), perspective(math.radians(60.0), 1.0, 0.1, 200.0),
+                           (128, 128))
+        sums = [s.update_render_chunk(8, 0.1, cam, RasterConfig(128, 128, tile_slots=1), pipeline=pipeline)[1]
+                for _ in range(2)]
+        return s, torch.cat(sums).cpu().tolist()
+
+    s_g, sums_g = run(cuda)
+    s_c, sums_c = run("cpu")
+    for name in ("debris", "grad", "rocket", "trail"):
+        np.testing.assert_array_equal(s_g[name].pool.to_numpy()[1], s_c[name].pool.to_numpy()[1])
+        np.testing.assert_array_equal(s_g[name].pool.to_numpy()[2], s_c[name].pool.to_numpy()[2])
+    for a, b in zip(sums_g, sums_c):
+        assert abs(a - b) <= 0.005 * max(abs(b), 1.0)

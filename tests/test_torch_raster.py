@@ -102,7 +102,7 @@ def _jax_tiles(view, proj, d, cfg):
     tcy = jnp.clip(jnp.floor(center[:, 1] / T).astype(jnp.int32), 0, cfg.tiles_y - 1)
     tile = jnp.where(valid, tcy * cfg.tiles_x + tcx, cfg.num_tiles)
     rows = jnp.concatenate([center, h1, h2, jnp.asarray(d["color"])], axis=1)
-    return np.asarray(tile), np.asarray(jnp.where(valid, w, -jnp.inf)), np.asarray(rows)
+    return np.asarray(tile), np.asarray(jnp.where(valid, w, -jnp.inf)), np.asarray(rows), np.asarray(w)
 
 
 def _torch_draw(d):
@@ -117,14 +117,44 @@ def test_project_bin_matches_jax_binning():
         t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
         view, proj, (SIZE, SIZE), cfg.tile_size, cfg.tiles_x, cfg.tiles_y,
     )
-    tile_j, depth_j, rows_j = _jax_tiles(view, proj, d, cfg)
+    tile_j, depth_j, rows_j, dist_j = _jax_tiles(view, proj, d, cfg)
     assert tile.dtype == torch.int32 and rows.shape == (N, raster.ROW)
     np.testing.assert_array_equal(tile.numpy(), tile_j)  # integer bins: exact
     assert 0 < int((tile < cfg.num_tiles).sum()) < N  # some binned, some culled
     # f32 projections in the same op order; 1e-4 px covers ULPs of XLA's
     # fused CPU loops
     np.testing.assert_allclose(depth.numpy(), depth_j, rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(rows.numpy(), rows_j, rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(rows[:, :10].numpy(), rows_j, rtol=1e-6, atol=1e-4)
+    # the depth column is the unmasked view distance (raster.py:578-580);
+    # without ``extra`` the cutoff and mode columns are zero
+    np.testing.assert_allclose(rows[:, raster.COL_DEPTH].numpy(), dist_j, rtol=1e-6, atol=1e-6)
+    assert not rows[:, raster.COL_CUTOFF:].any()
+    # the rows of a pass that reads no column past alpha stop there
+    narrow = raster.project_bin(
+        t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
+        view, proj, (SIZE, SIZE), cfg.tile_size, cfg.tiles_x, cfg.tiles_y, row=raster.ROW_QUAD,
+    )
+    assert torch.equal(narrow[0], tile) and torch.equal(narrow[1], depth)
+    torch.testing.assert_close(narrow[2], rows[:, : raster.ROW_QUAD], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize(
+    "mode,depth_test,width",
+    [("blend", False, 10), ("add", False, 10), ("opaque", False, 10), ("blend", True, 13),
+     ("add", True, 13), ("opaque", True, 13), ("mask", False, 13), ("scene", True, 13)],
+)
+def test_row_width_follows_the_columns_the_variant_reads(mode, depth_test, width):
+    assert raster.row_width(mode, depth_test) == width
+    nt, M = 4, 3
+    has = torch.zeros((nt, M), dtype=torch.bool)
+    write = mode == "scene"
+    out = raster.tile_blend(torch.zeros((nt, M, width)), has, 16, 2, 2, (0, 0, 0, 0), mode,
+                            depth_test=depth_test, write_depth=write)
+    assert (out[0] if write else out).shape == (nt, 16, 16, 4)
+    other = raster.ROW + raster.ROW_QUAD - width
+    with pytest.raises(ValueError, match="shape"):
+        raster.tile_blend(torch.zeros((nt, M, other)), has, 16, 2, 2, (0, 0, 0, 0), mode,
+                          depth_test=depth_test, write_depth=write)
 
 
 def _images(seed, background=(0.0, 0.0, 0.0, 0.0), M=64, alpha_mode="blend", n=N, size_px=SIZE,
@@ -249,6 +279,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="shape"):
         raster.project_bin(p, p, p, torch.ones(5, dtype=torch.bool), torch.zeros((5, 3)),
                            np.eye(4), np.eye(4), (16, 16), 16, 1, 1)
+    alive, color = torch.ones(5, dtype=torch.bool), torch.zeros((5, 4))
+    with pytest.raises(ValueError, match="10 or 13"):
+        raster.project_bin(p, p, p, alive, color, np.eye(4), np.eye(4), (16, 16), 16, 1, 1, row=12)
+    with pytest.raises(ValueError, match="13-float rows"):
+        raster.project_bin(p, p, p, alive, color, np.eye(4), np.eye(4), (16, 16), 16, 1, 1,
+                           extra=torch.zeros((5, 2)), row=raster.ROW_QUAD)
 
 
 @pytest.mark.parametrize(
@@ -258,7 +294,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ({}, dict(tile_slots=2)),
         ({"alpha_mode": "multiply"}, dict(tile_slots=1)),
         ({}, dict(tile_slots=1, antialias=True)),
-        ({"return_depth": True}, dict(tile_slots=1)),
+        ({"alpha_mode": "premultiply"}, dict(tile_slots=1)),
         ({"y_offset": 4.0}, dict(tile_slots=1)),
     ],
 )

@@ -163,11 +163,12 @@ def _validating(s):
     [
         lambda s: s.add_group(firework_effect(64), 4),
         lambda s: s.add(firework_effect(64), "x", cull_pad=1.0),
-        lambda s: s.update(DT, cameras=[_camera(CameraParams)]),
-        lambda s: s.update_render_chunk(4, DT, _camera(CameraParams)),
+        # a camera list (multi-view) stays unported in the render chunk
+        lambda s: s.update_render_chunk(4, DT, [_camera(CameraParams)] * 2),
+        lambda s: (_drifted(s), s.update_render_chunk(4, DT, _camera(CameraParams))),
         lambda s: s.render_views([_camera(CameraParams)]),
-        lambda s: s.render(_camera(CameraParams), return_depth=True),
-        lambda s: s.render(_camera(CameraParams), pipeline="painter"),
+        lambda s: (_validating(s), s.render(_camera(CameraParams), return_depth=True)),
+        lambda s: (_drifted(s), s.render(_camera(CameraParams), pipeline="painter")),
         lambda s: (_validating(s), s.update(DT)),
         lambda s: (_drifted(s), s.update_chunk(2, DT)),
     ],
