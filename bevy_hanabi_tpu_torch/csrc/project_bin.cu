@@ -1,38 +1,63 @@
 // project_bin: project each particle's quad, test it against the screen,
-// bin it into the tile holding its centre, and pack its blend row.
+// bin it into the tile holding its centre, pack its blend row and reduce
+// the depth range of the binned entries; bin_keys: the 32-bit sort key of
+// every entry from its tile, its depth and that range.
 //
-// Replaces bevy_hanabi_tpu/render/raster.py:241-292 (the tile_slots=1
-// branch of steps 1-2, with `_project` at raster.py:148-176) and the row
-// stack of raster.py:516-586. The JAX package leaves this region to XLA
-// on the TPU; it has no Pallas kernel.
+// project_bin replaces bevy_hanabi_tpu/render/raster.py:241-292 (the
+// tile_slots=1 branch of steps 1-2, with `_project` at raster.py:148-176)
+// and the row stack of raster.py:516-586; bin_keys replaces the key build of
+// raster.py:361-423 (`quant_depth` and the packed uint32 keys of the ordered
+// path and the three fast variants). The JAX package leaves both regions to
+// XLA on the TPU; it has no Pallas kernel for them.
 //
 // The row is [cx, cy, h1x, h1y, h2x, h2y, r, g, b, a] (10 floats): the
 // projected quad and the colour. A pass whose blend variant reads more (a
 // depth test, MASK, the painter's SCENE) asks for 13-float rows, which append
 // the view distance the depth test reads (raster.py:578-580) and the two
 // painter columns (the mask cutoff and the blend-mode id, raster.py:549-555),
-// copied from the optional `extra` [N, 2] input (zeros without it). So plain
-// BLEND and ADD passes write and gather no column they never read, and every
-// variant's window is still one gather of one row table.
+// copied from the optional `extra` [N, 2] input (zeros without it).
 //
-// Per particle it reads 3 vec3 + 1 bool + 1 vec4 (+ 2 f32) = 53-61 B and
-// writes the tile id, the depth and one 10- or 13-float row = 48-60 B:
-// ~100-120 MB per frame at 1M particles, so it is bound by device-memory
-// bandwidth (~30-35 us at 3.35 TB/s). The design keeps everything in one
-// pass: the three projections (centre and both half-axis points), the
-// screen test and the binning all stay in registers, and the 4x4 matrices
-// ride in the kernel parameters (constant bank), so the only device traffic
-// is the particle streams.
+// Bound on the H100: per particle project_bin reads 3 vec3 + 1 bool + 1 vec4
+// (+ 2 f32) = 53-61 B and writes the tile id, the depth and one 10- or
+// 13-float row = 48-60 B, ~100-120 MB a frame at 1M particles: device-memory
+// bandwidth, ~30-35 us at 3.35 TB/s. A thread per particle reading its
+// stride-3 inputs and writing its 40- or 52-byte row with scalar stores
+// spreads every warp access over 1.3-1.7 KB. So each block owns a contiguous
+// slice of kBlock particles: it loads the slice's position, axes, colour,
+// alive flags and extra columns into shared memory with 16-byte loads (all
+// in flight before the first is used), projects in registers, assembles the
+// slice's rows in shared memory and writes them out as one contiguous run
+// (kBlock * 40 or 52 bytes) with 16-byte stores. The ragged last block, and
+// any input that is not 16-byte aligned, takes scalar loads and stores.
+//
+// The depth range: each block reduces the min and max of its binned depths
+// with warp reductions and folds them into `range` [2] with one atomic each.
+// A binned depth is > 1e-4 (never NaN), so its IEEE bits order as unsigned
+// and as signed integers. The entry point first sets both words to
+// 0xffffffff (one memset): the unsigned atomicMin of slot 0 and the signed
+// atomicMax of slot 1 (0xffffffff is -1 there) both start below / above every
+// binned depth, and a slot left at 0xffffffff reads as a NaN float: "nothing
+// binned", which bin_keys reads as JAX's +inf / -inf (raster.py:363-366).
+//
+// bin_keys: 12 B per entry (tile, depth in; key out), one thread per four
+// entries with 16-byte loads and stores. The key is JAX's uint32 key, stored
+// XOR 0x80000000 as an int32 so that a signed sort orders it as JAX's
+// unsigned sort: `torch.sort` then sorts 32-bit keys (4 radix passes, not
+// the 8 of an int64 key that the sentinel tile's bit 31 forced before).
 //
 // Numerics: the op order is the JAX package's, and the library is built
 // with -fmad=false so no multiply-add is contracted; the tile floors at
-// tile boundaries then agree bit for bit with the plain PyTorch version.
+// tile boundaries and the quantised depths then agree bit for bit with the
+// plain PyTorch versions.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kBlock = 256;  // particles per block (project_bin)
+constexpr int kRowMax = 13;
 
 struct ProjectParams {
   float mvp[16];     // proj @ view, row-major
@@ -64,69 +89,209 @@ __device__ __forceinline__ Screen project(const ProjectParams& p, float px, floa
   return s;
 }
 
-__global__ void project_bin_kernel(const float* __restrict__ position,
-                                   const float* __restrict__ axis_x,
-                                   const float* __restrict__ axis_y,
-                                   const uint8_t* __restrict__ alive,
-                                   const float* __restrict__ color,
-                                   const float* __restrict__ extra,
-                                   int32_t* __restrict__ tile_out,
-                                   float* __restrict__ depth_out,
-                                   float* __restrict__ rows,
-                                   int n, int row, ProjectParams p) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float px = position[3 * i], py = position[3 * i + 1], pz = position[3 * i + 2];
-  Screen c = project(p, px, py, pz);
-  Screen e1 = project(p, px + 0.5f * axis_x[3 * i], py + 0.5f * axis_x[3 * i + 1],
-                      pz + 0.5f * axis_x[3 * i + 2]);
-  Screen e2 = project(p, px + 0.5f * axis_y[3 * i], py + 0.5f * axis_y[3 * i + 1],
-                      pz + 0.5f * axis_y[3 * i + 2]);
-  float h1x = e1.x - c.x, h1y = e1.y - c.y;
-  float h2x = e2.x - c.x, h2y = e2.y - c.y;
-  float rx = fabsf(h1x) + fabsf(h2x);
-  float ry = fabsf(h1y) + fabsf(h2y);
-  bool valid = alive[i] != 0 && c.dist > 1e-4f;
-  valid = valid && (c.x + rx > 0.0f) && (c.x - rx < p.width);
-  valid = valid && (c.y + ry > 0.0f) && (c.y - ry < p.height);
-  valid = valid && (rx > 1e-6f) && (ry > 1e-6f);
-  int tile = p.nt;
-  if (valid) {
-    // clamp in float before the conversion: exact for every on-screen tile
-    float tx = fminf(fmaxf(floorf(c.x / p.tile), 0.0f), (float)(p.ntx - 1));
-    float ty = fminf(fmaxf(floorf(c.y / p.tile), 0.0f), (float)(p.nty - 1));
-    tile = (int)ty * p.ntx + (int)tx;
+// Copy `count` floats (a block's slice) from global to shared memory.
+__device__ __forceinline__ void load_scalar(float* dst, const float* src, int count) {
+  for (int k = threadIdx.x; k < count; k += blockDim.x) dst[k] = src[k];
+}
+
+__global__ void __launch_bounds__(kBlock) project_bin_kernel(
+    const float* __restrict__ position, const float* __restrict__ axis_x,
+    const float* __restrict__ axis_y, const uint8_t* __restrict__ alive,
+    const float* __restrict__ color, const float* __restrict__ extra,
+    int32_t* __restrict__ tile_out, float* __restrict__ depth_out, float* __restrict__ rows,
+    unsigned int* __restrict__ range, int n, int row, int vec, ProjectParams p) {
+  __shared__ __align__(16) float s_pos[3 * kBlock];
+  __shared__ __align__(16) float s_ax[3 * kBlock];
+  __shared__ __align__(16) float s_ay[3 * kBlock];
+  __shared__ __align__(16) float s_col[4 * kBlock];
+  __shared__ __align__(16) float s_extra[2 * kBlock];
+  __shared__ __align__(16) uint8_t s_alive[kBlock];
+  __shared__ __align__(16) float s_rows[kRowMax * kBlock];
+  __shared__ unsigned int s_min[kBlock / 32];
+  __shared__ int s_max[kBlock / 32];
+
+  const int t = threadIdx.x;
+  const int64_t base = (int64_t)blockIdx.x * kBlock;
+  const int cnt = (int)min((int64_t)kBlock, (int64_t)n - base);
+  const bool full = vec && cnt == kBlock;
+
+  // ---- the slice's inputs into shared memory ----
+  if (full) {
+    // every load of the thread is issued before the first store to shared memory
+    const float4* pos4 = reinterpret_cast<const float4*>(position + 3 * base);
+    const float4* ax4 = reinterpret_cast<const float4*>(axis_x + 3 * base);
+    const float4* ay4 = reinterpret_cast<const float4*>(axis_y + 3 * base);
+    const float4* col4 = reinterpret_cast<const float4*>(color + 4 * base);
+    const float4* ex4 = reinterpret_cast<const float4*>(extra + 2 * base);
+    const uint4* al16 = reinterpret_cast<const uint4*>(alive + base);
+    constexpr int kVec3 = 3 * kBlock / 4, kVec2 = 2 * kBlock / 4, kBytes = kBlock / 16;
+    float4 vp, vx, vy, ve;
+    uint4 va;
+    if (t < kVec3) {
+      vp = pos4[t];
+      vx = ax4[t];
+      vy = ay4[t];
+    }
+    const float4 vc = col4[t];
+    if (extra && t < kVec2) ve = ex4[t];
+    if (t < kBytes) va = al16[t];
+    if (t < kVec3) {
+      reinterpret_cast<float4*>(s_pos)[t] = vp;
+      reinterpret_cast<float4*>(s_ax)[t] = vx;
+      reinterpret_cast<float4*>(s_ay)[t] = vy;
+    }
+    reinterpret_cast<float4*>(s_col)[t] = vc;
+    if (extra && t < kVec2) reinterpret_cast<float4*>(s_extra)[t] = ve;
+    if (t < kBytes) reinterpret_cast<uint4*>(s_alive)[t] = va;
+  } else {
+    load_scalar(s_pos, position + 3 * base, 3 * cnt);
+    load_scalar(s_ax, axis_x + 3 * base, 3 * cnt);
+    load_scalar(s_ay, axis_y + 3 * base, 3 * cnt);
+    load_scalar(s_col, color + 4 * base, 4 * cnt);
+    if (extra) load_scalar(s_extra, extra + 2 * base, 2 * cnt);
+    for (int k = t; k < cnt; k += blockDim.x) s_alive[k] = alive[base + k];
   }
-  tile_out[i] = tile;
-  depth_out[i] = valid ? c.dist : -INFINITY;
-  float* r = rows + row * (int64_t)i;
-  r[0] = c.x;
-  r[1] = c.y;
-  r[2] = h1x;
-  r[3] = h1y;
-  r[4] = h2x;
-  r[5] = h2y;
-  r[6] = color[4 * i];
-  r[7] = color[4 * i + 1];
-  r[8] = color[4 * i + 2];
-  r[9] = color[4 * i + 3];
-  if (row == 13) {
-    r[10] = c.dist;
-    r[11] = extra ? extra[2 * (int64_t)i] : 0.0f;
-    r[12] = extra ? extra[2 * (int64_t)i + 1] : 0.0f;
+  __syncthreads();
+
+  // ---- project, test and bin one particle per thread ----
+  unsigned int lo = 0xffffffffu;  // bits of the binned depth (min identity)
+  int hi = -1;                    // the same, signed (max identity)
+  if (t < cnt) {
+    const float px = s_pos[3 * t], py = s_pos[3 * t + 1], pz = s_pos[3 * t + 2];
+    Screen c = project(p, px, py, pz);
+    Screen e1 = project(p, px + 0.5f * s_ax[3 * t], py + 0.5f * s_ax[3 * t + 1],
+                        pz + 0.5f * s_ax[3 * t + 2]);
+    Screen e2 = project(p, px + 0.5f * s_ay[3 * t], py + 0.5f * s_ay[3 * t + 1],
+                        pz + 0.5f * s_ay[3 * t + 2]);
+    float h1x = e1.x - c.x, h1y = e1.y - c.y;
+    float h2x = e2.x - c.x, h2y = e2.y - c.y;
+    float rx = fabsf(h1x) + fabsf(h2x);
+    float ry = fabsf(h1y) + fabsf(h2y);
+    bool valid = s_alive[t] != 0 && c.dist > 1e-4f;
+    valid = valid && (c.x + rx > 0.0f) && (c.x - rx < p.width);
+    valid = valid && (c.y + ry > 0.0f) && (c.y - ry < p.height);
+    valid = valid && (rx > 1e-6f) && (ry > 1e-6f);
+    int tile = p.nt;
+    if (valid) {
+      // clamp in float before the conversion: exact for every on-screen tile
+      float tx = fminf(fmaxf(floorf(c.x / p.tile), 0.0f), (float)(p.ntx - 1));
+      float ty = fminf(fmaxf(floorf(c.y / p.tile), 0.0f), (float)(p.nty - 1));
+      tile = (int)ty * p.ntx + (int)tx;
+      lo = __float_as_uint(c.dist);
+      hi = __float_as_int(c.dist);
+    }
+    tile_out[base + t] = tile;
+    depth_out[base + t] = valid ? c.dist : -INFINITY;
+    float* r = s_rows + row * t;
+    r[0] = c.x;
+    r[1] = c.y;
+    r[2] = h1x;
+    r[3] = h1y;
+    r[4] = h2x;
+    r[5] = h2y;
+    r[6] = s_col[4 * t];
+    r[7] = s_col[4 * t + 1];
+    r[8] = s_col[4 * t + 2];
+    r[9] = s_col[4 * t + 3];
+    if (row == 13) {
+      r[10] = c.dist;
+      r[11] = extra ? s_extra[2 * t] : 0.0f;
+      r[12] = extra ? s_extra[2 * t + 1] : 0.0f;
+    }
+  }
+
+  // ---- the block's depth range: one atomic per slot and block ----
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if ((t & 31) == 0) {
+    s_min[t >> 5] = lo;
+    s_max[t >> 5] = hi;
+  }
+  __syncthreads();
+  if (t == 0) {
+    for (int w = 1; w < kBlock / 32; ++w) {
+      lo = min(lo, s_min[w]);
+      hi = max(hi, s_max[w]);
+    }
+    if (lo != 0xffffffffu) atomicMin(range, lo);
+    if (hi != -1) atomicMax(reinterpret_cast<int*>(range + 1), hi);
+  }
+
+  // ---- the slice's rows, one contiguous run ----
+  float* dst = rows + base * row;
+  if (full) {
+    const int n4 = kBlock * row / 4;  // row * kBlock floats, a multiple of 4
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    const float4* s4 = reinterpret_cast<const float4*>(s_rows);
+    for (int k = t; k < n4; k += kBlock) d4[k] = s4[k];
+  } else {
+    for (int k = t; k < cnt * row; k += kBlock) dst[k] = s_rows[k];
   }
 }
+
+// Key layout: key = (tile << tile_shift) | (q << idx_bits) | (idx_bits ? i : 0),
+// with q the depth quantised to q_bits (none where q_bits == 0), far first
+// (scale - q) where `far_first`.
+struct KeyParams {
+  int tile_shift, q_bits, idx_bits, far_first;
+};
+
+__device__ __forceinline__ int32_t entry_key(int32_t tile, float d, int64_t i, float dmin,
+                                             float span, const KeyParams& k) {
+  uint32_t key = (uint32_t)tile << k.tile_shift;
+  if (k.q_bits) {
+    // raster.py:368: (clip((d - dmin) / span, 0, 1) * scale).astype(uint32)
+    const float scale = (float)((1u << k.q_bits) - 1u);
+    const float x = fminf(fmaxf((d - dmin) / span, 0.0f), 1.0f);
+    uint32_t q = (uint32_t)(x * scale);
+    if (k.far_first) q = ((1u << k.q_bits) - 1u) - q;
+    key |= q << k.idx_bits;
+  }
+  if (k.idx_bits) key |= (uint32_t)i;
+  return (int32_t)(key ^ 0x80000000u);
+}
+
+__global__ void bin_keys_kernel(const int32_t* __restrict__ tile, const float* __restrict__ depth,
+                                const float* __restrict__ range, int32_t* __restrict__ key,
+                                int64_t n, int vec, KeyParams k) {
+  float dmin = 0.0f, span = 1.0f;
+  if (k.q_bits) {
+    const float r0 = range[0], r1 = range[1];
+    // NaN: nothing binned, JAX's empty min and max (raster.py:363-366)
+    dmin = r0 != r0 ? INFINITY : r0;
+    const float dmax = r1 != r1 ? -INFINITY : r1;
+    span = fmaxf(dmax - dmin, 1e-9f);  // jnp.maximum(dmax - dmin, 1e-9)
+  }
+  const int64_t i0 = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i0 >= n) return;
+  if (vec && i0 + 4 <= n) {
+    const int4 tv = *reinterpret_cast<const int4*>(tile + i0);
+    const float4 dv = *reinterpret_cast<const float4*>(depth + i0);
+    int4 out;
+    out.x = entry_key(tv.x, dv.x, i0, dmin, span, k);
+    out.y = entry_key(tv.y, dv.y, i0 + 1, dmin, span, k);
+    out.z = entry_key(tv.z, dv.z, i0 + 2, dmin, span, k);
+    out.w = entry_key(tv.w, dv.w, i0 + 3, dmin, span, k);
+    *reinterpret_cast<int4*>(key + i0) = out;
+  } else {
+    for (int64_t i = i0; i < n && i < i0 + 4; ++i)
+      key[i] = entry_key(tile[i], depth[i], i, dmin, span, k);
+  }
+}
+
+bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
 // params: mvp[16], view row 2 [4], vp_w, vp_h, width, height, tile (25 floats)
-// extra: [n, 2] f32 (cutoff, mode) or NULL; row: floats per row, 10 or 13
+// extra: [n, 2] f32 (cutoff, mode) or NULL; row: floats per row, 10 or 13;
+// range: f32 [2], out: (min, max) of the binned depths, NaN where none
 extern "C" int hanabi_project_bin(const void* position, const void* axis_x, const void* axis_y,
                                   const void* alive, const void* color, const void* extra,
-                                  void* tile_out,
-                                  void* depth_out, void* rows, int n, int row,
-                                  const float* params, int ntx, int nty, void* stream) {
-  if (row != 10 && row != 13) return (int)cudaErrorInvalidValue;
+                                  void* tile_out, void* depth_out, void* rows, void* range,
+                                  int n, int row, const float* params, int ntx, int nty,
+                                  void* stream) {
+  if ((row != 10 && row != 13) || !range) return (int)cudaErrorInvalidValue;
   ProjectParams p;
   for (int k = 0; k < 16; ++k) p.mvp[k] = params[k];
   for (int k = 0; k < 4; ++k) p.view2[k] = params[16 + k];
@@ -138,13 +303,35 @@ extern "C" int hanabi_project_bin(const void* position, const void* axis_x, cons
   p.ntx = ntx;
   p.nty = nty;
   p.nt = ntx * nty;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(range, 0xff, 2 * sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
   if (n > 0) {
-    const int threads = 256;
-    project_bin_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+    const int vec = aligned16(position) && aligned16(axis_x) && aligned16(axis_y) &&
+                    aligned16(alive) && aligned16(color) && aligned16(extra) && aligned16(rows);
+    project_bin_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0, s>>>(
         (const float*)position, (const float*)axis_x, (const float*)axis_y,
         (const uint8_t*)alive, (const float*)color, (const float*)extra, (int32_t*)tile_out,
-        (float*)depth_out,
-        (float*)rows, n, row, p);
+        (float*)depth_out, (float*)rows, (unsigned int*)range, n, row, vec, p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// tile int32 [n], depth f32 [n], range f32 [2] (NaN: nothing binned; may be
+// NULL where q_bits is 0) -> key int32 [n] in the layout of KeyParams
+extern "C" int hanabi_bin_keys(const void* tile, const void* depth, const void* range, void* key,
+                               long long n, int tile_shift, int q_bits, int idx_bits,
+                               int far_first, void* stream) {
+  if (tile_shift < 0 || tile_shift > 31 || q_bits < 0 || q_bits > 22 || idx_bits < 0 ||
+      idx_bits > 31 || (q_bits && !range))
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    KeyParams k{tile_shift, q_bits, idx_bits, far_first};
+    const int vec = aligned16(tile) && aligned16(depth) && aligned16(key);
+    const int threads = 256;
+    const long long blocks = ((n + 3) / 4 + threads - 1) / threads;
+    bin_keys_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)tile, (const float*)depth, (const float*)range, (int32_t*)key, n, vec, k);
   }
   return (int)cudaGetLastError();
 }

@@ -29,12 +29,15 @@ from typing import Callable, NamedTuple
 __all__ = [
     "build",
     "library",
+    "bind",
+    "find_nvcc",
     "check",
     "check_tensor",
     "current_stream",
     "Kernel",
     "BUILD_DIR",
     "NVCC_FLAGS",
+    "SIGNATURES",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -51,12 +54,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
+SIGNATURES = {
     # (table, idx, out, n_out, n_table, F, stream)
     "hanabi_gather_rows": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
-    # (position, axis_x, axis_y, alive, color, extra, tile, depth, rows, n, row, params, ntx,
-    #  nty, stream)
-    "hanabi_project_bin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
+    # (position, axis_x, axis_y, alive, color, extra, tile, depth, rows, range, n, row, params,
+    #  ntx, nty, stream)
+    "hanabi_project_bin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
+    # (tile, depth, range, key, n, tile_shift, q_bits, idx_bits, far_first, stream)
+    "hanabi_bin_keys": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
     # (window, has, fb_in, depth_in, fb, depth_out, nt, M, T, ntx, background, eq,
     #  depth_test, write_depth, stream)
     "hanabi_tile_blend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],
@@ -95,7 +100,8 @@ def current_stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _nvcc() -> str:
+def find_nvcc() -> str:
+    """The ``nvcc`` of ``CUDA_HOME`` / ``CUDA_PATH``, else on ``PATH``, else PyTorch's CUDA home."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home and (Path(home) / "bin" / "nvcc").exists():
         return str(Path(home) / "bin" / "nvcc")
@@ -135,7 +141,7 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = find_nvcc()
     cu = [s for s in _sources() if s.suffix == ".cu"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs = [Path(tmpdir) / f"{s.stem}.o" for s in cu]
@@ -166,17 +172,24 @@ def build() -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once per process."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give every C entry point of :data:`SIGNATURES` that ``lib`` holds
+    its argument and return types (a library built from some of the
+    sources holds only theirs)."""
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.hanabi_error_string.argtypes = [ctypes.c_int]
     lib.hanabi_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once per process."""
+    return bind(ctypes.CDLL(str(build())))
 
 
 def check(code: int, kernel: str) -> None:

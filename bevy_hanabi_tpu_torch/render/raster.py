@@ -10,15 +10,17 @@ seeded framebuffer:
    the screen, bins it into the tile holding its centre and packs its row
    ``[cx, cy, h1x, h1y, h2x, h2y, r, g, b, a]``, with ``[depth, cutoff,
    mode]`` appended where the pass's blend variant reads them
-   (:func:`row_width`);
-2. :func:`sort_tiles` packs the JAX package's 32-bit keys — ``(tile |
-   far-first depth)`` on the ordered path, one of the three fast variants
-   of :func:`fast_mode` for ``add`` — and sorts them (plain torch: CUB's
-   radix sort); ``searchsorted`` of the tile bounds gives each tile's run;
+   (:func:`row_width`), and reduces the binned depths' range;
+2. :func:`sort_tiles` packs the JAX package's 32-bit keys with
+   :func:`bin_keys` (CUDA kernel) — ``(tile | far-first depth)`` on the
+   ordered path, one of the three fast variants of :func:`fast_mode` for
+   ``add`` — as int32, and sorts them (plain torch: CUB's radix sort);
+   ``searchsorted`` of the tile bounds gives each tile's run;
 3. :func:`~..ops.gather.gather_rows` (CUDA kernel, the port of the TPU row
    gather) fetches ``M`` rows of every tile in blend order;
 4. :func:`tile_blend` (CUDA kernel) blends each tile in one CTA, one thread
-   per pixel, its depth plane in registers.
+   per pixel, its depth plane in registers, and culls the entries that
+   cover no pixel of a warp's block before the exact per-pixel test.
 
 Every kernel wrapper has a plain PyTorch version beside it, used only for
 tensors on the CPU; for CUDA tensors the wrapper launches its kernel (or
@@ -29,6 +31,7 @@ JAX rasterizer raises ``NotImplementedError`` naming the branch.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Any, Sequence, Tuple
 
@@ -50,6 +53,9 @@ __all__ = [
     "row_width",
     "project_bin",
     "project_bin_plain",
+    "depth_range_plain",
+    "bin_keys",
+    "bin_keys_plain",
     "tile_blend",
     "tile_blend_plain",
     "fast_mode",
@@ -136,6 +142,18 @@ def _check_row(row, extra):
         raise ValueError(f"project_bin: the cutoff and mode columns need {ROW}-float rows")
 
 
+def depth_range_plain(depth: torch.Tensor) -> torch.Tensor:
+    """(min, max) of the binned depths (those above ``-inf``) as f32 [2],
+    NaN where nothing is binned: the range :func:`project_bin` reduces and
+    :func:`bin_keys` reads (raster.py:363-365)."""
+    if depth.numel() == 0:
+        return torch.full((2,), torch.nan, dtype=torch.float32, device=depth.device)
+    binned = depth > -torch.inf
+    lo = torch.where(binned, depth, torch.inf).min()
+    hi = torch.where(binned, depth, -torch.inf).max()
+    return torch.where(binned.any(), torch.stack([lo, hi]), torch.nan)
+
+
 def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewport,
                       T, ntx, nty, raster_size=None, extra=None, row=ROW):
     """Plain version of :func:`project_bin`: raster.py:241-292 + 516-586."""
@@ -182,7 +200,8 @@ def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewpo
         if extra is None:
             extra = torch.zeros((position.shape[0], 2), dtype=torch.float32, device=position.device)
         cols += [dist[:, None], extra]
-    return tile, depth, torch.cat(cols, dim=1).contiguous()
+    rows = torch.cat(cols, dim=1).contiguous()
+    return tile, depth, rows, depth_range_plain(depth)
 
 
 def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
@@ -197,8 +216,9 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
     :data:`ROW_QUAD` (10, without); ``extra`` an optional f32 [N, 2] of
     (mask cutoff, painter mode id) per particle for 13-float rows, zeros
     without it. Returns ``tile`` int32 [N] (``ntx * nty`` where invalid),
-    ``depth`` f32 [N] (view distance, ``-inf`` where invalid) and ``rows``
-    f32 [N, row]."""
+    ``depth`` f32 [N] (view distance, ``-inf`` where invalid), ``rows``
+    f32 [N, row] and the binned depths' (min, max) as f32 [2]
+    (:func:`depth_range_plain`), which :func:`bin_keys` reads."""
     dev = position.device
     n = position.shape[0]
     _check(position, "position", torch.float32, (n, 3), dev)
@@ -216,18 +236,93 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
     tile = torch.empty((n,), dtype=torch.int32, device=dev)
     depth = torch.empty((n,), dtype=torch.float32, device=dev)
     rows = torch.empty((n, row), dtype=torch.float32, device=dev)
+    rng = torch.empty((2,), dtype=torch.float32, device=dev)
     code = cuda_build.library().hanabi_project_bin(
         position.data_ptr(), axis_x.data_ptr(), axis_y.data_ptr(), alive.data_ptr(), color.data_ptr(),
         None if extra is None else extra.data_ptr(),
-        tile.data_ptr(), depth.data_ptr(), rows.data_ptr(), n, row,
-        params.ctypes.data_as(ctypes.c_void_p), ntx, nty, _stream(),
+        tile.data_ptr(), depth.data_ptr(), rows.data_ptr(), rng.data_ptr(),
+        n, row, params.ctypes.data_as(ctypes.c_void_p), ntx, nty, _stream(),
     )
     cuda_build.check(code, "project_bin")
     project_bin.launches += 1
-    return tile, depth, rows
+    return tile, depth, rows, rng
 
 
 project_bin.launches = 0
+
+
+def _key_layout(n: int, nt: int, mode):
+    """``(tile_shift, q_bits, idx_bits, far_first)`` of the JAX package's
+    uint32 key for ``n`` entries and :func:`fast_mode`'s ``mode``
+    (raster.py:373-423): ``key = tile << tile_shift | q << idx_bits | i``
+    with ``q`` the depth quantised to ``q_bits`` (far first where
+    ``far_first``) and the entry index ``i`` only where ``idx_bits``."""
+    tile_bits = max(1, int(np.ceil(np.log2(nt + 2))))
+    if mode in ("first", "depth"):
+        idx_bits = max(1, int(np.ceil(np.log2(max(n, 2)))))
+        slack = 32 - tile_bits - idx_bits
+        if slack < (4 if mode == "depth" else 0):
+            raise ValueError(f"sort_tiles: {n} entries and {nt} tiles leave no room for {mode!r} keys")
+        db = min(slack, 8) if mode == "depth" else 0
+        return db + idx_bits, db, idx_bits, False
+    if mode in (None, "payload"):
+        shift = min(22, 32 - tile_bits)  # raster.py:403: f32 quantisation stays exact
+        return shift, shift, 0, mode is None
+    raise ValueError(f"sort_tiles: unknown mode {mode!r}")
+
+
+def bin_keys_plain(tile, depth, depth_range, nt: int, mode=None):
+    """Plain version of :func:`bin_keys`: the JAX package's uint32 keys
+    (raster.py:361-423), XOR 0x80000000 as int32."""
+    n = tile.shape[0]
+    tile_shift, q_bits, idx_bits, far_first = _key_layout(n, nt, mode)
+    key = tile.to(torch.int64) << tile_shift
+    if q_bits:
+        lo, hi = depth_range[0], depth_range[1]
+        dmin = torch.where(lo.isnan(), torch.inf, lo)  # NaN: nothing binned (raster.py:364-365)
+        dmax = torch.where(hi.isnan(), -torch.inf, hi)
+        span = torch.fmax(dmax - dmin, depth.new_tensor(1e-9))
+        # fmax maps a NaN quotient to 0, as the kernel's fmaxf
+        x = torch.clamp(torch.fmax((depth - dmin) / span, depth.new_zeros(())), max=1.0)
+        q = (x * float((1 << q_bits) - 1)).to(torch.int64)
+        if far_first:
+            q = ((1 << q_bits) - 1) - q
+        key = key | (q << idx_bits)
+    if idx_bits:
+        key = key | torch.arange(n, dtype=torch.int64, device=tile.device)
+    return (key - (1 << 31)).to(torch.int32)
+
+
+def bin_keys(tile, depth, depth_range, nt: int, mode=None):
+    """The sort key of every entry: the JAX package's uint32 key for
+    :func:`fast_mode`'s ``mode`` (``None`` the ordered path, far first;
+    ``"payload"`` near first; ``"first"`` / ``"depth"`` ending in the entry
+    index), XOR 0x80000000 as int32 so that a signed sort orders it as the
+    unsigned key. ``tile`` int32 [N], ``depth`` f32 [N] (``-inf`` where not
+    binned), ``depth_range`` f32 [2] (:func:`depth_range_plain`; may be
+    ``None`` for ``"first"``, which quantises no depth). Returns int32 [N]."""
+    n = tile.shape[0]
+    dev = tile.device
+    _check(tile, "tile", torch.int32, (n,), dev)
+    _check(depth, "depth", torch.float32, (n,), dev)
+    tile_shift, q_bits, idx_bits, far_first = _key_layout(n, nt, mode)
+    if depth_range is not None:
+        _check(depth_range, "depth_range", torch.float32, (2,), dev)
+    elif q_bits:
+        raise ValueError(f"bin_keys: the {mode!r} key quantises depth and needs depth_range")
+    if not tile.is_cuda:
+        return bin_keys_plain(tile, depth, depth_range, nt, mode)
+    key = torch.empty((n,), dtype=torch.int32, device=dev)
+    code = cuda_build.library().hanabi_bin_keys(
+        tile.data_ptr(), depth.data_ptr(), None if depth_range is None else depth_range.data_ptr(),
+        key.data_ptr(), n, tile_shift, q_bits, idx_bits, int(far_first), _stream(),
+    )
+    cuda_build.check(code, "bin_keys")
+    bin_keys.launches += 1
+    return key
+
+
+bin_keys.launches = 0
 
 
 # the equations of tile_blend, by the id its kernel takes
@@ -403,6 +498,12 @@ KERNELS = {
         "bevy_hanabi_tpu_torch/csrc/project_bin.cu",
         "bevy_hanabi_tpu/render/raster.py:241",
     ),
+    "bin_keys": Kernel(
+        bin_keys,
+        bin_keys_plain,
+        "bevy_hanabi_tpu_torch/csrc/project_bin.cu",
+        "bevy_hanabi_tpu/render/raster.py:361",
+    ),
     "tile_blend": Kernel(
         tile_blend,
         tile_blend_plain,
@@ -436,54 +537,43 @@ def fast_mode(config: RasterConfig, alpha_mode: str, num_entries: int):
     return "payload"
 
 
-def _quant_depth(depth: torch.Tensor, depth_bits: int) -> torch.Tensor:
-    """Entry depths quantized ascending (near = small) to ``depth_bits``
-    (raster.py:361-371), as int64."""
-    finite = depth > -torch.inf
-    dmin = torch.where(finite, depth, torch.inf).min()
-    dmax = torch.where(finite, depth, -torch.inf).max()
-    span_d = torch.clamp(dmax - dmin, min=1e-9)
-    scale = float((1 << depth_bits) - 1)
-    return (torch.clamp((depth - dmin) / span_d, 0.0, 1.0) * scale).to(torch.int64)
+@functools.lru_cache(maxsize=64)
+def _tile_bounds(nt: int, tile_shift: int, device: torch.device) -> torch.Tensor:
+    """The biased int32 keys ``t << tile_shift`` of ``t = 0..nt``: all keys
+    of tile ``t`` lie in ``[bound[t], bound[t + 1])`` (raster.py:386-392,
+    417-422). Built once per layout and device."""
+    b = (np.arange(nt + 1, dtype=np.int64) << tile_shift) - (1 << 31)
+    return torch.from_numpy(b.astype(np.int32)).to(device)
 
 
-def sort_tiles(tile: torch.Tensor, depth: torch.Tensor, nt: int, mode=None):
+def sort_tiles(tile: torch.Tensor, depth: torch.Tensor, nt: int, mode=None, depth_range=None):
     """Order entries by tile and, per tile, as ``mode`` wants (raster.py:361-423).
 
     ``mode`` is :func:`fast_mode`'s: ``None`` orders each tile far-first
     (the ordered path), ``"payload"`` near-first, and ``"first"`` /
     ``"depth"`` sort one packed key that ends in the entry index. The keys
-    keep the JAX package's 32-bit layout (the sentinel tile ``nt`` may set
-    bit 31, so they ride int64), so the same entries survive an
-    overflowing tile. Returns ``(pidx_sorted int64 [N], starts [nt], ends
-    [nt])``."""
+    are the JAX package's 32-bit keys from :func:`bin_keys`, as int32, so
+    the same entries survive an overflowing tile. ``depth_range`` is
+    :func:`project_bin`'s; on the CPU it may be ``None``, and then
+    :func:`depth_range_plain` of ``depth`` computes it. Returns ``(pidx_sorted [N]`` (int64 from the stable sort, or int32
+    decoded from the key), ``starts [nt], ends [nt])``."""
     n = tile.shape[0]
-    tile_bits = max(1, int(np.ceil(np.log2(nt + 2))))
-    tile64 = tile.to(torch.int64)
-    if mode in ("first", "depth"):
-        idx_bits = max(1, int(np.ceil(np.log2(max(n, 2)))))
-        db = min(32 - tile_bits - idx_bits, 8) if mode == "depth" else 0
-        shift = db + idx_bits
-        key = (tile64 << shift) | torch.arange(n, dtype=torch.int64, device=tile.device)
-        if db:
-            key = key | (_quant_depth(depth, db) << idx_bits)
+    tile_shift, q_bits, idx_bits, _ = _key_layout(n, nt, mode)
+    if depth_range is None and q_bits:
+        if tile.is_cuda:
+            raise ValueError("sort_tiles: CUDA entries need project_bin's depth_range")
+        depth_range = depth_range_plain(depth)
+    key = bin_keys(tile, depth, depth_range, nt, mode)
+    if idx_bits:
         key_sorted = torch.sort(key).values  # unique keys: the order is fixed
         # one slot per particle (tile_slots=1): the entry index is the particle
         pidx_sorted = key_sorted & ((1 << idx_bits) - 1)
-    elif mode in (None, "payload"):
-        shift = min(22, 32 - tile_bits)
-        dq = _quant_depth(depth, shift)
-        if mode is None:
-            dq = ((1 << shift) - 1) - dq  # far first
-        key = (tile64 << shift) | dq
+    else:
         # Stable, unlike lax.sort: equal (tile | depth) keys may blend in
         # another order than the JAX package's, which the checksum
         # tolerance absorbs.
         key_sorted, pidx_sorted = torch.sort(key, stable=True)
-    else:
-        raise ValueError(f"sort_tiles: unknown mode {mode!r}")
-    bound = torch.arange(nt + 1, dtype=torch.int64, device=tile.device) << shift
-    r = torch.searchsorted(key_sorted, bound)
+    r = torch.searchsorted(key_sorted, _tile_bounds(nt, tile_shift, tile.device))
     return pidx_sorted, r[:-1], r[1:]
 
 
@@ -591,13 +681,13 @@ def rasterize(
         )
         extra = torch.stack([cutoff.to(torch.float32), mode_col], dim=1)
     row = row_width(alpha_mode, depth_test)
-    tile_ids, depth, rows = project_bin(
+    tile_ids, depth, rows, depth_range = project_bin(
         draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(),
         camera.view, camera.proj, camera.viewport, T, ntx, nty,
         raster_size=(config.width, config.height), extra=extra, row=row,
     )
     mode = fast_mode(config, alpha_mode, n)
-    pidx_sorted, starts, ends = sort_tiles(tile_ids, depth, nt, mode)
+    pidx_sorted, starts, ends = sort_tiles(tile_ids, depth, nt, mode, depth_range)
     M = config.max_entries_per_tile
     pidx, has = window_index(pidx_sorted, starts, ends, M, from_start=mode is not None)
     window = gather_rows(rows, pidx.reshape(-1)).reshape(nt, M, row)

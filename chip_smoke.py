@@ -12,7 +12,11 @@ of which fails the run on any error:
 1. a CUDA device must be present; print its name and power limit;
 2. build the kernel library (nvcc, one process per source, ctypes);
 3. compare each raster kernel with its plain PyTorch version on the card,
-   on a real 1M-particle headline frame, and time both;
+   on a real 1M-particle headline frame, and time both: ``project_bin``
+   (tiles, depths and depth range equal, rows at max abs err 0),
+   ``bin_keys`` (bit-equal; beside it the stable sort of its int32 keys
+   and of the same keys widened to int64), the window gather (bit-exact)
+   and ``tile_blend`` in BLEND (max abs err 0);
 4. an 8192-particle gradient frame at 128x128 through the kernels on the
    card against the plain versions on the CPU (checksums within 0.5%);
 5. the headline: ``gradient_effect(1 << 20)`` warmed past its 5 s
@@ -36,10 +40,10 @@ of which fails the run on any error:
       and trails on screen; every kernel's launch counter must move over
       the chunks and the frame; the frame is rendered again on the CPU
       through the plain versions (checksums within 0.5%);
-   b. on that frame's 327,680 entries, ``project_bin`` and the window
-      gather against their plain versions (as in phase 3), and
-      ``tile_blend`` in ADD mode against its plain version, max abs err
-      <= 1e-5; then the trail step's payload gather (``gather_rows`` of the
+   b. on that frame's 327,680 entries, ``project_bin``, ``bin_keys`` and
+      the window gather against their plain versions (as in phase 3), and
+      ``tile_blend`` in ADD mode against its plain version, max abs err 0;
+      then the trail step's payload gather (``gather_rows`` of the
       rocket buffer's [65536, 3] positions at the 262144 trail lanes' event
       indices, with dying rockets' events pending) bit-exact; all timed.
 
@@ -66,17 +70,29 @@ of which fails the run on any error:
     frame is rendered again on the CPU too. On that frame each kernel of
     both pipelines is held against its plain version at the pass's own
     shapes, and timed: the painter pass's ``project_bin`` (with the painter
-    columns), window gather and ``tile_blend`` SCENE at M = 64 and M = 128;
+    columns), ``bin_keys`` with its sort, window gather and ``tile_blend``
+    SCENE at M = 64 and M = 128;
     the split pipeline's depth-writing OPAQUE debris pass, then its BLEND
     gradient pass and its ADD rocket + trail batch (the fast path), both
-    depth-tested against the debris pass's depth plane. Then
+    depth-tested against the debris pass's depth plane; every framebuffer at
+    max abs err 0 and every depth plane equal. Then
     ``torch.profiler`` over 30 frames of ``update_render_chunk``.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND), the firework's (``[firework]``,
 ``tile_blend[add]``, ``event_compact``) and the mixed scene's (``[mixed]``,
 ``tile_blend[scene]``, ``tile_blend[scene,M=128]``, ``tile_blend[opaque]``,
-``tile_blend[blend,split]``, ``tile_blend[add,split]``), then as its last line
+``tile_blend[blend,split]``, ``tile_blend[add,split]``). Each row holds the
+path's launches, the kernel's and its plain version's device ms, the
+library call's (``index_select`` for the gather, else null), and
+``bound_ms``: the larger of the bytes the call must move over 3.35 TB/s and
+its FP32 operations over 67 TFLOP/s (``bound_by`` says which), computed from
+that call's inputs and counting only the work every correct kernel must
+do; ``share`` is ``bound_ms / ms``. The ``bin_keys`` rows also hold
+``sort_ms`` and ``sort_int64_ms``; the ``tile_blend`` rows
+``filled_entries`` and ``covered_pairs``, what their bound counts (the
+filled entries' rows, and the covered (entry, pixel) pairs' test and
+blend). Then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or any phase fails.
 """
@@ -93,20 +109,40 @@ K = 120  # frames per chunk, as the JAX package's benchmark
 DT = 1.0 / 60.0
 CAPACITY = 1 << 20
 CHECKSUM_REL = 0.005  # bench.py:155-161: f32 blend arithmetic, 5x margin
-PROJECT_MISMATCH_MAX = 1e-4  # share of particles whose tile or depth may differ
-ROWS_ATOL = 1e-3  # pixels; both versions round op for op, so expect 0
-BLEND_ATOL = 1e-5
+# Every kernel rounds op for op like its plain version (built with
+# -fmad=false), so each comparison below is exact: tiles, depths, keys and
+# depth planes equal, rows and framebuffers at max abs err 0.
 POS_RTOL, POS_ATOL = 1e-2, 1e-3  # bench.py:121-130, 189: positions, transcendental ULPs
-HEADLINE_KERNELS = ("gather_rows", "project_bin", "tile_blend")  # tile_blend in BLEND
-FIREWORK_KERNELS = ("gather_rows", "project_bin", "tile_blend[add]", "event_compact")
+# The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, at
+# its 700 W limit): device memory and FP32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations that every correct kernel must do, counted from the
+# reference's code: project_bin per particle (three projections of 4 dot
+# products, the divide and viewport map, the half axes, the screen and size
+# tests, the tile floor), bin_keys per entry (the quantisation and the
+# packing). tile_blend: per filled entry its clamped det (two products, a
+# difference, the clamp's compare and select); per covered (entry, pixel)
+# pair the test that finds it covered (dx, dy, two numerators of two products
+# and a difference, two comparisons) and its equation's blend (BLEND: 1 - a,
+# two products and a sum a channel, alpha's product and sum; ADD: a product
+# and a sum a channel, alpha's sum and clamp; OPAQUE selects; MASK's cutoff
+# compare; SCENE's transparent entries as BLEND). A pair no pixel of which
+# is covered needs no work: a kernel may skip it by a bound per entry and
+# block, as tile_blend.cu does.
+PROJECT_OPS, KEY_OPS = 150, 10
+ENTRY_OPS, COVER_TEST_OPS = 5, 10
+BLEND_EQ_OPS = {"blend": 12, "add": 8, "opaque": 0, "mask": 1, "scene": 12}
+HEADLINE_KERNELS = ("gather_rows", "project_bin", "bin_keys", "tile_blend")  # tile_blend in BLEND
+FIREWORK_KERNELS = ("gather_rows", "project_bin", "bin_keys", "tile_blend[add]", "event_compact")
 FW_K = 240  # frames per firework chunk, as bench.py::bench_firework_events
 FW_INTO_BURST = 10  # frames into a 2 s burst period at which the timed chunks start
 FW_RENDER_AT = 75  # frames into a burst period at which the frame is rendered
 # every kernel of each pipeline of the mixed scene
 MIXED_KERNELS = {
-    "auto": ("gather_rows", "project_bin", "tile_blend[scene]", "event_compact"),
-    "split": ("gather_rows", "project_bin", "tile_blend[opaque]", "tile_blend", "tile_blend[add]",
-              "event_compact"),
+    "auto": ("gather_rows", "project_bin", "bin_keys", "tile_blend[scene]", "event_compact"),
+    "split": ("gather_rows", "project_bin", "bin_keys", "tile_blend[opaque]", "tile_blend",
+              "tile_blend[add]", "event_compact"),
 }
 MIXED_K = 8  # frames per chunk of the small mixed gate (phase 10)
 MIXED_M_WIDE = 128  # the third timing's max_entries_per_tile (bench.py:765)
@@ -165,35 +201,172 @@ def chunk_inputs(fx, spawner, frame: int, k: int = K):
     return fx.stack_frames(inputs, sims)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(moved_bytes: float, ops: float = 0.0) -> dict:
+    """The least time the card could take for a kernel's work: the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its FP32 operations over the peak rate."""
+    by_bytes = 1e3 * moved_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / FP32_OPS_PER_S
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
+
+
+def torch_equal_nan(a, b) -> bool:
+    """Equal values, NaN where the other is NaN."""
+    import torch
+
+    return bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
 def compare_project_bin(pb_args, nt: int, label: str, row: int, extra=None):
     """``project_bin`` against its plain version on ``pb_args``, with
-    ``row``-float rows: at most a ``PROJECT_MISMATCH_MAX`` share of
-    tiles/depths may differ, rows within ``ROWS_ATOL``. Returns the result
-    row and the plain outputs."""
+    ``row``-float rows: tiles, depths and the depth range equal, rows at max
+    abs err 0. Returns the result row and the plain outputs (tile, depth,
+    rows, range)."""
     import torch
 
     from bevy_hanabi_tpu_torch.render import raster
 
     kw = dict(extra=extra, row=row)
-    tile_k, depth_k, rows_k = raster.project_bin(*pb_args, **kw)
-    tile_p, depth_p, rows_p = raster.project_bin_plain(*pb_args, **kw)
+    tile_k, depth_k, rows_k, range_k = raster.project_bin(*pb_args, **kw)
+    plain = raster.project_bin_plain(*pb_args, **kw)
+    tile_p, depth_p, rows_p, range_p = plain
     torch.cuda.synchronize()
     bad = int(((tile_k != tile_p) | (depth_k != depth_p)).sum())
     rows_err = float((rows_k - rows_p).abs().nan_to_num(0.0).max())
     n = tile_p.shape[0]
     valid = int((tile_p < nt).sum())
     print(f"{label}: {n} particles, {valid} binned on screen, {row}-float rows, "
-          f"{bad} tile/depth mismatches, rows max abs err {rows_err:g}")
-    if bad > PROJECT_MISMATCH_MAX * n:
+          f"{bad} tile/depth mismatches, rows max abs err {rows_err:g}, depth range "
+          f"{range_k.tolist()} (plain {range_p.tolist()})")
+    if bad:
         fail(f"{label}: {bad} of {n} tiles/depths differ from the plain version")
-    if not torch.equal(rows_k.isnan(), rows_p.isnan()) or not rows_err <= ROWS_ATOL:
+    if not torch.equal(rows_k.isnan(), rows_p.isnan()) or rows_err != 0.0:
         fail(f"{label}: rows differ from the plain version (max abs err {rows_err:g})")
-    row = {
+    if not torch_equal_nan(range_k, range_p):
+        fail(f"{label}: depth range {range_k.tolist()} differs from the plain {range_p.tolist()}")
+    inputs = (*pb_args[:5], extra)
+    result = {
         "max_abs_err": rows_err,
         "ms": cuda_ms(lambda: raster.project_bin(*pb_args, **kw), 50),
         "plain_ms": cuda_ms(lambda: raster.project_bin_plain(*pb_args, **kw), 10),
+        "library_ms": None,
+        **bound(nbytes(*inputs, *plain), PROJECT_OPS * n),
     }
-    return row, (tile_p, depth_p, rows_p)
+    return result, plain
+
+
+def compare_bin_keys(projected, nt: int, mode, label: str) -> dict:
+    """``bin_keys`` against its plain version on a pass's ``project_bin``
+    outputs, bit for bit, and both timed; beside them the sort that the
+    path runs on those int32 keys, and the same sort of the keys widened to
+    int64 (the form the 32-bit keys replaced)."""
+    import torch
+
+    from bevy_hanabi_tpu_torch.render import raster
+
+    tile, depth, _, rng = projected
+    got = raster.bin_keys(tile, depth, rng, nt, mode)
+    want = raster.bin_keys_plain(tile, depth, rng, nt, mode)
+    torch.cuda.synchronize()
+    if got.dtype != torch.int32 or not torch.equal(got, want):
+        fail(f"{label}: keys differ from the plain version")
+    wide = got.to(torch.int64) + (1 << 31)  # the unsigned key, as the int64 sort took it
+    if mode in ("first", "depth"):
+        sort32, sort64 = (lambda: torch.sort(got)), (lambda: torch.sort(wide))
+    else:
+        sort32, sort64 = (lambda: torch.sort(got, stable=True)), (lambda: torch.sort(wide, stable=True))
+    result = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: raster.bin_keys(tile, depth, rng, nt, mode), 100),
+        "plain_ms": cuda_ms(lambda: raster.bin_keys_plain(tile, depth, rng, nt, mode), 20),
+        "library_ms": None,
+        **bound(nbytes(tile, depth, rng, got), KEY_OPS * tile.shape[0]),
+        "sort_ms": cuda_ms(sort32, 50),
+        "sort_int64_ms": cuda_ms(sort64, 50),
+    }
+    print(f"{label}: {tile.shape[0]} keys, mode {mode!r}, bit-exact; kernel {result['ms']:.4f} ms, "
+          f"sort of the int32 keys {result['sort_ms']:.4f} ms (int64 {result['sort_int64_ms']:.4f})")
+    return result
+
+
+def covered_pairs(window, has, T: int, ntx: int) -> int:
+    """The (entry, pixel) pairs of a ``tile_blend`` window that the
+    reference's test covers (raster.py:620-640; a pair that then fails a
+    depth test included)."""
+    import torch
+
+    nt, M, _ = window.shape
+    dev = window.device
+    ar = torch.arange(T, device=dev)
+    tiles = torch.arange(nt, device=dev)
+    py = ((tiles // ntx)[:, None, None] * T + ar[None, :, None]).to(torch.float32) + 0.5
+    px = ((tiles % ntx)[:, None, None] * T + ar[None, None, :]).to(torch.float32) + 0.5
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for m in range(M):
+        cx, cy, a1x, a1y, a2x, a2y = (window[:, m, k, None, None] for k in range(6))
+        det = a1x * a2y - a1y * a2x
+        det = torch.where(det.abs() < 1e-9, 1e-9, det)
+        dx, dy = px - cx, py - cy
+        u = (a2y * dx - a2x * dy) / det
+        v = (-a1y * dx + a1x * dy) / det
+        total += ((u.abs() <= 1.0) & (v.abs() <= 1.0) & has[:, m, None, None]).sum()
+    return int(total)
+
+
+def blend_bound(mode: str, window, has, T: int, ntx: int, fb_out, depth_out=None, fb_in=None,
+                depth_in=None) -> dict:
+    """``tile_blend``'s bound: the bytes the function must move (the filled
+    entries' rows, the ``has`` flags, the planes in and out) and the FP32
+    operations every correct kernel must do (``ENTRY_OPS`` a filled entry,
+    the test and the blend of each covered pair). Also returns the filled
+    entries and the covered pairs."""
+    filled = int(has.sum())
+    pairs = covered_pairs(window, has, T, ntx)
+    rows = filled * window.shape[2] * window.element_size()
+    ops = ENTRY_OPS * filled + (COVER_TEST_OPS + BLEND_EQ_OPS[mode]) * pairs
+    return {**bound(rows + nbytes(has, fb_out, depth_out, fb_in, depth_in), ops),
+            "filled_entries": filled, "covered_pairs": pairs}
+
+
+def project_args(draw, cam, config) -> tuple:
+    """``project_bin``'s positional arguments for a draw, camera and config."""
+    return (draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(),
+            cam.view, cam.proj, cam.viewport, config.tile_size, config.tiles_x, config.tiles_y)
+
+
+def blend_window(projected, nt: int, m: int, mode=None):
+    """A pass's ``tile_blend`` window from ``project_bin``'s outputs, as
+    ``rasterize`` builds it, through the plain gather: ``(idx, window, has)``."""
+    from bevy_hanabi_tpu_torch.ops import gather
+    from bevy_hanabi_tpu_torch.render import raster
+
+    tile, depth, rows, rng = projected
+    pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, nt, mode, rng)
+    pidx, has = raster.window_index(pidx_sorted, starts, ends, m, from_start=mode is not None)
+    idx = pidx.reshape(-1)
+    return idx, gather.gather_rows_plain(rows, idx).reshape(nt, m, rows.shape[1]), has
+
+
+def gather_row(table, idx) -> dict:
+    """``gather_rows``'s timings and bound: the indices, the rows it reads
+    and the rows it writes. Its plain version is one library call,
+    ``index_select``, so that time is also ``library_ms``."""
+    from bevy_hanabi_tpu_torch.ops import gather
+
+    plain_ms = cuda_ms(lambda: gather.gather_rows_plain(table, idx), 100)
+    return {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: gather.gather_rows(table, idx), 100),
+        "plain_ms": plain_ms,
+        "library_ms": plain_ms,
+        **bound(nbytes(idx) + 2 * idx.shape[0] * table.shape[1] * table.element_size()),
+    }
 
 
 def compare_gather(table, idx, label: str) -> None:
@@ -210,15 +383,14 @@ def compare_gather(table, idx, label: str) -> None:
     print(f"{label}: [{table.shape[0]}, {table.shape[1]}] x {idx.shape[0]} rows, bit-exact")
 
 
-def compare_kernels(dev):
-    """Phase 3: each kernel against its plain version on a real frame."""
+def headline_frame(dev):
+    """The headline's draw on the card: ``gradient_effect(1 << 20)`` stepped
+    past its 5 s lifetime (steady churn), with its camera and config:
+    ``(draw, cam, config)``."""
     import numpy as np
-    import torch
 
     from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner, RasterConfig
     from bevy_hanabi_tpu_torch.models import gradient_effect
-    from bevy_hanabi_tpu_torch.ops import gather
-    from bevy_hanabi_tpu_torch.render import raster
     from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
 
     asset = gradient_effect(CAPACITY)
@@ -226,48 +398,48 @@ def compare_kernels(dev):
     pool = fx.create_pool()
     spawner = EffectSpawner(asset.spawner, rng=np.random.default_rng(1))
     frame = 0
-    for _ in range(int(5.5 / DT) // K + 1):  # past the 5 s lifetime: steady churn
+    for _ in range(int(5.5 / DT) // K + 1):
         pool = fx.step_chunk(pool, *chunk_inputs(fx, spawner, frame))
         frame += K
     cam = headline_camera()
-    cfg = RasterConfig(512, 512, tile_slots=1)
+    return extract_draw_data(asset, pool, cam), cam, RasterConfig(512, 512, tile_slots=1)
+
+
+def compare_kernels(dev):
+    """Phase 3: each kernel against its plain version on a real frame."""
+    import torch
+
+    from bevy_hanabi_tpu_torch.render import raster
+
+    draw, cam, cfg = headline_frame(dev)
     T, ntx, nty, nt = cfg.tile_size, cfg.tiles_x, cfg.tiles_y, cfg.num_tiles
     M = cfg.max_entries_per_tile
-    draw = extract_draw_data(asset, pool, cam)
-    color = draw.color.contiguous()
-    pb_args = (draw.position, draw.axis_x, draw.axis_y, draw.alive, color,
-               cam.view, cam.proj, cam.viewport, T, ntx, nty)
     results = {}
 
     # the BLEND pass reads no column past alpha: 10-float rows
-    results["project_bin"], (tile_p, depth_p, rows_p) = compare_project_bin(
-        pb_args, nt, "project_bin", raster.row_width("blend", False))
-    n = draw.alive.shape[0]
+    results["project_bin"], projected = compare_project_bin(
+        project_args(draw, cam, cfg), nt, "project_bin", raster.row_width("blend", False))
+    results["bin_keys"] = compare_bin_keys(projected, nt, None, "bin_keys")
 
-    pidx_sorted, starts, ends = raster.sort_tiles(tile_p, depth_p, nt)
-    pidx, has = raster.window_index(pidx_sorted, starts, ends, M)
-    idx = pidx.reshape(-1)
-    compare_gather(rows_p, idx, "gather_rows (raster window)")
-    results["gather_rows"] = {
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: gather.gather_rows(rows_p, idx), 100),
-        "plain_ms": cuda_ms(lambda: gather.gather_rows_plain(rows_p, idx), 100),
-    }
+    idx, window, has = blend_window(projected, nt, M)
+    compare_gather(projected[2], idx, "gather_rows (raster window)")
+    results["gather_rows"] = gather_row(projected[2], idx)
 
-    window = gather.gather_rows_plain(rows_p, idx).reshape(nt, M, rows_p.shape[1])
     fb_k = raster.tile_blend(window, has, T, ntx, nty, cfg.background)
     fb_p = raster.tile_blend_plain(window, has, T, ntx, nty, cfg.background)
     torch.cuda.synchronize()
     blend_err = float((fb_k - fb_p).abs().max())
     print(f"tile_blend: nt={nt} M={M} ({int(has.sum())} entries), max abs err {blend_err:g}")
-    if not (blend_err <= BLEND_ATOL):
-        fail(f"tile_blend: max abs err {blend_err:g} > {BLEND_ATOL:g}")
+    if blend_err != 0.0:
+        fail(f"tile_blend: max abs err {blend_err:g}")
     results["tile_blend"] = {
         "max_abs_err": blend_err,
         "ms": cuda_ms(lambda: raster.tile_blend(window, has, T, ntx, nty, cfg.background), 50),
         "plain_ms": cuda_ms(
             lambda: raster.tile_blend_plain(window, has, T, ntx, nty, cfg.background), 5
         ),
+        "library_ms": None,
+        **blend_bound("blend", window, has, T, ntx, fb_k),
     }
     for name, r in results.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
@@ -388,6 +560,8 @@ def compare_event_compact(scene):
         "max_abs_err": 0.0,
         "ms": cuda_ms(lambda: events.event_compact(mask, count, payload), 100),
         "plain_ms": cuda_ms(lambda: events.event_compact_plain(mask, count, payload), 20),
+        "library_ms": None,
+        **bound(nbytes(mask, count, payload, *got)),
     }
 
 
@@ -412,11 +586,7 @@ def compare_payload_gather(scene):
     if pending == 0:
         fail("payload gather: no event pending, so no trail would inherit a position")
     compare_gather(table, idx, "gather_rows (event payload)")
-    return {
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: gather.gather_rows(table, idx), 100),
-        "plain_ms": cuda_ms(lambda: gather.gather_rows_plain(table, idx), 100),
-    }
+    return gather_row(table, idx)
 
 
 def compare_tile_blend_add(scene, cam, config):
@@ -425,7 +595,6 @@ def compare_tile_blend_add(scene, cam, config):
     frame (its one transparent batch pass, 327,680 entries)."""
     import torch
 
-    from bevy_hanabi_tpu_torch.ops import gather
     from bevy_hanabi_tpu_torch.render import raster
     from bevy_hanabi_tpu_torch.render.extract import concat_draws, extract_draw_data
 
@@ -434,15 +603,13 @@ def compare_tile_blend_add(scene, cam, config):
                          for e in scene.effects()])
     T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
     M = config.max_entries_per_tile
-    pb_args = (draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(),
-               cam.view, cam.proj, cam.viewport, T, ntx, nty)
-    pb_row, (tile, depth, rows) = compare_project_bin(
-        pb_args, nt, "project_bin (firework)", raster.row_width("add", False))
+    pb_row, projected = compare_project_bin(
+        project_args(draw, cam, config), nt, "project_bin (firework)", raster.row_width("add", False))
+    tile = projected[0]
     mode = raster.fast_mode(config, "add", tile.shape[0])
-    pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, nt, mode)
-    pidx, has = raster.window_index(pidx_sorted, starts, ends, M, from_start=True)
-    compare_gather(rows, pidx.reshape(-1), "gather_rows (firework window)")
-    window = gather.gather_rows_plain(rows, pidx.reshape(-1)).reshape(nt, M, rows.shape[1])
+    keys_row = compare_bin_keys(projected, nt, mode, "bin_keys (firework)")
+    idx, window, has = blend_window(projected, nt, M, mode)
+    compare_gather(projected[2], idx, "gather_rows (firework window)")
     args = (window, has, T, ntx, nty, config.background, "add")
     fb_k = raster.tile_blend(*args)
     fb_p = raster.tile_blend_plain(*args)
@@ -451,14 +618,17 @@ def compare_tile_blend_add(scene, cam, config):
     entries = int(has.sum())
     print(f"tile_blend add: {tile.shape[0]} entries, variant {mode!r}, "
           f"{entries} window entries, max abs err {err:g}")
-    if not (err <= BLEND_ATOL) or entries == 0:
-        fail(f"tile_blend add: max abs err {err:g} > {BLEND_ATOL:g} or an empty window")
+    if err != 0.0 or entries == 0:
+        fail(f"tile_blend add: max abs err {err:g}, or an empty window")
     return {
         "project_bin[firework]": pb_row,
+        "bin_keys[firework]": keys_row,
         "tile_blend[add]": {
             "max_abs_err": err,
             "ms": cuda_ms(lambda: raster.tile_blend(*args), 50),
             "plain_ms": cuda_ms(lambda: raster.tile_blend_plain(*args), 5),
+            "library_ms": None,
+            **blend_bound("add", window, has, T, ntx, fb_k),
         },
     }
 
@@ -696,6 +866,48 @@ def mixed_gate():
               f"checksum card {float(sums_g[-1]):.6e} cpu {float(sums_c[-1]):.6e}")
 
 
+def scene_draws(scene, cam) -> dict:
+    """Each effect's draw data of the scene's current frame, by name."""
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+
+    sim = scene.clock.sim_params()
+    return {e.name: extract_draw_data(e.asset, e.pool, cam, sim=sim,
+                                      properties=e.properties.as_dict(), transform=e.transform)
+            for e in scene.effects()}
+
+
+def painter_draw(scene, draws):
+    """The painter pass's one draw of every effect, and its ``extra``
+    columns (mask cutoff, blend-mode id), as ``HanabiScene`` builds them."""
+    import torch
+
+    from bevy_hanabi_tpu_torch.render.extract import concat_painter_draws
+
+    effects = scene.effects()
+    painter = concat_painter_draws([draws[e.name] for e in effects],
+                                   [e.asset.alpha_mode.kind for e in effects])
+    return painter, torch.stack([painter.alpha_cutoff, painter.mode_id.to(torch.float32)], dim=1)
+
+
+def painter_target(config, device):
+    """The painter pass's seeded framebuffer, tiled: opaque black."""
+    import torch
+
+    from bevy_hanabi_tpu_torch.render import raster
+
+    black = torch.tensor((0.0, 0.0, 0.0, 1.0), device=device).expand(config.height, config.width, 4)
+    return raster.to_tiles(black, config, 0.0)
+
+
+def warm_mixed(scene, cam, config) -> int:
+    """Run the mixed scene to steady state (bench.py:738: past the longest
+    lifetime) in chunks of K frames; returns the frames run."""
+    warm = (int(5.0 / DT) + K) // K + 1
+    for _ in range(warm):
+        float(scene.update_render_chunk(K, DT, cam, config)[1][-1])
+    return warm * K
+
+
 def compare_mixed_kernels(scene, cam, config):
     """Phase 11: each kernel of both pipelines against its plain version at
     the pass's own shapes on the full scene's frame: the painter pass's
@@ -706,40 +918,23 @@ def compare_mixed_kernels(scene, cam, config):
     depth plane, as ``HanabiScene._render_frame`` threads it."""
     import torch
 
-    from bevy_hanabi_tpu_torch.ops import gather
     from bevy_hanabi_tpu_torch.render import raster
-    from bevy_hanabi_tpu_torch.render.extract import (
-        concat_draws,
-        concat_painter_draws,
-        extract_draw_data,
-    )
+    from bevy_hanabi_tpu_torch.render.extract import concat_draws
 
     T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
     M = config.max_entries_per_tile
-    sim = scene.clock.sim_params()
-    draws = {e.name: extract_draw_data(e.asset, e.pool, cam, sim=sim,
-                                       properties=e.properties.as_dict(), transform=e.transform)
-             for e in scene.effects()}
+    draws = scene_draws(scene, cam)
     clear = (0.0, 0.0, 0.0, 0.0)  # a split pass's layer background (blend, add, opaque)
     results = {}
 
     def project(draw, label, row, extra=None):
-        pb_args = (draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(),
-                   cam.view, cam.proj, cam.viewport, T, ntx, nty)
-        return compare_project_bin(pb_args, nt, f"project_bin ({label})", row, extra)
+        return compare_project_bin(project_args(draw, cam, config), nt, f"project_bin ({label})", row,
+                                   extra)
 
     def window(projected, label, m, mode=None):
-        tile, depth, rows = projected
-        pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, nt, mode)
-        pidx, has = raster.window_index(pidx_sorted, starts, ends, m, from_start=mode is not None)
-        idx = pidx.reshape(-1)
-        compare_gather(rows, idx, f"gather_rows ({label} window)")
-        gather_row = {
-            "max_abs_err": 0.0,
-            "ms": cuda_ms(lambda: gather.gather_rows(rows, idx), 100),
-            "plain_ms": cuda_ms(lambda: gather.gather_rows_plain(rows, idx), 100),
-        }
-        return gather_row, (gather.gather_rows_plain(rows, idx).reshape(nt, m, rows.shape[1]), has)
+        idx, win, has = blend_window(projected, nt, m, mode)
+        compare_gather(projected[2], idx, f"gather_rows ({label} window)")
+        return gather_row(projected[2], idx), (win, has)
 
     def blend_row(label, win, background, mode, **kw):
         """Returns the result row and the kernel's depth plane (or None)."""
@@ -754,28 +949,27 @@ def compare_mixed_kernels(scene, cam, config):
         entries = int(win[1].sum())
         print(f"tile_blend {label}: {entries} window entries, max abs err {err:g}"
               + (f", depth planes {'equal' if depth_ok else 'DIFFER'}" if write else ""))
-        if not (err <= BLEND_ATOL) or not depth_ok or entries == 0:
+        if err != 0.0 or not depth_ok or entries == 0:
             fail(f"tile_blend {label}: max abs err {err:g}, or the depth planes differ, or an "
                  f"empty window")
         return {
             "max_abs_err": err,
             "ms": cuda_ms(lambda: raster.tile_blend(*args, **kw), 50),
             "plain_ms": cuda_ms(lambda: raster.tile_blend_plain(*args, **kw), 3),
+            "library_ms": None,
+            **blend_bound(mode, *win, T, ntx, fb_k, d_k, kw.get("framebuffer"), kw.get("scene_depth")),
         }, d_k
 
     # the painter pass ("auto"): every effect in one window
-    effects = scene.effects()
-    painter = concat_painter_draws([draws[e.name] for e in effects],
-                                   [e.asset.alpha_mode.kind for e in effects])
-    extra = torch.stack([painter.alpha_cutoff, painter.mode_id.to(torch.float32)], dim=1)
+    painter, extra = painter_draw(scene, draws)
     results["project_bin[mixed]"], projected = project(
         painter, f"painter, {painter.alive.shape[0]} entries", raster.row_width("scene", True), extra)
-    fb0 = raster.to_tiles(torch.tensor((0.0, 0.0, 0.0, 1.0), device=extra.device).expand(
-        config.height, config.width, 4), config, 0.0)
+    results["bin_keys[mixed]"] = compare_bin_keys(projected, nt, None, "bin_keys (painter)")
+    fb0 = painter_target(config, extra.device)
     for m, name in ((M, "tile_blend[scene]"), (MIXED_M_WIDE, f"tile_blend[scene,M={MIXED_M_WIDE}]")):
-        gather_row, win = window(projected, f"painter M={m}", m)
+        gathered, win = window(projected, f"painter M={m}", m)
         if m == M:
-            results["gather_rows[mixed]"] = gather_row
+            results["gather_rows[mixed]"] = gathered
         results[name], _ = blend_row(f"scene M={m}", win, config.background, "scene",
                                      framebuffer=fb0, depth_test=True, write_depth=True)
 
@@ -828,11 +1022,8 @@ def mixed_full(kernels):
     scene = mixed_scene("cuda", 65536, 1 << 19, 65536, 262144)
     lanes = sum(e.pool.capacity for e in scene.effects())
     t0 = time.perf_counter()
-    warm = (int(5.0 / DT) + K) // K + 1  # bench.py:738: past the longest lifetime
-    for _ in range(warm):
-        img, sums = scene.update_render_chunk(K, DT, cam, cfg)
-        float(sums[-1])
-    print(f"mixed scene ({lanes} lanes) warm-up: {warm * K} frames in {time.perf_counter() - t0:.2f} s, "
+    frames = warm_mixed(scene, cam, cfg)
+    print(f"mixed scene ({lanes} lanes) warm-up: {frames} frames in {time.perf_counter() - t0:.2f} s, "
           f"alive {[scene[n].alive_count() for n in MIXED_NAMES]}")
     launches = {}
     for label, c, pipeline in (
@@ -1013,7 +1204,7 @@ def main() -> int:
         ]
         + [
             (f"{name}[mixed]", name, sum(n[name] for n in mx_launches.values()))
-            for name in ("project_bin", "gather_rows")
+            for name in ("project_bin", "bin_keys", "gather_rows")
         ]
         + [
             ("tile_blend[scene]", "tile_blend", mx_launches["auto"]["tile_blend[scene]"]),
@@ -1032,9 +1223,14 @@ def main() -> int:
             "replaces": kernels[kernel].replaces,
             "launches": count,
             **results[name],
+            "share": results[name]["bound_ms"] / results[name]["ms"],
         }
         for name, kernel, count in rows
     ]
+    print("kernel rows: name, launches, ms, bound ms (by), share of the bound, plain ms, library ms")
+    for r in kernel_rows:
+        print(f"  {r['name']:28s} {r['launches']:6d} {r['ms']:.4f} {r['bound_ms']:.4f} "
+              f"({r['bound_by']}) {100.0 * r['share']:.1f}% {r['plain_ms']:.4f} {r['library_ms']}")
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

@@ -1,0 +1,193 @@
+#!/usr/bin/env python3
+"""Device time of variants of the PyTorch port's ``tile_blend`` kernel.
+
+    python3 experiments/torch_tile_blend_variants.py [LABEL=PATH.cu[:FLAG,FLAG...] ...]
+
+Needs one CUDA device and nvcc. Builds, each with the port's nvcc flags and
+``common.cu``, one library per variant, all nvcc processes started
+together, and prints each build's registers a thread and spills:
+
+* ``port``: ``bevy_hanabi_tpu_torch/csrc/tile_blend.cu`` as the port builds
+  it, and ``port,maxrreg40`` / ``port,maxrreg32`` with ``-maxrregcount``;
+* ``first``: ``experiments/tile_blend_variants/first.cu``, the first
+  version (every entry through the full test);
+* ``redesign1``: ``redesign1.cu`` there, the first redesign (a pre-test
+  before the two divisions, ballot culling per 8x4 warp block);
+* ``pix1``, ``pix2``, ``pix4``: ``pix.cu`` there, the first redesign with
+  every global load before the first barrier and 1, 2 or 4 pixels a thread;
+* every extra source named on the command line (a ``tile_blend.cu`` with
+  the same C entry point, built with the extra nvcc flags after the colon).
+
+Then it holds every build against ``tile_blend_plain`` (max abs err 0,
+depth planes equal) and times it with ``chip_smoke.cuda_ms``, all builds in
+turn, twice, on real windows built by ``chip_smoke.py``'s own functions:
+
+* ``blend``: the headline's (1M ``gradient_effect`` particles stepped past
+  their 5 s lifetime, 512x512, M = 64), as ``chip_smoke.py`` phase 3;
+* ``blend, no entries``: the same with every ``has`` flag false, the
+  launch's floor;
+* ``scene`` and ``scene128``: the painter pass of the full mixed scene
+  (917 504 lanes, warmed to steady state) at M = 64 and M = 128.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+CSRC = ROOT / "bevy_hanabi_tpu_torch" / "csrc"
+VARIANTS = ROOT / "experiments" / "tile_blend_variants"
+
+
+def variants(argv):
+    """(label, source, extra nvcc flags) of every build."""
+    port = CSRC / "tile_blend.cu"
+    out = [("port", port, [])]
+    out += [(f"port,maxrreg{r}", port, ["-maxrregcount", str(r)]) for r in (40, 32)]
+    out += [("first", VARIANTS / "first.cu", []), ("redesign1", VARIANTS / "redesign1.cu", [])]
+    out += [(f"pix{k}", VARIANTS / "pix.cu", [f"-DHANABI_TILE_BLEND_PIX={k}"]) for k in (1, 2, 4)]
+    for arg in argv:
+        label, spec = arg.split("=", 1)
+        path, _, flags = spec.partition(":")
+        out.append((label, Path(path), [f for f in flags.split(",") if f]))
+    return out
+
+
+def build_all(builds):
+    """Compile every build into ``build/variants``; returns the loaded
+    libraries by label. A variant that does not compile is reported and
+    left out; the port's own source must compile."""
+    from bevy_hanabi_tpu_torch import cuda_build
+
+    outdir = cuda_build.BUILD_DIR / "variants"
+    outdir.mkdir(parents=True, exist_ok=True)
+    nvcc = cuda_build.find_nvcc()
+    procs = []
+    for label, src, flags in builds:
+        so = outdir / f"libtile_blend_{label.replace(',', '_')}.so"
+        cmd = [nvcc, *cuda_build.NVCC_FLAGS, *flags, "-shared", "-o", str(so), str(src),
+               str(CSRC / "common.cu")]
+        procs.append((label, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for label, so, p in procs:
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            if label == "port":
+                raise SystemExit(f"{label}: nvcc failed\n{log}")
+            print(f"{label}: nvcc failed, left out\n{log}")
+            continue
+        regs = sorted({line.split("Used")[1].split(",")[0].strip()
+                       for line in log.splitlines() if "Used" in line and "registers" in line})
+        spills = sorted({line.strip() for line in log.splitlines() if "spill stores" in line})
+        print(f"{label}: registers {regs}; {spills}")
+        libs[label] = cuda_build.bind(ctypes.CDLL(str(so)))
+    return libs
+
+
+def headline_window(dev):
+    import chip_smoke as cs
+    from bevy_hanabi_tpu_torch.render import raster
+
+    draw, cam, cfg = cs.headline_frame(dev)
+    projected = raster.project_bin(*cs.project_args(draw, cam, cfg), row=raster.ROW_QUAD)
+    _, window, has = cs.blend_window(projected, cfg.num_tiles, cfg.max_entries_per_tile)
+    return dict(window=window, has=has, T=cfg.tile_size, ntx=cfg.tiles_x, nty=cfg.tiles_y,
+                background=cfg.background, mode="blend", kw={})
+
+
+def painter_windows(dev):
+    import chip_smoke as cs
+    from bevy_hanabi_tpu_torch import RasterConfig
+    from bevy_hanabi_tpu_torch.render import raster
+
+    cam, cfg = cs.mixed_camera(), RasterConfig(512, 512, tile_slots=1)
+    scene = cs.mixed_scene("cuda", 65536, 1 << 19, 65536, 262144)
+    cs.warm_mixed(scene, cam, cfg)
+    painter, extra = cs.painter_draw(scene, cs.scene_draws(scene, cam))
+    projected = raster.project_bin(*cs.project_args(painter, cam, cfg), extra=extra, row=raster.ROW)
+    fb0 = cs.painter_target(cfg, dev)
+    out = {}
+    for m, name in ((64, "scene"), (128, "scene128")):
+        _, window, has = cs.blend_window(projected, cfg.num_tiles, m)
+        out[name] = dict(window=window, has=has, T=cfg.tile_size, ntx=cfg.tiles_x, nty=cfg.tiles_y,
+                         background=cfg.background, mode="scene",
+                         kw=dict(framebuffer=fb0, depth_test=True, write_depth=True))
+    return out
+
+
+def launcher(lib, w, dev):
+    """``tile_blend`` through ``lib``'s C entry point, as the port's wrapper calls it."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import cuda_build
+    from bevy_hanabi_tpu_torch.render import raster
+
+    window, has, T, ntx = w["window"], w["has"], w["T"], w["ntx"]
+    nt, M = window.shape[:2]
+    kw = w["kw"]
+    bg = np.asarray(w["background"], np.float32)
+    fb_in = kw.get("framebuffer")
+    write = kw.get("write_depth", False)
+
+    def run():
+        fb = torch.empty((nt, T, T, 4), dtype=torch.float32, device=dev)
+        depth = torch.empty((nt, T, T), dtype=torch.float32, device=dev) if write else None
+        code = lib.hanabi_tile_blend(
+            window.data_ptr(), has.data_ptr(), None if fb_in is None else fb_in.data_ptr(), None,
+            fb.data_ptr(), None if depth is None else depth.data_ptr(), nt, M, T, ntx,
+            bg.ctypes.data_as(ctypes.c_void_p), raster.BLEND_MODES.index(w["mode"]),
+            int(kw.get("depth_test", False)), int(write), cuda_build.current_stream())
+        if code != 0:
+            raise RuntimeError(f"launch failed: {code}")
+        return (fb, depth) if write else fb
+
+    return run
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from bevy_hanabi_tpu_torch.render import raster
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip())
+    libs = build_all(variants(argv))
+    dev = torch.device("cuda", 0)
+    blend = headline_window(dev)
+    # the floor: the same launch with no entry in any tile (loads, the
+    # per-entry pass, the stores, no culling and no blend)
+    windows = {"blend": blend, "blend, no entries": dict(blend, has=torch.zeros_like(blend["has"])),
+               **painter_windows(dev)}
+    for name, w in windows.items():
+        want = raster.tile_blend_plain(w["window"], w["has"], w["T"], w["ntx"], w["nty"], w["background"],
+                                       w["mode"], **w["kw"])
+        for label, lib in libs.items():
+            got = launcher(lib, w, dev)()
+            ok = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                  if isinstance(got, tuple) else torch.equal(got, want))
+            if not ok:
+                print(f"{label} on {name}: differs from tile_blend_plain")
+                return 1
+        print(f"{name}: nt={w['window'].shape[0]} M={w['window'].shape[1]}, "
+              f"{int(w['has'].sum())} entries; every build equal to the plain version")
+        times = {label: [] for label in libs}
+        for _ in range(2):
+            for label, lib in libs.items():
+                times[label].append(cs.cuda_ms(launcher(lib, w, dev), 200))
+        for label, t in times.items():
+            print(f"  {name} {label}: ms {t}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -7,12 +7,14 @@ runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest`` because ``tests/conftest.py`` configures JAX.)
-Tolerances: the gather and ``event_compact`` must be bit-exact;
-``project_bin`` must give equal tiles and depths (both versions round op for
-op, the library is built with ``-fmad=false``); ``tile_blend`` (every
-equation and depth variant) within 1e-5 absolute and its depth plane
-exactly; the mixed scene card against CPU with alive masks and PCG seeds
-bit for bit and checksums within 0.5%.
+Tolerances: the gather, ``event_compact`` and ``bin_keys`` must be
+bit-exact; ``project_bin`` must give equal tiles, depths and depth range
+(both versions round op for op, the library is built with ``-fmad=false``);
+``tile_blend`` (every equation and depth variant) within 1e-5 absolute on
+real windows, exactly (max abs err 0, NaN where the plain version is NaN) on
+the adversarial ones, and its depth plane exactly; the mixed scene card
+against CPU with alive masks and PCG seeds bit for bit and checksums within
+0.5%.
 """
 
 import numpy as np
@@ -73,7 +75,7 @@ def test_project_bin_and_tile_blend_match_plain(cuda):
     assert got[2].shape == (8192, raster.ROW_QUAD)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert float((got[2] - want[2]).abs().max()) <= 1e-3
-    pidx_sorted, starts, ends = raster.sort_tiles(want[0], want[1], cfg.num_tiles)
+    pidx_sorted, starts, ends = raster.sort_tiles(want[0], want[1], cfg.num_tiles, None, want[3])
     pidx, has = raster.window_index(pidx_sorted, starts, ends, cfg.max_entries_per_tile)
     window = gather.gather_rows_plain(want[2], pidx.reshape(-1)).reshape(cfg.num_tiles, -1, raster.ROW_QUAD)
     bg = (0.1, 0.0, 0.0, 1.0)
@@ -129,12 +131,12 @@ def test_event_compact_is_bit_exact(cuda, n, active_share):
 def test_tile_blend_add_matches_plain(cuda, bg):
     view, proj, t = _draw(8192, cuda, seed=3)
     cfg = raster.RasterConfig(128, 128, tile_slots=1)
-    tile, depth, rows = raster.project_bin_plain(
+    tile, depth, rows, rng = raster.project_bin_plain(
         t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
         view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y, row=raster.ROW_QUAD,
     )
     mode = raster.fast_mode(cfg, "add", tile.shape[0])
-    pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, cfg.num_tiles, mode)
+    pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, cfg.num_tiles, mode, rng)
     pidx, has = raster.window_index(pidx_sorted, starts, ends, cfg.max_entries_per_tile, from_start=True)
     window = gather.gather_rows_plain(rows, pidx.reshape(-1)).reshape(cfg.num_tiles, -1, raster.ROW_QUAD)
     args = (window, has, cfg.tile_size, cfg.tiles_x, cfg.tiles_y, bg, "add")
@@ -188,12 +190,13 @@ def _window(cuda, mode, depth_test, seed=5, M=64):
     extra = torch.from_numpy(np.stack([r.uniform(0, 1, 8192), r.integers(0, 6, 8192)], 1)
                              .astype(np.float32)).to(cuda)
     width = raster.row_width(mode, depth_test)
-    tile, depth, rows = raster.project_bin_plain(
+    tile, depth, rows, rng = raster.project_bin_plain(
         t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
         view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y,
         extra=extra if width == raster.ROW else None, row=width,
     )
-    pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, cfg.num_tiles, raster.fast_mode(cfg, mode, 8192))
+    pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, cfg.num_tiles, raster.fast_mode(cfg, mode, 8192),
+                                                  rng)
     pidx, has = raster.window_index(pidx_sorted, starts, ends, M, from_start=mode == "add")
     window = gather.gather_rows_plain(rows, pidx.reshape(-1)).reshape(cfg.num_tiles, M, width)
     sd = torch.from_numpy(np.where(r.random((128, 128)) < 0.5, r.uniform(4, 8, (128, 128)), np.inf)
@@ -290,3 +293,152 @@ def test_mixed_scene_chunk_on_the_card_matches_the_cpu(cuda, pipeline):
         np.testing.assert_array_equal(s_g[name].pool.to_numpy()[2], s_c[name].pool.to_numpy()[2])
     for a, b in zip(sums_g, sums_c):
         assert abs(a - b) <= 0.005 * max(abs(b), 1.0)
+
+
+# ---- the binning keys and the redesigned kernels' edge cases ------------------
+
+
+def _entries(n, nt, case, device, seed=0):
+    """(tile int32, depth f32) of ``n`` entries: binned ones on tiles
+    0..nt-1 with depths > 1e-4, the rest on the sentinel tile nt at -inf."""
+    r = np.random.default_rng(seed)
+    tile = r.integers(0, nt, n).astype(np.int32)
+    depth = r.uniform(0.5, 60.0, n).astype(np.float32)
+    binned = r.random(n) < 0.8
+    if case == "nothing binned":
+        binned[:] = False
+    elif case == "one binned":
+        binned[:] = False
+        binned[n // 3] = True
+    elif case == "equal depths":
+        depth[:] = np.float32(7.25)
+    tile[~binned] = nt
+    depth[~binned] = -np.inf
+    return torch.from_numpy(tile).to(device), torch.from_numpy(depth).to(device)
+
+
+@pytest.mark.parametrize("offset", [0, 1])  # 1: inputs off 16-byte alignment, the scalar path
+@pytest.mark.parametrize("case", ["random", "nothing binned", "one binned", "equal depths"])
+@pytest.mark.parametrize("mode", [None, "payload", "first", "depth"])
+def test_bin_keys_is_bit_exact(cuda, mode, case, offset):
+    # 512^2 at T=16: the sentinel tile 1024 sets bit 31 of the ordered key;
+    # n is no multiple of 4, so the last thread takes the ragged tail, and
+    # leaves the "depth" key its 4 depth bits (11 tile bits, 17 index bits)
+    nt, n = 1024, 100_003
+    tile, depth = _entries(n + offset, nt, case, cuda, seed=n)
+    tile, depth = tile[offset:], depth[offset:]
+    rng = raster.depth_range_plain(depth)
+    before = raster.bin_keys.launches
+    got = raster.bin_keys(tile, depth, rng, nt, mode)
+    assert raster.bin_keys.launches == before + 1
+    want = raster.bin_keys_plain(tile, depth, rng, nt, mode)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)
+    # sort_tiles on the card decodes and bounds the same keys as on the CPU
+    for a, b in zip(raster.sort_tiles(tile, depth, nt, mode, rng),
+                    raster.sort_tiles(tile.cpu(), depth.cpu(), nt, mode)):
+        assert torch.equal(a.cpu(), b)
+    if mode != "first":  # the other keys quantise depth: on the card the range is project_bin's
+        with pytest.raises(ValueError, match="depth_range"):
+            raster.sort_tiles(tile, depth, nt, mode)
+
+
+@pytest.mark.parametrize("alive_share", [0.9, 0.001, 0.0])
+def test_project_bin_depth_range_is_min_and_max(cuda, alive_share):
+    view, proj, t = _draw(70_000, cuda, seed=4)
+    alive = torch.from_numpy(np.random.default_rng(4).random(70_000) < alive_share).to(cuda)
+    args = (t["position"], t["axis_x"], t["axis_y"], alive, t["color"],
+            view, proj, (128, 128), 16, 8, 8)
+    tile, depth, _, rng = raster.project_bin(*args, row=raster.ROW_QUAD)
+    binned = depth[tile < 64]
+    if binned.numel() == 0:
+        assert rng.isnan().all()
+    else:
+        assert torch.equal(rng, torch.stack([torch.min(binned), torch.max(binned)]))
+    assert torch.equal(rng.isnan(), raster.depth_range_plain(depth).isnan())
+
+
+@pytest.mark.parametrize("n", [1000, 256 * 37 + 1, 65536])
+@pytest.mark.parametrize("row", [raster.ROW_QUAD, raster.ROW])
+@pytest.mark.parametrize("offset", [0, 1])  # 1: every input off 16-byte alignment
+def test_project_bin_ragged_and_unaligned_slices_match_plain(cuda, n, row, offset):
+    view, proj, t = _draw(n + offset, cuda, seed=n)
+    extra = torch.rand((n + offset, 2), device=cuda) if row == raster.ROW else None
+    cut = {k: v[offset:] for k, v in t.items()}
+    args = (cut["position"], cut["axis_x"], cut["axis_y"], cut["alive"], cut["color"],
+            view, proj, (128, 128), 16, 8, 8)
+    kw = dict(row=row, extra=None if extra is None else extra[offset:])
+    got = raster.project_bin(*args, **kw)
+    want = raster.project_bin_plain(*args, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=0, equal_nan=True)
+
+
+def _adversarial_window(nt, M, width, T, ntx, seed):
+    """A window of quads that stress the culling: tiny (0.3-2 px), huge
+    (covering tiles), straddling the 8x4 warp blocks, degenerate (|det| <
+    1e-9), with NaN or inf quad columns or NaN colour columns, and off
+    screen. Alphas and the framebuffer's stay <= 1 and colours finite or
+    NaN, modes are 0..5: the kernel's contract (a pixel it leaves untouched
+    is the reference's while the pixel is finite with alpha <= 1)."""
+    r = np.random.default_rng(seed)
+    n = nt * M
+    kind = r.integers(0, 6, n)
+    w = np.zeros((n, raster.ROW), np.float32)
+    tiles = np.repeat(np.arange(nt), M)
+    ox, oy = (tiles % ntx) * T, (tiles // ntx) * T
+    w[:, 0] = ox + r.uniform(-2, T + 2, n)
+    w[:, 1] = oy + r.uniform(-2, T + 2, n)
+    size = np.where(kind == 1, r.uniform(8, 80, n), r.uniform(0.3, 2.0, n))
+    ang = r.uniform(0, np.pi, n)
+    w[:, 2], w[:, 3] = size * np.cos(ang), size * np.sin(ang)
+    w[:, 4], w[:, 5] = -size * np.sin(ang) * r.uniform(0.3, 1.5, n), size * np.cos(ang)
+    straddle = kind == 2  # centres on the warp blocks' edges
+    w[straddle, 0] = ox[straddle] + 8 * r.integers(0, T // 8 + 1, straddle.sum())
+    w[straddle, 1] = oy[straddle] + 4 * r.integers(0, T // 4 + 1, straddle.sum())
+    degen = kind == 3  # collinear axes, |det| below the 1e-9 clamp
+    w[degen, 4], w[degen, 5] = w[degen, 2] * 0.5, w[degen, 3] * 0.5 + 1e-12
+    w[kind == 5, 0] += r.choice([-1e4, 1e7, 1e30], (kind == 5).sum())
+    w[:, 6:10] = r.uniform(0, 1, (n, 4))
+    bad = kind == 4
+    cols = r.integers(0, 10, n)
+    w[bad, cols[bad]] = np.where(cols[bad] < 6, r.choice([np.nan, np.inf, -np.inf], bad.sum()), np.nan)
+    w[:, raster.COL_DEPTH] = r.uniform(1, 10, n)
+    w[:, raster.COL_CUTOFF] = r.uniform(0, 1, n)
+    w[:, raster.COL_MODE] = r.integers(0, 6, n)
+    has = r.random((nt, M)) < 0.85
+    sd = np.where(r.random((nt, T, T)) < 0.5, r.uniform(2, 9, (nt, T, T)), np.inf).astype(np.float32)
+    fb = r.uniform(0, 1, (nt, T, T, 4)).astype(np.float32)
+    return (np.ascontiguousarray(w.reshape(nt, M, raster.ROW)[:, :, :width]), has, sd, fb)
+
+
+# 16 and 8: 8x4 warp blocks; 37: rows off 16 B; 12: row-major pixels
+@pytest.mark.parametrize("T,M", [(16, 64), (16, 37), (8, 64), (12, 40)])
+@pytest.mark.parametrize(
+    "mode,depth_test,write_depth,seeded",
+    [
+        ("blend", False, False, False),
+        ("blend", True, False, True),
+        ("add", False, False, True),
+        ("add", True, False, False),
+        ("opaque", False, False, False),
+        ("opaque", True, True, False),
+        ("mask", True, True, True),
+        ("scene", True, True, True),
+    ],
+)
+def test_tile_blend_adversarial_windows_are_exact(cuda, T, M, mode, depth_test, write_depth, seeded):
+    ntx, nty = 4, 3
+    nt = ntx * nty
+    w, has, sd, fb = _adversarial_window(nt, M, raster.row_width(mode, depth_test), T, ntx, seed=T * M)
+    dev = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    args = (dev(w), dev(has), T, ntx, nty, (0.1, 0.0, 0.2, 1.0), mode)
+    kw = dict(framebuffer=dev(fb) if seeded else None, scene_depth=dev(sd) if depth_test else None,
+              depth_test=depth_test, write_depth=write_depth)
+    got = raster.tile_blend(*args, **kw)
+    want = raster.tile_blend_plain(*args, **kw)
+    if write_depth:
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0, equal_nan=True)
+        got, want = got[0], want[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)

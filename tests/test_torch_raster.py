@@ -113,7 +113,7 @@ def test_project_bin_matches_jax_binning():
     view, proj, d = _scene()
     cfg = raster.RasterConfig(SIZE, SIZE, tile_slots=1)
     t = _torch_draw(d)
-    tile, depth, rows = raster.project_bin(
+    tile, depth, rows, rng = raster.project_bin(
         t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
         view, proj, (SIZE, SIZE), cfg.tile_size, cfg.tiles_x, cfg.tiles_y,
     )
@@ -129,12 +129,15 @@ def test_project_bin_matches_jax_binning():
     # without ``extra`` the cutoff and mode columns are zero
     np.testing.assert_allclose(rows[:, raster.COL_DEPTH].numpy(), dist_j, rtol=1e-6, atol=1e-6)
     assert not rows[:, raster.COL_CUTOFF:].any()
+    # the range of the binned depths, which the sort keys quantise against
+    binned = depth[tile < cfg.num_tiles]
+    assert torch.equal(rng, torch.stack([binned.min(), binned.max()]))
     # the rows of a pass that reads no column past alpha stop there
     narrow = raster.project_bin(
         t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
         view, proj, (SIZE, SIZE), cfg.tile_size, cfg.tiles_x, cfg.tiles_y, row=raster.ROW_QUAD,
     )
-    assert torch.equal(narrow[0], tile) and torch.equal(narrow[1], depth)
+    assert torch.equal(narrow[0], tile) and torch.equal(narrow[1], depth) and torch.equal(narrow[3], rng)
     torch.testing.assert_close(narrow[2], rows[:, : raster.ROW_QUAD], rtol=0, atol=0, equal_nan=True)
 
 
