@@ -57,6 +57,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     # (table, idx, out, n_out, n_table, F, stream)
     "hanabi_gather_rows": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    # (rows, pidx_sorted, starts, ends, window, has, nt, n_entries, n_rows, M, F, from_start,
+    #  idx64, vec4, stream)
+    "hanabi_gather_window": [_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
+                             _I, _I, _I, _I, _I, _P],
     # (position, axis_x, axis_y, alive, color, extra, tile, depth, rows, range, n, row, params,
     #  ntx, nty, stream)
     "hanabi_project_bin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
@@ -67,6 +71,8 @@ SIGNATURES = {
     "hanabi_tile_blend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],
     # (mask, count, payload, out_slot, out_count, out_payload, num_events, scratch, n, W, stream)
     "hanabi_event_compact": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
+    # () -> lanes a CTA of event_compact scans at once
+    "hanabi_event_compact_chunk": [],
 }
 
 

@@ -1,9 +1,12 @@
-"""Row gather ``table[idx]`` (port of the TPU kernel ``pallas_gather``).
+"""Row gathers from an f32 row table (ports of the TPU kernel ``pallas_gather``).
 
-:func:`gather_rows` launches ``csrc/gather_rows.cu`` on CUDA tensors and
-adds one to ``gather_rows.launches``; on CPU tensors it takes its plain
-version, :func:`gather_rows_plain`. Two stages use it: the rasterizer's
-per-tile window gather and the event payload gather of a child's step.
+:func:`gather_rows` (``table[idx]``, the event payload gather of a child's
+step) and :func:`gather_window` (the rasterizer's per-tile window: its slot
+indices, ``has`` flags and rows in one launch) launch
+``csrc/gather_rows.cu`` on CUDA tensors and add one to their ``launches``;
+on CPU tensors they take their plain versions, :func:`gather_rows_plain`
+and :func:`gather_window_plain`. :func:`window_index` is the window's slot
+indices in plain torch, which the plain window is built from.
 """
 
 from __future__ import annotations
@@ -15,7 +18,17 @@ from ..cuda_build import Kernel
 from ..cuda_build import check_tensor as _check
 from ..cuda_build import current_stream as _stream
 
-__all__ = ["gather_rows", "gather_rows_plain", "KERNELS"]
+__all__ = [
+    "gather_rows",
+    "gather_rows_plain",
+    "gather_window",
+    "gather_window_plain",
+    "window_index",
+    "KERNELS",
+]
+
+# floats of a staged tile window: the kernel's shared memory (48 KB)
+_STAGE_FLOATS = 12288
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -46,10 +59,91 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 gather_rows.launches = 0
 
+
+def window_index(pidx_sorted, starts, ends, M: int, from_start: bool = False):
+    """``M`` entries of every tile in blend order (raster.py:488-506):
+    ``(pidx int32 [nt, M], has bool [nt, M])``. The ordered path takes the
+    END of each far-first run (the nearest M, back to front); the fast
+    paths take the START (``from_start``)."""
+    n = pidx_sorted.shape[0]
+    base = starts if from_start else torch.maximum(ends - M, starts)
+    raw = base[:, None] + torch.arange(M, dtype=base.dtype, device=base.device)[None, :]
+    has = raw < ends[:, None]
+    idx = torch.clamp(raw, max=n - 1)
+    return pidx_sorted[idx].to(torch.int32), has
+
+
+def gather_window_plain(rows, pidx_sorted, starts, ends, M: int, from_start: bool = False):
+    """Plain version of :func:`gather_window`: :func:`window_index`, then
+    ``index_select`` of its slots, empty slots zeroed."""
+    nt, width = starts.shape[0], rows.shape[1]
+    if pidx_sorted.shape[0] == 0:
+        return (rows.new_zeros((nt, M, width)),
+                torch.zeros((nt, M), dtype=torch.bool, device=rows.device))
+    pidx, has = window_index(pidx_sorted, starts, ends, M, from_start)
+    window = rows.index_select(0, pidx.reshape(-1)).reshape(nt, M, width)
+    return torch.where(has[..., None], window, 0.0), has
+
+
+def gather_window(rows, pidx_sorted, starts, ends, M: int, from_start: bool = False):
+    """Each tile's window of ``M`` rows in blend order, in one launch.
+
+    ``rows`` f32 [N, F] (``project_bin``'s), ``pidx_sorted`` int32 or int64
+    [n] (the sorted entries' row ids), ``starts``/``ends`` int64 [nt] (each
+    tile's run in the sorted order, from :func:`~..render.raster.sort_tiles`).
+    Tile t's slot m holds entry ``base + m`` of the run, ``base`` its start
+    (``from_start``, the fast paths) or ``max(ends - M, starts)`` (the
+    ordered path's nearest M, back to front). Returns ``(window f32
+    [nt, M, F], has bool [nt, M])``; an empty slot is 0.0 and reads no row.
+    Folds :func:`window_index` and the row gather of raster.py:488-506, 586
+    into one kernel."""
+    if rows.dim() != 2:
+        raise ValueError(f"rows must be [N, F], got shape {tuple(rows.shape)}")
+    dev = rows.device
+    _check(rows, "rows", torch.float32, rows.shape, dev)
+    if pidx_sorted.dim() != 1 or pidx_sorted.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"pidx_sorted must be int32 or int64 [n], got {pidx_sorted.dtype} "
+                        f"of shape {tuple(pidx_sorted.shape)}")
+    _check(pidx_sorted, "pidx_sorted", pidx_sorted.dtype, pidx_sorted.shape, dev)
+    if starts.dim() != 1:
+        raise ValueError(f"starts must be [nt], got shape {tuple(starts.shape)}")
+    nt = starts.shape[0]
+    _check(starts, "starts", torch.int64, (nt,), dev)
+    _check(ends, "ends", torch.int64, (nt,), dev)
+    if M < 1:
+        raise ValueError(f"gather_window: M must be positive, got {M}")
+    if not rows.is_cuda:
+        return gather_window_plain(rows, pidx_sorted, starts, ends, M, from_start)
+    width = rows.shape[1]
+    if M * width > _STAGE_FLOATS:
+        raise ValueError(f"gather_window stages a tile's M * F floats in 48 KB of shared "
+                         f"memory: M={M}, F={width} is too wide")
+    window = torch.empty((nt, M, width), dtype=torch.float32, device=dev)
+    has = torch.empty((nt, M), dtype=torch.bool, device=dev)
+    # every tile's window starts 16-byte aligned when M * F is a multiple of 4
+    vec4 = (M * width) % 4 == 0 and window.data_ptr() % 16 == 0
+    code = cuda_build.library().hanabi_gather_window(
+        rows.data_ptr(), pidx_sorted.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+        window.data_ptr(), has.data_ptr(), nt, pidx_sorted.shape[0], rows.shape[0], M, width,
+        int(from_start), int(pidx_sorted.dtype == torch.int64), int(vec4), _stream(),
+    )
+    cuda_build.check(code, "gather_window")
+    gather_window.launches += 1
+    return window, has
+
+
+gather_window.launches = 0
+
 KERNELS = {
     "gather_rows": Kernel(
         gather_rows,
         gather_rows_plain,
+        "bevy_hanabi_tpu_torch/csrc/gather_rows.cu",
+        "experiments/pallas_gather_bench.py:64",
+    ),
+    "gather_window": Kernel(
+        gather_window,
+        gather_window_plain,
         "bevy_hanabi_tpu_torch/csrc/gather_rows.cu",
         "experiments/pallas_gather_bench.py:64",
     ),

@@ -16,8 +16,9 @@ seeded framebuffer:
    ordered path, one of the three fast variants of :func:`fast_mode` for
    ``add`` — as int32, and sorts them (plain torch: CUB's radix sort);
    ``searchsorted`` of the tile bounds gives each tile's run;
-3. :func:`~..ops.gather.gather_rows` (CUDA kernel, the port of the TPU row
-   gather) fetches ``M`` rows of every tile in blend order;
+3. :func:`~..ops.gather.gather_window` (CUDA kernel, the port of the TPU
+   row gather) builds every tile's window of ``M`` rows in blend order,
+   its ``has`` flags and its rows in one launch;
 4. :func:`tile_blend` (CUDA kernel) blends each tile in one CTA, one thread
    per pixel, its depth plane in registers, and culls the entries that
    cover no pixel of a warp's block before the exact per-pixel test.
@@ -42,7 +43,7 @@ from .. import cuda_build
 from ..cuda_build import Kernel
 from ..cuda_build import check_tensor as _check
 from ..cuda_build import current_stream as _stream
-from ..ops.gather import gather_rows
+from ..ops.gather import gather_window, window_index
 from ..ops.linalg import mat4_mul
 from .camera import CameraParams
 from .extract import ParticleDrawData
@@ -577,19 +578,6 @@ def sort_tiles(tile: torch.Tensor, depth: torch.Tensor, nt: int, mode=None, dept
     return pidx_sorted, r[:-1], r[1:]
 
 
-def window_index(pidx_sorted, starts, ends, M: int, from_start: bool = False):
-    """``M`` entries of every tile in blend order (raster.py:488-506):
-    ``(pidx int32 [nt, M], has bool [nt, M])``. The ordered path takes the
-    END of each far-first run (the nearest M, back to front); the fast
-    paths take the START (``from_start``)."""
-    n = pidx_sorted.shape[0]
-    base = starts if from_start else torch.maximum(ends - M, starts)
-    raw = base[:, None] + torch.arange(M, dtype=base.dtype, device=base.device)[None, :]
-    has = raw < ends[:, None]
-    idx = torch.clamp(raw, max=n - 1)
-    return pidx_sorted[idx].to(torch.int32), has
-
-
 def untile(fb: torch.Tensor, config: RasterConfig) -> torch.Tensor:
     """[nt, T, T, C] or [nt, T, T] tiles -> [height, width, C] or [height, width] image."""
     T, ntx, nty = config.tile_size, config.tiles_x, config.tiles_y
@@ -689,8 +677,7 @@ def rasterize(
     mode = fast_mode(config, alpha_mode, n)
     pidx_sorted, starts, ends = sort_tiles(tile_ids, depth, nt, mode, depth_range)
     M = config.max_entries_per_tile
-    pidx, has = window_index(pidx_sorted, starts, ends, M, from_start=mode is not None)
-    window = gather_rows(rows, pidx.reshape(-1)).reshape(nt, M, row)
+    window, has = gather_window(rows, pidx_sorted, starts, ends, M, from_start=mode is not None)
     out = tile_blend(
         window, has, T, ntx, nty, config.background, alpha_mode,
         framebuffer=None if framebuffer is None else to_tiles(framebuffer, config, 0.0).to(dev),

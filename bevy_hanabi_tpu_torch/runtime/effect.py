@@ -33,7 +33,7 @@ from ..compiler import InitContext, SimParams, UpdateContext
 from ..ops import rng
 from ..ops.compaction import exclusive_rank
 from ..ops.linalg import affine3, rotate3
-from .events import EventBuffer, build_event_buffer, consume_events
+from .events import EventBuffer, build_event_buffer, channel_emissions, consume_events
 from .pool import ParticlePool, to_device
 
 __all__ = ["CompiledEffect", "StepInputs", "identity_transform"]
@@ -428,22 +428,17 @@ class CompiledEffect:
         # ---- emitted events, aggregated per channel ----
         events_out: Dict[int, EventBuffer] = {}
         if self.num_event_channels:
-            per_channel: Dict[int, torch.Tensor] = {}
-            for channel, mask, count in uctx.events_out:
-                contrib = torch.where(mask, count, 0)
-                per_channel[channel] = (per_channel.get(channel, 0) + contrib) & 0xFFFFFFFF
+            per_channel = channel_emissions(uctx.events_out)
             if self.payload_attrs is None:
                 captured = uctx.particle
             else:
                 captured = {k: uctx.particle[k] for k in self.payload_attrs if k in uctx.particle}
             for channel in range(self.num_event_channels):
-                counts = per_channel.get(channel)
-                if counts is None:
+                if channel not in per_channel:
                     events_out[channel] = self.make_empty_events(n)
                 else:
-                    events_out[channel] = build_event_buffer(
-                        counts > 0, counts, parent_attrs=captured
-                    )
+                    mask, counts = per_channel[channel]
+                    events_out[channel] = build_event_buffer(mask, counts, parent_attrs=captured)
 
         pool.attrs = uctx.particle
         pool.alive = uctx.alive

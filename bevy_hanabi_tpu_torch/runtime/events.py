@@ -22,6 +22,7 @@ package's bit for bit.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -38,6 +39,7 @@ from ..ops.gather import gather_rows
 __all__ = [
     "EventBuffer",
     "build_event_buffer",
+    "channel_emissions",
     "consume_events",
     "event_index",
     "event_compact",
@@ -113,6 +115,13 @@ def event_compact_plain(mask, count, payload):
     return order, counts[order], torch.sum(active, dtype=torch.int32), payload[order]
 
 
+@functools.lru_cache(maxsize=None)
+def _chunk_lanes() -> int:
+    """Lanes a CTA of the kernel scans at once: its scratch holds a word
+    for each such chunk (at most one CTA a chunk)."""
+    return cuda_build.library().hanabi_event_compact_chunk()
+
+
 def event_compact(mask, count, payload):
     """Stable partition of the event lanes of one channel.
 
@@ -135,7 +144,7 @@ def event_compact(mask, count, payload):
     counts = torch.empty((n,), dtype=torch.int64, device=dev)
     num_events = torch.empty((), dtype=torch.int32, device=dev)
     words = torch.empty((n, W), dtype=torch.int32, device=dev)
-    scratch = torch.empty((max(1, -(-n // 1024)),), dtype=torch.int32, device=dev)
+    scratch = torch.empty((max(1, -(-n // _chunk_lanes())),), dtype=torch.int32, device=dev)
     code = cuda_build.library().hanabi_event_compact(
         mask.data_ptr(), count.data_ptr(), payload.data_ptr(), slot.data_ptr(),
         counts.data_ptr(), words.data_ptr(), num_events.data_ptr(), scratch.data_ptr(),
@@ -217,6 +226,32 @@ def build_event_buffer(
         out[name] = _from_words(words[:, off : off + w], nd, dtype)
         off += w
     return EventBuffer(slot, counts, num_events, out)
+
+
+def channel_emissions(emitted) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
+    """Each event channel's ``(mask, count)`` from a step's emissions, the
+    ``(channel, mask, count)`` tuples of ``UpdateContext.events_out``.
+
+    A channel with one emitter keeps that emitter's own mask and count:
+    :func:`build_event_buffer` takes the lanes where ``mask`` and ``count >
+    0``, the lanes the JAX package marks with ``counts > 0`` of
+    ``where(mask, count, 0)`` (effect.py:663-687), so the buffer is the
+    same bit for bit without building that mask. Several emitters on one
+    channel sum their counts (uint32) and mark ``counts > 0``, as the JAX
+    package does."""
+    grouped: Dict[int, list] = {}
+    for channel, mask, count in emitted:
+        grouped.setdefault(channel, []).append((mask, count))
+    out = {}
+    for channel, pairs in grouped.items():
+        if len(pairs) == 1:
+            out[channel] = pairs[0]
+            continue
+        total = 0
+        for mask, count in pairs:
+            total = (total + torch.where(mask, count, 0)) & 0xFFFFFFFF
+        out[channel] = (total > 0, total)
+    return out
 
 
 def event_index(events: EventBuffer, spawn_rank: torch.Tensor, const_count=None) -> torch.Tensor:

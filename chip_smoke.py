@@ -15,8 +15,12 @@ of which fails the run on any error:
    on a real 1M-particle headline frame, and time both: ``project_bin``
    (tiles, depths and depth range equal, rows at max abs err 0),
    ``bin_keys`` (bit-equal; beside it the stable sort of its int32 keys
-   and of the same keys widened to int64), the window gather (bit-exact)
-   and ``tile_blend`` in BLEND (max abs err 0);
+   and of the same keys widened to int64), ``gather_window`` (bit-exact
+   over the whole window and ``has``; beside it the route it replaced,
+   ``window_index`` then ``gather_rows``, timed in the same call) and
+   ``tile_blend`` in BLEND (max abs err 0); then ``tile_blend`` in MASK,
+   which no main path runs, on the same draw's 13-float window with a
+   cutoff of 0.5, depth written (max abs err 0, depth planes equal);
 4. an 8192-particle gradient frame at 128x128 through the kernels on the
    card against the plain versions on the CPU (checksums within 0.5%);
 5. the headline: ``gradient_effect(1 << 20)`` warmed past its 5 s
@@ -41,7 +45,7 @@ of which fails the run on any error:
       the chunks and the frame; the frame is rendered again on the CPU
       through the plain versions (checksums within 0.5%);
    b. on that frame's 327,680 entries, ``project_bin``, ``bin_keys`` and
-      the window gather against their plain versions (as in phase 3), and
+      ``gather_window`` against their plain versions (as in phase 3), and
       ``tile_blend`` in ADD mode against its plain version, max abs err 0;
       then the trail step's payload gather (``gather_rows`` of the
       rocket buffer's [65536, 3] positions at the 262144 trail lanes' event
@@ -70,26 +74,30 @@ of which fails the run on any error:
     frame is rendered again on the CPU too. On that frame each kernel of
     both pipelines is held against its plain version at the pass's own
     shapes, and timed: the painter pass's ``project_bin`` (with the painter
-    columns), ``bin_keys`` with its sort, window gather and ``tile_blend``
-    SCENE at M = 64 and M = 128;
+    columns), ``bin_keys`` with its sort, ``gather_window`` and
+    ``tile_blend`` SCENE at M = 64 and M = 128;
     the split pipeline's depth-writing OPAQUE debris pass, then its BLEND
     gradient pass and its ADD rocket + trail batch (the fast path), both
     depth-tested against the debris pass's depth plane; every framebuffer at
-    max abs err 0 and every depth plane equal. Then
+    max abs err 0 and every depth plane equal; and the trail step's payload
+    ``gather_rows``, as in phase 7b. Then
     ``torch.profiler`` over 30 frames of ``update_render_chunk``.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
-headline's (``tile_blend`` in BLEND), the firework's (``[firework]``,
+headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
+launches of all three paths), the firework's (``[firework]``,
 ``tile_blend[add]``, ``event_compact``) and the mixed scene's (``[mixed]``,
 ``tile_blend[scene]``, ``tile_blend[scene,M=128]``, ``tile_blend[opaque]``,
 ``tile_blend[blend,split]``, ``tile_blend[add,split]``). Each row holds the
 path's launches, the kernel's and its plain version's device ms, the
-library call's (``index_select`` for the gather, else null), and
+library call's (``index_select`` for the gathers, of the window's indices
+for ``gather_window``; else null), and
 ``bound_ms``: the larger of the bytes the call must move over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (``bound_by`` says which), computed from
 that call's inputs and counting only the work every correct kernel must
-do; ``share`` is ``bound_ms / ms``. The ``bin_keys`` rows also hold
-``sort_ms`` and ``sort_int64_ms``; the ``tile_blend`` rows
+do; ``share`` is ``bound_ms / ms``. The ``gather_window`` rows also hold
+``first_ms`` (the replaced route) and ``filled_entries``; the ``bin_keys``
+rows ``sort_ms`` and ``sort_int64_ms``; the ``tile_blend`` rows
 ``filled_entries`` and ``covered_pairs``, what their bound counts (the
 filled entries' rows, and the covered (entry, pixel) pairs' test and
 blend). Then, as its last line,
@@ -133,17 +141,22 @@ FP32_OPS_PER_S = 67e12
 PROJECT_OPS, KEY_OPS = 150, 10
 ENTRY_OPS, COVER_TEST_OPS = 5, 10
 BLEND_EQ_OPS = {"blend": 12, "add": 8, "opaque": 0, "mask": 1, "scene": 12}
-HEADLINE_KERNELS = ("gather_rows", "project_bin", "bin_keys", "tile_blend")  # tile_blend in BLEND
-FIREWORK_KERNELS = ("gather_rows", "project_bin", "bin_keys", "tile_blend[add]", "event_compact")
+HEADLINE_KERNELS = ("gather_window", "project_bin", "bin_keys", "tile_blend")  # tile_blend in BLEND
+# gather_rows: the trail step's event payload gather
+FIREWORK_KERNELS = ("gather_rows", "gather_window", "project_bin", "bin_keys", "tile_blend[add]",
+                    "event_compact")
 FW_K = 240  # frames per firework chunk, as bench.py::bench_firework_events
 FW_INTO_BURST = 10  # frames into a 2 s burst period at which the timed chunks start
 FW_RENDER_AT = 75  # frames into a burst period at which the frame is rendered
 # every kernel of each pipeline of the mixed scene
 MIXED_KERNELS = {
-    "auto": ("gather_rows", "project_bin", "bin_keys", "tile_blend[scene]", "event_compact"),
-    "split": ("gather_rows", "project_bin", "bin_keys", "tile_blend[opaque]", "tile_blend",
-              "tile_blend[add]", "event_compact"),
+    "auto": ("gather_rows", "gather_window", "project_bin", "bin_keys", "tile_blend[scene]",
+             "event_compact"),
+    "split": ("gather_rows", "gather_window", "project_bin", "bin_keys", "tile_blend[opaque]",
+              "tile_blend", "tile_blend[add]", "event_compact"),
 }
+# the runtime calls that launch a kernel (event_compact's launch is cooperative)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaLaunchKernelExC")
 MIXED_K = 8  # frames per chunk of the small mixed gate (phase 10)
 MIXED_M_WIDE = 128  # the third timing's max_entries_per_tile (bench.py:765)
 
@@ -340,17 +353,84 @@ def project_args(draw, cam, config) -> tuple:
             cam.view, cam.proj, cam.viewport, config.tile_size, config.tiles_x, config.tiles_y)
 
 
-def blend_window(projected, nt: int, m: int, mode=None):
-    """A pass's ``tile_blend`` window from ``project_bin``'s outputs, as
-    ``rasterize`` builds it, through the plain gather: ``(idx, window, has)``."""
+def compare_gather_window(projected, nt: int, m: int, mode, label: str):
+    """``gather_window`` against its plain version on a pass's entries
+    (``project_bin``'s outputs, sorted as ``rasterize`` sorts them), bit for
+    bit over the whole window and ``has``, and timed: the kernel; the route
+    it replaced, ``window_index`` then ``gather_rows``, in the same call
+    (``first_ms``); its plain version; and one ``index_select`` of the same
+    window indices (``library_ms``: the gather half only, since no single
+    PyTorch call builds the window). The bound counts the tile bounds, the
+    filled slots' indices and rows read, and the whole window and ``has``
+    written. Returns the row and ``(window, has)``."""
+    import torch
+
     from bevy_hanabi_tpu_torch.ops import gather
     from bevy_hanabi_tpu_torch.render import raster
 
     tile, depth, rows, rng = projected
     pidx_sorted, starts, ends = raster.sort_tiles(tile, depth, nt, mode, rng)
-    pidx, has = raster.window_index(pidx_sorted, starts, ends, m, from_start=mode is not None)
-    idx = pidx.reshape(-1)
-    return idx, gather.gather_rows_plain(rows, idx).reshape(nt, m, rows.shape[1]), has
+    args = (rows, pidx_sorted, starts, ends, m, mode is not None)
+    window, has = gather.gather_window(*args)
+    want_w, want_has = gather.gather_window_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(has, want_has) or not torch.equal(window.view(torch.int32),
+                                                         want_w.view(torch.int32)):
+        fail(f"gather_window ({label}): differs from its plain version")
+    filled = int(has.sum())
+    idx = raster.window_index(*args[1:])[0].reshape(-1)
+
+    def first_route():
+        pidx, _ = raster.window_index(*args[1:])
+        return gather.gather_rows(rows, pidx.reshape(-1))
+
+    read = filled * (pidx_sorted.element_size() + rows.shape[1] * rows.element_size())
+    result = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: gather.gather_window(*args), 100),
+        "first_ms": cuda_ms(first_route, 100),
+        "plain_ms": cuda_ms(lambda: gather.gather_window_plain(*args), 50),
+        "library_ms": cuda_ms(lambda: rows.index_select(0, idx), 100),
+        **bound(nbytes(starts, ends, window, has) + read),
+        "filled_entries": filled,
+    }
+    print(f"gather_window ({label}): {nt} tiles x {m} slots x {rows.shape[1]} floats, {filled} "
+          f"filled, {pidx_sorted.dtype} ids, bit-exact; kernel {result['ms']:.4f} ms, "
+          f"window_index + gather_rows {result['first_ms']:.4f} ms")
+    return result, (window, has)
+
+
+def compare_tile_blend(label: str, window, has, T: int, ntx: int, nty: int, background, mode: str,
+                       **kw):
+    """``tile_blend`` against its plain version on a pass's window: the
+    framebuffer at max abs err 0 and, where written, the depth plane equal;
+    both timed. Returns the row and the kernel's depth plane (or None)."""
+    import torch
+
+    from bevy_hanabi_tpu_torch.render import raster
+
+    args = (window, has, T, ntx, nty, background, mode)
+    write = kw.get("write_depth", False)
+    got = raster.tile_blend(*args, **kw)
+    want = raster.tile_blend_plain(*args, **kw)
+    torch.cuda.synchronize()
+    (fb_k, d_k), (fb_p, d_p) = (got, want) if write else ((got, None), (want, None))
+    err = float((fb_k - fb_p).abs().max())
+    depth_ok = not write or torch.equal(d_k, d_p)
+    entries = int(has.sum())
+    print(f"tile_blend {label}: {entries} window entries, max abs err {err:g}"
+          + (f", depth planes {'equal' if depth_ok else 'DIFFER'}" if write else ""))
+    if err != 0.0 or not depth_ok or entries == 0:
+        fail(f"tile_blend {label}: max abs err {err:g}, or the depth planes differ, or an "
+             f"empty window")
+    return {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: raster.tile_blend(*args, **kw), 50),
+        "plain_ms": cuda_ms(lambda: raster.tile_blend_plain(*args, **kw), 3),
+        "library_ms": None,
+        **blend_bound(mode, window, has, T, ntx, fb_k, d_k, kw.get("framebuffer"),
+                      kw.get("scene_depth")),
+    }, d_k
 
 
 def gather_row(table, idx) -> dict:
@@ -421,26 +501,18 @@ def compare_kernels(dev):
         project_args(draw, cam, cfg), nt, "project_bin", raster.row_width("blend", False))
     results["bin_keys"] = compare_bin_keys(projected, nt, None, "bin_keys")
 
-    idx, window, has = blend_window(projected, nt, M)
-    compare_gather(projected[2], idx, "gather_rows (raster window)")
-    results["gather_rows"] = gather_row(projected[2], idx)
+    results["gather_window"], win = compare_gather_window(projected, nt, M, None, "headline")
+    results["tile_blend"], _ = compare_tile_blend("blend", *win, T, ntx, nty, cfg.background, "blend")
 
-    fb_k = raster.tile_blend(window, has, T, ntx, nty, cfg.background)
-    fb_p = raster.tile_blend_plain(window, has, T, ntx, nty, cfg.background)
-    torch.cuda.synchronize()
-    blend_err = float((fb_k - fb_p).abs().max())
-    print(f"tile_blend: nt={nt} M={M} ({int(has.sum())} entries), max abs err {blend_err:g}")
-    if blend_err != 0.0:
-        fail(f"tile_blend: max abs err {blend_err:g}")
-    results["tile_blend"] = {
-        "max_abs_err": blend_err,
-        "ms": cuda_ms(lambda: raster.tile_blend(window, has, T, ntx, nty, cfg.background), 50),
-        "plain_ms": cuda_ms(
-            lambda: raster.tile_blend_plain(window, has, T, ntx, nty, cfg.background), 5
-        ),
-        "library_ms": None,
-        **blend_bound("blend", window, has, T, ntx, fb_k),
-    }
+    # MASK, which no main path runs: the headline's draw in 13-float rows
+    # with rasterize's default cutoff (0.5), writing depth as the split
+    # pipeline's opaque phase does
+    n = draw.position.shape[0]
+    extra = torch.stack([torch.full((n,), 0.5, device=dev), torch.zeros((n,), device=dev)], dim=1)
+    masked = raster.project_bin(*project_args(draw, cam, cfg), extra=extra, row=raster.ROW)
+    _, win = compare_gather_window(masked, nt, M, None, "headline, 13-float rows")
+    results["tile_blend[mask]"], _ = compare_tile_blend(
+        "mask", *win, T, ntx, nty, cfg.background, "mask", depth_test=True, write_depth=True)
     for name, r in results.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
     return results
@@ -572,7 +644,6 @@ def compare_payload_gather(scene):
     next ``update`` would gather it, while rockets are dying."""
     import torch
 
-    from bevy_hanabi_tpu_torch.ops import gather
     from bevy_hanabi_tpu_torch.ops.compaction import exclusive_rank
     from bevy_hanabi_tpu_torch.runtime import events
 
@@ -589,12 +660,10 @@ def compare_payload_gather(scene):
     return gather_row(table, idx)
 
 
-def compare_tile_blend_add(scene, cam, config):
-    """Phase 7b: ``project_bin``, the window gather and the ADD
-    ``tile_blend`` against their plain versions on the scene's real 512x512
-    frame (its one transparent batch pass, 327,680 entries)."""
-    import torch
-
+def compare_firework_frame(scene, cam, config):
+    """Phase 7b: ``project_bin``, ``bin_keys``, ``gather_window`` and the
+    ADD ``tile_blend`` against their plain versions on the scene's real
+    512x512 frame (its one transparent batch pass, 327,680 entries)."""
     from bevy_hanabi_tpu_torch.render import raster
     from bevy_hanabi_tpu_torch.render.extract import concat_draws, extract_draw_data
 
@@ -608,28 +677,14 @@ def compare_tile_blend_add(scene, cam, config):
     tile = projected[0]
     mode = raster.fast_mode(config, "add", tile.shape[0])
     keys_row = compare_bin_keys(projected, nt, mode, "bin_keys (firework)")
-    idx, window, has = blend_window(projected, nt, M, mode)
-    compare_gather(projected[2], idx, "gather_rows (firework window)")
-    args = (window, has, T, ntx, nty, config.background, "add")
-    fb_k = raster.tile_blend(*args)
-    fb_p = raster.tile_blend_plain(*args)
-    torch.cuda.synchronize()
-    err = float((fb_k - fb_p).abs().max())
-    entries = int(has.sum())
-    print(f"tile_blend add: {tile.shape[0]} entries, variant {mode!r}, "
-          f"{entries} window entries, max abs err {err:g}")
-    if err != 0.0 or entries == 0:
-        fail(f"tile_blend add: max abs err {err:g}, or an empty window")
+    window_row, win = compare_gather_window(projected, nt, M, mode, "firework")
+    blend_row, _ = compare_tile_blend(f"add ({mode!r}, {tile.shape[0]} entries)", *win, T, ntx, nty,
+                                      config.background, "add")
     return {
         "project_bin[firework]": pb_row,
         "bin_keys[firework]": keys_row,
-        "tile_blend[add]": {
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: raster.tile_blend(*args), 50),
-            "plain_ms": cuda_ms(lambda: raster.tile_blend_plain(*args), 5),
-            "library_ms": None,
-            **blend_bound("add", window, has, T, ntx, fb_k),
-        },
+        "gather_window[firework]": window_row,
+        "tile_blend[add]": blend_row,
     }
 
 
@@ -687,7 +742,7 @@ def firework_tree(kernels, cam):
         render_ms.append(1e3 * (time.perf_counter() - t1))
     print(f"firework frame 512x512 ({scene['rocket'].pool.capacity + scene['trail'].pool.capacity}"
           f" entries): first {1e3 * render_s:.3f} ms, then {render_ms} ms, checksum {checksum:.6e}")
-    results.update(compare_tile_blend_add(scene, cam, config))
+    results.update(compare_firework_frame(scene, cam, config))
     results["gather_rows[firework]"] = compare_payload_gather(scene)
     for name, r in results.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
@@ -718,13 +773,15 @@ def profile_frames(label: str, run, frames: int = 30) -> None:
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     device_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    by_call = {call: sum(e.count for e in events if e.key == call) for call in LAUNCH_CALLS}
+    launches = sum(by_call.values())
     copies = sum(e.count for e in events if e.key == "cudaMemcpyAsync")
     syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
     print(f"profile {label}: {frames} frames, wall {1e3 * wall:.2f} ms (profiled), device busy "
           f"{device_us / 1e3:.3f} ms ({100.0 * device_us / 1e6 / wall:.1f}% of the wall); per frame "
-          f"{launches / frames:.1f} launches, {copies / frames:.1f} cudaMemcpyAsync, "
-          f"{syncs / frames:.1f} cudaStreamSynchronize")
+          f"{launches / frames:.1f} launches ("
+          + ", ".join(f"{call} {n / frames:.1f}" for call, n in by_call.items())
+          + f"), {copies / frames:.1f} cudaMemcpyAsync, {syncs / frames:.1f} cudaStreamSynchronize")
     ops = sorted((e for e in events if e.key.startswith("aten::")),
                  key=lambda e: -e.device_time_total)
     print(f"profile {label}: aten ops by device time (ms a frame, calls a frame, host ms a frame)")
@@ -915,9 +972,8 @@ def compare_mixed_kernels(scene, cam, config):
     ``tile_blend`` SCENE at M = 64 and M = 128; the split pipeline's
     depth-writing OPAQUE debris pass, then its BLEND gradient pass and its
     ADD rocket + trail batch, both depth-tested against the debris pass's
-    depth plane, as ``HanabiScene._render_frame`` threads it."""
-    import torch
-
+    depth plane, as ``HanabiScene._render_frame`` threads it; then the trail
+    step's payload gather."""
     from bevy_hanabi_tpu_torch.render import raster
     from bevy_hanabi_tpu_torch.render.extract import concat_draws
 
@@ -932,33 +988,10 @@ def compare_mixed_kernels(scene, cam, config):
                                    extra)
 
     def window(projected, label, m, mode=None):
-        idx, win, has = blend_window(projected, nt, m, mode)
-        compare_gather(projected[2], idx, f"gather_rows ({label} window)")
-        return gather_row(projected[2], idx), (win, has)
+        return compare_gather_window(projected, nt, m, mode, label)
 
     def blend_row(label, win, background, mode, **kw):
-        """Returns the result row and the kernel's depth plane (or None)."""
-        args = (*win, T, ntx, nty, background, mode)
-        write = kw.get("write_depth", False)
-        got = raster.tile_blend(*args, **kw)
-        want = raster.tile_blend_plain(*args, **kw)
-        torch.cuda.synchronize()
-        (fb_k, d_k), (fb_p, d_p) = (got, want) if write else ((got, None), (want, None))
-        err = float((fb_k - fb_p).abs().max())
-        depth_ok = not write or torch.equal(d_k, d_p)
-        entries = int(win[1].sum())
-        print(f"tile_blend {label}: {entries} window entries, max abs err {err:g}"
-              + (f", depth planes {'equal' if depth_ok else 'DIFFER'}" if write else ""))
-        if err != 0.0 or not depth_ok or entries == 0:
-            fail(f"tile_blend {label}: max abs err {err:g}, or the depth planes differ, or an "
-                 f"empty window")
-        return {
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: raster.tile_blend(*args, **kw), 50),
-            "plain_ms": cuda_ms(lambda: raster.tile_blend_plain(*args, **kw), 3),
-            "library_ms": None,
-            **blend_bound(mode, *win, T, ntx, fb_k, d_k, kw.get("framebuffer"), kw.get("scene_depth")),
-        }, d_k
+        return compare_tile_blend(label, *win, T, ntx, nty, background, mode, **kw)
 
     # the painter pass ("auto"): every effect in one window
     painter, extra = painter_draw(scene, draws)
@@ -969,7 +1002,7 @@ def compare_mixed_kernels(scene, cam, config):
     for m, name in ((M, "tile_blend[scene]"), (MIXED_M_WIDE, f"tile_blend[scene,M={MIXED_M_WIDE}]")):
         gathered, win = window(projected, f"painter M={m}", m)
         if m == M:
-            results["gather_rows[mixed]"] = gathered
+            results["gather_window[mixed]"] = gathered
         results[name], _ = blend_row(f"scene M={m}", win, config.background, "scene",
                                      framebuffer=fb0, depth_test=True, write_depth=True)
 
@@ -987,6 +1020,8 @@ def compare_mixed_kernels(scene, cam, config):
     _, win = window(project(batch, "rocket + trail, add", wide)[1], "rocket + trail", M, mode)
     results["tile_blend[add,split]"], _ = blend_row(
         f"add split ({mode!r})", win, clear, "add", scene_depth=debris_depth, depth_test=True)
+    # the trail step's payload gather, as in the firework tree
+    results["gather_rows[mixed]"] = compare_payload_gather(scene)
     return results
 
 
@@ -1197,14 +1232,17 @@ def main() -> int:
     # then the mixed scene's, by pipeline)
     rows = (
         [(name, name, launches[name]) for name in HEADLINE_KERNELS]
+        # MASK runs on no main path: its launches are those of all three (0)
+        + [("tile_blend[mask]", "tile_blend",
+            sum(n["tile_blend[mask]"] for n in (launches, fw_launches, *mx_launches.values())))]
         + [
-            (f"{name}[firework]" if name in HEADLINE_KERNELS else name,
+            (name if "[" in name or name == "event_compact" else f"{name}[firework]",
              name.split("[")[0], fw_launches[name])
             for name in FIREWORK_KERNELS
         ]
         + [
             (f"{name}[mixed]", name, sum(n[name] for n in mx_launches.values()))
-            for name in ("project_bin", "bin_keys", "gather_rows")
+            for name in ("project_bin", "bin_keys", "gather_window", "gather_rows")
         ]
         + [
             ("tile_blend[scene]", "tile_blend", mx_launches["auto"]["tile_blend[scene]"]),
@@ -1227,10 +1265,12 @@ def main() -> int:
         }
         for name, kernel, count in rows
     ]
-    print("kernel rows: name, launches, ms, bound ms (by), share of the bound, plain ms, library ms")
+    print("kernel rows: name, launches, ms, bound ms (by), share of the bound, plain ms, library ms"
+          " (, the replaced route's ms)")
     for r in kernel_rows:
         print(f"  {r['name']:28s} {r['launches']:6d} {r['ms']:.4f} {r['bound_ms']:.4f} "
-              f"({r['bound_by']}) {100.0 * r['share']:.1f}% {r['plain_ms']:.4f} {r['library_ms']}")
+              f"({r['bound_by']}) {100.0 * r['share']:.1f}% {r['plain_ms']:.4f} {r['library_ms']}"
+              + (f" {r['first_ms']:.4f}" if "first_ms" in r else ""))
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

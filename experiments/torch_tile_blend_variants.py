@@ -89,13 +89,23 @@ def build_all(builds):
     return libs
 
 
+def pass_window(projected, nt: int, m: int):
+    """A pass's ``tile_blend`` window from ``project_bin``'s outputs, as
+    ``rasterize`` builds it on the ordered path, through the plain gather."""
+    from bevy_hanabi_tpu_torch.ops import gather
+    from bevy_hanabi_tpu_torch.render import raster
+
+    tile, depth, rows, rng = projected
+    return gather.gather_window_plain(rows, *raster.sort_tiles(tile, depth, nt, None, rng), m)
+
+
 def headline_window(dev):
     import chip_smoke as cs
     from bevy_hanabi_tpu_torch.render import raster
 
     draw, cam, cfg = cs.headline_frame(dev)
     projected = raster.project_bin(*cs.project_args(draw, cam, cfg), row=raster.ROW_QUAD)
-    _, window, has = cs.blend_window(projected, cfg.num_tiles, cfg.max_entries_per_tile)
+    window, has = pass_window(projected, cfg.num_tiles, cfg.max_entries_per_tile)
     return dict(window=window, has=has, T=cfg.tile_size, ntx=cfg.tiles_x, nty=cfg.tiles_y,
                 background=cfg.background, mode="blend", kw={})
 
@@ -113,7 +123,7 @@ def painter_windows(dev):
     fb0 = cs.painter_target(cfg, dev)
     out = {}
     for m, name in ((64, "scene"), (128, "scene128")):
-        _, window, has = cs.blend_window(projected, cfg.num_tiles, m)
+        window, has = pass_window(projected, cfg.num_tiles, m)
         out[name] = dict(window=window, has=has, T=cfg.tile_size, ntx=cfg.tiles_x, nty=cfg.tiles_y,
                          background=cfg.background, mode="scene",
                          kw=dict(framebuffer=fb0, depth_test=True, write_depth=True))

@@ -113,8 +113,8 @@ def test_small_frame_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.parametrize("n,active_share", [(65536, 0.03), (5000, 0.5), (1_500_000, 0.2)])
 def test_event_compact_is_bit_exact(cuda, n, active_share):
-    # 65536 is the rocket pool; 1.5M lanes take more than one chunk of the
-    # single-block scan of block counts
+    # 65536 is the rocket pool; at 1.5M lanes each CTA of the one resident
+    # grid walks several chunks
     r = np.random.default_rng(n)
     mask = torch.from_numpy(r.random(n) < active_share).to(cuda)
     count = torch.from_numpy(r.integers(0, 5, n).astype(np.int64)).to(cuda)
@@ -442,3 +442,99 @@ def test_tile_blend_adversarial_windows_are_exact(cuda, T, M, mode, depth_test, 
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=0, equal_nan=True)
         got, want = got[0], want[0]
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+# ---- the window gather, the payload gather and the one-launch compaction ----
+
+
+def _window_entries(nt, M, F, index_dtype, seed):
+    """A sorted entry list over nt tiles whose runs are empty, short, exactly
+    M, or longer than M (ragged), a row table with NaN values, and ids past
+    the runs (the sentinel tile's)."""
+    r = np.random.default_rng(seed)
+    lengths = r.choice([0, 0, 1, M // 2, M - 1, M, M + 1, 3 * M], size=nt)
+    ends = np.cumsum(lengths).astype(np.int64)
+    starts = ends - lengths
+    n = int(ends[-1]) + 100
+    table = r.standard_normal((n, F)).astype(np.float32)
+    table[r.random(table.shape) < 0.01] = np.nan
+    pidx = r.permutation(n)
+    return (torch.from_numpy(table), torch.from_numpy(pidx).to(index_dtype),
+            torch.from_numpy(starts), torch.from_numpy(ends))
+
+
+@pytest.mark.parametrize("from_start", [False, True])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("M", [64, 128, 37])  # 37 x 13: a window off 16 bytes, the scalar stores
+@pytest.mark.parametrize("F", [10, 13])
+def test_gather_window_is_bit_exact(cuda, F, M, index_dtype, from_start):
+    rows, pidx, starts, ends = (t.to(cuda) for t in _window_entries(300, M, F, index_dtype, seed=F * M))
+    before = gather.gather_window.launches
+    window, has = gather.gather_window(rows, pidx, starts, ends, M, from_start)
+    assert gather.gather_window.launches == before + 1
+    want_w, want_has = gather.gather_window_plain(rows, pidx, starts, ends, M, from_start)
+    assert has.dtype == torch.bool and torch.equal(has, want_has)
+    assert bool(has.any()) and not bool(has.all())
+    assert torch.equal(window.view(torch.int32), want_w.view(torch.int32))
+
+
+def test_gather_window_on_a_rasterized_frame_is_bit_exact(cuda):
+    view, proj, t = _draw(8192, cuda, seed=6)
+    cfg = raster.RasterConfig(128, 128, tile_slots=1)
+    tile, depth, rows, rng = raster.project_bin(
+        t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
+        view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y, row=raster.ROW_QUAD)
+    for mode in (None, raster.fast_mode(cfg, "add", 8192)):
+        sorted_ = raster.sort_tiles(tile, depth, cfg.num_tiles, mode, rng)
+        got = gather.gather_window(rows, *sorted_, cfg.max_entries_per_tile, mode is not None)
+        want = gather.gather_window_plain(rows, *sorted_, cfg.max_entries_per_tile, mode is not None)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("F", [1, 3, 10, 13, 50, 400])  # 50, 400: the general row width, shorter runs
+def test_gather_rows_is_bit_exact_and_nan_outside_the_table(cuda, F):
+    r = np.random.default_rng(F)
+    n_table, n_out = 5000, 70_001  # a ragged last run
+    table = torch.from_numpy(r.standard_normal((n_table, F)).astype(np.float32)).to(cuda)
+    idx = r.integers(0, n_table, n_out).astype(np.int32)
+    bad = r.random(n_out) < 0.01
+    idx[bad] = r.choice([-1, n_table, 2**31 - 1, -(2**31)], bad.sum())
+    before = gather.gather_rows.launches
+    got = gather.gather_rows(table, torch.from_numpy(idx).to(cuda))
+    assert gather.gather_rows.launches == before + 1
+    good = torch.from_numpy(~bad).to(cuda)
+    want = gather.gather_rows_plain(table, torch.from_numpy(np.where(bad, 0, idx)).to(cuda))
+    assert torch.equal(got[good], want[good])
+    assert bool(got[~good].isnan().all())
+
+
+def _compact_inputs(n, W, active, seed, device, offset=0):
+    r = np.random.default_rng(seed)
+    m = n + offset
+    mask = {"random": r.random(m) < 0.3, "all": np.ones(m, bool), "none": np.zeros(m, bool)}[active]
+    count = r.integers(0 if active == "random" else 1, 5, m).astype(np.int64)
+    payload = r.integers(-(2**31), 2**31, (m, W)).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device)[offset:] for a in (mask, count, payload))
+
+
+@pytest.mark.parametrize("W", [0, 3, 13])
+@pytest.mark.parametrize("n", [0, 1, 1023, 1025, 65536, 4_194_304])  # 4M: a CTA loops over chunks
+def test_event_compact_one_launch_is_bit_exact(cuda, n, W):
+    mask, count, payload = _compact_inputs(n, W, "random", n + W, cuda)
+    before = events.event_compact.launches
+    got = events.event_compact(mask, count, payload)
+    assert events.event_compact.launches == before + 1
+    for a, b in zip(got, events.event_compact_plain(mask, count, payload)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("offset", [0, 1])  # 1: mask and count off their wide-load alignment
+@pytest.mark.parametrize("active", ["all", "none"])
+@pytest.mark.parametrize("n", [1025, 65536])
+def test_event_compact_all_or_no_lane_active(cuda, n, active, offset):
+    mask, count, payload = _compact_inputs(n, 3, active, n, cuda, offset)
+    got = events.event_compact(mask, count, payload)
+    assert int(got[2]) == (n if active == "all" else 0)
+    for a, b in zip(got, events.event_compact_plain(mask, count, payload)):
+        assert torch.equal(a, b)

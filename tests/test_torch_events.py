@@ -64,6 +64,33 @@ def test_build_event_buffer_bit_exact(attrs):
     assert int(buf_t.total_spawn_count()) == int(buf_j.total_spawn_count())
 
 
+@pytest.mark.parametrize("emitters", [1, 2])
+@pytest.mark.parametrize("seed", [2, 3])
+def test_channel_emissions_build_the_jax_buffer(emitters, seed):
+    # The step's per-channel build: one emitter passes its own (mask,
+    # count), several sum their counts; the JAX package always builds
+    # counts = sum of where(mask, count, 0) and passes counts > 0
+    # (effect.py:663-687). The buffers must be equal bit for bit.
+    n = 4096
+    emitted_j, emitted_t = [], []
+    for k in range(emitters):
+        mask, count, attrs = _emitters(n, seed + 10 * k, active_share=0.3)
+        emitted_j.append((0, jnp.asarray(mask), jnp.asarray(count)))
+        emitted_t.append((0, torch.from_numpy(mask), _torch(count)))
+    counts = sum(jnp.where(m, c, 0).astype(jnp.uint32) for _, m, c in emitted_j)
+    captured = {k: attrs[k] for k in ("position", "age", "particle_counter")}
+    buf_j = ej.build_event_buffer(counts > 0, counts,
+                                  parent_attrs={k: jnp.asarray(v) for k, v in captured.items()})
+    ((channel, (mask_t, count_t)),) = et.channel_emissions(emitted_t).items()
+    assert channel == 0
+    if emitters == 1:  # no mask is built: the emitter's own tensors pass through
+        assert mask_t is emitted_t[0][1] and count_t is emitted_t[0][2]
+    buf_t = et.build_event_buffer(mask_t, count_t,
+                                  parent_attrs={k: _torch(v) for k, v in captured.items()})
+    assert 0 < int(buf_t.num_events) < n
+    _assert_buffers_equal(buf_t, buf_j)
+
+
 def test_event_compact_plain_is_a_stable_partition():
     mask = torch.tensor([True, False, True, True, False, True])
     count = torch.tensor([2, 3, 0, 1, 0, 7], dtype=rng.U32)
