@@ -8,10 +8,12 @@ JSON (``EffectAsset.from_json(jax_asset.to_json())``).
 
 Ported so far: the benchmark headline frame (``gradient_effect`` stepped by
 :class:`CompiledEffect` and rendered by the tile rasterizer, ``tile_slots=1``,
-``blend``) and the firework event tree (``firework_effect`` →
+``blend``), the firework event tree (``firework_effect`` →
 ``firework_trail_effect`` through :class:`HanabiScene`'s ``add``,
 ``update``, ``update_chunk`` and ``render``, GPU spawn events, ``add``
-blending). The hot regions are hand-written CUDA kernels for Hopper
+blending), the mixed scene (opaque and mask particles, the depth test, the
+painter and phase-split pipelines, ``update_render_chunk``) and ribbons
+(``render/ribbon.py``: sorted segment quads). The hot regions are hand-written CUDA kernels for Hopper
 (``csrc/``, built on first use). Every device tensor lives where
 ``CompiledEffect(asset, device=...)`` or ``HanabiScene(device=...)`` puts
 it.

@@ -73,6 +73,12 @@ SIGNATURES = {
     "hanabi_event_compact": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
     # () -> lanes a CTA of event_compact scans at once
     "hanabi_event_compact_chunk": [],
+    # (alive, counter, ribbon_id, age, perm, key, n, stream)
+    "hanabi_ribbon_keys": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
+    # (position, axis_y, color, cutoff, perm1, perm2, key, camera, center, axis_x, side, valid,
+    #  color_out, cutoff_out, n, stream)
+    "hanabi_ribbon_segments": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               ctypes.c_longlong, _P],
 }
 
 

@@ -1,9 +1,10 @@
 """Benchmark effects (port of ``bevy_hanabi_tpu/models/benchmarks.py``).
 
 Ported so far: ``gradient_effect`` (the benchmark headline's effect),
-``spawn_gravity_effect`` (the opaque effect of the painter device gate) and
+``spawn_gravity_effect`` (the opaque effect of the painter device gate),
 the firework event tree, ``firework_effect`` with its trail child
-``firework_trail_effect``. The definitions are the JAX package's, so both
+``firework_trail_effect``, and the ribbon effects ``ribbon_bench_effect``
+and ``ribbon_order_check_effect``. The definitions are the JAX package's, so both
 packages build equal assets (``to_json`` agrees).
 """
 
@@ -25,13 +26,22 @@ from ..modifiers import (
     OrientModifier,
     SetAttributeModifier,
     SetPositionSphereModifier,
+    SetSizeModifier,
     SetVelocitySphereModifier,
     ShapeDimension,
     SizeOverLifetimeModifier,
 )
 from ..spawn import SpawnerSettings
+from ..values import FLOAT, UINT
 
-__all__ = ["spawn_gravity_effect", "gradient_effect", "firework_effect", "firework_trail_effect"]
+__all__ = [
+    "spawn_gravity_effect",
+    "gradient_effect",
+    "firework_effect",
+    "firework_trail_effect",
+    "ribbon_bench_effect",
+    "ribbon_order_check_effect",
+]
 
 
 def spawn_gravity_effect(capacity: int = 32768, rate: float = 8192.0) -> EffectAsset:
@@ -145,5 +155,88 @@ def firework_trail_effect(capacity: int = 262144) -> EffectAsset:
         )
         .render(ColorOverLifetimeModifier(color))
         .render(SizeOverLifetimeModifier(Gradient.linear((0.02,), (0.0,))))
+        .with_alpha_mode(AlphaMode.ADD)
+    )
+
+
+def ribbon_bench_effect(
+    capacity: int = 1 << 20, num_ribbons: int = 4096
+) -> EffectAsset:
+    """BASELINE config 5, ribbon half (examples/ribbon.rs at scale): a
+    steady-churn pool whose particles chain into ``num_ribbons`` trails.
+
+    Each spawn joins ribbon ``PARTICLE_COUNTER % num_ribbons``; ribbons fan
+    out from a circle and drift, so segments exercise the real sorted
+    (RIBBON_ID, AGE, COUNTER) adjacency path the reference implements with
+    a single-threaded GPU insertion sort (vfx_sort.wgsl:33-39) — its one
+    self-declared perf cliff."""
+    import math
+
+    w = ExprWriter()
+    rid = w.attr(A.PARTICLE_COUNTER) % w.lit(num_ribbons, UINT)
+    angle = rid.cast(FLOAT) * (2.0 * math.pi / num_ribbons)
+    origin = (angle.cos() * 3.0).vec3(angle.sin() * 3.0, w.lit(0.0))
+    return (
+        EffectAsset(
+            "ribbon_bench",
+            capacity,
+            SpawnerSettings.rate(capacity / 4.0 * 1.05),
+            w.finish(),
+        )
+        .init(SetAttributeModifier(A.AGE, w.lit(0.0).expr()))
+        .init(SetAttributeModifier(A.LIFETIME, w.lit(4.0).expr()))
+        .init(SetAttributeModifier(A.RIBBON_ID, rid.expr()))
+        .init(SetAttributeModifier(A.POSITION, origin.expr()))
+        .init(
+            SetAttributeModifier(
+                A.VELOCITY,
+                ((w.rand(VEC3F) * 2.0 - w.lit((1.0, 1.0, 1.0))) * 0.4).expr(),
+            )
+        )
+        .render(SetSizeModifier((0.04, 0.04, 0.04)))
+        .with_alpha_mode(AlphaMode.ADD)
+    )
+
+
+def ribbon_order_check_effect(
+    capacity: int = 8192, num_ribbons: int = 64
+) -> EffectAsset:
+    """Device-gate variant of ``ribbon_bench_effect`` with NO
+    transcendentals: init math is PCG rand (bit-exact across backends,
+    ops/rng.py) plus mul/add only, so a rendered TPU frame is
+    bit-comparable to the CPU frame and the gate certifies the
+    (RIBBON_ID, AGE, COUNTER) segment sort ORDER — a TPU-vs-CPU delta
+    here means dropped/duplicated/mis-ordered segments, not VPU sin/cos
+    ULP noise. (``ribbon_bench_effect``'s cos/sin fan origins shift
+    positions ~1e-3 rel between backends, flipping pixel coverage at
+    quad edges; transcendental drift is certified separately by the
+    trajectory device check with rtol.) Ribbons fan from a line with a
+    linear depth stagger so trails stay distinct and overlap across
+    tiles."""
+    w = ExprWriter()
+    rid = w.attr(A.PARTICLE_COUNTER) % w.lit(num_ribbons, UINT)
+    ridf = rid.cast(FLOAT)
+    origin = (ridf * (4.0 / num_ribbons) - 2.0).vec3(
+        ridf * (2.0 / num_ribbons) - 1.0,
+        ridf * (1.0 / num_ribbons),
+    )
+    return (
+        EffectAsset(
+            "ribbon_order_check",
+            capacity,
+            SpawnerSettings.rate(capacity / 4.0 * 1.05),
+            w.finish(),
+        )
+        .init(SetAttributeModifier(A.AGE, w.lit(0.0).expr()))
+        .init(SetAttributeModifier(A.LIFETIME, w.lit(4.0).expr()))
+        .init(SetAttributeModifier(A.RIBBON_ID, rid.expr()))
+        .init(SetAttributeModifier(A.POSITION, origin.expr()))
+        .init(
+            SetAttributeModifier(
+                A.VELOCITY,
+                ((w.rand(VEC3F) * 2.0 - w.lit((1.0, 1.0, 1.0))) * 0.4).expr(),
+            )
+        )
+        .render(SetSizeModifier((0.04, 0.04, 0.04)))
         .with_alpha_mode(AlphaMode.ADD)
     )

@@ -2,11 +2,14 @@
 (port of ``bevy_hanabi_tpu/render/extract.py``).
 
 Global-space quads: default colour, size and camera-facing axes, the render
-modifiers, screen-space size, and the per-particle alpha-mask cutoff.
-:func:`concat_painter_draws` merges quad draw sets into one painter draw
-set. Local-space effects raise ``NotImplementedError``; the modifiers that
-would fill the other draw columns (roundness, flipbook, textures, ribbons,
-meshes) are not ported, so no asset of the port can ask for them.
+modifiers, screen-space size, the per-particle alpha-mask cutoff, and the
+ribbon sort's columns (``ribbon_id``, ``age``, ``counter``), which
+:func:`~.ribbon.build_ribbon_segments` turns into segment quads.
+:func:`concat_painter_draws` merges quad draw sets (ribbon segments
+included) into one painter draw set. Local-space effects raise
+``NotImplementedError``; the modifiers that would fill the other draw
+columns (roundness, flipbook, textures, meshes) are not ported, so no asset
+of the port can ask for them.
 """
 
 from __future__ import annotations
@@ -45,6 +48,12 @@ class ParticleDrawData:
     # [N] per-entry blend mode id for the painter pass (alpha_mode="scene"):
     # PAINTER_MODE_IDS. None everywhere else.
     mode_id: Any = None
+    # the ribbon sort's columns, from the pool where the layout has them:
+    # RIBBON_ID and PARTICLE_COUNTER as int64 tensors holding the uint32
+    # values (ops/rng.py), AGE as f32. None on a segment draw.
+    ribbon_id: Any = None
+    age: Any = None
+    counter: Any = None
 
 
 def extract_draw_data(
@@ -148,6 +157,9 @@ def extract_draw_data(
         color=ctx.color,
         alive=pool.alive,
         alpha_cutoff=alpha_cutoff,
+        ribbon_id=particle.get("ribbon_id"),
+        age=particle.get("age"),
+        counter=particle.get("particle_counter"),
     )
 
 
@@ -181,9 +193,11 @@ def concat_painter_draws(draws, kinds, textures_per_draw=None) -> ParticleDrawDa
 
     ``kinds`` are the effects' alpha-mode kinds, becoming the per-entry
     ``mode_id`` column; mask effects contribute their per-particle
-    ``alpha_cutoff`` (others pad 0, never read). The JAX package also
-    merges ribbon segments, mesh triangles, a texture atlas and Lambert
-    lighting here; none of those is ported, so textures raise."""
+    ``alpha_cutoff`` (others pad 0, never read). Ribbon segments join as
+    the quads :func:`~.ribbon.build_ribbon_segments` makes, their
+    appearance already in segment order. The JAX package also merges mesh
+    triangles, a texture atlas and Lambert lighting here; none of those is
+    ported, so textures raise."""
     if textures_per_draw is not None and any(textures_per_draw):
         raise NotImplementedError(
             "concat_painter_draws: the painter texture atlas is not ported"

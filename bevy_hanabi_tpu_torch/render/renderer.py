@@ -3,8 +3,8 @@
 
 :func:`composite_by_mode` is ported whole. :class:`EffectRenderer` is ported
 as far as :meth:`HanabiScene.render`'s single-effect pass needs it, the
-depth test and the written depth plane included: no textures, no ribbons
-or meshes.
+depth test, the written depth plane and ribbons (their segment quads)
+included: no textures or meshes.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from ..runtime.pool import ParticlePool
 from .camera import CameraParams
 from .extract import extract_draw_data
 from .raster import RasterConfig, rasterize
+from .ribbon import build_ribbon_segments
 
 __all__ = ["EffectRenderer", "composite_by_mode"]
 
@@ -64,6 +65,7 @@ class EffectRenderer:
         self._aligned = False
         self.textures = ()
         self._alpha_mode = asset.alpha_mode.kind
+        self._ribbons = asset.particle_layout().contains("ribbon_id")
 
     def render(
         self,
@@ -95,6 +97,8 @@ class EffectRenderer:
             properties=properties or {},
             transform=transform,
         )
+        if self._ribbons:
+            draw = build_ribbon_segments(draw, camera)
         config = self.config
         if framebuffer is not None:
             config = dataclasses.replace(config, background=neutral_background(self._alpha_mode))

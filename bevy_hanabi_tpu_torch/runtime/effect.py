@@ -126,8 +126,11 @@ class CompiledEffect:
                 "modifier (e.g. SetPositionSphereModifier or "
                 "SetAttributeModifier(A.POSITION, ...))"
             )
-        if self.layout.contains("ribbon_id"):
-            raise NotImplementedError(f"effect {asset.name!r} draws ribbons, which are not ported")
+        if self.layout.contains("ribbon_id") and not self.layout.contains("age"):
+            raise ValueError(
+                f"effect {asset.name!r} uses RIBBON_ID, which requires the "
+                "AGE attribute for segment ordering"
+            )
         if mesh is not None:
             raise NotImplementedError(
                 "CompiledEffect(mesh=...): the sharded event build is not ported"
@@ -219,18 +222,21 @@ class CompiledEffect:
         config,
         textures=(),
     ):
-        """Advance K frames AND render each one.
+        """Advance K frames AND render each one; a ribbon effect renders
+        its segment quads (:func:`~..render.ribbon.build_ribbon_segments`).
 
         Returns ``(pool, last_image, checksums)``: the image is
         [height, width, 4] f32 and ``checksums`` the [K] per-frame
         framebuffer sums, all on the pool's device."""
         from ..render.extract import extract_draw_data
         from ..render.raster import rasterize
+        from ..render.ribbon import build_ribbon_segments
 
         self._refuse_events("step_render_chunk")
         alpha_mode = self.asset.alpha_mode.kind
         if self.asset.mesh is not None:
             raise NotImplementedError("step_render_chunk: mesh particles are not ported")
+        ribbons = self.layout.contains("ribbon_id")
         img = torch.zeros((config.height, config.width, 4), dtype=torch.float32, device=self.device)
         sums = []
         for inputs, sim in _unstack(inputs_stacked, sims_stacked):
@@ -244,6 +250,8 @@ class CompiledEffect:
                 textures=list(textures),
                 transform=inputs.transform,
             )
+            if ribbons:
+                draw = build_ribbon_segments(draw, camera)
             img = rasterize(draw, camera, config, alpha_mode=alpha_mode, textures=list(textures))
             sums.append(img.sum())
         return pool, img, torch.stack(sums)

@@ -16,7 +16,8 @@ both pipelines of the JAX package's render plan: the phase split (opaque
 and mask passes threading a depth plane, then transparent passes tested
 against it, same-blend runs batched) and the painter pass (every effect in
 one back-to-front sort with per-entry blend equations), ``scene_depth`` and
-``return_depth`` included. Every other branch raises
+``return_depth`` included, ribbon effects as their segment quads (never
+batched). Every other branch raises
 ``NotImplementedError`` naming itself: groups and sharding, ``cull_pad``,
 mesh particles, textures, ``render_views`` and multi-view chunks, debug
 validation, and hot reload (an asset edited after ``add``).
@@ -576,7 +577,7 @@ class HanabiScene:
         unculled effects back to front by emitter distance under ``camera``,
         split into opaque/mask and transparent phases, each phase's
         same-blend runs batched into ("batch", idxs, kind) and the rest as
-        ("eff", i, kind) (mask effects never batch). Returns
+        ("eff", i, kind) (mask and ribbon effects never batch). Returns
         ``(opaque_passes, transp_passes)``. "auto" takes the painter pass,
         the single descriptor ("painter", idxs, ()) in ``transp_passes``,
         when the split plan has two or more passes; "painter" always does;
@@ -597,11 +598,18 @@ class HanabiScene:
         if any(insts[i].asset.mesh is not None for i in vis_idx):
             raise _unported("mesh particles")
 
+        def batch_key(asset):
+            """The blend state a batch shares; None for an effect that
+            never batches (mask cutoffs and ribbon segments are per effect)."""
+            kind = asset.alpha_mode.kind
+            if kind == "mask" or asset.particle_layout().contains("ribbon_id"):
+                return None
+            return kind
+
         def build_passes(idxs):
             runs = []
             for i in idxs:
-                kind = insts[i].asset.alpha_mode.kind
-                key = None if kind == "mask" else kind
+                key = batch_key(insts[i].asset)
                 if runs and key is not None and runs[-1][0] == key:
                     runs[-1][1].append(i)
                 else:
@@ -756,15 +764,20 @@ class HanabiScene:
         """Every visible effect in ONE painter pass (scene.py:2658-2769):
         one global (tile, depth) sort, one window gather, one blend loop
         whose per-entry mode ids select the equation; opaque and mask
-        entries write depth mid-loop. ``insts`` are in back-to-front emitter
-        order, which breaks sort ties only."""
+        entries write depth mid-loop; a ribbon effect joins as its segment
+        quads. ``insts`` are in back-to-front emitter order, which breaks
+        sort ties only."""
         from ..render.extract import concat_painter_draws, extract_draw_data
         from ..render.raster import rasterize
+        from ..render.ribbon import build_ribbon_segments
 
-        draws = [
-            extract_draw_data(i.asset, i.pool, camera, sim=sim, properties=pr, transform=tr)
-            for i, (tr, pr) in zip(insts, inputs)
-        ]
+        draws = []
+        for inst, (tr, pr) in zip(insts, inputs):
+            draw = extract_draw_data(inst.asset, inst.pool, camera, sim=sim, properties=pr,
+                                     transform=tr)
+            if inst.fx.layout.contains("ribbon_id"):
+                draw = build_ribbon_segments(draw, camera)
+            draws.append(draw)
         flat = concat_painter_draws(draws, [i.asset.alpha_mode.kind for i in insts])
         return rasterize(flat, camera, config, alpha_mode="scene", scene_depth=scene_depth,
                          framebuffer=fb, return_depth=return_depth)

@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``bevy_hanabi_tpu_torch/csrc`` and runs
-the port's three main paths through its public entry points: the
-benchmark-headline frame, the firework event tree, and the mixed scene
-(``HanabiScene.update_render_chunk``). It never imports JAX. Phases, each
+the port's four main paths through its public entry points: the
+benchmark-headline frame, the firework event tree, the mixed scene
+(``HanabiScene.update_render_chunk``) and the ribbon frame. It never
+imports JAX. Phases, each
 of which fails the run on any error:
 
 1. a CUDA device must be present; print its name and power limit;
@@ -81,17 +82,36 @@ of which fails the run on any error:
     depth-tested against the debris pass's depth plane; every framebuffer at
     max abs err 0 and every depth plane equal; and the trail step's payload
     ``gather_rows``, as in phase 7b. Then
-    ``torch.profiler`` over 30 frames of ``update_render_chunk``.
+    ``torch.profiler`` over 30 frames of ``update_render_chunk``;
+12. the ribbon gate (bench.py:221-251): ``ribbon_order_check_effect(8192,
+    64)``, 30 frames of 256 spawns through ``step_render_chunk`` at 128x128
+    (``tile_slots=1``) on the card and on the CPU: alive masks and PCG seeds
+    bit-equal, every frame's checksum within 0.5%, the valid segments and
+    their order equal;
+13. the ribbon frame (bench.py:605-669): ``ribbon_bench_effect(1 << 20,
+    4096)`` warmed past its 4 s lifetime, then three timed
+    ``step_render_chunk`` chunks of K = 120 at 512x512 (``tile_slots=1``,
+    ADD), each ending in an alive-count readback (frames/s and
+    particle-frames/s, best of three); every kernel of the path must move
+    (``ribbon_keys``, ``ribbon_segments``, then the ``payload`` raster pass's
+    ``project_bin``, ``bin_keys``, ``gather_window``, ``tile_blend`` ADD); the
+    last frame is rendered again on the CPU through the plain versions
+    (checksums within 0.5%); on it ``ribbon_keys`` (both stages, keys equal)
+    and ``ribbon_segments`` (max abs err 0) are held against their plain
+    versions, beside the two stable sorts, then the raster pass's kernels as
+    in phase 7b; all timed. Then ``torch.profiler`` over 30 ribbon frames.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
-launches of all three paths), the firework's (``[firework]``,
+launches of all four paths), the firework's (``[firework]``,
 ``tile_blend[add]``, ``event_compact``) and the mixed scene's (``[mixed]``,
 ``tile_blend[scene]``, ``tile_blend[scene,M=128]``, ``tile_blend[opaque]``,
-``tile_blend[blend,split]``, ``tile_blend[add,split]``). Each row holds the
+``tile_blend[blend,split]``, ``tile_blend[add,split]``) and the ribbon
+frame's (``[ribbon]``, ``tile_blend[add,ribbon]``). Each row holds the
 path's launches, the kernel's and its plain version's device ms, the
 library call's (``index_select`` for the gathers, of the window's indices
-for ``gather_window``; else null), and
+for ``gather_window``, of the appearance rows by the segment order for
+``ribbon_segments``; else null), and
 ``bound_ms``: the larger of the bytes the call must move over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (``bound_by`` says which), computed from
 that call's inputs and counting only the work every correct kernel must
@@ -100,7 +120,10 @@ do; ``share`` is ``bound_ms / ms``. The ``gather_window`` rows also hold
 rows ``sort_ms`` and ``sort_int64_ms``; the ``tile_blend`` rows
 ``filled_entries`` and ``covered_pairs``, what their bound counts (the
 filled entries' rows, and the covered (entry, pixel) pairs' test and
-blend). Then, as its last line,
+blend); the ``ribbon_keys`` row ``counter_ms`` and ``order_ms`` (each stage)
+and ``sort_counter_ms`` and ``sort_order_ms`` (the stable sort of each
+stage's keys); the ``ribbon_segments`` row ``gather_rows_ms`` (its
+appearance gather alone, by ``gather_rows``). Then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or any phase fails.
 """
@@ -159,6 +182,10 @@ MIXED_KERNELS = {
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaLaunchKernelExC")
 MIXED_K = 8  # frames per chunk of the small mixed gate (phase 10)
 MIXED_M_WIDE = 128  # the third timing's max_entries_per_tile (bench.py:765)
+# every kernel of the ribbon frame: the segment build, then the ADD payload pass
+RIBBON_KERNELS = ("ribbon_keys", "ribbon_segments", "project_bin", "bin_keys", "gather_window",
+                  "tile_blend[add]")
+RIBBONS = 4096  # bench.py:614
 
 
 def fail(msg: str) -> None:
@@ -1106,6 +1133,216 @@ def mixed_full(kernels):
     return results, launches
 
 
+def ribbon_camera():
+    """The ribbon frame's camera (bench.py:620-626)."""
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+
+    return CameraParams(
+        view=look_at([0.0, 0.0, 10.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+        proj=perspective(math.radians(60.0), 1.0, 0.1, 200.0),
+        viewport=(512, 512),
+    )
+
+
+def ribbon_gate():
+    """Phase 12: the ribbon gate (bench.py:221-251), card against CPU."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch import CompiledEffect, RasterConfig, SimParams, StepInputs
+    from bevy_hanabi_tpu_torch.models import ribbon_order_check_effect
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+    from bevy_hanabi_tpu_torch.render.ribbon import build_ribbon_segments, ribbon_sort
+
+    cam = gate_camera()
+
+    def run(device):
+        fx = CompiledEffect(ribbon_order_check_effect(8192, 64), device=device)
+        ins = [StepInputs.make(256, 7 * i + 1) for i in range(30)]
+        sims = [SimParams(time=i * DT, delta_time=DT) for i in range(30)]
+        pool, img, sums = fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam,
+                                               RasterConfig(128, 128, tile_slots=1))
+        draw = extract_draw_data(fx.asset, pool, cam)
+        valid = build_ribbon_segments(draw, cam).alive.cpu()
+        return pool, img, sums.cpu().tolist(), valid, ribbon_sort(draw).order.cpu()
+
+    (pool_g, img_g, sums_g, valid_g, order_g), (pool_c, _, sums_c, valid_c, order_c) = (
+        run("cuda"), run("cpu"))
+    if not np.array_equal(pool_g.to_numpy()[1], pool_c.to_numpy()[1]):
+        fail("ribbon gate: alive masks differ between the card and the CPU")
+    if not np.array_equal(pool_g.to_numpy()[2], pool_c.to_numpy()[2]):
+        fail("ribbon gate: PCG seeds differ between the card and the CPU")
+    for k, (a, b) in enumerate(zip(sums_g, sums_c)):
+        if not checksum_close(a, b) or not b > 0.0:
+            fail(f"ribbon gate: frame {k}: checksum {a} on the card vs {b} on the CPU")
+    if not bool(valid_g.equal(valid_c)) or not bool(order_g[valid_c].equal(order_c[valid_c])):
+        fail("ribbon gate: the valid segments or their order differ between the card and the CPU")
+    if not bool(img_g.isfinite().all()):
+        fail("ribbon gate: non-finite pixels on the card")
+    print(f"ribbon gate 128x128: alive {pool_g.alive_count()}, {int(valid_c.sum())} valid segments "
+          f"in the same order, masks and seeds bit-equal, last checksum card {sums_g[-1]:.6e} "
+          f"cpu {sums_c[-1]:.6e}")
+
+
+def compare_ribbon_kernels(draw, cam) -> dict:
+    """Phase 13: ``ribbon_keys`` (both stages) and ``ribbon_segments``
+    against their plain versions on the ribbon frame's draw, keys equal and
+    segments at max abs err 0; both timed, beside the two stable sorts and
+    the appearance gather (``index_select`` of the colour rows by the segment
+    order, ``ribbon_segments``' ``library_ms``; and ``gather_rows_ms``, the
+    same gather by the port's ``gather_rows``)."""
+    import torch
+
+    from bevy_hanabi_tpu_torch.ops import gather
+    from bevy_hanabi_tpu_torch.render import ribbon
+
+    n = draw.alive.shape[0]
+    alive, counter, rid, age = draw.alive, draw.counter, draw.ribbon_id, draw.age
+    key1 = ribbon.ribbon_keys(alive, counter=counter)
+    perm1 = torch.sort(key1, stable=True).indices
+    key2 = ribbon.ribbon_keys(alive, ribbon_id=rid, age=age, perm=perm1)
+    plain1 = ribbon.ribbon_keys_plain(alive, counter=counter)
+    plain2 = ribbon.ribbon_keys_plain(alive, ribbon_id=rid, age=age, perm=perm1)
+    key_sorted, perm2 = torch.sort(key2, stable=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(key1, plain1) and torch.equal(key2, plain2)):
+        fail("ribbon_keys: keys differ from the plain version")
+
+    def both_stages(keys):
+        return lambda: (keys(alive, counter=counter),
+                        keys(alive, ribbon_id=rid, age=age, perm=perm1))
+
+    keys_row = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(both_stages(ribbon.ribbon_keys), 100),
+        "plain_ms": cuda_ms(both_stages(ribbon.ribbon_keys_plain), 20),
+        "library_ms": None,
+        **bound(nbytes(alive, counter, key1) + nbytes(perm1, alive, rid, age, key2)),
+        "counter_ms": cuda_ms(lambda: ribbon.ribbon_keys(alive, counter=counter), 100),
+        "order_ms": cuda_ms(lambda: ribbon.ribbon_keys(alive, ribbon_id=rid, age=age, perm=perm1),
+                            100),
+        "sort_counter_ms": cuda_ms(lambda: torch.sort(key1, stable=True), 50),
+        "sort_order_ms": cuda_ms(lambda: torch.sort(key2, stable=True), 50),
+    }
+    print(f"ribbon_keys: {n} lanes, both stages bit-exact; kernel {keys_row['ms']:.4f} ms "
+          f"(counter {keys_row['counter_ms']:.4f}, order {keys_row['order_ms']:.4f}), stable sorts "
+          f"int32 {keys_row['sort_counter_ms']:.4f} ms, int64 {keys_row['sort_order_ms']:.4f} ms")
+
+    args = (draw.position.contiguous(), draw.axis_y.contiguous(), draw.color.contiguous(), None,
+            perm1, perm2, key_sorted, cam.position)
+    got = ribbon.ribbon_segments(*args)
+    want = ribbon.ribbon_segments_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want) if a is not None)
+    exact = all(torch.equal(a, b) for a, b in zip(got, want) if a is not None)
+    valid = int(got[3].sum())
+    print(f"ribbon_segments: {n} rows, {valid} valid segments, max abs err {err:g}")
+    if err != 0.0 or not exact or valid == 0:
+        fail(f"ribbon_segments: max abs err {err:g} against the plain version, or no valid segment")
+    order = perm1[perm2]
+    order32 = order.to(torch.int32)
+    color = args[2]
+    seg_row = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: ribbon.ribbon_segments(*args), 100),
+        "plain_ms": cuda_ms(lambda: ribbon.ribbon_segments_plain(*args), 20),
+        "library_ms": cuda_ms(lambda: color.index_select(0, order), 100),
+        # the same appearance gather by the port's own row gather kernel
+        "gather_rows_ms": cuda_ms(lambda: gather.gather_rows(color, order32), 100),
+        # the two permutations and the sorted key, the geometry, the
+        # segment written, the appearance rows read and written
+        **bound(nbytes(perm1, perm2, key_sorted, args[0], args[1], color, *got)),
+    }
+    print(f"ribbon_segments: kernel {seg_row['ms']:.4f} ms; the appearance gather alone "
+          f"({n} x 4 floats by the order): index_select {seg_row['library_ms']:.4f} ms, "
+          f"gather_rows {seg_row['gather_rows_ms']:.4f} ms")
+    return {"ribbon_keys[ribbon]": keys_row, "ribbon_segments[ribbon]": seg_row}
+
+
+def ribbon_frame(kernels):
+    """Phase 13: the 1M / 4096-ribbon frame through step_render_chunk."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner, ParticlePool, RasterConfig
+    from bevy_hanabi_tpu_torch.models import ribbon_bench_effect
+    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+    from bevy_hanabi_tpu_torch.render.ribbon import build_ribbon_segments
+
+    asset = ribbon_bench_effect(CAPACITY, RIBBONS)
+    fx = CompiledEffect(asset, device="cuda")
+    pool = fx.create_pool()
+    spawner = EffectSpawner(asset.spawner, rng=np.random.default_rng(0))
+    cam = ribbon_camera()
+    config = RasterConfig(width=512, height=512, tile_slots=1)
+    frame = 0
+    t0 = time.perf_counter()
+    for _ in range((int(4.0 / DT) + K) // K + 1):  # bench.py:643: past the 4 s lifetime
+        pool, img, sums = fx.step_render_chunk(pool, *chunk_inputs(fx, spawner, frame), cam, config)
+        frame += K
+    alive_before = int(pool.alive_count())
+    print(f"ribbon warm-up: {frame} frames in {time.perf_counter() - t0:.2f} s, alive {alive_before}")
+    reset_launches(kernels)
+    times = []
+    for _ in range(3):
+        ins, sims = chunk_inputs(fx, spawner, frame)
+        frame += K
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool, img, sums = fx.step_render_chunk(pool, ins, sims, cam, config)
+        alive_after = int(pool.alive_count())  # readback: waits for the chunk
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    launches = read_launches(kernels)
+    alive_mean = 0.5 * (alive_before + alive_after)
+    print(f"ribbon chunk times (s): {times}")
+    print(f"ribbons 1M / {RIBBONS}: {K} frames in {best:.4f} s: {K / best:.2f} frames/s, "
+          f"{alive_mean * K / best:.4e} particle-frames/s, alive {alive_after}, "
+          f"checksum {float(sums[-1]):.6e}")
+    print(f"launches in the timed chunks: {launches}")
+    require_launches(launches, RIBBON_KERNELS, "the ribbon frame")
+    if not bool(img.isfinite().all()) or not float(sums[-1]) > 0.0 or tuple(img.shape) != (512, 512, 4):
+        fail("ribbon frame is not finite, not positive or not 512x512x4")
+
+    # the last pool again: by the kernels, and on the CPU through the plain versions
+    def render(p):
+        segs = build_ribbon_segments(extract_draw_data(asset, p, cam), cam)
+        return raster.rasterize(segs, cam, config, alpha_mode="add"), segs
+
+    img_k, segs = render(pool)
+    t0 = time.perf_counter()
+    img_p, _ = render(ParticlePool.from_numpy(*pool.to_numpy(), device="cpu"))
+    s_k, s_p = float(img_k.sum()), float(img_p.sum())
+    print(f"ribbon frame re-rendered: card {s_k:.6e} vs cpu plain {s_p:.6e} "
+          f"({time.perf_counter() - t0:.1f} s on the CPU)")
+    if not checksum_close(s_k, s_p):
+        fail(f"ribbon frame checksum {s_k} on the card vs {s_p} on the CPU")
+
+    results = compare_ribbon_kernels(extract_draw_data(asset, pool, cam), cam)
+    # the ADD payload pass on the frame's segments, as rasterize runs it
+    T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
+    pb_row, projected = compare_project_bin(project_args(segs, cam, config), nt,
+                                            "project_bin (ribbon)", raster.row_width("add", False))
+    mode = raster.fast_mode(config, "add", segs.alive.shape[0])
+    results["project_bin[ribbon]"] = pb_row
+    results["bin_keys[ribbon]"] = compare_bin_keys(projected, nt, mode, "bin_keys (ribbon)")
+    results["gather_window[ribbon]"], win = compare_gather_window(
+        projected, nt, config.max_entries_per_tile, mode, "ribbon")
+    results["tile_blend[add,ribbon]"], _ = compare_tile_blend(
+        f"add ({mode!r}, ribbon segments)", *win, T, ntx, nty, config.background, "add")
+    for name, r in results.items():
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+
+    def run(k):
+        nonlocal pool, frame
+        pool, _, _ = fx.step_render_chunk(pool, *chunk_inputs(fx, spawner, frame, k), cam, config)
+        frame += k
+        int(pool.alive_count())
+
+    profile_frames("ribbon", run)
+    return results, launches
+
+
 def main() -> int:
     import torch
 
@@ -1124,11 +1361,11 @@ def main() -> int:
     )
     from bevy_hanabi_tpu_torch.models import gradient_effect
     from bevy_hanabi_tpu_torch.ops import gather
-    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render import raster, ribbon
     from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
     from bevy_hanabi_tpu_torch.runtime import events
 
-    kernels = {**gather.KERNELS, **raster.KERNELS, **events.KERNELS}
+    kernels = {**gather.KERNELS, **raster.KERNELS, **events.KERNELS, **ribbon.KERNELS}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1225,16 +1462,22 @@ def main() -> int:
     mixed_gate()
     mx_results, mx_launches = mixed_full(kernels)
 
+    # Phases 12-13: ribbons.
+    ribbon_gate()
+    rb_results, rb_launches = ribbon_frame(kernels)
+
     results.update(fw_results)
     results.update(mx_results)
+    results.update(rb_results)
     # name, kernel, launches: each row holds one path's launches and its
     # comparison at that path's shapes (the headline's, the firework's,
     # then the mixed scene's, by pipeline)
     rows = (
         [(name, name, launches[name]) for name in HEADLINE_KERNELS]
-        # MASK runs on no main path: its launches are those of all three (0)
+        # MASK runs on no main path: its launches are those of all four (0)
         + [("tile_blend[mask]", "tile_blend",
-            sum(n["tile_blend[mask]"] for n in (launches, fw_launches, *mx_launches.values())))]
+            sum(n["tile_blend[mask]"]
+                for n in (launches, fw_launches, *mx_launches.values(), rb_launches)))]
         + [
             (name if "[" in name or name == "event_compact" else f"{name}[firework]",
              name.split("[")[0], fw_launches[name])
@@ -1251,6 +1494,11 @@ def main() -> int:
             ("tile_blend[opaque]", "tile_blend", mx_launches["split"]["tile_blend[opaque]"]),
             ("tile_blend[blend,split]", "tile_blend", mx_launches["split"]["tile_blend"]),
             ("tile_blend[add,split]", "tile_blend", mx_launches["split"]["tile_blend[add]"]),
+        ]
+        + [
+            (f"{name}[ribbon]" if name != "tile_blend[add]" else "tile_blend[add,ribbon]",
+             name.split("[")[0], rb_launches[name])
+            for name in RIBBON_KERNELS
         ]
     )
     kernel_rows = [

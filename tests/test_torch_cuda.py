@@ -538,3 +538,118 @@ def test_event_compact_all_or_no_lane_active(cuda, n, active, offset):
     assert int(got[2]) == (n if active == "all" else 0)
     for a, b in zip(got, events.event_compact_plain(mask, count, payload)):
         assert torch.equal(a, b)
+
+
+# ---- ribbons: ribbon_keys and ribbon_segments -------------------------------
+
+# ages that stress the sort key: ties (bursts), signed zeros, subnormals,
+# infinities and NaNs (lax.sort's float order, render/ribbon.py)
+_RIBBON_AGES = np.asarray([0.0, -0.0, 1e-40, -1e-40, 1e-45, np.inf, -np.inf, np.nan, -np.nan, 0.5,
+                           0.25, 1.0], np.float32)
+
+
+def _ribbon_inputs(n, device, counter=True, cutoff=False, seed=0):
+    """A numpy-seeded draw as the ribbon sort sees it: 64 ribbons (and a few
+    alive lanes with the sentinel id), dead lanes, bursts of equal ages and
+    the special ages above."""
+    r = np.random.default_rng(seed)
+    rid = r.integers(0, 64, n).astype(np.int64)
+    rid[r.random(n) < 0.01] = 0xFFFFFFFF
+    age = r.choice(np.asarray([0.1, 0.2, 0.3], np.float32), n)
+    special = r.random(n) < 0.05
+    age[special] = r.choice(_RIBBON_AGES, int(special.sum()))
+    cols = {
+        "alive": r.random(n) < 0.8,
+        "ribbon_id": rid,
+        "age": age.astype(np.float32),
+        "counter": r.permutation(np.arange(n, dtype=np.int64) * 7919 % (1 << 32)) if counter else None,
+        "position": r.uniform(-3.0, 3.0, (n, 3)).astype(np.float32),
+        "axis_y": r.uniform(-0.1, 0.1, (n, 3)).astype(np.float32),
+        "color": r.uniform(0.0, 1.0, (n, 4)).astype(np.float32),
+        "alpha_cutoff": r.uniform(0.0, 1.0, n).astype(np.float32) if cutoff else None,
+    }
+    return {k: None if v is None else torch.from_numpy(v).to(device) for k, v in cols.items()}
+
+
+def _bits_equal(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("counter", [True, False])
+@pytest.mark.parametrize("n", [0, 1, 2, 4096, 1 << 20])
+def test_ribbon_keys_are_bit_exact(cuda, n, counter):
+    from bevy_hanabi_tpu_torch.render import ribbon
+
+    t = _ribbon_inputs(n, cuda, counter=counter, seed=n)
+    before = ribbon.ribbon_keys.launches
+    perm = None
+    if counter:
+        key1 = ribbon.ribbon_keys(t["alive"], counter=t["counter"])
+        assert key1.dtype == torch.int32
+        assert torch.equal(key1, ribbon.ribbon_keys_plain(t["alive"], counter=t["counter"]))
+        perm = torch.sort(key1, stable=True).indices
+    args = dict(ribbon_id=t["ribbon_id"], age=t["age"], perm=perm)
+    key2 = ribbon.ribbon_keys(t["alive"], **args)
+    assert key2.dtype == torch.int64
+    assert torch.equal(key2, ribbon.ribbon_keys_plain(t["alive"], **args))
+    assert ribbon.ribbon_keys.launches == before + 1 + int(counter)
+
+
+@pytest.mark.parametrize("cutoff", [False, True])
+@pytest.mark.parametrize("counter", [True, False])
+@pytest.mark.parametrize("n", [0, 1, 2, 4096, 1 << 20])
+def test_ribbon_segments_are_bit_exact(cuda, n, counter, cutoff):
+    from bevy_hanabi_tpu_torch.render import ribbon
+    from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData
+
+    t = _ribbon_inputs(n, cuda, counter=counter, cutoff=cutoff, seed=n + 1)
+    draw = ParticleDrawData(t["position"], t["axis_y"], t["axis_y"], t["color"], t["alive"],
+                            alpha_cutoff=t["alpha_cutoff"], ribbon_id=t["ribbon_id"], age=t["age"],
+                            counter=t["counter"])
+    order = ribbon.ribbon_sort(draw)
+    # a camera's position is a strided column of its matrix
+    cam = CameraParams(look_at((0.5, 1.0, 6.0), (0.0, 0.0, 0.0)), perspective(0.9, 1.0, 0.1, 100.0),
+                       (128, 128))
+    args = (t["position"], t["axis_y"], t["color"], t["alpha_cutoff"], order.perm1, order.perm2,
+            order.key, cam.position)
+    before = ribbon.ribbon_segments.launches
+    got = ribbon.ribbon_segments(*args)
+    assert ribbon.ribbon_segments.launches == before + 1
+    want = ribbon.ribbon_segments_plain(*args)
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b)
+    if n > 2:
+        assert 0 < int(got[3].sum()) < n  # valid segments and ribbon heads
+
+
+def test_ribbon_gate_on_the_card_matches_the_cpu(cuda):
+    """The ribbon gate (bench.py:221-251) at tile_slots=1: alive masks and
+    PCG seeds bit for bit, every frame's checksum within 0.5%, the valid
+    segments' order equal."""
+    from bevy_hanabi_tpu_torch.models import ribbon_order_check_effect
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+    from bevy_hanabi_tpu_torch.render.ribbon import build_ribbon_segments, ribbon_sort
+
+    cam = CameraParams(look_at((0, 0, 6), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0), (128, 128))
+
+    def run(device):
+        fx = CompiledEffect(ribbon_order_check_effect(8192, 64), device=device)
+        ins = [StepInputs.make(256, 7 * i + 1) for i in range(30)]
+        sims = [SimParams(time=i / 60.0, delta_time=1 / 60.0) for i in range(30)]
+        pool, _, sums = fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam,
+                                             RasterConfig(128, 128, tile_slots=1))
+        draw = extract_draw_data(fx.asset, pool, cam)
+        valid = build_ribbon_segments(draw, cam).alive
+        return pool, sums, valid.cpu(), ribbon_sort(draw).order.cpu()
+
+    (pool_g, sums_g, valid_g, order_g), (pool_c, sums_c, valid_c, order_c) = run(cuda), run("cpu")
+    np.testing.assert_array_equal(pool_g.to_numpy()[1], pool_c.to_numpy()[1])
+    np.testing.assert_array_equal(pool_g.to_numpy()[2], pool_c.to_numpy()[2])
+    for a, b in zip(sums_g.cpu().tolist(), sums_c.tolist()):
+        assert abs(a - b) <= 0.005 * abs(b)
+    assert torch.equal(valid_g, valid_c) and int(valid_c.sum()) > 0
+    assert torch.equal(order_g[valid_c], order_c[valid_c])
