@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple
 
 __all__ = [
     "build",
+    "build_variants",
     "library",
     "bind",
     "find_nvcc",
@@ -181,6 +182,32 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return out
+
+
+def build_variants(builds, name: str) -> dict:
+    """Compile variant sources beside the library, for scripts that time a
+    kernel against other versions of it.
+
+    ``builds`` holds ``(label, source, extra nvcc flags)``; each build
+    compiles with :data:`NVCC_FLAGS` and ``common.cu`` into
+    ``build/variants/lib<name>_<label>.so``, one ``nvcc`` process a build,
+    all started together. Returns ``{label: (library or None, compiler
+    log)}``, the library bound by :func:`bind`, None where nvcc failed."""
+    outdir = BUILD_DIR / "variants"
+    outdir.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    procs = []
+    for label, src, flags in builds:
+        so = outdir / f"lib{name}_{label.replace(',', '_')}.so"
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-shared", "-o", str(so), str(src),
+               str(_CSRC / "common.cu")]
+        procs.append((label, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True)))
+    out = {}
+    for label, so, p in procs:
+        log = p.communicate()[0]
+        out[label] = (bind(ctypes.CDLL(str(so))) if p.returncode == 0 else None, log)
     return out
 
 

@@ -213,7 +213,9 @@ def ribbon_segments(position, axis_y, color, alpha_cutoff, perm1, perm2, key, ca
     and i are alive rows of one ribbon and i > 0, ``axis_x`` the segment
     ``p - p_prev``, ``axis_y`` ``normalize(cross(center - camera, axis_x))``
     times row i's width ``|axis_y|``, colour and cutoff gathered by the
-    order."""
+    order. On the card ``color``, ``perm2`` and ``key`` must be 16-byte
+    aligned, as every tensor that does not start inside another's row is:
+    the kernel reads them in 16-byte vectors."""
     n = position.shape[0]
     dev = position.device
     _check(position, "position", torch.float32, (n, 3), dev)
@@ -228,6 +230,9 @@ def ribbon_segments(position, axis_y, color, alpha_cutoff, perm1, perm2, key, ca
     if not position.is_cuda:
         return ribbon_segments_plain(position, axis_y, color, alpha_cutoff, perm1, perm2, key,
                                      camera_position)
+    for name, t in (("color", color), ("perm2", perm2), ("key", key)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"ribbon_segments: {name} must be 16-byte aligned on the card")
     center = torch.empty((n, 3), dtype=torch.float32, device=dev)
     axis_x = torch.empty((n, 3), dtype=torch.float32, device=dev)
     side = torch.empty((n, 3), dtype=torch.float32, device=dev)

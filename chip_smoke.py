@@ -11,7 +11,9 @@ imports JAX. Phases, each
 of which fails the run on any error:
 
 1. a CUDA device must be present; print its name and power limit;
-2. build the kernel library (nvcc, one process per source, ctypes);
+2. build the kernel library (nvcc, one process per source, ctypes) and,
+   beside it, the first version of ``ribbon_segments`` and the streaming
+   copy of its bytes (``experiments/ribbon_segments_variants/``);
 3. compare each raster kernel with its plain PyTorch version on the card,
    on a real 1M-particle headline frame, and time both: ``project_bin``
    (tiles, depths and depth range equal, rows at max abs err 0),
@@ -98,8 +100,10 @@ of which fails the run on any error:
     last frame is rendered again on the CPU through the plain versions
     (checksums within 0.5%); on it ``ribbon_keys`` (both stages, keys equal)
     and ``ribbon_segments`` (max abs err 0) are held against their plain
-    versions, beside the two stable sorts, then the raster pass's kernels as
-    in phase 7b; all timed. Then ``torch.profiler`` over 30 ribbon frames.
+    versions, beside the two stable sorts, the first version of
+    ``ribbon_segments`` (equal too) and the call's two floors, then the
+    raster pass's kernels as in phase 7b; all timed. Then ``torch.profiler``
+    over 30 ribbon frames.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -123,7 +127,10 @@ filled entries' rows, and the covered (entry, pixel) pairs' test and
 blend); the ``ribbon_keys`` row ``counter_ms`` and ``order_ms`` (each stage)
 and ``sort_counter_ms`` and ``sort_order_ms`` (the stable sort of each
 stage's keys); the ``ribbon_segments`` row ``gather_rows_ms`` (its
-appearance gather alone, by ``gather_rows``). Then, as its last line,
+appearance gather alone, by ``gather_rows``), ``first_ms`` (the first
+version of its kernel), ``floor_coalesced_ms`` (that version with every read
+in order: ``perm1`` None, ``perm2`` the identity) and ``floor_copy_ms`` (a
+streaming copy of the bytes the call moves). Then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or any phase fails.
 """
@@ -135,6 +142,8 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 K = 120  # frames per chunk, as the JAX package's benchmark
 DT = 1.0 / 60.0
@@ -186,6 +195,13 @@ MIXED_M_WIDE = 128  # the third timing's max_entries_per_tile (bench.py:765)
 RIBBON_KERNELS = ("ribbon_keys", "ribbon_segments", "project_bin", "bin_keys", "gather_window",
                   "tile_blend[add]")
 RIBBONS = 4096  # bench.py:614
+# ribbon_segments' first version and the streaming copy of its bytes, built
+# beside the library and timed in phase 13: (label, source, extra nvcc flags)
+_VARIANTS = Path(__file__).resolve().parent / "experiments" / "ribbon_segments_variants"
+RIBBON_VARIANTS = (
+    ("first", _VARIANTS / "first.cu", []),
+    ("copy", _VARIANTS / "probe.cu", ["-DHANABI_PROBE=1"]),
+)
 
 
 def fail(msg: str) -> None:
@@ -1183,13 +1199,51 @@ def ribbon_gate():
           f"cpu {sums_c[-1]:.6e}")
 
 
-def compare_ribbon_kernels(draw, cam) -> dict:
+def segments_launcher(lib, position, axis_y, color, alpha_cutoff, perm1, perm2, key,
+                      camera_position):
+    """``ribbon_segments`` through another library's C entry point (a
+    variant or probe of :data:`RIBBON_VARIANTS`), as the port's wrapper
+    calls it: a function of no argument that returns the same tuple. The
+    rows are ``perm2``'s, which may be fewer than the tables' (a prefix of
+    the sorted rows)."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import cuda_build
+
+    n, dev = perm2.shape[0], position.device
+    cam = np.ascontiguousarray(torch.as_tensor(camera_position, dtype=torch.float32).cpu().numpy())
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def run():
+        out = [torch.empty((n, 3), dtype=torch.float32, device=dev) for _ in range(3)]
+        out.append(torch.empty((n,), dtype=torch.bool, device=dev))
+        out.append(torch.empty((n, 4), dtype=torch.float32, device=dev))
+        out.append(None if alpha_cutoff is None else torch.empty((n,), dtype=torch.float32,
+                                                                  device=dev))
+        code = lib.hanabi_ribbon_segments(
+            position.data_ptr(), axis_y.data_ptr(), color.data_ptr(), ptr(alpha_cutoff),
+            ptr(perm1), perm2.data_ptr(), key.data_ptr(), cam.ctypes.data,
+            *(ptr(t) for t in out), n, cuda_build.current_stream())
+        cuda_build.check(code, "ribbon_segments (variant)")
+        return tuple(out)
+
+    return run
+
+
+def compare_ribbon_kernels(draw, cam, variants) -> dict:
     """Phase 13: ``ribbon_keys`` (both stages) and ``ribbon_segments``
     against their plain versions on the ribbon frame's draw, keys equal and
     segments at max abs err 0; both timed, beside the two stable sorts and
     the appearance gather (``index_select`` of the colour rows by the segment
     order, ``ribbon_segments``' ``library_ms``; and ``gather_rows_ms``, the
-    same gather by the port's ``gather_rows``)."""
+    same gather by the port's ``gather_rows``). ``ribbon_segments`` also
+    beside the first version of its kernel (``first_ms``; its results equal
+    too) and the two floors of the call: ``floor_coalesced_ms``, the first
+    version with ``perm1`` None and ``perm2`` the identity (every read in
+    order), and ``floor_copy_ms``, a streaming copy of the call's bytes."""
     import torch
 
     from bevy_hanabi_tpu_torch.ops import gather
@@ -1238,6 +1292,11 @@ def compare_ribbon_kernels(draw, cam) -> dict:
     print(f"ribbon_segments: {n} rows, {valid} valid segments, max abs err {err:g}")
     if err != 0.0 or not exact or valid == 0:
         fail(f"ribbon_segments: max abs err {err:g} against the plain version, or no valid segment")
+    first = segments_launcher(variants["first"], *args)
+    if not all(torch.equal(a, b) for a, b in zip(first(), want) if a is not None):
+        fail("ribbon_segments: the first version's results differ from the plain version")
+    coalesced = segments_launcher(variants["first"], *args[:4], None,
+                                  torch.arange(n, device=perm2.device), *args[6:])
     order = perm1[perm2]
     order32 = order.to(torch.int32)
     color = args[2]
@@ -1248,38 +1307,57 @@ def compare_ribbon_kernels(draw, cam) -> dict:
         "library_ms": cuda_ms(lambda: color.index_select(0, order), 100),
         # the same appearance gather by the port's own row gather kernel
         "gather_rows_ms": cuda_ms(lambda: gather.gather_rows(color, order32), 100),
+        "first_ms": cuda_ms(first, 100),
+        "floor_coalesced_ms": cuda_ms(coalesced, 100),
+        "floor_copy_ms": cuda_ms(segments_launcher(variants["copy"], *args), 100),
         # the two permutations and the sorted key, the geometry, the
         # segment written, the appearance rows read and written
         **bound(nbytes(perm1, perm2, key_sorted, args[0], args[1], color, *got)),
     }
-    print(f"ribbon_segments: kernel {seg_row['ms']:.4f} ms; the appearance gather alone "
+    print(f"ribbon_segments: kernel {seg_row['ms']:.4f} ms, first version "
+          f"{seg_row['first_ms']:.4f} ms; floors: coalesced {seg_row['floor_coalesced_ms']:.4f} "
+          f"ms, streaming copy {seg_row['floor_copy_ms']:.4f} ms; the appearance gather alone "
           f"({n} x 4 floats by the order): index_select {seg_row['library_ms']:.4f} ms, "
           f"gather_rows {seg_row['gather_rows_ms']:.4f} ms")
     return {"ribbon_keys[ribbon]": keys_row, "ribbon_segments[ribbon]": seg_row}
 
 
-def ribbon_frame(kernels):
-    """Phase 13: the 1M / 4096-ribbon frame through step_render_chunk."""
+def warm_ribbons(config):
+    """The ribbon frame's effect (``ribbon_bench_effect(1 << 20, 4096)`` on
+    the card) stepped and rendered by ``config`` past its 4 s lifetime
+    (bench.py:643): ``(fx, pool, spawner, frame)``."""
     import numpy as np
-    import torch
 
-    from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner, ParticlePool, RasterConfig
+    from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner
     from bevy_hanabi_tpu_torch.models import ribbon_bench_effect
-    from bevy_hanabi_tpu_torch.render import raster
-    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
-    from bevy_hanabi_tpu_torch.render.ribbon import build_ribbon_segments
 
     asset = ribbon_bench_effect(CAPACITY, RIBBONS)
     fx = CompiledEffect(asset, device="cuda")
     pool = fx.create_pool()
     spawner = EffectSpawner(asset.spawner, rng=np.random.default_rng(0))
+    frame = 0
+    for _ in range((int(4.0 / DT) + K) // K + 1):
+        pool, _, _ = fx.step_render_chunk(pool, *chunk_inputs(fx, spawner, frame), ribbon_camera(),
+                                          config)
+        frame += K
+    return fx, pool, spawner, frame
+
+
+def ribbon_frame(kernels, variants):
+    """Phase 13: the 1M / 4096-ribbon frame through step_render_chunk.
+    ``variants``: the libraries of :data:`RIBBON_VARIANTS`."""
+    import torch
+
+    from bevy_hanabi_tpu_torch import ParticlePool, RasterConfig
+    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+    from bevy_hanabi_tpu_torch.render.ribbon import build_ribbon_segments
+
     cam = ribbon_camera()
     config = RasterConfig(width=512, height=512, tile_slots=1)
-    frame = 0
     t0 = time.perf_counter()
-    for _ in range((int(4.0 / DT) + K) // K + 1):  # bench.py:643: past the 4 s lifetime
-        pool, img, sums = fx.step_render_chunk(pool, *chunk_inputs(fx, spawner, frame), cam, config)
-        frame += K
+    fx, pool, spawner, frame = warm_ribbons(config)
+    asset = fx.asset
     alive_before = int(pool.alive_count())
     print(f"ribbon warm-up: {frame} frames in {time.perf_counter() - t0:.2f} s, alive {alive_before}")
     reset_launches(kernels)
@@ -1318,7 +1396,7 @@ def ribbon_frame(kernels):
     if not checksum_close(s_k, s_p):
         fail(f"ribbon frame checksum {s_k} on the card vs {s_p} on the CPU")
 
-    results = compare_ribbon_kernels(extract_draw_data(asset, pool, cam), cam)
+    results = compare_ribbon_kernels(extract_draw_data(asset, pool, cam), cam, variants)
     # the ADD payload pass on the frame's segments, as rasterize runs it
     T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
     pb_row, projected = compare_project_bin(project_args(segs, cam, config), nt,
@@ -1377,12 +1455,23 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
-    # Phase 2: build the kernels from the checkout's sources.
+    # Phase 2: build the kernels from the checkout's sources, and beside them
+    # the variants that phase 13 times, every nvcc process started together.
     t0 = time.perf_counter()
-    lib_path = cuda_build.build()
+    with ThreadPoolExecutor(1) as ex:
+        variant_builds = ex.submit(cuda_build.build_variants, RIBBON_VARIANTS, "ribbon_segments")
+        lib_path = cuda_build.build()
+        variant_builds = variant_builds.result()
     cuda_build.library()
-    print(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    print(f"built {lib_path.name} and {len(variant_builds)} variants in "
+          f"{time.perf_counter() - t0:.1f} s")
     print(lib_path.with_suffix(".log").read_text().strip())
+    variants = {}
+    for label, (lib, log) in variant_builds.items():
+        print(f"== variant {label}\n{log.strip()}")
+        if lib is None:
+            fail(f"the ribbon_segments variant {label!r} did not build")
+        variants[label] = lib
 
     # Phase 3: kernels against their plain versions at the main path's shapes.
     results = compare_kernels(dev)
@@ -1464,7 +1553,7 @@ def main() -> int:
 
     # Phases 12-13: ribbons.
     ribbon_gate()
-    rb_results, rb_launches = ribbon_frame(kernels)
+    rb_results, rb_launches = ribbon_frame(kernels, variants)
 
     results.update(fw_results)
     results.update(mx_results)

@@ -31,7 +31,6 @@ a fifth of the lanes active.
 
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -55,25 +54,14 @@ def variants(argv):
 
 
 def build_all(builds):
-    """Compile every build into ``build/variants``; returns the loaded
-    libraries by label. A variant that does not compile is reported and
-    left out; the port's own source must compile."""
+    """The loaded libraries by label (``cuda_build.build_variants``). A
+    variant that does not compile is reported and left out; the port's own
+    source must compile."""
     from bevy_hanabi_tpu_torch import cuda_build
 
-    outdir = cuda_build.BUILD_DIR / "variants"
-    outdir.mkdir(parents=True, exist_ok=True)
-    nvcc = cuda_build.find_nvcc()
-    procs = []
-    for label, src, flags in builds:
-        so = outdir / f"libevent_compact_{label}.so"
-        cmd = [nvcc, *cuda_build.NVCC_FLAGS, *flags, "-shared", "-o", str(so), str(src),
-               str(CSRC / "common.cu")]
-        procs.append((label, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.STDOUT, text=True)))
     libs = {}
-    for label, so, p in procs:
-        log = p.communicate()[0]
-        if p.returncode != 0:
+    for label, (lib, log) in cuda_build.build_variants(builds, "event_compact").items():
+        if lib is None:
             if label == "port":
                 raise SystemExit(f"{label}: nvcc failed\n{log}")
             print(f"{label}: nvcc failed, left out\n{log}")
@@ -82,7 +70,7 @@ def build_all(builds):
                        for line in log.splitlines() if "Used" in line and "registers" in line})
         spills = sorted({line.strip() for line in log.splitlines() if "spill stores" in line})
         print(f"{label}: {regs}; {spills}")
-        libs[label] = cuda_build.bind(ctypes.CDLL(str(so)))
+        libs[label] = lib
     return libs
 
 

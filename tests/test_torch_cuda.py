@@ -599,14 +599,12 @@ def test_ribbon_keys_are_bit_exact(cuda, n, counter):
     assert ribbon.ribbon_keys.launches == before + 1 + int(counter)
 
 
-@pytest.mark.parametrize("cutoff", [False, True])
-@pytest.mark.parametrize("counter", [True, False])
-@pytest.mark.parametrize("n", [0, 1, 2, 4096, 1 << 20])
-def test_ribbon_segments_are_bit_exact(cuda, n, counter, cutoff):
+def _segments_on_card(t):
+    """``ribbon_segments`` of the draw ``t`` (``_ribbon_inputs``' columns)
+    by the kernel, launched once, and by the plain version, bit-equal."""
     from bevy_hanabi_tpu_torch.render import ribbon
     from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData
 
-    t = _ribbon_inputs(n, cuda, counter=counter, cutoff=cutoff, seed=n + 1)
     draw = ParticleDrawData(t["position"], t["axis_y"], t["axis_y"], t["color"], t["alive"],
                             alpha_cutoff=t["alpha_cutoff"], ribbon_id=t["ribbon_id"], age=t["age"],
                             counter=t["counter"])
@@ -622,8 +620,69 @@ def test_ribbon_segments_are_bit_exact(cuda, n, counter, cutoff):
     want = ribbon.ribbon_segments_plain(*args)
     for a, b in zip(got, want):
         assert _bits_equal(a, b)
-    if n > 2:
+    return got
+
+
+# The kernel gives a lane 4 consecutive sorted rows, a warp a tile of 128
+# and a CTA 512 (csrc/ribbon.cu): sizes at the warp tile's edges (T - 1, T,
+# T + 1, 2T + 1), past a CTA's, and a ragged lane (5).
+@pytest.mark.parametrize("cutoff", [False, True])
+@pytest.mark.parametrize("counter", [True, False])
+@pytest.mark.parametrize("n", [0, 1, 2, 5, 127, 128, 129, 257, 513, 4096, 1 << 20])
+def test_ribbon_segments_are_bit_exact(cuda, n, counter, cutoff):
+    got = _segments_on_card(_ribbon_inputs(n, cuda, counter=counter, cutoff=cutoff, seed=n + 1))
+    if n > 64:  # more lanes than ribbons
         assert 0 < int(got[3].sum()) < n  # valid segments and ribbon heads
+
+
+def _one_age_per_row(t, ribbon_of_rank):
+    """Every lane alive, with a distinct age, and ribbon ``ribbon_of_rank``
+    of its rank from the oldest: sorted row i is the rank-i lane's."""
+    n = t["alive"].shape[0]
+    rank = torch.from_numpy(np.random.default_rng(n).permutation(n))
+    t["alive"] = torch.ones_like(t["alive"])
+    t["age"] = (1.0 + (n - rank).to(torch.float32) / n).to(t["age"].device)
+    t["ribbon_id"] = ribbon_of_rank(rank).to(torch.int64).to(t["ribbon_id"].device)
+    return t
+
+
+@pytest.mark.parametrize("counter", [True, False])
+def test_ribbon_segments_join_rows_across_tile_edges(cuda, counter):
+    """Ribbons of 200 rows span the edges of the warp tiles (rows 128, 256)
+    and of the CTAs (rows 512, 1024, 2048); each such row joins its
+    predecessor in the tile before."""
+    n = 2100
+    t = _one_age_per_row(_ribbon_inputs(n, cuda, counter=counter, cutoff=True, seed=7),
+                         lambda rank: rank // 200)
+    valid = _segments_on_card(t)[3].cpu()
+    heads = torch.arange(n) % 200 == 0
+    assert torch.equal(valid, ~heads)
+    assert bool(valid[[128, 256, 512, 1024, 2048]].all())
+
+
+@pytest.mark.parametrize("n", [5, 129, 1025])
+def test_ribbon_segments_row_zero_starts_no_segment(cuda, n):
+    """One ribbon holds every lane, so rows n - 1 and 0 are alive rows of one
+    ribbon: row 0 (whose predecessor is row n - 1, the roll) stays invalid."""
+    t = _one_age_per_row(_ribbon_inputs(n, cuda, counter=True, seed=n), lambda rank: 0 * rank)
+    valid = _segments_on_card(t)[3].cpu()
+    assert not bool(valid[0]) and bool(valid[1:].all())
+
+
+def test_ribbon_segments_refuse_unaligned_vectors(cuda):
+    """The kernel reads colour rows, perm2 and the sorted key in 16-byte
+    vectors: a view that starts inside a row is refused."""
+    from bevy_hanabi_tpu_torch.render import ribbon
+    from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData
+
+    n = 256
+    t = _ribbon_inputs(n, cuda, counter=False)
+    order = ribbon.ribbon_sort(ParticleDrawData(t["position"], t["axis_y"], t["axis_y"], t["color"],
+                                                t["alive"], ribbon_id=t["ribbon_id"], age=t["age"]))
+    color = torch.zeros(4 * n + 1, device=cuda)[1:].view(n, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        ribbon.ribbon_segments(t["position"], t["axis_y"], color, None, order.perm1, order.perm2,
+                               order.key, (0.0, 0.0, 5.0))
 
 
 def test_ribbon_gate_on_the_card_matches_the_cpu(cuda):

@@ -345,6 +345,35 @@ def test_seeded_pool_of_64_ribbons_matches_jax(counter):
     assert 2000 < int(seg_t.alive.sum()) < n
 
 
+def test_row_zero_starts_no_segment_when_one_ribbon_holds_every_lane_like_jax():
+    """Rows n - 1 and 0 are alive rows of one ribbon: row 0, whose
+    predecessor is row n - 1 (the roll), is still no segment."""
+    pts = np.stack([np.linspace(-0.8, 0.8, 16), np.zeros(16), np.zeros(16)], axis=1)
+    seg_j, seg_t, order = _segments_both(_points_cols(pts.tolist(), [0] * 16))
+    _assert_segments_match(seg_j, seg_t, order)
+    valid = seg_t.alive.numpy()
+    assert not valid[0] and valid[1:].all()
+
+
+@pytest.mark.parametrize("counter", [True, False])
+def test_ribbons_across_the_kernel_tiles_like_jax(counter):
+    """2100 lanes in ribbons of 200 rows, in a shuffled pool: ribbons run
+    across the card kernel's tiles (rows 128, 256, 512, 1024 and 2048)."""
+    r = np.random.default_rng(5)
+    n = 2100
+    rank = r.permutation(n)
+    cols = {
+        "position": r.uniform(-1.0, 1.0, (n, 3)).astype(np.float32),
+        "age": (1.0 + (n - rank) / n).astype(np.float32),
+        "ribbon_id": (rank // 200).astype(np.uint32),
+        "alive": np.ones(n, bool),
+        "particle_counter": r.permutation(n).astype(np.uint32),
+    }
+    seg_j, seg_t, order = _segments_both(cols, counter=counter, cam=_gate_camera)
+    _assert_segments_match(seg_j, seg_t, order)
+    np.testing.assert_array_equal(seg_t.alive.numpy(), np.arange(n) % 200 != 0)
+
+
 def test_missing_age_raises_like_jax():
     draw = ParticleDrawData(*(torch.zeros((4, 3)),) * 3, torch.zeros((4, 4)),
                             torch.ones(4, dtype=torch.bool), ribbon_id=torch.zeros(4, dtype=torch.int64))
