@@ -7,8 +7,10 @@ package's jax-free modules, and an asset crosses between the packages as
 JSON (``EffectAsset.from_json(jax_asset.to_json())``).
 
 Ported so far: the benchmark headline frame (``gradient_effect`` stepped by
-:class:`CompiledEffect` and rendered by the tile rasterizer, ``tile_slots=1``,
-``blend``), the firework event tree (``firework_effect`` →
+:class:`CompiledEffect` and rendered by the tile rasterizer in each of its
+binnings, ``tile_slots`` 0, 1 and 2, ``blend``), the force field
+(``force_field_effect``: the attractor, drag and kill box), the firework
+event tree (``firework_effect`` →
 ``firework_trail_effect`` through :class:`HanabiScene`'s ``add``,
 ``update``, ``update_chunk`` and ``render``, GPU spawn events, ``add``
 blending), the mixed scene (opaque and mask particles, the depth test, the

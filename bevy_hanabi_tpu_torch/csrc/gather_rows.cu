@@ -13,9 +13,14 @@
 // indices and `has`) and :586 (the row gather) in one launch. Tile t takes
 // base = starts[t] (the fast paths) or max(ends[t] - M, starts[t]) (the
 // ordered path's nearest M, back to front); slot m is filled when
-// base + m < ends[t] and then holds rows[pidx_sorted[base + m]]. Empty
-// slots are written as 0.0 and never read from the table. At the headline
-// (512x512, M = 64, 1024 tiles) 34,691 of 65,536 slots are filled.
+// base + m < ends[t] and then holds rows[e mod n_rows], e = pidx_sorted[base
+// + m]: with S bin entries a particle (tile_slots 0 and 2), the sorted ids
+// are entry indices s * n_rows + p, and JAX takes t_p = entry mod n
+// (raster.py:497-500). The remainder is taken on each filled slot (one
+// integer op; non-negative, as torch.remainder), so no id reads outside the
+// table. Empty slots are written as 0.0 and never read from the table. At
+// the headline (512x512, M = 64, 1024 tiles) 34,691 of 65,536 slots are
+// filled.
 //
 // Bound on the H100: bytes, and at these sizes the latency of three
 // dependent loads (bounds, index, row) and the launch. gather_window must
@@ -37,7 +42,8 @@
 //     int64 (the stable sort's indices) through a template: no conversion
 //     launch. It replaces the ~8 eager launches of window_index and the
 //     gather with one.
-// An index outside [0, n_table) writes NaN instead of reading out of bounds.
+// gather_rows: an index outside [0, n_table) writes NaN instead of reading
+// out of bounds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,6 +118,18 @@ __global__ void __launch_bounds__(kThreads)
   write_run(stage4, out + row0 * F, rows * F, true);
 }
 
+// the row of entry `e`: e mod n_rows in [0, n_rows), as torch.remainder
+template <typename Idx>
+__device__ __forceinline__ long long entry_row(Idx e, long long n_rows) {
+  if constexpr (sizeof(Idx) == 4) {
+    const int r = e % (int)n_rows;  // the wrapper keeps n_rows below 2^31
+    return r < 0 ? r + n_rows : r;
+  } else {
+    const long long r = e % n_rows;
+    return r < 0 ? r + n_rows : r;
+  }
+}
+
 template <typename Idx, int kF>
 __global__ void __launch_bounds__(kThreads)
     gather_window_kernel(const float* __restrict__ rows, const Idx* __restrict__ pidx_sorted,
@@ -130,7 +148,7 @@ __global__ void __launch_bounds__(kThreads)
     if (m < filled) {
       // the reference clamps the slot to the last entry (raster.py:490)
       const long long k = min(base + m, n_entries - 1);
-      stage_row<kF>(rows, (long long)__ldg(pidx_sorted + k), n_rows, F, dst);
+      stage_row<kF>(rows, entry_row(__ldg(pidx_sorted + k), n_rows), n_rows, F, dst);
     } else {
       zero_row<kF>(F, dst);
     }
@@ -186,7 +204,8 @@ extern "C" int hanabi_gather_window(const void* rows, const void* pidx_sorted, c
                                     long long n_entries, long long n_rows, int M, int F,
                                     int from_start, int idx64, int vec4, void* stream) {
   if (nt <= 0 || M <= 0) return (int)cudaGetLastError();
-  if ((long long)M * F > kStageFloats) return (int)cudaErrorInvalidValue;
+  if ((long long)M * F > kStageFloats || (n_entries > 0 && (n_rows <= 0 || n_rows > 0x7fffffff)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err =
       idx64 ? launch_window<long long>(rows, pidx_sorted, starts, ends, window, has, nt, n_entries,

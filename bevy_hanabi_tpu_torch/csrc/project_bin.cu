@@ -1,11 +1,28 @@
 // project_bin: project each particle's quad, test it against the screen,
-// bin it into the tile holding its centre, pack its blend row and reduce
-// the depth range of the binned entries; bin_keys: the 32-bit sort key of
-// every entry from its tile, its depth and that range.
+// bin it into S tile entries, pack its blend row and reduce the depth range
+// of the binned entries; bin_keys: the 32-bit sort key of every entry from
+// its tile, its depth and that range.
 //
-// project_bin replaces bevy_hanabi_tpu/render/raster.py:241-292 (the
-// tile_slots=1 branch of steps 1-2, with `_project` at raster.py:148-176)
-// and the row stack of raster.py:516-586; bin_keys replaces the key build of
+// project_bin replaces bevy_hanabi_tpu/render/raster.py:241-333 (steps 1-2
+// for the three binnings of RasterConfig.tile_slots, with `_project` at
+// raster.py:148-176) and the row stack of raster.py:516-586. The binnings:
+//   tile_slots=1: S = 1, the tile holding the centre (clamped on screen);
+//   tile_slots=2: S = 2, the screen-clamped bbox-corner tile and the
+//     neighbour of the larger spill past its right or bottom edge
+//     (raster.py:297-326);
+//   tile_slots=0: S = span^2, every tile of the span x span square from the
+//     bbox corner that the bbox touches and the screen holds (a larger quad
+//     is cropped, raster.py:327-330).
+// Each particle writes its S (tile, depth) entries slot-major, entry
+// s * n + p, as JAX concatenates its slots (raster.py:331-333): each slot's
+// stores stay coalesced, and the entry order (the `first` policy, the
+// stable sort's ties, the entry index in the keys) is JAX's. A slot that
+// bins nothing holds tile nt and depth -inf. S is a template parameter (1,
+// 2, span^2 for span 1-4; a larger span loops at run time). The bbox floors
+// are clamped in float before the conversion to int (tx0 to [-span, ntx],
+// tx1 to [-1, ntx]): that leaves every test of JAX's unchanged, gives JAX's
+// saturating conversion wherever a test reads it, and keeps tx0 + dx from
+// overflowing. bin_keys replaces the key build of
 // raster.py:361-423 (`quant_depth` and the packed uint32 keys of the ordered
 // path and the three fast variants). The JAX package leaves both regions to
 // XLA on the TPU; it has no Pallas kernel for them.
@@ -18,9 +35,10 @@
 // copied from the optional `extra` [N, 2] input (zeros without it).
 //
 // Bound on the H100: per particle project_bin reads 3 vec3 + 1 bool + 1 vec4
-// (+ 2 f32) = 53-61 B and writes the tile id, the depth and one 10- or
-// 13-float row = 48-60 B, ~100-120 MB a frame at 1M particles: device-memory
-// bandwidth, ~30-35 us at 3.35 TB/s. A thread per particle reading its
+// (+ 2 f32) = 53-61 B and writes S tile ids and depths and one 10- or
+// 13-float row = 40 + 8 S to 52 + 8 S B, ~100-120 MB a frame at 1M
+// particles and S = 1 (8 (S - 1) MB more at larger S): device-memory
+// bandwidth, ~30-35 us at 3.35 TB/s for S = 1. A thread per particle reading its
 // stride-3 inputs and writing its 40- or 52-byte row with scalar stores
 // spreads every warp access over 1.3-1.7 KB. So each block owns a contiguous
 // slice of kBlock particles: it loads the slice's position, axes, colour,
@@ -31,6 +49,8 @@
 // any input that is not 16-byte aligned, takes scalar loads and stores.
 //
 // The depth range: each block reduces the min and max of its binned depths
+// (a particle's depth where one of its slots bins a tile: a valid quad that
+// the span crops off every tile stays out of it, as in JAX's quant_depth)
 // with warp reductions and folds them into `range` [2] with one atomic each.
 // A binned depth is > 1e-4 (never NaN), so its IEEE bits order as unsigned
 // and as signed integers. The entry point first sets both words to
@@ -94,12 +114,79 @@ __device__ __forceinline__ void load_scalar(float* dst, const float* src, int co
   for (int k = threadIdx.x; k < count; k += blockDim.x) dst[k] = src[k];
 }
 
+// floor(x) clamped to [lo, hi] in float, then converted (fminf / fmaxf
+// drop a NaN, which only an invalid quad has)
+__device__ __forceinline__ int tile_floor(float x, float lo, float hi) {
+  return (int)fminf(fmaxf(floorf(x), lo), hi);
+}
+
+// One particle's S entries at entry s * n + i (the binnings in the header);
+// returns whether any slot binned a tile. kSlots: 1, 2, or 0 (span^2, the
+// span kSpan, or span_rt where kSpan is 0).
+template <int kSlots, int kSpan>
+__device__ __forceinline__ bool bin_entries(const ProjectParams& p, float cx, float cy, float rx,
+                                            float ry, bool valid, float dist, int span_rt,
+                                            int32_t* __restrict__ tile_out,
+                                            float* __restrict__ depth_out, int64_t i, int64_t n) {
+  if constexpr (kSlots == 1) {
+    int tile = p.nt;
+    if (valid) {
+      // clamp in float before the conversion: exact for every on-screen tile
+      float tx = fminf(fmaxf(floorf(cx / p.tile), 0.0f), (float)(p.ntx - 1));
+      float ty = fminf(fmaxf(floorf(cy / p.tile), 0.0f), (float)(p.nty - 1));
+      tile = (int)ty * p.ntx + (int)tx;
+    }
+    tile_out[i] = tile;
+    depth_out[i] = valid ? dist : -INFINITY;
+    return valid;
+  }
+  const int span = kSlots == 2 ? 1 : (kSpan > 0 ? kSpan : span_rt);
+  // raster.py:268-271, the division by T in f32 as JAX's
+  const int tx0 = tile_floor((cx - rx) / p.tile, (float)-span, (float)p.ntx);
+  const int ty0 = tile_floor((cy - ry) / p.tile, (float)-span, (float)p.nty);
+  const int tx1 = tile_floor((cx + rx) / p.tile, -1.0f, (float)p.ntx);
+  const int ty1 = tile_floor((cy + ry) / p.tile, -1.0f, (float)p.nty);
+  if constexpr (kSlots == 2) {  // raster.py:297-326
+    const int tcx = min(max(tx0, 0), p.ntx - 1);
+    const int tcy = min(max(ty0, 0), p.nty - 1);
+    const bool ok0 = valid && tcx <= tx1 && tcy <= ty1;
+    const int tile0 = ok0 ? tcy * p.ntx + tcx : p.nt;
+    const bool sx = tx1 > tcx && tcx + 1 < p.ntx;
+    const bool sy = ty1 > tcy && tcy + 1 < p.nty;
+    const float spill_x = (cx + rx) - (float)(tcx + 1) * p.tile;
+    const float spill_y = (cy + ry) - (float)(tcy + 1) * p.tile;
+    const bool use_x = sx && (!sy || spill_x >= spill_y);
+    const bool ok1 = valid && (sx || sy);
+    tile_out[i] = tile0;
+    depth_out[i] = ok0 ? dist : -INFINITY;
+    tile_out[n + i] = ok1 ? (use_x ? tile0 + 1 : tile0 + p.ntx) : p.nt;
+    depth_out[n + i] = ok1 ? dist : -INFINITY;
+    return ok0 || ok1;
+  }
+  bool any = false;  // raster.py:327-330
+#pragma unroll
+  for (int dy = 0; dy < span; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < span; ++dx) {
+      const int tx = tx0 + dx, ty = ty0 + dy;
+      const bool ok = valid && tx <= tx1 && ty <= ty1 && tx >= 0 && tx < p.ntx && ty >= 0 &&
+                      ty < p.nty;
+      const int64_t e = (int64_t)(dy * span + dx) * n + i;
+      tile_out[e] = ok ? ty * p.ntx + tx : p.nt;
+      depth_out[e] = ok ? dist : -INFINITY;
+      any = any || ok;
+    }
+  }
+  return any;
+}
+
+template <int kSlots, int kSpan>
 __global__ void __launch_bounds__(kBlock) project_bin_kernel(
     const float* __restrict__ position, const float* __restrict__ axis_x,
     const float* __restrict__ axis_y, const uint8_t* __restrict__ alive,
     const float* __restrict__ color, const float* __restrict__ extra,
     int32_t* __restrict__ tile_out, float* __restrict__ depth_out, float* __restrict__ rows,
-    unsigned int* __restrict__ range, int n, int row, int vec, ProjectParams p) {
+    unsigned int* __restrict__ range, int n, int row, int vec, int span_rt, ProjectParams p) {
   __shared__ __align__(16) float s_pos[3 * kBlock];
   __shared__ __align__(16) float s_ax[3 * kBlock];
   __shared__ __align__(16) float s_ay[3 * kBlock];
@@ -171,17 +258,11 @@ __global__ void __launch_bounds__(kBlock) project_bin_kernel(
     valid = valid && (c.x + rx > 0.0f) && (c.x - rx < p.width);
     valid = valid && (c.y + ry > 0.0f) && (c.y - ry < p.height);
     valid = valid && (rx > 1e-6f) && (ry > 1e-6f);
-    int tile = p.nt;
-    if (valid) {
-      // clamp in float before the conversion: exact for every on-screen tile
-      float tx = fminf(fmaxf(floorf(c.x / p.tile), 0.0f), (float)(p.ntx - 1));
-      float ty = fminf(fmaxf(floorf(c.y / p.tile), 0.0f), (float)(p.nty - 1));
-      tile = (int)ty * p.ntx + (int)tx;
+    if (bin_entries<kSlots, kSpan>(p, c.x, c.y, rx, ry, valid, c.dist, span_rt, tile_out,
+                                   depth_out, base + t, n)) {
       lo = __float_as_uint(c.dist);
       hi = __float_as_int(c.dist);
     }
-    tile_out[base + t] = tile;
-    depth_out[base + t] = valid ? c.dist : -INFINITY;
     float* r = s_rows + row * t;
     r[0] = c.x;
     r[1] = c.y;
@@ -286,12 +367,16 @@ bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15u) == 0
 // params: mvp[16], view row 2 [4], vp_w, vp_h, width, height, tile (25 floats)
 // extra: [n, 2] f32 (cutoff, mode) or NULL; row: floats per row, 10 or 13;
 // range: f32 [2], out: (min, max) of the binned depths, NaN where none
+// tile_slots: 0 (span^2 entries a particle), 1 or 2; tile_out and depth_out
+// hold S * n entries, slot-major
 extern "C" int hanabi_project_bin(const void* position, const void* axis_x, const void* axis_y,
                                   const void* alive, const void* color, const void* extra,
                                   void* tile_out, void* depth_out, void* rows, void* range,
                                   int n, int row, const float* params, int ntx, int nty,
-                                  void* stream) {
-  if ((row != 10 && row != 13) || !range) return (int)cudaErrorInvalidValue;
+                                  int tile_slots, int tile_span, void* stream) {
+  if ((row != 10 && row != 13) || !range || tile_slots < 0 || tile_slots > 2 ||
+      (tile_slots == 0 && (tile_span < 1 || tile_span > 46340)))  // span^2 fits an int
+    return (int)cudaErrorInvalidValue;
   ProjectParams p;
   for (int k = 0; k < 16; ++k) p.mvp[k] = params[k];
   for (int k = 0; k < 4; ++k) p.view2[k] = params[16 + k];
@@ -309,10 +394,19 @@ extern "C" int hanabi_project_bin(const void* position, const void* axis_x, cons
   if (n > 0) {
     const int vec = aligned16(position) && aligned16(axis_x) && aligned16(axis_y) &&
                     aligned16(alive) && aligned16(color) && aligned16(extra) && aligned16(rows);
-    project_bin_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0, s>>>(
-        (const float*)position, (const float*)axis_x, (const float*)axis_y,
-        (const uint8_t*)alive, (const float*)color, (const float*)extra, (int32_t*)tile_out,
-        (float*)depth_out, (float*)rows, (unsigned int*)range, n, row, vec, p);
+#define HANABI_PB(SLOTS, SPAN)                                                                   \
+  project_bin_kernel<SLOTS, SPAN><<<(n + kBlock - 1) / kBlock, kBlock, 0, s>>>(                   \
+      (const float*)position, (const float*)axis_x, (const float*)axis_y, (const uint8_t*)alive, \
+      (const float*)color, (const float*)extra, (int32_t*)tile_out, (float*)depth_out,            \
+      (float*)rows, (unsigned int*)range, n, row, vec, tile_span, p)
+    if (tile_slots == 1) HANABI_PB(1, 1);
+    else if (tile_slots == 2) HANABI_PB(2, 1);
+    else if (tile_span == 1) HANABI_PB(0, 1);
+    else if (tile_span == 2) HANABI_PB(0, 2);
+    else if (tile_span == 3) HANABI_PB(0, 3);
+    else if (tile_span == 4) HANABI_PB(0, 4);
+    else HANABI_PB(0, 0);
+#undef HANABI_PB
   }
   return (int)cudaGetLastError();
 }

@@ -63,8 +63,9 @@ SIGNATURES = {
     "hanabi_gather_window": [_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
                              _I, _I, _I, _I, _I, _P],
     # (position, axis_x, axis_y, alive, color, extra, tile, depth, rows, range, n, row, params,
-    #  ntx, nty, stream)
-    "hanabi_project_bin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
+    #  ntx, nty, tile_slots, tile_span, stream)
+    "hanabi_project_bin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
+                           _P],
     # (tile, depth, range, key, n, tile_shift, q_bits, idx_bits, far_first, stream)
     "hanabi_bin_keys": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
     # (window, has, fb_in, depth_in, fb, depth_out, nt, M, T, ntx, background, eq,

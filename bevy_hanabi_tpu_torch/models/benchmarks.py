@@ -2,6 +2,7 @@
 
 Ported so far: ``gradient_effect`` (the benchmark headline's effect),
 ``spawn_gravity_effect`` (the opaque effect of the painter device gate),
+``force_field_effect`` (the attractor and kill box of BASELINE config 3),
 the firework event tree, ``firework_effect`` with its trail child
 ``firework_trail_effect``, and the ribbon effects ``ribbon_bench_effect``
 and ``ribbon_order_check_effect``. The definitions are the JAX package's, so both
@@ -18,9 +19,11 @@ from ..graph import ExprWriter
 from ..modifiers import (
     AccelModifier,
     ColorOverLifetimeModifier,
+    ConformToSphereModifier,
     EmitSpawnEventModifier,
     EventEmitCondition,
     InheritAttributeModifier,
+    KillAabbModifier,
     LinearDragModifier,
     OrientMode,
     OrientModifier,
@@ -37,6 +40,7 @@ from ..values import FLOAT, UINT
 __all__ = [
     "spawn_gravity_effect",
     "gradient_effect",
+    "force_field_effect",
     "firework_effect",
     "firework_trail_effect",
     "ribbon_bench_effect",
@@ -92,6 +96,45 @@ def gradient_effect(capacity: int = 32768) -> EffectAsset:
         .render(ColorOverLifetimeModifier(color))
         .render(SizeOverLifetimeModifier(Gradient.linear((0.1,), (0.02,))))
         .with_alpha_mode(AlphaMode.BLEND)
+    )
+
+
+def force_field_effect(capacity: int = 100_000) -> EffectAsset:
+    """BASELINE config 3 (examples/force_field.rs): conform-to-sphere
+    attractor + kill-AABB, 100k particles."""
+    w = ExprWriter()
+    w.add_property("attractor", (0.0, 1.0, 0.0))
+    return (
+        EffectAsset(
+            "force_field", capacity, SpawnerSettings.rate(capacity / 4.0), w.finish()
+        )
+        .init(SetAttributeModifier(A.AGE, w.lit(0.0).expr()))
+        .init(SetAttributeModifier(A.LIFETIME, w.lit(4.0).expr()))
+        .init(
+            SetPositionSphereModifier(
+                w.lit((0.0, -2.0, 0.0)).expr(), w.lit(0.4).expr(), ShapeDimension.VOLUME
+            )
+        )
+        .init(
+            SetVelocitySphereModifier(
+                w.lit((0.0, -2.0, 0.0)).expr(), w.lit(3.0).uniform(w.lit(5.0)).expr()
+            )
+        )
+        .update(
+            ConformToSphereModifier(
+                w.prop("attractor").expr(),
+                w.lit(1.0).expr(),
+                w.lit(10.0).expr(),
+                w.lit(30.0).expr(),
+                w.lit(5.0).expr(),
+            )
+        )
+        .update(LinearDragModifier(w.lit(1.0).expr()))
+        .update(
+            KillAabbModifier(
+                w.lit((0.0, 0.0, 0.0)).expr(), w.lit((8.0, 8.0, 8.0)).expr(), False
+            )
+        )
     )
 
 

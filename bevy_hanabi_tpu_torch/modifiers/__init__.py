@@ -1,8 +1,8 @@
 """Composable effect modifiers (port of ``bevy_hanabi_tpu/modifiers``).
 
-Only the modifiers the ported slice runs are here, and only they register
-for serde: an asset naming any other modifier fails ``from_json`` with the
-list of known types.
+Only the ported modifiers are here, and only they register for serde: an
+asset naming any other modifier fails ``from_json`` with the list of known
+types.
 """
 
 from .base import (  # noqa: F401
@@ -17,6 +17,7 @@ from .accel import AccelModifier, RadialAccelModifier, TangentAccelModifier  # n
 from .attr import InheritAttributeModifier, SetAttributeModifier  # noqa: F401
 from .event import EmitSpawnEventModifier, EventEmitCondition  # noqa: F401
 from .force import ConformToSphereModifier, LinearDragModifier  # noqa: F401
+from .kill import KillAabbModifier, KillSphereModifier  # noqa: F401
 from .output import (  # noqa: F401
     ColorBlendMask,
     ColorBlendMode,
@@ -27,5 +28,13 @@ from .output import (  # noqa: F401
     SetSizeModifier,
     SizeOverLifetimeModifier,
 )
-from .position import SetPositionSphereModifier  # noqa: F401
-from .velocity import SetVelocitySphereModifier  # noqa: F401
+from .position import (  # noqa: F401
+    SetPositionCircleModifier,
+    SetPositionCone3dModifier,
+    SetPositionSphereModifier,
+)
+from .velocity import (  # noqa: F401
+    SetVelocityCircleModifier,
+    SetVelocitySphereModifier,
+    SetVelocityTangentModifier,
+)

@@ -60,27 +60,32 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 gather_rows.launches = 0
 
 
-def window_index(pidx_sorted, starts, ends, M: int, from_start: bool = False):
+def window_index(pidx_sorted, starts, ends, M: int, from_start: bool = False, n_rows=None):
     """``M`` entries of every tile in blend order (raster.py:488-506):
     ``(pidx int32 [nt, M], has bool [nt, M])``. The ordered path takes the
     END of each far-first run (the nearest M, back to front); the fast
-    paths take the START (``from_start``)."""
+    paths take the START (``from_start``). With ``n_rows`` each slot holds
+    its entry's row, ``entry mod n_rows`` (raster.py:497-500)."""
     n = pidx_sorted.shape[0]
     base = starts if from_start else torch.maximum(ends - M, starts)
     raw = base[:, None] + torch.arange(M, dtype=base.dtype, device=base.device)[None, :]
     has = raw < ends[:, None]
     idx = torch.clamp(raw, max=n - 1)
-    return pidx_sorted[idx].to(torch.int32), has
+    pidx = pidx_sorted[idx]
+    if n_rows is not None:
+        pidx = torch.remainder(pidx, n_rows)
+    return pidx.to(torch.int32), has
 
 
 def gather_window_plain(rows, pidx_sorted, starts, ends, M: int, from_start: bool = False):
-    """Plain version of :func:`gather_window`: :func:`window_index`, then
-    ``index_select`` of its slots, empty slots zeroed."""
+    """Plain version of :func:`gather_window`: :func:`window_index` (each
+    entry's row ``entry mod N``), then ``index_select`` of its slots, empty
+    slots zeroed."""
     nt, width = starts.shape[0], rows.shape[1]
     if pidx_sorted.shape[0] == 0:
         return (rows.new_zeros((nt, M, width)),
                 torch.zeros((nt, M), dtype=torch.bool, device=rows.device))
-    pidx, has = window_index(pidx_sorted, starts, ends, M, from_start)
+    pidx, has = window_index(pidx_sorted, starts, ends, M, from_start, rows.shape[0])
     window = rows.index_select(0, pidx.reshape(-1)).reshape(nt, M, width)
     return torch.where(has[..., None], window, 0.0), has
 
@@ -88,15 +93,17 @@ def gather_window_plain(rows, pidx_sorted, starts, ends, M: int, from_start: boo
 def gather_window(rows, pidx_sorted, starts, ends, M: int, from_start: bool = False):
     """Each tile's window of ``M`` rows in blend order, in one launch.
 
-    ``rows`` f32 [N, F] (``project_bin``'s), ``pidx_sorted`` int32 or int64
-    [n] (the sorted entries' row ids), ``starts``/``ends`` int64 [nt] (each
-    tile's run in the sorted order, from :func:`~..render.raster.sort_tiles`).
-    Tile t's slot m holds entry ``base + m`` of the run, ``base`` its start
-    (``from_start``, the fast paths) or ``max(ends - M, starts)`` (the
-    ordered path's nearest M, back to front). Returns ``(window f32
-    [nt, M, F], has bool [nt, M])``; an empty slot is 0.0 and reads no row.
-    Folds :func:`window_index` and the row gather of raster.py:488-506, 586
-    into one kernel."""
+    ``rows`` f32 [N, F] (``project_bin``'s, one a particle),
+    ``pidx_sorted`` int32 or int64 [E] (the sorted entries' indices, of
+    ``S`` slot-major entries a particle: entry ``e`` reads row ``e mod N``,
+    JAX's ``t_p`` of raster.py:497-500, so no id reads outside ``rows``),
+    ``starts``/``ends`` int64 [nt] (each tile's run in the sorted order,
+    from :func:`~..render.raster.sort_tiles`). Tile t's slot m holds entry
+    ``base + m`` of the run, ``base`` its start (``from_start``, the fast
+    paths) or ``max(ends - M, starts)`` (the ordered path's nearest M, back
+    to front). Returns ``(window f32 [nt, M, F], has bool [nt, M])``; an
+    empty slot is 0.0 and reads no row. Folds :func:`window_index` and the
+    row gather of raster.py:488-506, 586 into one kernel."""
     if rows.dim() != 2:
         raise ValueError(f"rows must be [N, F], got shape {tuple(rows.shape)}")
     dev = rows.device
@@ -112,6 +119,8 @@ def gather_window(rows, pidx_sorted, starts, ends, M: int, from_start: bool = Fa
     _check(ends, "ends", torch.int64, (nt,), dev)
     if M < 1:
         raise ValueError(f"gather_window: M must be positive, got {M}")
+    if pidx_sorted.shape[0] and not 0 < rows.shape[0] < 2**31:
+        raise ValueError(f"gather_window: entries need 1 to 2**31 - 1 rows, got {rows.shape[0]}")
     if not rows.is_cuda:
         return gather_window_plain(rows, pidx_sorted, starts, ends, M, from_start)
     width = rows.shape[1]

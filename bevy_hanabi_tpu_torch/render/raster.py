@@ -1,13 +1,16 @@
 """Tile-binned particle splat rasterizer (port of ``bevy_hanabi_tpu/render/raster.py``).
 
 The same **bin → sort → bounded per-tile blend** pipeline as the JAX
-package, for ``tile_slots=1``, with the ``blend``, ``add``, ``opaque``,
-``mask`` and painter (``scene``) equations, the depth test against a scene
-depth plane, the depth plane written by opaque and mask passes, and a
-seeded framebuffer:
+package, for every binning of ``RasterConfig.tile_slots`` (0: the
+``tile_span``-square, exact; 1: the centre tile; 2: the corner and the
+dominant spill), with the ``blend``, ``add``, ``opaque``, ``mask`` and
+painter (``scene``) equations, the depth test against a scene depth plane,
+the depth plane written by opaque and mask passes, and a seeded
+framebuffer:
 
 1. :func:`project_bin` (CUDA kernel) projects every quad, tests it against
-   the screen, bins it into the tile holding its centre and packs its row
+   the screen, bins it into ``S`` entries (:func:`entry_slots`, entry
+   ``s * N + p``: a tile id and a depth each) and packs its one row
    ``[cx, cy, h1x, h1y, h2x, h2y, r, g, b, a]``, with ``[depth, cutoff,
    mode]`` appended where the pass's blend variant reads them
    (:func:`row_width`), and reduces the binned depths' range;
@@ -18,7 +21,8 @@ seeded framebuffer:
    ``searchsorted`` of the tile bounds gives each tile's run;
 3. :func:`~..ops.gather.gather_window` (CUDA kernel, the port of the TPU
    row gather) builds every tile's window of ``M`` rows in blend order,
-   its ``has`` flags and its rows in one launch;
+   its ``has`` flags and its rows (entry ``e`` reads row ``e mod N``) in
+   one launch;
 4. :func:`tile_blend` (CUDA kernel) blends each tile in one CTA, one thread
    per pixel, its depth plane in registers, and culls the entries that
    cover no pixel of a warp's block before the exact per-pixel test.
@@ -52,6 +56,8 @@ __all__ = [
     "RasterConfig",
     "rasterize",
     "row_width",
+    "entry_slots",
+    "bin_entries_plain",
     "project_bin",
     "project_bin_plain",
     "depth_range_plain",
@@ -155,10 +161,80 @@ def depth_range_plain(depth: torch.Tensor) -> torch.Tensor:
     return torch.where(binned.any(), torch.stack([lo, hi]), torch.nan)
 
 
+def entry_slots(tile_slots: int, tile_span: int) -> int:
+    """Bin entries per particle, ``S``: 1 (centre tile), 2 (corner and
+    dominant spill) or ``tile_span ** 2`` (``tile_slots=0``, exact)."""
+    if tile_slots not in (0, 1, 2):
+        raise ValueError(f"tile_slots must be 0, 1 or 2, got {tile_slots}")
+    if tile_slots == 0 and tile_span < 1:
+        raise ValueError(f"tile_span must be at least 1, got {tile_span}")
+    return tile_span * tile_span if tile_slots == 0 else tile_slots
+
+
+def _tile_floor(x, lo: int, hi: int) -> torch.Tensor:
+    """``floor(x)`` as int32, clamped to ``[lo, hi]`` in float first (NaN
+    to 0): JAX's saturating ``astype(int32)`` (raster.py:268-271) wherever
+    the binning reads it, with no out-of-range conversion."""
+    return torch.clamp(torch.floor(x), lo, hi).nan_to_num(0.0).to(torch.int32)
+
+
+def bin_entries_plain(cx, cy, rx, ry, valid, dist, T, ntx, nty, tile_slots=1, tile_span=2):
+    """The bin entries of raster.py:260-333 from each particle's projected
+    centre, screen radii, validity and view distance: ``(tile int32
+    [S * N], depth f32 [S * N])``, slot-major (entry ``s * N + p``), with
+    ``ntx * nty`` and ``-inf`` where the slot bins nothing.
+
+    ``tile_slots=1`` bins the centre tile; ``2`` the screen-clamped bbox
+    corner and the neighbour of the larger spill; ``0`` every tile of the
+    ``tile_span``-square from the bbox corner that the bbox touches and the
+    screen holds (a larger quad is cropped). The bbox floors are clamped in
+    float (``tx0`` to ``[-span, ntx]``, ``tx1`` to ``[-1, ntx]``), which
+    leaves every test of the JAX package's unchanged."""
+    nt = ntx * nty
+    Tf = float(T)
+    if tile_slots == 1:
+        tcx = _tile_floor(cx / Tf, 0, ntx - 1)
+        tcy = _tile_floor(cy / Tf, 0, nty - 1)
+        tiles, oks = [torch.where(valid, tcy * ntx + tcx, nt)], [valid]
+    else:
+        span = tile_span if tile_slots == 0 else 1
+        tx0 = _tile_floor((cx - rx) / Tf, -span, ntx)
+        ty0 = _tile_floor((cy - ry) / Tf, -span, nty)
+        tx1 = _tile_floor((cx + rx) / Tf, -1, ntx)
+        ty1 = _tile_floor((cy + ry) / Tf, -1, nty)
+        if tile_slots == 2:  # raster.py:297-326
+            tcx = torch.clamp(tx0, 0, ntx - 1)
+            tcy = torch.clamp(ty0, 0, nty - 1)
+            ok0 = valid & (tcx <= tx1) & (tcy <= ty1)
+            tile0 = torch.where(ok0, tcy * ntx + tcx, nt)
+            sx = (tx1 > tcx) & (tcx + 1 < ntx)
+            sy = (ty1 > tcy) & (tcy + 1 < nty)
+            spill_x = (cx + rx) - (tcx + 1).to(torch.float32) * Tf
+            spill_y = (cy + ry) - (tcy + 1).to(torch.float32) * Tf
+            use_x = sx & (~sy | (spill_x >= spill_y))
+            ok1 = valid & (sx | sy)
+            tile1 = torch.where(ok1, torch.where(use_x, tile0 + 1, tile0 + ntx), nt)
+            tiles, oks = [tile0, tile1], [ok0, ok1]
+        else:  # raster.py:318-330
+            tiles, oks = [], []
+            for dy in range(span):
+                for dx in range(span):
+                    tx, ty = tx0 + dx, ty0 + dy
+                    ok = valid & (tx <= tx1) & (ty <= ty1)
+                    ok &= (tx >= 0) & (tx < ntx) & (ty >= 0) & (ty < nty)
+                    tiles.append(torch.where(ok, ty * ntx + tx, nt))
+                    oks.append(ok)
+    tile = torch.cat([t.to(torch.int32) for t in tiles])
+    depth = torch.cat([torch.where(ok, dist, -torch.inf) for ok in oks])
+    return tile, depth
+
+
 def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewport,
-                      T, ntx, nty, raster_size=None, extra=None, row=ROW):
-    """Plain version of :func:`project_bin`: raster.py:241-292 + 516-586."""
+                      T, ntx, nty, raster_size=None, extra=None, row=ROW, tile_slots=1,
+                      tile_span=2):
+    """Plain version of :func:`project_bin`: raster.py:241-333 + 516-586."""
     _check_row(row, extra)
+    entry_slots(tile_slots, tile_span)
     mvp, view_t, params = _project_params(view, proj, viewport, raster_size or viewport, T)
     mvp, view_t = mvp.to(position.device), view_t.to(position.device)
     width, height = (float(v) for v in params[22:24])
@@ -190,12 +266,7 @@ def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewpo
     valid &= (cx + rx > 0) & (cx - rx < width)
     valid &= (cy + ry > 0) & (cy - ry < height)
     valid &= (rx > 1e-6) & (ry > 1e-6)
-    # clamp in float before the conversion (exact for every on-screen tile)
-    tcx = torch.clamp(torch.floor(cx / float(T)), 0, ntx - 1).nan_to_num(0).to(torch.int32)
-    tcy = torch.clamp(torch.floor(cy / float(T)), 0, nty - 1).nan_to_num(0).to(torch.int32)
-    nt = ntx * nty
-    tile = torch.where(valid, tcy * ntx + tcx, nt).to(torch.int32)
-    depth = torch.where(valid, dist, -torch.inf)
+    tile, depth = bin_entries_plain(cx, cy, rx, ry, valid, dist, T, ntx, nty, tile_slots, tile_span)
     cols = [torch.stack([cx, cy, h1x, h1y, h2x, h2y], dim=1), color]
     if row == ROW:
         if extra is None:
@@ -206,8 +277,8 @@ def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewpo
 
 
 def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
-                T, ntx, nty, raster_size=None, extra=None, row=ROW):
-    """Project, screen-test and centre-tile-bin N particle quads.
+                T, ntx, nty, raster_size=None, extra=None, row=ROW, tile_slots=1, tile_span=2):
+    """Project, screen-test and bin N particle quads into ``S`` entries each.
 
     ``position``/``axis_x``/``axis_y`` f32 [N, 3], ``alive`` bool [N],
     ``color`` f32 [N, 4]; ``view``/``proj`` host 4x4 matrices;
@@ -216,10 +287,13 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
     :data:`ROW` (13, with the depth, cutoff and mode columns) or
     :data:`ROW_QUAD` (10, without); ``extra`` an optional f32 [N, 2] of
     (mask cutoff, painter mode id) per particle for 13-float rows, zeros
-    without it. Returns ``tile`` int32 [N] (``ntx * nty`` where invalid),
-    ``depth`` f32 [N] (view distance, ``-inf`` where invalid), ``rows``
-    f32 [N, row] and the binned depths' (min, max) as f32 [2]
-    (:func:`depth_range_plain`), which :func:`bin_keys` reads."""
+    without it; ``tile_slots`` and ``tile_span`` the binning of
+    :class:`RasterConfig` (:func:`bin_entries_plain`), ``S`` =
+    :func:`entry_slots`. Returns ``tile`` int32 [S * N] (``ntx * nty``
+    where a slot bins nothing), ``depth`` f32 [S * N] (view distance,
+    ``-inf`` there), both slot-major (entry ``s * N + p``), ``rows`` f32
+    [N, row], one a particle, and the binned entries' depth (min, max) as
+    f32 [2] (:func:`depth_range_plain`), which :func:`bin_keys` reads."""
     dev = position.device
     n = position.shape[0]
     _check(position, "position", torch.float32, (n, 3), dev)
@@ -230,19 +304,20 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
     if extra is not None:
         _check(extra, "extra", torch.float32, (n, 2), dev)
     _check_row(row, extra)
+    slots = entry_slots(tile_slots, tile_span)
     if not position.is_cuda:
-        return project_bin_plain(position, axis_x, axis_y, alive, color, view, proj,
-                                 viewport, T, ntx, nty, raster_size, extra, row)
+        return project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewport,
+                                 T, ntx, nty, raster_size, extra, row, tile_slots, tile_span)
     _, _, params = _project_params(view, proj, viewport, raster_size or viewport, T)
-    tile = torch.empty((n,), dtype=torch.int32, device=dev)
-    depth = torch.empty((n,), dtype=torch.float32, device=dev)
+    tile = torch.empty((slots * n,), dtype=torch.int32, device=dev)
+    depth = torch.empty((slots * n,), dtype=torch.float32, device=dev)
     rows = torch.empty((n, row), dtype=torch.float32, device=dev)
     rng = torch.empty((2,), dtype=torch.float32, device=dev)
     code = cuda_build.library().hanabi_project_bin(
         position.data_ptr(), axis_x.data_ptr(), axis_y.data_ptr(), alive.data_ptr(), color.data_ptr(),
         None if extra is None else extra.data_ptr(),
         tile.data_ptr(), depth.data_ptr(), rows.data_ptr(), rng.data_ptr(),
-        n, row, params.ctypes.data_as(ctypes.c_void_p), ntx, nty, _stream(),
+        n, row, params.ctypes.data_as(ctypes.c_void_p), ntx, nty, tile_slots, tile_span, _stream(),
     )
     cuda_build.check(code, "project_bin")
     project_bin.launches += 1
@@ -556,8 +631,11 @@ def sort_tiles(tile: torch.Tensor, depth: torch.Tensor, nt: int, mode=None, dept
     are the JAX package's 32-bit keys from :func:`bin_keys`, as int32, so
     the same entries survive an overflowing tile. ``depth_range`` is
     :func:`project_bin`'s; on the CPU it may be ``None``, and then
-    :func:`depth_range_plain` of ``depth`` computes it. Returns ``(pidx_sorted [N]`` (int64 from the stable sort, or int32
-    decoded from the key), ``starts [nt], ends [nt])``."""
+    :func:`depth_range_plain` of ``depth`` computes it. Returns
+    ``(entry_sorted [E]`` (the sorted entries' indices: int64 from the
+    stable sort, or int32 decoded from the key; entry ``e`` is particle
+    ``e mod N`` of :func:`project_bin`'s slot-major entries), ``starts
+    [nt], ends [nt])``."""
     n = tile.shape[0]
     tile_shift, q_bits, idx_bits, _ = _key_layout(n, nt, mode)
     if depth_range is None and q_bits:
@@ -567,8 +645,7 @@ def sort_tiles(tile: torch.Tensor, depth: torch.Tensor, nt: int, mode=None, dept
     key = bin_keys(tile, depth, depth_range, nt, mode)
     if idx_bits:
         key_sorted = torch.sort(key).values  # unique keys: the order is fixed
-        # one slot per particle (tile_slots=1): the entry index is the particle
-        pidx_sorted = key_sorted & ((1 << idx_bits) - 1)
+        pidx_sorted = key_sorted & ((1 << idx_bits) - 1)  # the entry index
     else:
         # Stable, unlike lax.sort: equal (tile | depth) keys may blend in
         # another order than the JAX package's, which the checksum
@@ -615,7 +692,8 @@ def rasterize(
 ):
     """Render particles to a [height, width, 4] float32 image on the draw's device.
 
-    Ported: ``tile_slots=1`` with the ``blend``, ``opaque``, ``mask`` and
+    Ported: every binning (``tile_slots`` 0, 1 and 2, any ``tile_span``
+    and ``tile_size``) with the ``blend``, ``opaque``, ``mask`` and
     painter (``"scene"``, per-entry ``draw.mode_id``) equations on the
     ordered path, and ``add`` on the three order-independent fast variants
     of :func:`fast_mode` (or the ordered path with
@@ -628,8 +706,6 @@ def rasterize(
     particle, else ``alpha_cutoff``. Every other branch of the JAX
     rasterizer raises ``NotImplementedError``.
     """
-    if config.tile_slots != 1:
-        raise _unported(f"tile_slots={config.tile_slots} binning")
     if alpha_mode not in BLEND_MODES:
         raise _unported(f"alpha_mode={alpha_mode!r}")
     if config.antialias:
@@ -673,8 +749,9 @@ def rasterize(
         draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(),
         camera.view, camera.proj, camera.viewport, T, ntx, nty,
         raster_size=(config.width, config.height), extra=extra, row=row,
+        tile_slots=config.tile_slots, tile_span=config.tile_span,
     )
-    mode = fast_mode(config, alpha_mode, n)
+    mode = fast_mode(config, alpha_mode, tile_ids.shape[0])
     pidx_sorted, starts, ends = sort_tiles(tile_ids, depth, nt, mode, depth_range)
     M = config.max_entries_per_tile
     window, has = gather_window(rows, pidx_sorted, starts, ends, M, from_start=mode is not None)

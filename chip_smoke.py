@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``bevy_hanabi_tpu_torch/csrc`` and runs
-the port's four main paths through its public entry points: the
-benchmark-headline frame, the firework event tree, the mixed scene
-(``HanabiScene.update_render_chunk``) and the ribbon frame. It never
-imports JAX. Phases, each
-of which fails the run on any error:
+the port's main paths through its public entry points: the
+benchmark-headline frame and its three companion binnings, the firework
+event tree, the mixed scene (``HanabiScene.update_render_chunk``), the
+ribbon frame and the force field. It never imports JAX. Phases, each of
+which fails the run on any error:
 
 1. a CUDA device must be present; print its name and power limit;
 2. build the kernel library (nvcc, one process per source, ctypes) and,
@@ -23,7 +23,11 @@ of which fails the run on any error:
    ``window_index`` then ``gather_rows``, timed in the same call) and
    ``tile_blend`` in BLEND (max abs err 0); then ``tile_blend`` in MASK,
    which no main path runs, on the same draw's 13-float window with a
-   cutoff of 0.5, depth written (max abs err 0, depth planes equal);
+   cutoff of 0.5, depth written (max abs err 0, depth planes equal); then
+   the four kernels again at each companion's binning (``hifi``:
+   ``tile_slots=2``, T 8, 4096 tiles, 2M entries; ``slots2``:
+   ``tile_slots=2``, 2M entries; ``exact``: ``tile_slots=0``, 4M entries),
+   ``gather_window`` reading row ``entry mod N``;
 4. an 8192-particle gradient frame at 128x128 through the kernels on the
    card against the plain versions on the CPU (checksums within 0.5%);
 5. the headline: ``gradient_effect(1 << 20)`` warmed past its 5 s
@@ -31,6 +35,12 @@ of which fails the run on any error:
    512x512, ``tile_slots=1``; every raster kernel's launch counter must
    move, and the last frame is rendered again on the CPU through the plain
    versions (checksums within 0.5%);
+5b. the headline's companions (bench.py:510-563) on the same pool, in its
+   order ``hifi``, ``slots2``, ``exact``: two warm-up chunks, then three
+   timed chunks of K = 120 each (frames/s, particle-frames/s); each one's
+   raster launch counters set to 0 before its timed chunks and required to
+   move; its last frame rendered again on the CPU (checksums within 0.5%);
+   then ``torch.profiler`` over 30 headline and 30 ``exact`` frames;
 6. the 2k -> 8k firework tree, ``HanabiScene(seed=17)``, stepped by
    ``update(1/60)`` on the card and on the CPU: rocket and trail alive
    counts equal, alive masks and PCG seeds bit-equal, positions and
@@ -65,6 +75,10 @@ of which fails the run on any error:
     and on the CPU, for the ``"auto"`` (painter) and ``"split"`` pipelines:
     alive masks and PCG seeds of all four effects bit-equal, every frame's
     checksum within 0.5%, and trails spawned from events;
+10b. ``HanabiScene.render(camera)`` with no config (JAX's default
+    ``RasterConfig``, ``tile_slots=0``) on that small scene 90 frames in,
+    both pipelines, card against CPU: masks and seeds bit-equal, checksums
+    within 0.5%;
 11. the full mixed scene (bench.py:672-774: debris 65 536 opaque, gradient
     524 288, rockets 65 536 -> trails 262 144, 917 504 lanes) at 512x512:
     warmed to steady state, then one untimed and three timed chunks of
@@ -90,6 +104,11 @@ of which fails the run on any error:
     (``tile_slots=1``) on the card and on the CPU: alive masks and PCG seeds
     bit-equal, every frame's checksum within 0.5%, the valid segments and
     their order equal;
+12b. the JAX package's own device checks at its own config,
+    ``RasterConfig(128, 128)`` (``tile_slots=0``), card against CPU:
+    ``gradient_render_8k`` (bench.py:203-219, checksums within 0.5%) and
+    ``ribbon_trails_8k_64`` (bench.py:226-250, alive masks equal, checksums
+    within 0.5%);
 13. the ribbon frame (bench.py:605-669): ``ribbon_bench_effect(1 << 20,
     4096)`` warmed past its 4 s lifetime, then three timed
     ``step_render_chunk`` chunks of K = 120 at 512x512 (``tile_slots=1``,
@@ -103,7 +122,14 @@ of which fails the run on any error:
     versions, beside the two stable sorts, the first version of
     ``ribbon_segments`` (equal too) and the call's two floors, then the
     raster pass's kernels as in phase 7b; all timed. Then ``torch.profiler``
-    over 30 ribbon frames.
+    over 30 ribbon frames;
+14. the force field (bench.py:568-601): a gate, ``force_field_effect(4096)``
+    for 300 frames with the attractor moved at frame 180 so that lanes
+    leave the kill box, card against CPU (masks and seeds bit-equal,
+    positions within rtol 1e-2 / atol 1e-3, some lanes killed by the box
+    before their lifetime); then ``force_field_effect(100_000)`` through
+    ``step_chunk``, warmed past its lifetime, three timed chunks of K
+    (steps/s, particle-steps/s; eager torch, no hand-written kernel).
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -111,7 +137,8 @@ launches of all four paths), the firework's (``[firework]``,
 ``tile_blend[add]``, ``event_compact``) and the mixed scene's (``[mixed]``,
 ``tile_blend[scene]``, ``tile_blend[scene,M=128]``, ``tile_blend[opaque]``,
 ``tile_blend[blend,split]``, ``tile_blend[add,split]``) and the ribbon
-frame's (``[ribbon]``, ``tile_blend[add,ribbon]``). Each row holds the
+frame's (``[ribbon]``, ``tile_blend[add,ribbon]``) and the companions'
+(``[hifi]``, ``[slots2]``, ``[exact]``, BLEND). Each row holds the
 path's launches, the kernel's and its plain version's device ms, the
 library call's (``index_select`` for the gathers, of the window's indices
 for ``gather_window``, of the appearance rows by the segment order for
@@ -195,6 +222,15 @@ MIXED_M_WIDE = 128  # the third timing's max_entries_per_tile (bench.py:765)
 RIBBON_KERNELS = ("ribbon_keys", "ribbon_segments", "project_bin", "bin_keys", "gather_window",
                   "tile_blend[add]")
 RIBBONS = 4096  # bench.py:614
+# the headline's three companion frames (bench.py:470-472, 550), in its order
+COMPANIONS = {
+    "hifi": dict(tile_slots=2, tile_size=8),
+    "slots2": dict(tile_slots=2),
+    "exact": dict(tile_slots=0),
+}
+FF_CAPACITY = 100_000  # bench.py:568
+FF_MOVED = (9.0, 1.0, 0.0)  # the gate's attractor from FF_MOVE_AT: lanes leave the kill box
+FF_MOVE_AT = 180
 # ribbon_segments' first version and the streaming copy of its bytes, built
 # beside the library and timed in phase 13: (label, source, extra nvcc flags)
 _VARIANTS = Path(__file__).resolve().parent / "experiments" / "ribbon_segments_variants"
@@ -279,29 +315,32 @@ def torch_equal_nan(a, b) -> bool:
     return bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
 
 
-def compare_project_bin(pb_args, nt: int, label: str, row: int, extra=None):
+def compare_project_bin(pb_args, nt: int, label: str, row: int, extra=None, config=None):
     """``project_bin`` against its plain version on ``pb_args``, with
-    ``row``-float rows: tiles, depths and the depth range equal, rows at max
-    abs err 0. Returns the result row and the plain outputs (tile, depth,
-    rows, range)."""
+    ``row``-float rows and ``config``'s binning (``tile_slots`` and
+    ``tile_span``; the centre tile without one): tiles, depths and the depth
+    range equal, rows at max abs err 0. Returns the result row and the plain
+    outputs (tile, depth, rows, range)."""
     import torch
 
     from bevy_hanabi_tpu_torch.render import raster
 
     kw = dict(extra=extra, row=row)
+    if config is not None:
+        kw.update(tile_slots=config.tile_slots, tile_span=config.tile_span)
     tile_k, depth_k, rows_k, range_k = raster.project_bin(*pb_args, **kw)
     plain = raster.project_bin_plain(*pb_args, **kw)
     tile_p, depth_p, rows_p, range_p = plain
     torch.cuda.synchronize()
     bad = int(((tile_k != tile_p) | (depth_k != depth_p)).sum())
     rows_err = float((rows_k - rows_p).abs().nan_to_num(0.0).max())
-    n = tile_p.shape[0]
+    n, entries = rows_p.shape[0], tile_p.shape[0]
     valid = int((tile_p < nt).sum())
-    print(f"{label}: {n} particles, {valid} binned on screen, {row}-float rows, "
-          f"{bad} tile/depth mismatches, rows max abs err {rows_err:g}, depth range "
+    print(f"{label}: {n} particles, {entries} entries, {valid} binned on screen, {row}-float "
+          f"rows, {bad} tile/depth mismatches, rows max abs err {rows_err:g}, depth range "
           f"{range_k.tolist()} (plain {range_p.tolist()})")
     if bad:
-        fail(f"{label}: {bad} of {n} tiles/depths differ from the plain version")
+        fail(f"{label}: {bad} of {entries} tiles/depths differ from the plain version")
     if not torch.equal(rows_k.isnan(), rows_p.isnan()) or rows_err != 0.0:
         fail(f"{label}: rows differ from the plain version (max abs err {rows_err:g})")
     if not torch_equal_nan(range_k, range_p):
@@ -421,10 +460,12 @@ def compare_gather_window(projected, nt: int, m: int, mode, label: str):
                                                          want_w.view(torch.int32)):
         fail(f"gather_window ({label}): differs from its plain version")
     filled = int(has.sum())
-    idx = raster.window_index(*args[1:])[0].reshape(-1)
+    # with several entries a particle, an entry reads row entry mod N
+    n_rows = rows.shape[0] if pidx_sorted.shape[0] > rows.shape[0] else None
+    idx = raster.window_index(*args[1:], n_rows=n_rows)[0].reshape(-1)
 
     def first_route():
-        pidx, _ = raster.window_index(*args[1:])
+        pidx, _ = raster.window_index(*args[1:], n_rows=n_rows)
         return gather.gather_rows(rows, pidx.reshape(-1))
 
     read = filled * (pidx_sorted.element_size() + rows.shape[1] * rows.element_size())
@@ -438,7 +479,8 @@ def compare_gather_window(projected, nt: int, m: int, mode, label: str):
         "filled_entries": filled,
     }
     print(f"gather_window ({label}): {nt} tiles x {m} slots x {rows.shape[1]} floats, {filled} "
-          f"filled, {pidx_sorted.dtype} ids, bit-exact; kernel {result['ms']:.4f} ms, "
+          f"filled, {pidx_sorted.shape[0]} {pidx_sorted.dtype} entry ids over {rows.shape[0]} rows, "
+          f"bit-exact; kernel {result['ms']:.4f} ms, "
           f"window_index + gather_rows {result['first_ms']:.4f} ms")
     return result, (window, has)
 
@@ -532,6 +574,7 @@ def compare_kernels(dev):
     """Phase 3: each kernel against its plain version on a real frame."""
     import torch
 
+    from bevy_hanabi_tpu_torch import RasterConfig
     from bevy_hanabi_tpu_torch.render import raster
 
     draw, cam, cfg = headline_frame(dev)
@@ -556,6 +599,19 @@ def compare_kernels(dev):
     _, win = compare_gather_window(masked, nt, M, None, "headline, 13-float rows")
     results["tile_blend[mask]"], _ = compare_tile_blend(
         "mask", *win, T, ntx, nty, cfg.background, "mask", depth_test=True, write_depth=True)
+
+    # the companions' binnings on the same draw: S = 2 (T 8 and 16), span^2 = 4
+    for name, binning in COMPANIONS.items():
+        c = RasterConfig(512, 512, **binning)
+        results[f"project_bin[{name}]"], projected = compare_project_bin(
+            project_args(draw, cam, c), c.num_tiles, f"project_bin ({name})",
+            raster.row_width("blend", False), config=c)
+        results[f"bin_keys[{name}]"] = compare_bin_keys(projected, c.num_tiles, None,
+                                                         f"bin_keys ({name})")
+        results[f"gather_window[{name}]"], win = compare_gather_window(
+            projected, c.num_tiles, c.max_entries_per_tile, None, name)
+        results[f"tile_blend[{name}]"], _ = compare_tile_blend(
+            f"blend ({name})", *win, c.tile_size, c.tiles_x, c.tiles_y, c.background, "blend")
     for name, r in results.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
     return results
@@ -1421,6 +1477,234 @@ def ribbon_frame(kernels, variants):
     return results, launches
 
 
+def rerender_headline(asset, pool, cam, config, label: str) -> None:
+    """The pool's frame by the kernels and again on the CPU through the
+    plain versions: checksums within 0.5%."""
+    from bevy_hanabi_tpu_torch import ParticlePool
+    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+
+    img_k = raster.rasterize(extract_draw_data(asset, pool, cam), cam, config)
+    cpu_pool = ParticlePool.from_numpy(*pool.to_numpy(), device="cpu")
+    img_p = raster.rasterize(extract_draw_data(asset, cpu_pool, cam), cam, config)
+    s_k, s_p = float(img_k.sum()), float(img_p.sum())
+    print(f"{label} frame re-rendered: card {s_k:.6e} vs cpu plain {s_p:.6e}")
+    if not bool(img_k.isfinite().all()) or not checksum_close(s_k, s_p):
+        fail(f"{label} frame checksum {s_k} on the card vs {s_p} on the CPU")
+
+
+def companion_frames(fx, pool, spawner, frame, cam, kernels):
+    """Phase 5b: the headline's companions (bench.py:510-563) on its pool:
+    for each, two warm-up chunks, then three timed ``step_render_chunk``
+    chunks of K frames, each ending in an alive-count readback (frames/s
+    and particle-frames/s, best of three); the raster kernels' launches
+    counted over the timed chunks alone; the last frame rendered again on
+    the CPU. Returns ``(pool, frame, launches by companion)``."""
+    import torch
+
+    from bevy_hanabi_tpu_torch import RasterConfig
+
+    launches = {}
+    for name, binning in COMPANIONS.items():
+        config = RasterConfig(width=512, height=512, **binning)
+        for _ in range(2):
+            pool, _, _ = fx.step_render_chunk(pool, *chunk_inputs(fx, spawner, frame), cam, config)
+            frame += K
+        alive_before = int(pool.alive_count())
+        reset_launches(kernels)
+        times = []
+        for _ in range(3):
+            ins, sims = chunk_inputs(fx, spawner, frame)
+            frame += K
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool, img, sums = fx.step_render_chunk(pool, ins, sims, cam, config)
+            alive_after = int(pool.alive_count())  # readback: waits for the chunk
+            times.append(time.perf_counter() - t0)
+        launches[name] = read_launches(kernels)
+        best = min(times)
+        alive_mean = 0.5 * (alive_before + alive_after)
+        print(f"{name} ({binning}) chunk times (s): {times}")
+        print(f"{name}: {K} frames in {best:.4f} s: {K / best:.2f} frames/s, "
+              f"{alive_mean * K / best:.4e} particle-frames/s, alive {alive_after}, "
+              f"checksum {float(sums.sum()):.6e}")
+        print(f"launches in the {name} chunks: {launches[name]}")
+        require_launches(launches[name], HEADLINE_KERNELS, f"the {name} frame")
+        if not bool(img.isfinite().all()) or not float(sums.sum()) > 0.0:
+            fail(f"{name} image is not finite or its checksum is not positive")
+        rerender_headline(fx.asset, pool, cam, config, name)
+    # where the time goes: the exact frame's 4M-entry sort against the headline's 1M
+    for label, binning in (("headline", dict(tile_slots=1)), ("exact", COMPANIONS["exact"])):
+        config = RasterConfig(width=512, height=512, **binning)
+
+        def run(k, config=config):
+            nonlocal pool, frame
+            pool, _, _ = fx.step_render_chunk(pool, *chunk_inputs(fx, spawner, frame, k), cam,
+                                              config)
+            frame += k
+            int(pool.alive_count())
+
+        profile_frames(label, run)
+    return pool, frame, launches
+
+
+def reference_checks():
+    """Phase 12b: the JAX package's own device checks at its own config,
+    ``RasterConfig(128, 128)`` (bench.py:200: ``tile_slots=0``), card
+    against CPU: ``gradient_render_8k`` (bench.py:203-219) and
+    ``ribbon_trails_8k_64`` (bench.py:226-250)."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch import (
+        CompiledEffect,
+        EffectRenderer,
+        RasterConfig,
+        SimParams,
+        StepInputs,
+    )
+    from bevy_hanabi_tpu_torch.models import gradient_effect, ribbon_order_check_effect
+
+    cam, cfg = gate_camera(), RasterConfig(width=128, height=128)
+
+    def gradient(device):
+        g = gradient_effect(8192)
+        fx = CompiledEffect(g, device=device)
+        pool, _ = fx.step(fx.create_pool(), StepInputs.make(8192, 3), SimParams(delta_time=DT))
+        return float(EffectRenderer(g, cfg).render(pool, cam, SimParams()).sum())
+
+    s_g, s_c = gradient("cuda"), gradient("cpu")
+    print(f"gradient_render_8k at tile_slots=0: checksum card {s_g:.6e} cpu {s_c:.6e}")
+    if not math.isfinite(s_g) or not s_c > 0.0 or not checksum_close(s_g, s_c):
+        fail(f"gradient_render_8k at tile_slots=0: checksum {s_g} on the card vs {s_c} on the CPU")
+
+    def ribbons(device):
+        fx = CompiledEffect(ribbon_order_check_effect(8192, 64), device=device)
+        ins = [StepInputs.make(256, 7 * i + 1) for i in range(30)]
+        sims = [SimParams(time=i * DT, delta_time=DT) for i in range(30)]
+        pool, img, _ = fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam, cfg)
+        return pool.to_numpy()[1], float(img.sum())
+
+    (alive_g, s_g), (alive_c, s_c) = ribbons("cuda"), ribbons("cpu")
+    print(f"ribbon_trails_8k_64 at tile_slots=0: alive {int(alive_c.sum())}, checksum card "
+          f"{s_g:.6e} cpu {s_c:.6e}")
+    if not np.array_equal(alive_g, alive_c):
+        fail("ribbon_trails_8k_64 at tile_slots=0: alive masks differ between the card and the CPU")
+    if not math.isfinite(s_g) or not s_c > 0.0 or not checksum_close(s_g, s_c):
+        fail(f"ribbon_trails_8k_64 at tile_slots=0: checksum {s_g} on the card vs {s_c} on the CPU")
+
+
+def default_config_render():
+    """Phase 10b: ``HanabiScene.render(camera)`` with no config (JAX's
+    default ``RasterConfig``: ``tile_slots=0``) on the small mixed scene,
+    90 frames in, under both pipelines, card against CPU."""
+    cam = mixed_camera(128)
+    card = mixed_scene("cuda", 1024, 4096, 512, 2048)
+    cpu = mixed_scene("cpu", 1024, 4096, 512, 2048)
+    for _ in range(90):  # the first burst's rockets die, trails spawn
+        card.update(DT)
+        cpu.update(DT)
+    compare_pools(card, cpu, MIXED_NAMES, "default-config render")
+    for pipeline in ("auto", "split"):
+        img_g = card.render(cam, pipeline=pipeline)
+        img_c = cpu.render(cam, pipeline=pipeline)
+        s_g, s_c = float(img_g.sum()), float(img_c.sum())
+        print(f"HanabiScene.render(camera) {pipeline}, no config: checksum card {s_g:.6e} "
+              f"cpu {s_c:.6e}")
+        if not bool(img_g.isfinite().all()) or not s_c > 0.0 or not checksum_close(s_g, s_c):
+            fail(f"default-config render {pipeline}: checksum {s_g} on the card vs {s_c} on the CPU")
+
+
+def force_field_chunks(fx, pool, spawner, frame: int, k: int = K, moved_at=None):
+    """``k`` frames of the force field's inputs from ``frame``; from frame
+    ``moved_at`` on, the attractor at :data:`FF_MOVED` (else its default)."""
+    from bevy_hanabi_tpu_torch import SimParams, StepInputs
+
+    ins, sims = [], []
+    for j in range(frame, frame + k):
+        props = None
+        if moved_at is not None:
+            props = {"attractor": FF_MOVED if j >= moved_at else (0.0, 1.0, 0.0)}
+        ins.append(StepInputs.make(spawner.tick(DT), j, properties=props))
+        sims.append(SimParams(time=j * DT, delta_time=DT))
+    return fx.step_chunk(pool, *fx.stack_frames(ins, sims))
+
+
+def force_field_gate():
+    """Phase 14a: ``force_field_effect(4096)`` for 5 s (past its 4 s
+    lifetime), the attractor moved at 3 s as the reference example's cursor
+    moves it, on the card and on the CPU: alive masks and PCG seeds equal,
+    positions within rtol 1e-2 / atol 1e-3; the lanes spawned in the last
+    4 s and dead already died by the kill box."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner
+    from bevy_hanabi_tpu_torch.models import force_field_effect
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        fx = CompiledEffect(force_field_effect(4096), device=device)
+        spawner = EffectSpawner(fx.asset.spawner, rng=np.random.default_rng(0))
+        pool, counters = fx.create_pool(), []
+        for frame in range(0, 300, 60):
+            pool = force_field_chunks(fx, pool, spawner, frame, 60, moved_at=FF_MOVE_AT)
+            counters.append(int(pool.counter))
+        out[device] = pool.to_numpy(), counters
+    (attrs_g, alive_g, seed_g, _), _ = out["cuda"]
+    (attrs_c, alive_c, seed_c, _), counters = out["cpu"]
+    if not np.array_equal(alive_g, alive_c):
+        fail("force field gate: alive masks differ between the card and the CPU")
+    if not np.array_equal(seed_g, seed_c):
+        fail("force field gate: PCG seeds differ between the card and the CPU")
+    for attr in ("position", "velocity"):
+        a, b = attrs_g[attr][alive_c], attrs_c[attr][alive_c]
+        if not np.allclose(a, b, rtol=POS_RTOL, atol=POS_ATOL):
+            fail(f"force field gate: {attr} differs (max abs err {float(np.abs(a - b).max()):g})")
+    early = (counters[-1] - counters[0]) - int(alive_c.sum())
+    print(f"force field gate 4096, 300 frames: alive {int(alive_c.sum())}, masks and seeds "
+          f"bit-equal; {counters[-1] - counters[0]} lanes spawned in the last 4 s, {early} of them "
+          f"killed by the box before their lifetime")
+    if early <= 0:
+        fail("force field gate: no lane died by the kill box")
+
+
+def force_field_full():
+    """Phase 14b: ``force_field_effect(100_000)`` through ``step_chunk``
+    (bench.py:568-601), warmed past its 4 s lifetime, then three timed
+    chunks of K frames, each ending in an alive-count readback."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner
+    from bevy_hanabi_tpu_torch.models import force_field_effect
+
+    fx = CompiledEffect(force_field_effect(FF_CAPACITY), device="cuda")
+    spawner = EffectSpawner(fx.asset.spawner, rng=np.random.default_rng(0))
+    pool, frame = fx.create_pool(), 0
+    t0 = time.perf_counter()
+    for _ in range((int(4.0 / DT) + K) // K + 1):
+        pool = force_field_chunks(fx, pool, spawner, frame)
+        frame += K
+    alive_before = int(pool.alive_count())
+    print(f"force field warm-up: {frame} frames in {time.perf_counter() - t0:.2f} s, "
+          f"alive {alive_before}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool = force_field_chunks(fx, pool, spawner, frame)
+        alive_after = int(pool.alive_count())  # readback: waits for the chunk
+        times.append(time.perf_counter() - t0)
+        frame += K
+    best = min(times)
+    alive_mean = 0.5 * (alive_before + alive_after)
+    print(f"force field chunk times (s): {times}")
+    print(f"force field {FF_CAPACITY}: {K} steps in {best:.4f} s: {K / best:.2f} steps/s, "
+          f"{alive_mean * K / best:.4e} particle-steps/s, alive {alive_after} (the step is eager "
+          f"torch: this path runs no hand-written kernel)")
+    if not 0 < alive_after <= FF_CAPACITY:
+        fail(f"force field: {alive_after} alive lanes")
+
+
 def main() -> int:
     import torch
 
@@ -1430,17 +1714,10 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from bevy_hanabi_tpu_torch import (
-        CompiledEffect,
-        EffectSpawner,
-        ParticlePool,
-        RasterConfig,
-        cuda_build,
-    )
+    from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner, RasterConfig, cuda_build
     from bevy_hanabi_tpu_torch.models import gradient_effect
     from bevy_hanabi_tpu_torch.ops import gather
     from bevy_hanabi_tpu_torch.render import raster, ribbon
-    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
     from bevy_hanabi_tpu_torch.runtime import events
 
     kernels = {**gather.KERNELS, **raster.KERNELS, **events.KERNELS, **ribbon.KERNELS}
@@ -1530,13 +1807,11 @@ def main() -> int:
         fail(f"headline image has shape {tuple(img.shape)}")
 
     # The last pool rendered again by the kernels and by the CPU's plain path.
-    img_k = raster.rasterize(extract_draw_data(asset, pool, cam), cam, config)
-    cpu_pool = ParticlePool.from_numpy(*pool.to_numpy(), device="cpu")
-    img_p = raster.rasterize(extract_draw_data(asset, cpu_pool, cam), cam, config)
-    s_k, s_p = float(img_k.sum()), float(img_p.sum())
-    print(f"headline frame re-rendered: card {s_k:.6e} vs cpu plain {s_p:.6e}")
-    if not checksum_close(s_k, s_p):
-        fail(f"headline frame checksum {s_k} on the card vs {s_p} on the CPU")
+    rerender_headline(asset, pool, cam, config, "headline")
+
+    # Phase 5b: the headline's three companion frames on the same pool.
+    pool, frame, comp_launches = companion_frames(fx, pool, spawner, frame, cam, kernels)
+    del pool
 
     # Phase 6: the 2k -> 8k firework tree, card against CPU.
     firework_gate()
@@ -1549,11 +1824,17 @@ def main() -> int:
     # Phases 9-11: the mixed scene.
     painter_gate()
     mixed_gate()
+    default_config_render()
     mx_results, mx_launches = mixed_full(kernels)
 
-    # Phases 12-13: ribbons.
+    # Phases 12-13: ribbons, and the reference's device checks at its config.
     ribbon_gate()
+    reference_checks()
     rb_results, rb_launches = ribbon_frame(kernels, variants)
+
+    # Phase 14: the force field.
+    force_field_gate()
+    force_field_full()
 
     results.update(fw_results)
     results.update(mx_results)
@@ -1588,6 +1869,11 @@ def main() -> int:
             (f"{name}[ribbon]" if name != "tile_blend[add]" else "tile_blend[add,ribbon]",
              name.split("[")[0], rb_launches[name])
             for name in RIBBON_KERNELS
+        ]
+        + [
+            (f"{name}[{c}]", name, comp_launches[c][name])
+            for c in COMPANIONS
+            for name in HEADLINE_KERNELS
         ]
     )
     kernel_rows = [

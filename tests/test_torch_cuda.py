@@ -712,3 +712,161 @@ def test_ribbon_gate_on_the_card_matches_the_cpu(cuda):
         assert abs(a - b) <= 0.005 * abs(b)
     assert torch.equal(valid_g, valid_c) and int(valid_c.sum()) > 0
     assert torch.equal(order_g[valid_c], order_c[valid_c])
+
+
+# ---- the slot binnings (tile_slots 0 and 2) and the force field ------------
+
+# (tile_slots, tile_span, tile_size): every template instance of project_bin's
+# slot binnings, and a span past them (the run-time loop)
+SLOT_BINNINGS = [(2, 2, 16), (2, 2, 8), (0, 1, 16), (0, 2, 16), (0, 3, 16), (0, 4, 8), (0, 5, 16)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])  # 1: every input off 16-byte alignment
+@pytest.mark.parametrize("n", [1000, 65536])
+@pytest.mark.parametrize("slots,span,T", SLOT_BINNINGS)
+def test_project_bin_slots_match_plain(cuda, slots, span, T, n, offset):
+    """Quads up to ~4 tiles wide, some behind the camera, off screen, NaN or
+    with radii past int32: tiles, depths and the range equal, rows exact."""
+    r = np.random.default_rng(n + 10 * span + slots)
+    view, proj, t = _draw(n + offset, cuda, seed=span)
+    scale = torch.from_numpy(r.uniform(0.5, 6.0, (n + offset, 1)).astype(np.float32)).to(cuda)
+    t["axis_x"], t["axis_y"] = t["axis_x"] * scale, t["axis_y"] * scale
+    t["position"][:16, 2] = 8.0
+    t["position"][16:24] = torch.nan
+    t["axis_x"][24:32] = 1e30
+    t = {k: v[offset:] for k, v in t.items()}
+    cfg = raster.RasterConfig(128, 128, tile_size=T, tile_span=span, tile_slots=slots)
+    args = (t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
+            view, proj, (128, 128), T, cfg.tiles_x, cfg.tiles_y)
+    kw = dict(row=raster.ROW_QUAD, tile_slots=slots, tile_span=span)
+    before = raster.project_bin.launches
+    got = raster.project_bin(*args, **kw)
+    assert raster.project_bin.launches == before + 1
+    want = raster.project_bin_plain(*args, **kw)
+    S = raster.entry_slots(slots, span)
+    assert got[0].shape == (S * n,) and got[2].shape == (n, raster.ROW_QUAD)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=0, equal_nan=True)
+    assert bool((want[0].view(S, n)[-1] < cfg.num_tiles).any())  # the last slot bins too
+
+
+@pytest.mark.parametrize("from_start", [False, True])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("S", [2, 4, 9])
+def test_gather_window_maps_entries_mod_n_like_plain(cuda, S, index_dtype, from_start):
+    """Entry ids up to S * N read row id mod N, bit for bit; none reads
+    outside the table."""
+    rows, pidx, starts, ends = _window_entries(300, 64, 10, torch.int64, seed=S)
+    n = rows.shape[0] // S  # the table holds every S-th part of the entries' rows
+    rows = rows[:n].contiguous()
+    args = (rows.to(cuda), pidx.to(index_dtype).to(cuda), starts.to(cuda), ends.to(cuda), 64,
+            from_start)
+    window, has = gather.gather_window(*args)
+    want_w, want_has = gather.gather_window_plain(*args)
+    assert torch.equal(has, want_has) and bool(has.any())
+    assert torch.equal(window.view(torch.int32), want_w.view(torch.int32))
+    assert not bool(window[has].isnan().all(dim=-1).any())  # no slot read past the table
+
+
+COMPANION_CONFIGS = {
+    "slots2": dict(tile_slots=2),
+    "hifi": dict(tile_slots=2, tile_size=8),
+    "exact": dict(tile_slots=0),
+}
+
+
+@pytest.mark.parametrize("mode", ["blend", "add", "add first", "add ordered", "opaque", "mask",
+                                  "scene"])
+@pytest.mark.parametrize("companion", list(COMPANION_CONFIGS))
+def test_rasterize_at_slot_binnings_on_the_card_matches_the_cpu(cuda, companion, mode):
+    """Every kernel at the slot binnings: the card's image against the CPU's
+    plain path, within 1e-5 (each kernel is exact against its plain version;
+    the bound allows for the sort's ties)."""
+    from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData
+
+    alpha_mode, _, variant = mode.partition(" ")
+    extra = {"first": dict(overflow_policy="first"), "ordered": dict(order_independent_fast=False)}
+    cfg = RasterConfig(128, 128, **COMPANION_CONFIGS[companion], **extra.get(variant, {}))
+    view, proj, t = _draw(8192, "cpu", seed=9)
+    r = np.random.default_rng(9)
+    cutoff = torch.from_numpy(r.uniform(0, 1, 8192).astype(np.float32))
+    mode_id = torch.from_numpy(r.integers(0, 6, 8192).astype(np.int32)) if alpha_mode == "scene" else None
+    cam = CameraParams(view, proj, (128, 128))
+    images = []
+    for device in (cuda, "cpu"):
+        d = ParticleDrawData(*(t[k].to(device) for k in ("position", "axis_x", "axis_y", "color", "alive")),
+                             alpha_cutoff=cutoff.to(device),
+                             mode_id=None if mode_id is None else mode_id.to(device))
+        images.append(raster.rasterize(d, cam, cfg, alpha_mode).cpu())
+    torch.testing.assert_close(images[0], images[1], rtol=0, atol=1e-5)
+    assert float(images[1].abs().sum()) > 0
+
+
+def test_companion_frames_on_the_card_match_the_cpu(cuda):
+    """The headline's three companions (bench.py:470-563) on the 8192-lane
+    small frame: masks and seeds equal, checksums within 0.5%."""
+
+    def run(device, cfg):
+        fx = CompiledEffect(gradient_effect(8192), device=device)
+        ins = [StepInputs.make(s, 7 + 31 * i) for i, s in enumerate([4096, 1024, 2048])]
+        sims = [SimParams(time=2.0 * i, delta_time=2.0) for i in range(3)]
+        cam = CameraParams(look_at((0, 0, 6), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0), (128, 128))
+        return fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam, cfg)
+
+    for config in COMPANION_CONFIGS.values():
+        cfg = RasterConfig(128, 128, **config)
+        (pool_g, img_g, sums_g), (pool_c, _, sums_c) = run(cuda, cfg), run("cpu", cfg)
+        assert torch.isfinite(img_g).all()
+        np.testing.assert_array_equal(pool_g.to_numpy()[1], pool_c.to_numpy()[1])
+        for a, b in zip(sums_g.cpu().tolist(), sums_c.tolist()):
+            assert abs(a - b) <= 0.005 * abs(b)
+
+
+def test_ribbon_gate_at_exact_binning_on_the_card_matches_the_cpu(cuda):
+    """The ribbon gate at the JAX package's own config, RasterConfig(128,
+    128) (tile_slots=0): masks and seeds equal, checksums within 0.5%."""
+    from bevy_hanabi_tpu_torch.models import ribbon_order_check_effect
+
+    cam = CameraParams(look_at((0, 0, 6), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0), (128, 128))
+
+    def run(device):
+        fx = CompiledEffect(ribbon_order_check_effect(8192, 64), device=device)
+        ins = [StepInputs.make(256, 7 * i + 1) for i in range(30)]
+        sims = [SimParams(time=i / 60.0, delta_time=1 / 60.0) for i in range(30)]
+        return fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam,
+                                    RasterConfig(128, 128))
+
+    (pool_g, _, sums_g), (pool_c, _, sums_c) = run(cuda), run("cpu")
+    np.testing.assert_array_equal(pool_g.to_numpy()[1], pool_c.to_numpy()[1])
+    np.testing.assert_array_equal(pool_g.to_numpy()[2], pool_c.to_numpy()[2])
+    for a, b in zip(sums_g.cpu().tolist(), sums_c.tolist()):
+        assert abs(a - b) <= 0.005 * abs(b) and b > 0
+
+
+def test_force_field_on_the_card_matches_the_cpu(cuda):
+    """force_field_effect(4096) for 5 s, the attractor moved at 3 s so that
+    lanes die by the kill box: masks and seeds equal, positions within
+    rtol 1e-2 / atol 1e-3."""
+    from bevy_hanabi_tpu_torch import EffectSpawner
+    from bevy_hanabi_tpu_torch.models import force_field_effect
+
+    spawner = EffectSpawner(force_field_effect(4096).spawner, rng=np.random.default_rng(0))
+    counts = [spawner.tick(1 / 60.0) for _ in range(300)]
+
+    def run(device):
+        fx = CompiledEffect(force_field_effect(4096), device=device)
+        pool = fx.create_pool()
+        for k in range(0, 300, 60):
+            ins = [StepInputs.make(counts[j], 7 * j, properties={
+                "attractor": (9.0, 1.0, 0.0) if j >= 180 else (0.0, 1.0, 0.0)}) for j in range(k, k + 60)]
+            sims = [SimParams(time=j / 60.0, delta_time=1 / 60.0) for j in range(k, k + 60)]
+            pool = fx.step_chunk(pool, *fx.stack_frames(ins, sims))
+        return pool.to_numpy()
+
+    (attrs_g, alive_g, seed_g, _), (attrs_c, alive_c, seed_c, _) = run(cuda), run("cpu")
+    np.testing.assert_array_equal(alive_g, alive_c)
+    np.testing.assert_array_equal(seed_g, seed_c)
+    np.testing.assert_allclose(attrs_g["position"][alive_c], attrs_c["position"][alive_c],
+                               rtol=1e-2, atol=1e-3)
+    assert 0 < alive_c.sum() < 3000  # the box killed lanes before their lifetime

@@ -163,7 +163,8 @@ def test_row_width_follows_the_columns_the_variant_reads(mode, depth_test, width
 def _images(seed, background=(0.0, 0.0, 0.0, 0.0), M=64, alpha_mode="blend", n=N, size_px=SIZE,
             **config):
     view, proj, d = _scene(seed, n, size_px)
-    kw = dict(tile_slots=1, background=background, max_entries_per_tile=M, **config)
+    kw = dict(tile_slots=1, background=background, max_entries_per_tile=M)
+    kw.update(config)
     cfg_t = raster.RasterConfig(size_px, size_px, **kw)
     cfg_j = CfgJ(size_px, size_px, **kw)
     t = _torch_draw(d)
@@ -293,8 +294,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 @pytest.mark.parametrize(
     "kwargs,config",
     [
-        ({}, dict(tile_slots=0)),
-        ({}, dict(tile_slots=2)),
         ({"alpha_mode": "multiply"}, dict(tile_slots=1)),
         ({}, dict(tile_slots=1, antialias=True)),
         ({"alpha_mode": "premultiply"}, dict(tile_slots=1)),
