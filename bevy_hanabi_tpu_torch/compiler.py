@@ -277,9 +277,8 @@ class UpdateContext(EvalContext):
 class RenderContext(EvalContext):
     """Render extraction (reference: RenderContext, modifier/mod.rs:371-556).
 
-    Render modifiers mutate the per-particle render outputs below (the
-    JAX package's flipbook, roundness, texture and mesh-lighting outputs
-    arrive with the modifiers that write them).
+    Render modifiers mutate the per-particle render outputs below; the
+    rasterizer consumes them.
     """
 
     context_name = "render"
@@ -293,7 +292,18 @@ class RenderContext(EvalContext):
         self.axis_x: Optional[torch.Tensor] = None
         self.axis_y: Optional[torch.Tensor] = None
         self.axis_z: Optional[torch.Tensor] = None
+        self.sprite_grid_size: Optional[tuple] = None  # (cols, rows)
+        self.needs_uv: bool = False
+        self.roundness: Optional[torch.Tensor] = None
         self.screen_space_size: bool = False
+        self.texture_layers: list = []  # [(slot, ImageSampleMapping)]
+        # Mesh-normal lighting handshake: extraction sets mesh_has_normals
+        # when the asset's mesh carries per-vertex normals; a lighting
+        # render modifier may then defer its shading to the rasterizer by
+        # setting mesh_lighting = ((lx, ly, lz), band) instead of multiplying
+        # the per-particle color (normals vary per fragment on a mesh).
+        self.mesh_has_normals: bool = False
+        self.mesh_lighting: Optional[tuple] = None
 
     @property
     def num_particles(self) -> int:

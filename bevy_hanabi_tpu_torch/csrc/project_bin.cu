@@ -32,7 +32,15 @@
 // depth test, MASK, the painter's SCENE) asks for 13-float rows, which append
 // the view distance the depth test reads (raster.py:578-580) and the two
 // painter columns (the mask cutoff and the blend-mode id, raster.py:549-555),
-// copied from the optional `extra` [N, 2] input (zeros without it).
+// copied from the optional `extra` [N, 2] input (zeros without it). A draw
+// with appearance columns (the kAppear variants: a round, flipbook, textured
+// or mesh draw) appends, after those 10 or 13, each column it has in JAX's
+// order (raster.py:530-577): roundness, tri, the flipbook frame (int32, as
+// f32), the UV (6), normal (9) and vertex-colour (12) triplets, copied from
+// their inputs; which are present is a property of the draw, so the same
+// for every particle of a call. A triangle entry (tri > 0.5) spans |u|,
+// |v| <= 0.5 around its anchor: its screen radii are halved before the
+// screen test and the binning, in every binning (raster.py:259-263).
 //
 // Bound on the H100: per particle project_bin reads 3 vec3 + 1 bool + 1 vec4
 // (+ 2 f32) = 53-61 B and writes S tile ids and depths and one 10- or
@@ -65,6 +73,12 @@
 // unsigned sort: `torch.sort` then sorts 32-bit keys (4 radix passes, not
 // the 8 of an int64 key that the sentinel tile's bit 31 forced before).
 //
+// The kAppear variants stage the wider rows (at most 43 floats) in dynamic
+// shared memory and read the appearance inputs with scalar loads (a warp's
+// loads of one input still cover one contiguous run); they bin a span^2
+// square by the run-time loop. The variants without appearance are
+// unchanged.
+//
 // Numerics: the op order is the JAX package's, and the library is built
 // with -fmad=false so no multiply-add is contracted; the tile floors at
 // tile boundaries and the quantised depths then agree bit for bit with the
@@ -77,7 +91,17 @@
 namespace {
 
 constexpr int kBlock = 256;  // particles per block (project_bin)
-constexpr int kRowMax = 13;
+constexpr int kRowMax = 13;  // floats per row without appearance
+
+// a draw's appearance inputs (NULL where the draw has no such column)
+struct AppearanceIn {
+  const float* roundness;  // [n]
+  const float* tri;        // [n]
+  const int32_t* sprite;   // [n]
+  const float* uv;         // [n, 6]
+  const float* nrm;        // [n, 9]
+  const float* vcol;       // [n, 12]
+};
 
 struct ProjectParams {
   float mvp[16];     // proj @ view, row-major
@@ -180,20 +204,23 @@ __device__ __forceinline__ bool bin_entries(const ProjectParams& p, float cx, fl
   return any;
 }
 
-template <int kSlots, int kSpan>
+template <int kSlots, int kSpan, bool kAppear>
 __global__ void __launch_bounds__(kBlock) project_bin_kernel(
     const float* __restrict__ position, const float* __restrict__ axis_x,
     const float* __restrict__ axis_y, const uint8_t* __restrict__ alive,
     const float* __restrict__ color, const float* __restrict__ extra,
     int32_t* __restrict__ tile_out, float* __restrict__ depth_out, float* __restrict__ rows,
-    unsigned int* __restrict__ range, int n, int row, int vec, int span_rt, ProjectParams p) {
+    unsigned int* __restrict__ range, int n, int row, int base_row, int vec, int span_rt,
+    ProjectParams p, AppearanceIn ap) {
   __shared__ __align__(16) float s_pos[3 * kBlock];
   __shared__ __align__(16) float s_ax[3 * kBlock];
   __shared__ __align__(16) float s_ay[3 * kBlock];
   __shared__ __align__(16) float s_col[4 * kBlock];
   __shared__ __align__(16) float s_extra[2 * kBlock];
   __shared__ __align__(16) uint8_t s_alive[kBlock];
-  __shared__ __align__(16) float s_rows[kRowMax * kBlock];
+  __shared__ __align__(16) float s_rows_fixed[kAppear ? 4 : kRowMax * kBlock];
+  extern __shared__ __align__(16) float s_rows_wide[];  // [kBlock, row] (kAppear)
+  float* s_rows = kAppear ? s_rows_wide : s_rows_fixed;
   __shared__ unsigned int s_min[kBlock / 32];
   __shared__ int s_max[kBlock / 32];
 
@@ -254,6 +281,11 @@ __global__ void __launch_bounds__(kBlock) project_bin_kernel(
     float h2x = e2.x - c.x, h2y = e2.y - c.y;
     float rx = fabsf(h1x) + fabsf(h2x);
     float ry = fabsf(h1y) + fabsf(h2y);
+    if (kAppear && ap.tri) {  // raster.py:259-263: a triangle spans half the quad
+      const float half = ap.tri[base + t] > 0.5f ? 0.5f : 1.0f;
+      rx = rx * half;
+      ry = ry * half;
+    }
     bool valid = s_alive[t] != 0 && c.dist > 1e-4f;
     valid = valid && (c.x + rx > 0.0f) && (c.x - rx < p.width);
     valid = valid && (c.y + ry > 0.0f) && (c.y - ry < p.height);
@@ -274,10 +306,23 @@ __global__ void __launch_bounds__(kBlock) project_bin_kernel(
     r[7] = s_col[4 * t + 1];
     r[8] = s_col[4 * t + 2];
     r[9] = s_col[4 * t + 3];
-    if (row == 13) {
+    if (base_row == 13) {
       r[10] = c.dist;
       r[11] = extra ? s_extra[2 * t] : 0.0f;
       r[12] = extra ? s_extra[2 * t + 1] : 0.0f;
+    }
+    if (kAppear) {  // the appearance columns, in JAX's order
+      const int64_t i = base + t;
+      int o = base_row;
+      if (ap.roundness) r[o++] = ap.roundness[i];
+      if (ap.tri) r[o++] = ap.tri[i];
+      if (ap.sprite) r[o++] = (float)ap.sprite[i];
+      if (ap.uv)
+        for (int j = 0; j < 6; ++j) r[o++] = ap.uv[6 * i + j];
+      if (ap.nrm)
+        for (int j = 0; j < 9; ++j) r[o++] = ap.nrm[9 * i + j];
+      if (ap.vcol)
+        for (int j = 0; j < 12; ++j) r[o++] = ap.vcol[12 * i + j];
     }
   }
 
@@ -365,7 +410,10 @@ bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15u) == 0
 }  // namespace
 
 // params: mvp[16], view row 2 [4], vp_w, vp_h, width, height, tile (25 floats)
-// extra: [n, 2] f32 (cutoff, mode) or NULL; row: floats per row, 10 or 13;
+// extra: [n, 2] f32 (cutoff, mode) or NULL; base_row: 10 or 13; row: floats
+// per row, base_row plus the widths of the appearance inputs given
+// (roundness [n] f32, tri [n] f32, sprite [n] int32, uv [n, 6], nrm [n, 9],
+// vcol [n, 12] f32; each NULL where the draw has no such column);
 // range: f32 [2], out: (min, max) of the binned depths, NaN where none
 // tile_slots: 0 (span^2 entries a particle), 1 or 2; tile_out and depth_out
 // hold S * n entries, slot-major
@@ -373,8 +421,18 @@ extern "C" int hanabi_project_bin(const void* position, const void* axis_x, cons
                                   const void* alive, const void* color, const void* extra,
                                   void* tile_out, void* depth_out, void* rows, void* range,
                                   int n, int row, const float* params, int ntx, int nty,
-                                  int tile_slots, int tile_span, void* stream) {
-  if ((row != 10 && row != 13) || !range || tile_slots < 0 || tile_slots > 2 ||
+                                  int tile_slots, int tile_span, int base_row,
+                                  const void* roundness, const void* tri, const void* sprite,
+                                  const void* uv, const void* nrm, const void* vcol,
+                                  void* stream) {
+  const AppearanceIn ap{(const float*)roundness, (const float*)tri, (const int32_t*)sprite,
+                        (const float*)uv, (const float*)nrm, (const float*)vcol};
+  const int appear_width = (roundness ? 1 : 0) + (tri ? 1 : 0) + (sprite ? 1 : 0) +
+                           (uv ? 6 : 0) + (nrm ? 9 : 0) + (vcol ? 12 : 0);
+  const bool appear = appear_width > 0;
+  // (with no particle the inputs, appearance columns included, may be NULL)
+  if ((base_row != 10 && base_row != 13) || (n > 0 && row != base_row + appear_width) ||
+      !range || tile_slots < 0 || tile_slots > 2 ||
       (tile_slots == 0 && (tile_span < 1 || tile_span > 46340)))  // span^2 fits an int
     return (int)cudaErrorInvalidValue;
   ProjectParams p;
@@ -394,18 +452,31 @@ extern "C" int hanabi_project_bin(const void* position, const void* axis_x, cons
   if (n > 0) {
     const int vec = aligned16(position) && aligned16(axis_x) && aligned16(axis_y) &&
                     aligned16(alive) && aligned16(color) && aligned16(extra) && aligned16(rows);
-#define HANABI_PB(SLOTS, SPAN)                                                                   \
-  project_bin_kernel<SLOTS, SPAN><<<(n + kBlock - 1) / kBlock, kBlock, 0, s>>>(                   \
-      (const float*)position, (const float*)axis_x, (const float*)axis_y, (const uint8_t*)alive, \
-      (const float*)color, (const float*)extra, (int32_t*)tile_out, (float*)depth_out,            \
-      (float*)rows, (unsigned int*)range, n, row, vec, tile_span, p)
-    if (tile_slots == 1) HANABI_PB(1, 1);
-    else if (tile_slots == 2) HANABI_PB(2, 1);
-    else if (tile_span == 1) HANABI_PB(0, 1);
-    else if (tile_span == 2) HANABI_PB(0, 2);
-    else if (tile_span == 3) HANABI_PB(0, 3);
-    else if (tile_span == 4) HANABI_PB(0, 4);
-    else HANABI_PB(0, 0);
+    const size_t wide = appear ? (size_t)kBlock * row * sizeof(float) : 0;
+#define HANABI_PB(SLOTS, SPAN, APPEAR)                                                           \
+  do {                                                                                         \
+    if (APPEAR) {                                                                              \
+      err = cudaFuncSetAttribute(project_bin_kernel<SLOTS, SPAN, APPEAR>,                      \
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wide);      \
+      if (err != cudaSuccess) return (int)err;                                                 \
+    }                                                                                          \
+    project_bin_kernel<SLOTS, SPAN, APPEAR><<<(n + kBlock - 1) / kBlock, kBlock, wide, s>>>(   \
+        (const float*)position, (const float*)axis_x, (const float*)axis_y,                    \
+        (const uint8_t*)alive, (const float*)color, (const float*)extra, (int32_t*)tile_out,   \
+        (float*)depth_out, (float*)rows, (unsigned int*)range, n, row, base_row, vec,          \
+        tile_span, p, ap);                                                                     \
+  } while (0)
+    if (appear) {
+      if (tile_slots == 1) HANABI_PB(1, 1, true);
+      else if (tile_slots == 2) HANABI_PB(2, 1, true);
+      else HANABI_PB(0, 0, true);
+    } else if (tile_slots == 1) HANABI_PB(1, 1, false);
+    else if (tile_slots == 2) HANABI_PB(2, 1, false);
+    else if (tile_span == 1) HANABI_PB(0, 1, false);
+    else if (tile_span == 2) HANABI_PB(0, 2, false);
+    else if (tile_span == 3) HANABI_PB(0, 3, false);
+    else if (tile_span == 4) HANABI_PB(0, 4, false);
+    else HANABI_PB(0, 0, false);
 #undef HANABI_PB
   }
   return (int)cudaGetLastError();

@@ -63,18 +63,24 @@ SIGNATURES = {
     "hanabi_gather_window": [_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
                              _I, _I, _I, _I, _I, _P],
     # (position, axis_x, axis_y, alive, color, extra, tile, depth, rows, range, n, row, params,
-    #  ntx, nty, tile_slots, tile_span, stream)
+    #  ntx, nty, tile_slots, tile_span, base_row, roundness, tri, sprite, uv, nrm, vcol, stream)
     "hanabi_project_bin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
-                           _P],
+                           _I, _P, _P, _P, _P, _P, _P, _P],
     # (tile, depth, range, key, n, tile_shift, q_bits, idx_bits, far_first, stream)
     "hanabi_bin_keys": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
     # (window, has, fb_in, depth_in, fb, depth_out, nt, M, T, ntx, background, eq,
     #  depth_test, write_depth, stream)
     "hanabi_tile_blend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],
+    # (the same, then row, ap_i, ap_f, textures, before the stream)
+    "hanabi_tile_blend_appearance": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I,
+                                     _P, _P, _P, _P],
     # (mask, count, payload, out_slot, out_count, out_payload, num_events, scratch, n, W, stream)
     "hanabi_event_compact": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
     # () -> lanes a CTA of event_compact scans at once
     "hanabi_event_compact_chunk": [],
+    # (position, axis_x, axis_y, color, alive, geom, uv_t, nrm_t, vcol_t, pos_o, ax_o, ay_o,
+    #  col_o, alive_o, tri_o, uv_o, nrm_o, vcol_o, n, q, t, stream)
+    "hanabi_mesh_expand": [_P] * 18 + [ctypes.c_longlong, _I, _I, _P],
     # (alive, counter, ribbon_id, age, perm, key, n, stream)
     "hanabi_ribbon_keys": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
     # (position, axis_y, color, cutoff, perm1, perm2, key, camera, center, axis_x, side, valid,

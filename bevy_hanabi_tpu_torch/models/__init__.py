@@ -1,4 +1,4 @@
-"""Ported benchmark effects."""
+"""Ported benchmark effects, reference examples and texture helpers."""
 
 from .benchmarks import (  # noqa: F401
     firework_effect,
@@ -8,4 +8,12 @@ from .benchmarks import (  # noqa: F401
     ribbon_bench_effect,
     ribbon_order_check_effect,
     spawn_gravity_effect,
+    textured_mesh_check_effect,
 )
+from .examples import (  # noqa: F401
+    LambertianLightingModifier,
+    example_2d,
+    example_circle,
+    example_puffs,
+)
+from .texutils import make_anim_sprite_sheet, make_circle_texture, make_cloud_texture  # noqa: F401

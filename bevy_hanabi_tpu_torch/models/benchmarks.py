@@ -4,8 +4,9 @@ Ported so far: ``gradient_effect`` (the benchmark headline's effect),
 ``spawn_gravity_effect`` (the opaque effect of the painter device gate),
 ``force_field_effect`` (the attractor and kill box of BASELINE config 3),
 the firework event tree, ``firework_effect`` with its trail child
-``firework_trail_effect``, and the ribbon effects ``ribbon_bench_effect``
-and ``ribbon_order_check_effect``. The definitions are the JAX package's, so both
+``firework_trail_effect``, the ribbon effects ``ribbon_bench_effect``
+and ``ribbon_order_check_effect``, and the textured-mesh gate's
+``textured_mesh_check_effect``. The definitions are the JAX package's, so both
 packages build equal assets (``to_json`` agrees).
 """
 
@@ -45,6 +46,7 @@ __all__ = [
     "firework_trail_effect",
     "ribbon_bench_effect",
     "ribbon_order_check_effect",
+    "textured_mesh_check_effect",
 ]
 
 
@@ -282,4 +284,46 @@ def ribbon_order_check_effect(
         )
         .render(SetSizeModifier((0.04, 0.04, 0.04)))
         .with_alpha_mode(AlphaMode.ADD)
+    )
+
+
+def textured_mesh_check_effect(capacity: int = 2048) -> EffectAsset:
+    """Device-gate effect for the triangle-mesh + texture raster path,
+    transcendental-free for the same reason as
+    ``ribbon_order_check_effect``: cube-volume rand positions and linear
+    rand velocities (bit-exact PCG + mul/add) instead of
+    ``gradient_effect``'s sphere init (sphere sampling runs device
+    sin/cos whose ~1e-3 backend ULP drift flips triangle-edge pixel
+    coverage — measured 11 flipped pixels on a 31-pixel scene = an 8.5%
+    checksum delta that says nothing about the raster). Attach a mesh
+    and ParticleTextureModifier at the call site."""
+    w = ExprWriter()
+    color = (
+        Gradient()
+        .with_key(0.0, (1.0, 0.2, 0.2, 1.0))
+        .with_key(1.0, (0.2, 0.2, 1.0, 0.6))
+    )
+    return (
+        EffectAsset(
+            "textured_mesh_check",
+            capacity,
+            SpawnerSettings.rate(capacity / 5.0),
+            w.finish(),
+        )
+        .init(SetAttributeModifier(A.AGE, w.lit(0.0).expr()))
+        .init(SetAttributeModifier(A.LIFETIME, w.lit(5.0).expr()))
+        .init(
+            SetAttributeModifier(
+                A.POSITION,
+                ((w.rand(VEC3F) * 2.0 - w.lit((1.0, 1.0, 1.0))) * 1.5).expr(),
+            )
+        )
+        .init(
+            SetAttributeModifier(
+                A.VELOCITY,
+                ((w.rand(VEC3F) * 2.0 - w.lit((1.0, 1.0, 1.0))) * 0.5).expr(),
+            )
+        )
+        .render(ColorOverLifetimeModifier(color))
+        .with_alpha_mode(AlphaMode.BLEND)
     )

@@ -22,8 +22,13 @@ from .output import (  # noqa: F401
     ColorBlendMask,
     ColorBlendMode,
     ColorOverLifetimeModifier,
+    FlipbookModifier,
+    ImageSampleMapping,
     OrientMode,
     OrientModifier,
+    ParticleTextureModifier,
+    RoundModifier,
+    ScreenSpaceSizeModifier,
     SetColorModifier,
     SetSizeModifier,
     SizeOverLifetimeModifier,

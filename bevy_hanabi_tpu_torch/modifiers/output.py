@@ -1,16 +1,17 @@
 """Render modifiers (port of ``bevy_hanabi_tpu/modifiers/output.py``).
 
 These run in a :class:`~bevy_hanabi_tpu_torch.compiler.RenderContext` and
-mutate its per-particle render outputs. Ported so far: ``OrientModifier``,
-``SetColorModifier``, ``ColorOverLifetimeModifier``, ``SetSizeModifier`` and
-``SizeOverLifetimeModifier``, with the enums their fields use.
+mutate its per-particle render outputs; the per-pixel stages (texture
+sampling, the flipbook cell, squircle rounding) are recorded as declarative
+state on the context and applied by the rasterizer. Every render modifier of
+the JAX package's ``output.py`` is ported, with the enums its fields use.
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,15 +21,29 @@ from ..gradient import Gradient
 from .base import Modifier, ModifierContext, register_field_enum, register_modifier
 
 __all__ = [
+    "ImageSampleMapping",
     "ColorBlendMode",
     "ColorBlendMask",
+    "ParticleTextureModifier",
     "SetColorModifier",
     "ColorOverLifetimeModifier",
     "SetSizeModifier",
     "SizeOverLifetimeModifier",
     "OrientMode",
     "OrientModifier",
+    "FlipbookModifier",
+    "ScreenSpaceSizeModifier",
+    "RoundModifier",
 ]
+
+
+@register_field_enum
+class ImageSampleMapping(enum.Enum):
+    """How a sampled texture modulates the base color (output.rs:21)."""
+
+    MODULATE = "modulate"  # color *= tex
+    MODULATE_RGB = "modulate_rgb"  # color.rgb *= tex.rgb
+    MODULATE_OPACITY_FROM_R = "modulate_opacity_from_r"  # color.a *= tex.r
 
 
 @register_field_enum
@@ -80,6 +95,22 @@ def _eval_cpu_value(ctx, v, lanes: int):
             return a + r * (b - a)
         v = v.value
     return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+
+@register_modifier
+@dataclass
+class ParticleTextureModifier(Modifier):
+    """Modulate particle color with a texture sample (output.rs:69)."""
+
+    texture_slot: int
+    sample_mapping: ImageSampleMapping = ImageSampleMapping.MODULATE
+
+    CONTEXT = ModifierContext.RENDER
+    ATTRIBUTES = ()
+
+    def apply_render(self, module, ctx) -> None:
+        ctx.needs_uv = True
+        ctx.texture_layers.append((self.texture_slot, self.sample_mapping))
 
 
 @register_modifier
@@ -259,3 +290,49 @@ class OrientModifier(Modifier):
             ctx.axis_x = axis_x
             ctx.axis_y = axis_y
             ctx.axis_z = cross(axis_x, axis_y)
+
+
+@register_modifier
+@dataclass
+class FlipbookModifier(Modifier):
+    """Sprite-sheet animation via SPRITE_INDEX (output.rs:763)."""
+
+    sprite_grid_size: Tuple[int, int] = (1, 1)  # (cols, rows)
+
+    CONTEXT = ModifierContext.RENDER
+    ATTRIBUTES = (Attribute.SPRITE_INDEX,)
+
+    def apply_render(self, module, ctx) -> None:
+        ctx.needs_uv = True
+        ctx.sprite_grid_size = tuple(self.sprite_grid_size)
+
+
+@register_modifier
+@dataclass
+class ScreenSpaceSizeModifier(Modifier):
+    """Interpret size in screen pixels instead of world units (output.rs:830)."""
+
+    CONTEXT = ModifierContext.RENDER
+    ATTRIBUTES = (Attribute.POSITION, Attribute.SIZE)
+
+    def apply_render(self, module, ctx) -> None:
+        ctx.screen_space_size = True
+
+
+@register_modifier
+@dataclass
+class RoundModifier(Modifier):
+    """Squircle particle shape: |x|^n + |y|^n <= 1, n = 2/roundness (output.rs:886)."""
+
+    roundness: int  # ExprHandle, f32 in [0,1]
+
+    CONTEXT = ModifierContext.RENDER
+    ATTRIBUTES = ()
+
+    @staticmethod
+    def ellipse(module) -> "RoundModifier":
+        return RoundModifier(module.lit(1.0))
+
+    def apply_render(self, module, ctx) -> None:
+        ctx.needs_uv = True
+        ctx.roundness = ctx.eval(self.roundness)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["rotate3", "affine3", "mat4_mul", "mvp_w", "affine4_inv"]
+__all__ = ["rotate3", "affine3", "mat4_mul", "mvp_w", "affine4_inv", "sqrt_f32"]
 
 
 def rotate3(v, rot):
@@ -78,3 +78,11 @@ def affine4_inv(m):
 def mvp_w(mvp, p):
     """Clip-space ``w`` of points ``p: [N, 3]`` under ``mvp: [4, 4]``."""
     return p[:, 0] * mvp[3, 0] + p[:, 1] * mvp[3, 1] + p[:, 2] * mvp[3, 2] + mvp[3, 3]
+
+
+def sqrt_f32(x):
+    """The correctly rounded f32 square root of an f32 tensor, as XLA's and
+    the card's ``sqrtf``: through f64, since PyTorch's vectorised CPU
+    square root may miss by an ulp (an f64 result within an ulp rounds to
+    the right f32: an f32's square root is never that close to an f32 tie)."""
+    return torch.sqrt(x.double()).to(torch.float32)

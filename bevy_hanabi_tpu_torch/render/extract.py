@@ -1,22 +1,23 @@
 """Render extraction: pool → per-particle draw data
 (port of ``bevy_hanabi_tpu/render/extract.py``).
 
-Global-space quads: default colour, size and camera-facing axes, the render
-modifiers, screen-space size, the per-particle alpha-mask cutoff, and the
-ribbon sort's columns (``ribbon_id``, ``age``, ``counter``), which
-:func:`~.ribbon.build_ribbon_segments` turns into segment quads.
-:func:`concat_painter_draws` merges quad draw sets (ribbon segments
-included) into one painter draw set. Local-space effects raise
-``NotImplementedError``; the modifiers that would fill the other draw
-columns (roundness, flipbook, textures, meshes) are not ported, so no asset
-of the port can ask for them.
+Global-space draws: default colour, size and camera-facing axes, the render
+modifiers (with the roundness, flipbook, texture-layer and mesh-lighting
+state they record for the rasterizer), screen-space size, the per-particle
+alpha-mask cutoff, and the ribbon sort's columns (``ribbon_id``, ``age``,
+``counter``), which :func:`~.ribbon.build_ribbon_segments` turns into
+segment quads; :func:`~.mesh.expand_mesh_draw` expands a mesh effect's draw
+into its quad and triangle entries. :func:`concat_painter_draws` merges
+draw sets without textures or meshes into one painter draw set (the
+painter's texture atlas and its mesh and Lambert merge raise).
+Local-space effects raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -44,7 +45,27 @@ class ParticleDrawData:
     axis_y: Any  # [N,3] world, scaled by size.y
     color: Any  # [N,4] linear RGBA (HDR allowed)
     alive: Any  # bool[N]
+    roundness: Any = None  # [N] 0=quad .. 1=ellipse, or None when no RoundModifier
+    # int32[N] flipbook frame; None where the layout has no SPRITE_INDEX
+    # (the JAX package's zeros: the rasterizer reads frame 0 then)
+    sprite_index: Any = None
+    # static draw state
+    sprite_grid_size: Tuple[int, int] = (1, 1)
+    texture_layers: tuple = ()  # ((slot, ImageSampleMapping), ...)
+    needs_uv: bool = False
     alpha_cutoff: Any = None  # [N] per-particle mask cutoff (AlphaMode::Mask)
+    # [N] 1.0 where the entry is a TRIANGLE (axis_x/axis_y are then the
+    # edges A->B / A->C times 2 and position the midpoint of B and C; the
+    # inside test is barycentric). None = all quads. Set by mesh expansion.
+    tri: Any = None
+    # Per-entry vertex-attribute triplets, interpolated barycentrically per
+    # fragment (the reference's mesh vertex buffers). Set by mesh expansion.
+    uv_abc: Any = None  # [N,6] (ua,va, ub,vb, uc,vc)
+    nrm_abc: Any = None  # [N,9] world-space unit normals at A,B,C
+    vcol_abc: Any = None  # [N,12] RGBA vertex colors at A,B,C
+    # ((lx,ly,lz), band) Lambert params when a lighting render modifier
+    # deferred shading to the rasterizer (per-fragment mesh normals)
+    lighting: Any = None
     # [N] per-entry blend mode id for the painter pass (alpha_mode="scene"):
     # PAINTER_MODE_IDS. None everywhere else.
     mode_id: Any = None
@@ -67,9 +88,9 @@ def extract_draw_data(
 ) -> ParticleDrawData:
     """Run render modifiers over the pool and build draw data.
 
-    ``textures`` and ``transform`` keep the JAX package's signature; no
-    ported modifier samples a texture, and a transform only matters for
-    local-space effects, which raise."""
+    ``textures`` keeps the JAX package's signature: the rasterizer samples
+    them (no ported expression reads a texture), and a ``transform`` only
+    matters for local-space effects, which raise."""
     n = pool.alive.shape[-1]
     dev = pool.device
     particle = dict(pool.attrs)
@@ -133,6 +154,12 @@ def extract_draw_data(
         alpha_cutoff = ctx.eval(cutoff_handle).to(torch.float32).expand(n).contiguous()
         ctx.alpha_cutoff = alpha_cutoff
 
+    # ---- render modifiers ----
+    ctx.mesh_has_normals = (
+        asset.mesh is not None
+        and getattr(asset.mesh, "normals", None) is not None
+        and asset.mesh.num_triangles > 0
+    )
     for m in asset.render_modifiers:
         m.apply_render(asset.module, ctx)
 
@@ -150,27 +177,56 @@ def extract_draw_data(
         denom = float(torch.minimum(wpx * ps[0], hpx * ps[1]))
         sz = sz * (w_cs[:, None] * 2.0) / denom
 
+    # None (not zeros) when no RoundModifier ran: the rasterizer then reads
+    # no roundness column and runs no squircle pow()
+    roundness = ctx.roundness
+    if roundness is not None:
+        roundness = torch.as_tensor(roundness, dtype=torch.float32, device=dev).expand(n).contiguous()
+    sprite_index = particle.get("sprite_index")
+    if sprite_index is not None:
+        sprite_index = sprite_index.to(torch.int32)
+
     return ParticleDrawData(
         position=position,
         axis_x=ctx.axis_x * sz[:, 0:1],
         axis_y=ctx.axis_y * sz[:, 1:2],
         color=ctx.color,
         alive=pool.alive,
+        roundness=roundness,
+        sprite_index=sprite_index,
+        sprite_grid_size=ctx.sprite_grid_size or (1, 1),
+        texture_layers=tuple(ctx.texture_layers),
+        needs_uv=ctx.needs_uv,
         alpha_cutoff=alpha_cutoff,
         ribbon_id=particle.get("ribbon_id"),
         age=particle.get("age"),
         counter=particle.get("particle_counter"),
+        lighting=ctx.mesh_lighting,
     )
 
 
+def _cat_or(draws, field: str, fill: float):
+    """An optional [n] column of ``draws`` concatenated, ``fill`` where a
+    draw lacks it; None where none has it (extract.py:418-430)."""
+    if all(getattr(d, field) is None for d in draws):
+        return None
+    return torch.cat([
+        getattr(d, field)
+        if getattr(d, field) is not None
+        else torch.full(d.alive.shape, fill, dtype=torch.float32, device=d.alive.device)
+        for d in draws
+    ])
+
+
 def concat_draws(draws) -> ParticleDrawData:
-    """The required quad columns of ``draws`` concatenated into one draw set
-    (the scene's batch pass, scene.py:2605-2636). The optional columns are
-    left out: a batch never holds a mask effect, and the painter columns are
-    :func:`concat_painter_draws`'."""
+    """The required quad columns of ``draws`` and their roundness
+    concatenated into one draw set (the scene's batch pass,
+    scene.py:2605-2636; no texture, mesh or mask effect is ever batched).
+    The painter columns are :func:`concat_painter_draws`'."""
     return ParticleDrawData(
         **{f: torch.cat([getattr(d, f) for d in draws])
-           for f in ("position", "axis_x", "axis_y", "color", "alive")}
+           for f in ("position", "axis_x", "axis_y", "color", "alive")},
+        roundness=_cat_or(draws, "roundness", 0.0),
     )
 
 
@@ -188,19 +244,28 @@ PAINTER_MODE_IDS = {
 
 
 def concat_painter_draws(draws, kinds, textures_per_draw=None) -> ParticleDrawData:
-    """Concatenate per-effect quad draw sets into ONE painter draw set
-    (extract.py:394-619, the quad branch).
+    """Concatenate per-effect draw sets into ONE painter draw set
+    (extract.py:394-619, without textures or meshes).
 
     ``kinds`` are the effects' alpha-mode kinds, becoming the per-entry
     ``mode_id`` column; mask effects contribute their per-particle
-    ``alpha_cutoff`` (others pad 0, never read). Ribbon segments join as
-    the quads :func:`~.ribbon.build_ribbon_segments` makes, their
-    appearance already in segment order. The JAX package also merges mesh
-    triangles, a texture atlas and Lambert lighting here; none of those is
-    ported, so textures raise."""
-    if textures_per_draw is not None and any(textures_per_draw):
+    ``alpha_cutoff`` (others pad 0, never read), round effects their
+    roundness (others pad 0: a plain quad). Ribbon segments join as the
+    quads :func:`~.ribbon.build_ribbon_segments` makes, their appearance
+    already in segment order. The JAX package also merges textured draw
+    sets through a stacked texture atlas, and mesh triangles with their
+    Lambert lighting; neither is ported, and both raise."""
+    if (textures_per_draw is not None and any(textures_per_draw)) or any(
+        d.texture_layers for d in draws
+    ):
         raise NotImplementedError(
-            "concat_painter_draws: the painter texture atlas is not ported"
+            "concat_painter_draws: the painter texture atlas (textured effects in the painter "
+            "pass) is not ported; render with pipeline='split'"
+        )
+    if any(d.tri is not None or d.lighting is not None for d in draws):
+        raise NotImplementedError(
+            "concat_painter_draws: the painter texture atlas and mesh/Lambert merge (mesh "
+            "effects in the painter pass) is not ported; render with pipeline='split'"
         )
     cutoff = torch.cat(
         [

@@ -3,34 +3,41 @@
 The same **bin → sort → bounded per-tile blend** pipeline as the JAX
 package, for every binning of ``RasterConfig.tile_slots`` (0: the
 ``tile_span``-square, exact; 1: the centre tile; 2: the corner and the
-dominant spill), with the ``blend``, ``add``, ``opaque``, ``mask`` and
-painter (``scene``) equations, the depth test against a scene depth plane,
-the depth plane written by opaque and mask passes, and a seeded
-framebuffer:
+dominant spill), with the ``blend``, ``premultiply``, ``add``,
+``multiply``, ``opaque``, ``mask`` and painter (``scene``) equations, the
+depth test against a scene depth plane, the depth plane written by opaque
+and mask passes, a seeded framebuffer, and the appearance of round,
+flipbook, textured and mesh draws (triangle entries, squircles, barycentric
+UVs, normals and vertex colours, the Lambert shade, flipbook cells and
+bilinear texture layers):
 
 1. :func:`project_bin` (CUDA kernel) projects every quad, tests it against
-   the screen, bins it into ``S`` entries (:func:`entry_slots`, entry
-   ``s * N + p``: a tile id and a depth each) and packs its one row
-   ``[cx, cy, h1x, h1y, h2x, h2y, r, g, b, a]``, with ``[depth, cutoff,
-   mode]`` appended where the pass's blend variant reads them
-   (:func:`row_width`), and reduces the binned depths' range;
+   the screen (a triangle entry at half its quad's radii), bins it into
+   ``S`` entries (:func:`entry_slots`, entry ``s * N + p``: a tile id and a
+   depth each) and packs its one row ``[cx, cy, h1x, h1y, h2x, h2y, r, g,
+   b, a]``, with ``[depth, cutoff, mode]`` appended where the pass's blend
+   variant reads them (:func:`row_width`) and then the draw's appearance
+   columns (:func:`draw_appearance`), and reduces the binned depths'
+   range;
 2. :func:`sort_tiles` packs the JAX package's 32-bit keys with
    :func:`bin_keys` (CUDA kernel) — ``(tile | far-first depth)`` on the
    ordered path, one of the three fast variants of :func:`fast_mode` for
-   ``add`` — as int32, and sorts them (plain torch: CUB's radix sort);
-   ``searchsorted`` of the tile bounds gives each tile's run;
+   ``add`` and ``multiply`` — as int32, and sorts them (plain torch: CUB's
+   radix sort); ``searchsorted`` of the tile bounds gives each tile's run;
 3. :func:`~..ops.gather.gather_window` (CUDA kernel, the port of the TPU
    row gather) builds every tile's window of ``M`` rows in blend order,
    its ``has`` flags and its rows (entry ``e`` reads row ``e mod N``) in
    one launch;
 4. :func:`tile_blend` (CUDA kernel) blends each tile in one CTA, one thread
    per pixel, its depth plane in registers, and culls the entries that
-   cover no pixel of a warp's block before the exact per-pixel test.
+   cover no pixel of a warp's block before the exact per-pixel test; a
+   draw's appearance reaches it as a per-call :class:`Appearance`.
 
 Every kernel wrapper has a plain PyTorch version beside it, used only for
 tensors on the CPU; for CUDA tensors the wrapper launches its kernel (or
-raises) and adds one to its ``launches`` counter. Every other branch of the
-JAX rasterizer raises ``NotImplementedError`` naming the branch.
+raises) and adds one to its ``launches`` counter. The other branches of the
+JAX rasterizer (antialiasing, slice rendering) raise
+``NotImplementedError`` naming the branch.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ from ..cuda_build import Kernel
 from ..cuda_build import check_tensor as _check
 from ..cuda_build import current_stream as _stream
 from ..ops.gather import gather_window, window_index
-from ..ops.linalg import mat4_mul
+from ..ops.linalg import mat4_mul, sqrt_f32
 from .camera import CameraParams
 from .extract import ParticleDrawData
 
@@ -56,6 +63,9 @@ __all__ = [
     "RasterConfig",
     "rasterize",
     "row_width",
+    "Appearance",
+    "draw_appearance",
+    "bilinear_wrap",
     "entry_slots",
     "bin_entries_plain",
     "project_bin",
@@ -77,6 +87,14 @@ __all__ = [
 # then depth, cutoff, mode (ROW) for the variants that read them
 ROW_QUAD, ROW = 10, 13
 COL_DEPTH, COL_CUTOFF, COL_MODE = 10, 11, 12
+# the appearance columns a draw may append to its rows, in the JAX package's
+# order (raster.py:530-577), and their widths
+APPEARANCE_COLUMNS = (("roundness", 1), ("tri", 1), ("sprite", 1), ("uv", 6), ("nrm", 9),
+                      ("vcol", 12))
+# texture layers one tile_blend call samples (the kernel's descriptor)
+MAX_LAYERS = 4
+# ImageSampleMapping values by the id the kernel takes
+MAPPINGS = ("modulate", "modulate_rgb", "modulate_opacity_from_r")
 
 
 @dataclass(frozen=True)
@@ -229,9 +247,15 @@ def bin_entries_plain(cx, cy, rx, ry, valid, dist, T, ntx, nty, tile_slots=1, ti
     return tile, depth
 
 
+def _appearance_width(appearance) -> int:
+    if appearance is None:
+        return 0
+    return sum(w for (_, w), t in zip(APPEARANCE_COLUMNS, appearance) if t is not None)
+
+
 def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewport,
                       T, ntx, nty, raster_size=None, extra=None, row=ROW, tile_slots=1,
-                      tile_span=2):
+                      tile_span=2, appearance=None):
     """Plain version of :func:`project_bin`: raster.py:241-333 + 516-586."""
     _check_row(row, extra)
     entry_slots(tile_slots, tile_span)
@@ -263,6 +287,11 @@ def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewpo
     valid = alive & (dist > 1e-4)
     rx = torch.abs(h1x) + torch.abs(h2x)
     ry = torch.abs(h1y) + torch.abs(h2y)
+    tri = None if appearance is None else appearance[1]
+    if tri is not None:  # raster.py:259-263: a triangle spans half the quad
+        half = torch.where(tri > 0.5, 0.5, 1.0)
+        rx = rx * half
+        ry = ry * half
     valid &= (cx + rx > 0) & (cx - rx < width)
     valid &= (cy + ry > 0) & (cy - ry < height)
     valid &= (rx > 1e-6) & (ry > 1e-6)
@@ -272,12 +301,15 @@ def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewpo
         if extra is None:
             extra = torch.zeros((position.shape[0], 2), dtype=torch.float32, device=position.device)
         cols += [dist[:, None], extra]
+    if appearance is not None:
+        cols += [t.to(torch.float32).reshape(t.shape[0], -1) for t in appearance if t is not None]
     rows = torch.cat(cols, dim=1).contiguous()
     return tile, depth, rows, depth_range_plain(depth)
 
 
 def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
-                T, ntx, nty, raster_size=None, extra=None, row=ROW, tile_slots=1, tile_span=2):
+                T, ntx, nty, raster_size=None, extra=None, row=ROW, tile_slots=1, tile_span=2,
+                appearance=None):
     """Project, screen-test and bin N particle quads into ``S`` entries each.
 
     ``position``/``axis_x``/``axis_y`` f32 [N, 3], ``alive`` bool [N],
@@ -289,11 +321,15 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
     (mask cutoff, painter mode id) per particle for 13-float rows, zeros
     without it; ``tile_slots`` and ``tile_span`` the binning of
     :class:`RasterConfig` (:func:`bin_entries_plain`), ``S`` =
-    :func:`entry_slots`. Returns ``tile`` int32 [S * N] (``ntx * nty``
+    :func:`entry_slots`; ``appearance`` the draw's appearance columns
+    (:func:`draw_appearance`: roundness, tri, sprite, uv, nrm, vcol,
+    each None where absent), appended to each row after its ``row``
+    floats; a triangle entry (tri > 0.5) takes half its quad's screen radii
+    (raster.py:259-263). Returns ``tile`` int32 [S * N] (``ntx * nty``
     where a slot bins nothing), ``depth`` f32 [S * N] (view distance,
     ``-inf`` there), both slot-major (entry ``s * N + p``), ``rows`` f32
-    [N, row], one a particle, and the binned entries' depth (min, max) as
-    f32 [2] (:func:`depth_range_plain`), which :func:`bin_keys` reads."""
+    [N, row + A], one a particle, and the binned entries' depth (min, max)
+    as f32 [2] (:func:`depth_range_plain`), which :func:`bin_keys` reads."""
     dev = position.device
     n = position.shape[0]
     _check(position, "position", torch.float32, (n, 3), dev)
@@ -304,20 +340,31 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
     if extra is not None:
         _check(extra, "extra", torch.float32, (n, 2), dev)
     _check_row(row, extra)
+    if appearance is not None:
+        if len(appearance) != len(APPEARANCE_COLUMNS):
+            raise ValueError(f"appearance holds {len(APPEARANCE_COLUMNS)} columns or None")
+        for (name, width), t in zip(APPEARANCE_COLUMNS, appearance):
+            if t is not None:
+                shape = (n,) if width == 1 else (n, width)
+                _check(t, name, torch.int32 if name == "sprite" else torch.float32, shape, dev)
     slots = entry_slots(tile_slots, tile_span)
     if not position.is_cuda:
         return project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewport,
-                                 T, ntx, nty, raster_size, extra, row, tile_slots, tile_span)
+                                 T, ntx, nty, raster_size, extra, row, tile_slots, tile_span,
+                                 appearance)
     _, _, params = _project_params(view, proj, viewport, raster_size or viewport, T)
+    width = row + _appearance_width(appearance)
     tile = torch.empty((slots * n,), dtype=torch.int32, device=dev)
     depth = torch.empty((slots * n,), dtype=torch.float32, device=dev)
-    rows = torch.empty((n, row), dtype=torch.float32, device=dev)
+    rows = torch.empty((n, width), dtype=torch.float32, device=dev)
     rng = torch.empty((2,), dtype=torch.float32, device=dev)
+    cols = [None if t is None else t.data_ptr() for t in (appearance or (None,) * 6)]
     code = cuda_build.library().hanabi_project_bin(
         position.data_ptr(), axis_x.data_ptr(), axis_y.data_ptr(), alive.data_ptr(), color.data_ptr(),
         None if extra is None else extra.data_ptr(),
         tile.data_ptr(), depth.data_ptr(), rows.data_ptr(), rng.data_ptr(),
-        n, row, params.ctypes.data_as(ctypes.c_void_p), ntx, nty, tile_slots, tile_span, _stream(),
+        n, width, params.ctypes.data_as(ctypes.c_void_p), ntx, nty, tile_slots, tile_span, row,
+        *cols, _stream(),
     )
     cuda_build.check(code, "project_bin")
     project_bin.launches += 1
@@ -402,7 +449,7 @@ bin_keys.launches = 0
 
 
 # the equations of tile_blend, by the id its kernel takes
-BLEND_MODES = ("blend", "add", "opaque", "mask", "scene")
+BLEND_MODES = ("blend", "add", "opaque", "mask", "scene", "premultiply", "multiply")
 
 
 def row_width(mode: str, depth_test: bool) -> int:
@@ -410,6 +457,152 @@ def row_width(mode: str, depth_test: bool) -> int:
     :data:`ROW` where it reads the depth, cutoff or mode column (a depth
     test, ``mask``, ``scene``), else :data:`ROW_QUAD`."""
     return ROW if depth_test or mode in ("mask", "scene") else ROW_QUAD
+
+
+@dataclass(frozen=True)
+class Appearance:
+    """A draw's appearance as :func:`tile_blend` reads it, uniform over a
+    call: ``row`` the window's floats per row; ``offsets`` the row column of
+    each of :data:`APPEARANCE_COLUMNS` (roundness, tri, sprite, uv, nrm,
+    vcol), -1 where absent; ``grid`` the flipbook's (cols, rows);
+    ``lighting`` ``((lx, ly, lz), band)`` where the draw is lit per
+    fragment; ``layers`` the texture layers ``(slot, mapping)`` in modifier
+    order, ``slot`` indexing the textures passed beside it and ``mapping``
+    one of :data:`MAPPINGS`."""
+
+    row: int
+    offsets: Tuple[int, ...]
+    grid: Tuple[int, int] = (1, 1)
+    lighting: Any = None
+    layers: Tuple[Tuple[int, str], ...] = ()
+
+    def offset(self, name: str) -> int:
+        return self.offsets[[c for c, _ in APPEARANCE_COLUMNS].index(name)]
+
+
+def draw_appearance(draw, base_row: int):
+    """The appearance of ``draw`` for a pass whose rows start with
+    ``base_row`` floats: ``(Appearance, columns)``, ``columns`` the
+    appearance columns the draw carries into its rows on JAX's conditions
+    (raster.py:530-577) as ``(roundness, tri, sprite, uv, nrm, vcol)``, each
+    a contiguous tensor or None. The flipbook frame is there for a textured
+    draw with a grid other than (1, 1) (frame 0 where the draw has none),
+    the UVs for a textured one, the normals for a lit one. ``(None, None)``
+    for a draw with no appearance column and no texture layer (the plain
+    quad variants)."""
+    n = draw.position.shape[0]
+    textured = bool(draw.texture_layers)
+    sprite = None
+    if textured and tuple(draw.sprite_grid_size) != (1, 1):
+        sprite = draw.sprite_index
+        if sprite is None:
+            sprite = torch.zeros((n,), dtype=torch.int32, device=draw.position.device)
+    uv = draw.uv_abc if textured else None
+    nrm = draw.nrm_abc if draw.lighting is not None else None
+    columns = tuple(None if t is None else t.contiguous()
+                    for t in (draw.roundness, draw.tri, sprite, uv, nrm, draw.vcol_abc))
+    if all(t is None for t in columns) and not textured:
+        return None, None
+    offsets, o = [], base_row
+    for (_, width), t in zip(APPEARANCE_COLUMNS, columns):
+        offsets.append(o if t is not None else -1)
+        o += width if t is not None else 0
+    layers = tuple((int(slot), getattr(m, "value", m)) for slot, m in draw.texture_layers)
+    lighting = draw.lighting if nrm is not None else None
+    return Appearance(o, tuple(offsets), tuple(draw.sprite_grid_size), lighting, layers), columns
+
+
+def _index(x) -> torch.Tensor:
+    """A float index as JAX's ``astype(int32)`` gives it where the value is
+    in range: NaN to 0 (XLA's conversion saturates), as int64."""
+    return torch.where(x.isnan(), 0.0, x).to(torch.int64)
+
+
+def bilinear_wrap(tex, u, v):
+    """``_bilinear_wrap`` (raster.py:121-146) of a [th, tw, C] texture at
+    ``u``, ``v``: 4-tap bilinear filtering with wrap addressing,
+    half-texel centred, JAX's op order, indices by floored remainder
+    (``jnp.mod``, as ``torch.remainder``)."""
+    th, tw = tex.shape[0], tex.shape[1]
+    uu = u * tw - 0.5
+    vv = v * th - 0.5
+    u0 = torch.floor(uu)
+    v0 = torch.floor(vv)
+    fu = (uu - u0)[..., None]
+    fv = (vv - v0)[..., None]
+    u0i = _index(torch.remainder(u0, tw))
+    v0i = _index(torch.remainder(v0, th))
+    u1i = _index(torch.remainder(u0 + 1.0, tw))
+    v1i = _index(torch.remainder(v0 + 1.0, th))
+    t00, t01 = tex[v0i, u0i], tex[v0i, u1i]
+    t10, t11 = tex[v1i, u0i], tex[v1i, u1i]
+    top = t00 + (t01 - t00) * fu
+    bot = t10 + (t11 - t10) * fu
+    return top + (bot - top) * fv
+
+
+def _at_least(x, lo: float):
+    """``jnp.maximum(x, lo)``: NaN stays NaN."""
+    return torch.where(x < lo, lo, x)
+
+
+def _appearance_src(r, col, u, v, u01, v01, is_tri, ap: Appearance, textures):
+    """The source colour of every (entry, pixel) pair of one window slot
+    with the draw's appearance (raster.py:702-776): vertex colours,
+    Lambert, then the texture layers at the (flipbook) UVs."""
+    nt = r.shape[0]
+    T = u.shape[1]
+    s_, t_ = u + 0.5, v + 0.5
+
+    def bary(j0, nc):
+        out = []
+        for c in range(nc):
+            va = r[:, j0 + c, None, None]
+            vb = r[:, j0 + nc + c, None, None]
+            vc = r[:, j0 + 2 * nc + c, None, None]
+            out.append(va + s_ * (vb - va) + t_ * (vc - va))
+        return torch.stack(out, dim=-1)
+
+    src = col[:, None, None, :].expand(nt, T, T, 4)
+    if ap.offset("vcol") >= 0:
+        src = src * bary(ap.offset("vcol"), 4)
+    if ap.lighting is not None:
+        (lx, ly, lz), band = ap.lighting
+        lx, ly, lz, band = (float(np.float32(x)) for x in (lx, ly, lz, band))
+        nvec = bary(ap.offset("nrm"), 3)
+        length = sqrt_f32(nvec[..., 0] * nvec[..., 0] + nvec[..., 1] * nvec[..., 1]
+                          + nvec[..., 2] * nvec[..., 2])
+        nn = nvec / _at_least(length, 1e-9)[..., None]
+        ndotl = nn[..., 0] * lx + nn[..., 1] * ly + nn[..., 2] * lz
+        shade = torch.clamp(ndotl, min=band, max=1.0)
+        src = torch.cat([src[..., :3] * shade[..., None], src[..., 3:]], dim=-1)
+    if ap.layers:
+        if ap.offset("uv") >= 0 and is_tri is not None:
+            o = ap.offset("uv")
+            muv = bary(o, 2)
+            sel = is_tri & torch.isfinite(r[:, o])[:, None, None]
+            u01 = torch.where(sel, muv[..., 0], u01)
+            v01 = torch.where(sel, muv[..., 1], v01)
+        gc, gr = ap.grid
+        if (gc, gr) != (1, 1):
+            sprite = _index(r[:, ap.offset("sprite")]).to(torch.float32)  # astype(int32)
+            cell_c = torch.remainder(sprite, gc)[:, None, None]
+            cell_r = torch.div(sprite, gc, rounding_mode="floor")[:, None, None]
+            # XLA compiles JAX's division by the grid constant into a product
+            # with its f32 reciprocal (raster.py:756-757)
+            tu = (u01 + cell_c) * float(np.float32(1.0) / np.float32(gc))
+            tv = (v01 + cell_r) * float(np.float32(1.0) / np.float32(gr))
+        else:
+            tu, tv = u01, v01
+        for slot, mapping in ap.layers:
+            texel = bilinear_wrap(textures[slot], tu, tv)
+            if mapping == "modulate":
+                src = src * texel
+            elif mapping == "modulate_rgb":
+                src = torch.cat([src[..., :3] * texel[..., :3], src[..., 3:]], dim=-1)
+            else:  # modulate_opacity_from_r
+                src = torch.cat([src[..., :3], src[..., 3:] * texel[..., 0:1]], dim=-1)
+    return src
 
 
 def _blend_flags(mode, depth_test, write_depth):
@@ -423,12 +616,15 @@ def _blend_flags(mode, depth_test, write_depth):
 
 
 def tile_blend_plain(window, has, T, ntx, nty, background, mode="blend", framebuffer=None,
-                     scene_depth=None, depth_test=False, write_depth=False):
-    """Plain version of :func:`tile_blend`: raster.py:620-911 on the
-    columns of :data:`ROW`, in the JAX package's form (every lane through
-    the equation, zero coverage as ``where``). Reads only the columns the
-    variant reads, so the window may be :func:`row_width` wide or wider."""
+                     scene_depth=None, depth_test=False, write_depth=False, appearance=None,
+                     textures=()):
+    """Plain version of :func:`tile_blend`: raster.py:616-911 on the
+    columns of :data:`ROW` and the draw's :class:`Appearance`, in the JAX
+    package's form (every lane through the equation, zero coverage as
+    ``where``). Without appearance it reads only the columns the variant
+    reads, so the window may be :func:`row_width` wide or wider."""
     _blend_flags(mode, depth_test, write_depth)
+    ap = appearance
     nt, M, _ = window.shape
     dev = window.device
     ar = torch.arange(T, dtype=torch.int32, device=dev)
@@ -454,6 +650,11 @@ def tile_blend_plain(window, has, T, ntx, nty, background, mode="blend", framebu
         u = (a2y[:, None, None] * dx - a2x[:, None, None] * dy) / det
         v = ((-a1y)[:, None, None] * dx + a1x[:, None, None] * dy) / det
         inside = (torch.abs(u) <= 1.0) & (torch.abs(v) <= 1.0)
+        is_tri = None
+        if ap is not None and ap.offset("tri") >= 0:  # raster.py:635-642
+            is_tri = (r[:, ap.offset("tri")] > 0.5)[:, None, None]
+            tri_inside = (u >= -0.5) & (v >= -0.5) & (u + v <= 0.0)
+            inside = torch.where(is_tri, tri_inside, inside)
         inside &= has[:, m, None, None]
         coverage = inside.to(torch.float32)
         if depth_test:
@@ -461,17 +662,39 @@ def tile_blend_plain(window, has, T, ntx, nty, background, mode="blend", framebu
             vis = frag_d <= (dbuf if dbuf is not None else scene_depth)
             inside &= vis
             coverage = coverage * vis.to(torch.float32)
+        if ap is None:
+            src = col[:, None, None, :]
+        else:
+            u01 = u * 0.5 + 0.5
+            v01 = v * 0.5 + 0.5
+            if ap.offset("roundness") >= 0:  # raster.py:686-700
+                rnd = r[:, ap.offset("roundness")]
+                nexp = (2.0 / _at_least(rnd, 1e-6))[:, None, None]
+                squircle = (torch.pow(torch.abs(1.0 - 2.0 * u01), nexp)
+                            + torch.pow(torch.abs(1.0 - 2.0 * v01), nexp))
+                sq_ok = (rnd <= 0.0)[:, None, None] | (squircle <= 1.0)
+                if is_tri is not None:
+                    sq_ok = sq_ok | is_tri
+                inside &= sq_ok
+                coverage = coverage * sq_ok.to(torch.float32)
+            src = _appearance_src(r, col, u, v, u01, v01, is_tri, ap, textures)
         # Zero-coverage lanes contribute EXACTLY zero even when the row is
         # non-finite (raster.py:822-828).
         covered = coverage[..., None] > 0.0
-        src_a = col[:, None, None, 3]
+        src_a = src[..., 3]
         a = torch.where(covered, (src_a * coverage)[..., None], 0.0)
-        rgb_s = torch.where(covered, col[:, None, None, :3], 0.0)
+        rgb_s = torch.where(covered, src[..., :3], 0.0)
         rgb_d, a_d = fb[..., :3], fb[..., 3:4]
         cutoff = r[:, COL_CUTOFF, None, None] if mode in ("mask", "scene") else None
         if mode == "blend":
             rgb = rgb_s * a + rgb_d * (1.0 - a)
             alpha = a + a_d * (1.0 - a)
+        elif mode == "premultiply":
+            rgb = rgb_s * coverage[..., None] + rgb_d * (1.0 - a)
+            alpha = a + a_d * (1.0 - a)
+        elif mode == "multiply":
+            rgb = rgb_s * rgb_d * a + rgb_d * (1.0 - a)
+            alpha = a_d
         elif mode == "add":
             rgb = rgb_s * a + rgb_d
             alpha = torch.clamp(a + a_d, max=1.0)
@@ -511,24 +734,54 @@ def tile_blend_plain(window, has, T, ntx, nty, background, mode="blend", framebu
     return (fb, dbuf.contiguous()) if write_depth else fb
 
 
+def texture_tensor(tex, device) -> torch.Tensor:
+    """A texture image (array or tensor, [H, W, 4]) as a contiguous f32
+    tensor on ``device``; no copy where it already is one."""
+    return torch.as_tensor(np.asarray(tex, np.float32) if not torch.is_tensor(tex) else tex,
+                           dtype=torch.float32, device=device).contiguous()
+
+
+def _check_textures(appearance, textures, dev):
+    """Each layer's texture: an f32 [th, tw, 4] contiguous tensor on ``dev``."""
+    for slot, mapping in appearance.layers:
+        if mapping not in MAPPINGS:
+            raise ValueError(f"tile_blend: unknown sample mapping {mapping!r}")
+        if not 0 <= slot < len(textures):
+            raise ValueError(f"tile_blend: texture slot {slot}, but {len(textures)} texture(s)")
+        tex = textures[slot]
+        if tex.dim() != 3 or tex.shape[2] != 4:
+            raise ValueError(f"textures[{slot}] must be [H, W, 4] RGBA, got {tuple(tex.shape)}")
+        _check(tex, f"textures[{slot}]", torch.float32, tex.shape, dev)
+
+
 def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=None,
-               scene_depth=None, depth_test=False, write_depth=False):
+               scene_depth=None, depth_test=False, write_depth=False, appearance=None,
+               textures=()):
     """Blend each tile's window, entry m = 0 first, into ``fb`` [nt, T, T, 4].
 
     ``window`` f32 [nt, M, W] rows, ``W = row_width(mode, depth_test)``
-    (:data:`ROW`; back to front on the
-    ordered path, in the fast paths' order for ``add``), ``has`` bool
-    [nt, M] marks real entries. ``mode`` is the equation (``"blend"``,
-    ``"add"``, ``"opaque"``, ``"mask"``, or ``"scene"``: per entry by its
-    mode column). The target starts as ``framebuffer`` (tiled f32
+    (:data:`ROW`), or ``appearance.row`` for a draw with an
+    :class:`Appearance` (its columns after those; back to front on the
+    ordered path, in the fast paths' order for ``add`` and ``multiply``),
+    ``has`` bool [nt, M] marks real entries. ``mode`` is the equation
+    (``"blend"``, ``"premultiply"``, ``"add"``, ``"multiply"``,
+    ``"opaque"``, ``"mask"``, or ``"scene"``: per entry by its mode
+    column). The target starts as ``framebuffer`` (tiled f32
     [nt, T, T, 4]) or else ``background`` (RGBA). ``depth_test`` discards
     fragments behind the depth plane, which starts as ``scene_depth``
     (tiled f32 [nt, T, T]) or else +inf; ``write_depth`` lets opaque and
-    mask writes move it and returns ``(fb, depth)``."""
+    mask writes move it and returns ``(fb, depth)``. ``textures``: the
+    draw's textures by slot, f32 [th, tw, 4] each, which the appearance's
+    layers sample."""
     _blend_flags(mode, depth_test, write_depth)
     dev = window.device
     nt = ntx * nty
     width = row_width(mode, depth_test)
+    if appearance is not None:
+        if appearance.row < width:
+            raise ValueError(f"tile_blend: appearance rows of {appearance.row} floats under {width}")
+        width = appearance.row
+        _check_textures(appearance, textures, dev)
     if window.dim() != 3:
         raise ValueError(f"window must be [nt, M, {width}], got shape {tuple(window.shape)}")
     M = window.shape[1]
@@ -542,7 +795,7 @@ def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=N
         raise ValueError("background must be RGBA")
     if not window.is_cuda:
         return tile_blend_plain(window, has, T, ntx, nty, background, mode, framebuffer,
-                                scene_depth, depth_test, write_depth)
+                                scene_depth, depth_test, write_depth, appearance, textures)
     if not 1 <= T * T <= 1024:
         raise ValueError(f"tile_blend runs one thread per pixel: T*T must be <= 1024, got T={T}")
     fb = torch.empty((nt, T, T, 4), dtype=torch.float32, device=dev)
@@ -552,20 +805,41 @@ def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=N
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    code = cuda_build.library().hanabi_tile_blend(
+    ap_i = ap_f = tex = None
+    if appearance is not None:
+        if len(appearance.layers) > MAX_LAYERS:
+            raise ValueError(f"tile_blend samples at most {MAX_LAYERS} texture layers a call, "
+                             f"got {len(appearance.layers)}")
+        lit = appearance.lighting is not None
+        (lx, ly, lz), band = appearance.lighting if lit else ((0.0, 0.0, 0.0), 0.0)
+        ap_i = np.zeros(10 + 3 * MAX_LAYERS, np.int32)
+        ap_i[:6] = appearance.offsets
+        ap_i[6:10] = (*appearance.grid, int(lit), len(appearance.layers))
+        tex = (ctypes.c_void_p * MAX_LAYERS)()
+        for k, (slot, mapping) in enumerate(appearance.layers):
+            t = textures[slot]
+            ap_i[10 + 3 * k: 13 + 3 * k] = (t.shape[1], t.shape[0], MAPPINGS.index(mapping))
+            tex[k] = t.data_ptr()
+        ap_f = np.asarray([lx, ly, lz, band], np.float32)
+    code = cuda_build.library().hanabi_tile_blend_appearance(
         window.data_ptr(), has.data_ptr(), ptr(framebuffer), ptr(scene_depth), fb.data_ptr(),
         ptr(depth), nt, M, T, ntx, bg.ctypes.data_as(ctypes.c_void_p), BLEND_MODES.index(mode),
-        int(depth_test), int(write_depth), _stream(),
-    )
+        int(depth_test), int(write_depth), width,
+        None if ap_i is None else ap_i.ctypes.data_as(ctypes.c_void_p),
+        None if ap_f is None else ap_f.ctypes.data_as(ctypes.c_void_p), tex, _stream())
     cuda_build.check(code, "tile_blend")
     tile_blend.launches += 1
     tile_blend.launches_by_mode[mode] += 1
+    if appearance is not None:
+        tile_blend.launches_appearance[mode] += 1
     return (fb, depth) if write_depth else fb
 
 
 tile_blend.launches = 0
 # the launches of each equation, counted among ``launches``
 tile_blend.launches_by_mode = dict.fromkeys(BLEND_MODES, 0)
+# the launches of each equation's appearance variants, counted among both
+tile_blend.launches_appearance = dict.fromkeys(BLEND_MODES, 0)
 
 KERNELS = {
     "project_bin": Kernel(
@@ -693,25 +967,25 @@ def rasterize(
     """Render particles to a [height, width, 4] float32 image on the draw's device.
 
     Ported: every binning (``tile_slots`` 0, 1 and 2, any ``tile_span``
-    and ``tile_size``) with the ``blend``, ``opaque``, ``mask`` and
-    painter (``"scene"``, per-entry ``draw.mode_id``) equations on the
-    ordered path, and ``add`` on the three order-independent fast variants
-    of :func:`fast_mode` (or the ordered path with
-    ``order_independent_fast=False``). ``scene_depth`` ([height, width]
-    view distances, +inf where empty) discards fragments behind it;
+    and ``tile_size``) with the ``blend``, ``premultiply``, ``opaque``,
+    ``mask`` and painter (``"scene"``, per-entry ``draw.mode_id``)
+    equations on the ordered path, and ``add`` and ``multiply`` on the
+    three order-independent fast variants of :func:`fast_mode` (or the
+    ordered path with ``order_independent_fast=False``); the appearance of
+    round, flipbook, textured and mesh draws (``textures``: the draw's
+    textures by slot, [H, W, 4] RGBA each). ``scene_depth`` ([height,
+    width] view distances, +inf where empty) discards fragments behind it;
     ``return_depth`` (opaque, mask, scene) also returns the [height, width]
     depth of the nearest written fragment, seeded from ``scene_depth``;
     ``framebuffer`` ([height, width, 4]) seeds the target instead of
     ``config.background``. The mask cutoff is ``draw.alpha_cutoff`` per
-    particle, else ``alpha_cutoff``. Every other branch of the JAX
-    rasterizer raises ``NotImplementedError``.
+    particle, else ``alpha_cutoff``. Antialiasing and slice rendering
+    (``y_offset``) raise ``NotImplementedError``.
     """
     if alpha_mode not in BLEND_MODES:
-        raise _unported(f"alpha_mode={alpha_mode!r}")
+        raise ValueError(f"unknown alpha mode {alpha_mode!r}")
     if config.antialias:
         raise _unported("antialias")
-    if textures:
-        raise _unported("texture sampling")
     if y_offset is not None:
         raise _unported("slice rendering (y_offset)")
     painter = alpha_mode == "scene"
@@ -745,11 +1019,22 @@ def rasterize(
         )
         extra = torch.stack([cutoff.to(torch.float32), mode_col], dim=1)
     row = row_width(alpha_mode, depth_test)
+    appearance, columns = draw_appearance(draw, row)
+    texs = ()
+    if appearance is not None and appearance.layers:
+        for slot, _ in appearance.layers:
+            if slot >= len(textures):
+                raise ValueError(
+                    f"texture slot {slot} is referenced by a ParticleTextureModifier but only "
+                    f"{len(textures)} texture(s) were provided — pass textures=[...] when "
+                    "creating the renderer / adding the effect"
+                )
+        texs = [texture_tensor(t, dev) for t in textures]
     tile_ids, depth, rows, depth_range = project_bin(
         draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(),
         camera.view, camera.proj, camera.viewport, T, ntx, nty,
         raster_size=(config.width, config.height), extra=extra, row=row,
-        tile_slots=config.tile_slots, tile_span=config.tile_span,
+        tile_slots=config.tile_slots, tile_span=config.tile_span, appearance=columns,
     )
     mode = fast_mode(config, alpha_mode, tile_ids.shape[0])
     pidx_sorted, starts, ends = sort_tiles(tile_ids, depth, nt, mode, depth_range)
@@ -759,7 +1044,7 @@ def rasterize(
         window, has, T, ntx, nty, config.background, alpha_mode,
         framebuffer=None if framebuffer is None else to_tiles(framebuffer, config, 0.0).to(dev),
         scene_depth=None if scene_depth is None else to_tiles(scene_depth, config, torch.inf).to(dev),
-        depth_test=depth_test, write_depth=write_depth,
+        depth_test=depth_test, write_depth=write_depth, appearance=appearance, textures=texs,
     )
     fb, dbuf = out if write_depth else (out, None)
     if return_depth:

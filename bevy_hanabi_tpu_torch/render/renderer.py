@@ -1,10 +1,9 @@
 """Pool → image for one effect, and layer compositing
 (port of ``bevy_hanabi_tpu/render/renderer.py``).
 
-:func:`composite_by_mode` is ported whole. :class:`EffectRenderer` is ported
-as far as :meth:`HanabiScene.render`'s single-effect pass needs it, the
-depth test, the written depth plane and ribbons (their segment quads)
-included: no textures or meshes.
+:func:`composite_by_mode` and :class:`EffectRenderer` are ported whole:
+the depth test, the written depth plane, ribbons (their segment quads),
+meshes (their expanded quad and triangle entries) and textures.
 """
 
 from __future__ import annotations
@@ -19,7 +18,8 @@ from ..compiler import SimParams
 from ..runtime.pool import ParticlePool
 from .camera import CameraParams
 from .extract import extract_draw_data
-from .raster import RasterConfig, rasterize
+from .mesh import expand_mesh_draw
+from .raster import RasterConfig, rasterize, texture_tensor
 from .ribbon import build_ribbon_segments
 
 __all__ = ["EffectRenderer", "composite_by_mode"]
@@ -55,17 +55,28 @@ def neutral_background(alpha_mode: str):
 
 
 class EffectRenderer:
-    """Renders one effect's pool with its render modifiers applied."""
+    """Renders one effect's pool with its render modifiers applied.
+
+    ``textures`` ([H, W, 4] RGBA images, by slot) are uploaded once to
+    each device the renderer draws on."""
 
     def __init__(self, asset: EffectAsset, config: RasterConfig, textures: Sequence[Any] = ()) -> None:
-        if textures:
-            raise NotImplementedError("EffectRenderer: textures are not ported")
         self.asset = asset
         self.config = config
         self._aligned = False
-        self.textures = ()
+        self.textures = tuple(textures)
+        self._device_textures = {}
         self._alpha_mode = asset.alpha_mode.kind
         self._ribbons = asset.particle_layout().contains("ribbon_id")
+
+    def textures_on(self, device) -> tuple:
+        """The renderer's textures on ``device``, uploaded on first use."""
+        device = torch.device(device)
+        texs = self._device_textures.get(device)
+        if texs is None:
+            texs = tuple(texture_tensor(t, device) for t in self.textures)
+            self._device_textures[device] = texs
+        return texs
 
     def render(
         self,
@@ -89,16 +100,20 @@ class EffectRenderer:
             if (self.config.width, self.config.height) != (vw, vh):
                 self.config = dataclasses.replace(self.config, width=vw, height=vh)
             self._aligned = True
+        textures = self.textures_on(pool.device)
         draw = extract_draw_data(
             self.asset,
             pool,
             camera,
             sim=sim if sim is not None else SimParams(),
             properties=properties or {},
+            textures=list(textures),
             transform=transform,
         )
         if self._ribbons:
             draw = build_ribbon_segments(draw, camera)
+        elif self.asset.mesh is not None:
+            draw = expand_mesh_draw(draw, self.asset.mesh)
         config = self.config
         if framebuffer is not None:
             config = dataclasses.replace(config, background=neutral_background(self._alpha_mode))
@@ -107,6 +122,7 @@ class EffectRenderer:
             camera,
             config,
             alpha_mode=self._alpha_mode,
+            textures=list(textures),
             scene_depth=scene_depth,
             return_depth=return_depth,
         )

@@ -282,6 +282,12 @@ def build_ribbon_segments(draw: ParticleDrawData, camera: CameraParams) -> Parti
     reads them."""
     if draw.ribbon_id is None or draw.age is None:
         raise ValueError("ribbon rendering requires RIBBON_ID and AGE attributes")
+    if draw.roundness is not None or draw.texture_layers:
+        # ribbon_segments gathers only colour and cutoff into segment order
+        raise NotImplementedError(
+            "build_ribbon_segments: round or textured ribbons (their roundness and flipbook "
+            "frame in segment order) are not ported"
+        )
     order = ribbon_sort(draw)
     center, axis_x, axis_y, valid, color, cutoff = ribbon_segments(
         draw.position.contiguous(), draw.axis_y.contiguous(), draw.color.contiguous(),

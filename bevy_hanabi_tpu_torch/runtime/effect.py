@@ -223,19 +223,25 @@ class CompiledEffect:
         textures=(),
     ):
         """Advance K frames AND render each one; a ribbon effect renders
-        its segment quads (:func:`~..render.ribbon.build_ribbon_segments`).
+        its segment quads (:func:`~..render.ribbon.build_ribbon_segments`),
+        a mesh effect its expanded entries
+        (:func:`~..render.mesh.expand_mesh_draw`), in that precedence
+        (effect.py:392-399). ``textures`` ([H, W, 4] RGBA, by slot) are
+        uploaded to the pool's device once for the chunk.
 
         Returns ``(pool, last_image, checksums)``: the image is
         [height, width, 4] f32 and ``checksums`` the [K] per-frame
         framebuffer sums, all on the pool's device."""
         from ..render.extract import extract_draw_data
+        from ..render.mesh import expand_mesh_draw
         from ..render.raster import rasterize
+        from ..render.raster import texture_tensor
         from ..render.ribbon import build_ribbon_segments
 
         self._refuse_events("step_render_chunk")
         alpha_mode = self.asset.alpha_mode.kind
-        if self.asset.mesh is not None:
-            raise NotImplementedError("step_render_chunk: mesh particles are not ported")
+        mesh = self.asset.mesh
+        textures = [texture_tensor(t, self.device) for t in textures]
         ribbons = self.layout.contains("ribbon_id")
         img = torch.zeros((config.height, config.width, 4), dtype=torch.float32, device=self.device)
         sums = []
@@ -252,7 +258,9 @@ class CompiledEffect:
             )
             if ribbons:
                 draw = build_ribbon_segments(draw, camera)
-            img = rasterize(draw, camera, config, alpha_mode=alpha_mode, textures=list(textures))
+            elif mesh is not None:
+                draw = expand_mesh_draw(draw, mesh)
+            img = rasterize(draw, camera, config, alpha_mode=alpha_mode, textures=textures)
             sums.append(img.sum())
         return pool, img, torch.stack(sums)
 

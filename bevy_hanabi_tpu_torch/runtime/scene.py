@@ -9,17 +9,19 @@ the scene RNG once per :meth:`HanabiScene.add`, each instance's RNG once per
 step, each spawner its own — so frame seeds and spawner ticks are bit-equal
 to the JAX package's.
 
-Ported: ``add`` (with parents), ``update`` (with ``cameras=`` frustum
-culling of WhenVisible effects), ``update_chunk`` (one family chunk per
-event tree), ``update_render_chunk`` for one camera, and ``render`` through
-both pipelines of the JAX package's render plan: the phase split (opaque
-and mask passes threading a depth plane, then transparent passes tested
-against it, same-blend runs batched) and the painter pass (every effect in
-one back-to-front sort with per-entry blend equations), ``scene_depth`` and
-``return_depth`` included, ribbon effects as their segment quads (never
-batched). Every other branch raises
+Ported: ``add`` (with parents and textures), ``set_textures``, ``update``
+(with ``cameras=`` frustum culling of WhenVisible effects),
+``update_chunk`` (one family chunk per event tree), ``update_render_chunk``
+for one camera, and ``render`` through both pipelines of the JAX package's
+render plan: the phase split (opaque and mask passes threading a depth
+plane, then transparent passes tested against it, same-blend runs batched)
+and the painter pass (every effect in one back-to-front sort with per-entry
+blend equations), ``scene_depth`` and ``return_depth`` included, ribbon
+effects as their segment quads and mesh effects as their expanded entries
+(neither batched, nor textured effects). Every other branch raises
 ``NotImplementedError`` naming itself: groups and sharding, ``cull_pad``,
-mesh particles, textures, ``render_views`` and multi-view chunks, debug
+a textured or mesh effect in a painter plan (the painter's texture atlas
+and mesh/Lambert merge), ``render_views`` and multi-view chunks, debug
 validation, and hot reload (an asset edited after ``add``).
 """
 
@@ -77,6 +79,8 @@ class EffectInstance:
     renderer: Any = None
     # asset signature captured at add() time: an edit after add() raises
     compiled_signature: Any = None
+    # texture images by slot, f32 [H, W, 4] tensors on the scene's device
+    textures: tuple = ()
 
     def alive_count(self) -> int:
         return int(self.pool.alive_count())
@@ -123,9 +127,9 @@ class HanabiScene:
 
         ``parent`` names an effect with an EmitSpawnEventModifier; this
         effect then consumes the lowest event channel no sibling uses.
-        ``prng_seed`` overrides ``asset.prng_seed`` for this instance."""
-        if textures:
-            raise _unported("add(textures=...)")
+        ``textures`` ([H, W, 4] RGBA images, by slot) are uploaded to the
+        scene's device once. ``prng_seed`` overrides ``asset.prng_seed``
+        for this instance."""
         if raster_override:
             raise _unported("add(raster_override=...)")
         if mesh is not None:
@@ -191,6 +195,7 @@ class HanabiScene:
             child_channel=child_channel,
             rng=np.random.default_rng(inst_seed + 1),
             compiled_signature=asset.signature(),
+            textures=self._upload(textures),
         )
         self._effects[name] = inst
         if parent is not None:
@@ -240,6 +245,18 @@ class HanabiScene:
 
     def set_property(self, name: str, prop: str, value) -> None:
         self._effects[name].properties.set(prop, value)
+
+    def _upload(self, textures) -> tuple:
+        from ..render.raster import texture_tensor
+
+        return tuple(texture_tensor(t, self.device) for t in textures)
+
+    def set_textures(self, name: str, textures: Sequence[Any]) -> None:
+        """Swap an effect's texture images (the EffectMaterial image swap,
+        lib.rs:694-702); its renderer is rebuilt on next use."""
+        inst = self._effects[name]
+        inst.textures = self._upload(textures)
+        inst.renderer = None
 
     def set_transform(self, name: str, transform) -> None:
         self._effects[name].transform = np.asarray(transform, np.float32)
@@ -595,21 +612,22 @@ class HanabiScene:
             (i for i, inst in enumerate(insts) if inst.visible and inst.name not in culled),
             key=dist_key,
         )
-        if any(insts[i].asset.mesh is not None for i in vis_idx):
-            raise _unported("mesh particles")
 
-        def batch_key(asset):
-            """The blend state a batch shares; None for an effect that
-            never batches (mask cutoffs and ribbon segments are per effect)."""
+        def batch_key(inst):
+            """The blend state a batch shares; None for an effect that never
+            batches (mask cutoffs, ribbon segments, meshes and textures are
+            per effect)."""
+            asset = inst.asset
             kind = asset.alpha_mode.kind
-            if kind == "mask" or asset.particle_layout().contains("ribbon_id"):
+            if (kind == "mask" or asset.particle_layout().contains("ribbon_id")
+                    or asset.mesh is not None or inst.textures):
                 return None
             return kind
 
         def build_passes(idxs):
             runs = []
             for i in idxs:
-                key = batch_key(insts[i].asset)
+                key = batch_key(insts[i])
                 if runs and key is not None and runs[-1][0] == key:
                     runs[-1][1].append(i)
                 else:
@@ -627,6 +645,13 @@ class HanabiScene:
         transp_passes = build_passes([i for i in vis_idx if i not in opaque])
         n_passes = len(opaque_passes) + len(transp_passes)
         if vis_idx and (pipeline == "painter" or (pipeline == "auto" and n_passes >= 2)):
+            merged = [insts[i].name for i in vis_idx
+                      if insts[i].asset.mesh is not None or insts[i].textures]
+            if merged:
+                raise _unported(
+                    f"the painter texture atlas and mesh/Lambert merge (textured or mesh effects "
+                    f"{merged} in a painter plan; render with pipeline='split')"
+                )
             return (), (("painter", tuple(vis_idx), ()),)
         return opaque_passes, transp_passes
 
@@ -725,7 +750,7 @@ class HanabiScene:
         from ..render.renderer import EffectRenderer
 
         if inst.renderer is None or inst.renderer.config != config:
-            inst.renderer = EffectRenderer(inst.asset, config)
+            inst.renderer = EffectRenderer(inst.asset, config, textures=inst.textures)
         transform, props = inp
         return inst.renderer.render(
             inst.pool,

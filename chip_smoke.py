@@ -7,8 +7,8 @@ Builds the port's CUDA kernels from ``bevy_hanabi_tpu_torch/csrc`` and runs
 the port's main paths through its public entry points: the
 benchmark-headline frame and its three companion binnings, the firework
 event tree, the mixed scene (``HanabiScene.update_render_chunk``), the
-ribbon frame and the force field. It never imports JAX. Phases, each of
-which fails the run on any error:
+ribbon frame, the force field and the textured mesh frame. It never imports
+JAX. Phases, each of which fails the run on any error:
 
 1. a CUDA device must be present; print its name and power limit;
 2. build the kernel library (nvcc, one process per source, ctypes) and,
@@ -129,7 +129,48 @@ which fails the run on any error:
     positions within rtol 1e-2 / atol 1e-3, some lanes killed by the box
     before their lifetime); then ``force_field_effect(100_000)`` through
     ``step_chunk``, warmed past its lifetime, three timed chunks of K
-    (steps/s, particle-steps/s; eager torch, no hand-written kernel).
+    (steps/s, particle-steps/s; eager torch, no hand-written kernel);
+15. textured and mesh particles:
+    a. the JAX package's ``textured_mesh_2k`` (bench.py:295-327):
+       ``HanabiScene(seed=5)``, ``textured_mesh_check_effect(2048)`` with
+       ``ParticleTextureModifier(0)`` and ``ParticleMesh.icosphere(0.4, 1)``,
+       the 32x32 circle texture, three updates and a render at
+       ``RasterConfig(128, 128)``, card against CPU (masks equal, checksums
+       within 0.5%);
+    b. ``example_puffs`` (Lambert on mesh normals), ``example_circle`` (the
+       flipbook) and ``example_2d`` (the squircle), 30 frames of 32 spawns
+       each through ``step_render_chunk`` at 512x512, card against CPU (masks
+       and seeds equal, every checksum within 0.5%);
+    c. the textured mesh frame at full width: the same composition at
+       ``textured_mesh_check_effect(16384)`` (~1.31M triangle entries),
+       ``RasterConfig(512, 512)`` (``tile_slots=0``, span 2, ~5.2M bin
+       entries), the gate's camera at 512x512, BLEND, warmed three chunks
+       past its 5 s lifetime, then three timed ``step_render_chunk`` chunks
+       of K = 120 (frames/s; ``mesh_expand``, ``project_bin``, ``bin_keys``,
+       ``gather_window`` and ``tile_blend``'s appearance BLEND variant must
+       launch), the last frame rendered again on the CPU (checksums within
+       0.5%); on it ``mesh_expand``, ``project_bin`` with triangles (17-float
+       rows), ``bin_keys``, ``gather_window`` (F = 17) and ``tile_blend``
+       (textured triangles, then the same window in PREMULTIPLY and
+       MULTIPLY) against their plain versions, exactly, and timed; then
+       ``torch.profiler`` over 30 frames;
+    d. the same frame lit per fragment
+       (``LambertianLightingModifier((0.577, 0.577, 0.577), 0.7)``: 26-float
+       rows, the normals through ``mesh_expand``), as in c;
+    e. ``tile_blend`` on the last frame of ``example_circle`` (the flipbook,
+       11-float rows) and ``example_2d`` (the squircle: at most 0.2% of the
+       pixels may differ, checksums within 0.5%, since the card's ``powf``
+       and PyTorch's ``pow`` may differ in the last ulp), timed;
+    f. textured quads: a billboard (``textured_mesh_check_effect(2048)``
+       with ``ParticleTextureModifier(0)`` and no mesh: texture layers and no
+       appearance column, so 10-float rows) under BLEND and MULTIPLY, and
+       the same with ``ParticleMesh.cross()`` (quads only: no UV column)
+       under ADD and PREMULTIPLY, 20 frames of 64 spawns each through
+       ``step_render_chunk`` at 256x256 over a coloured background, card
+       against CPU (masks equal, every checksum within 0.5%; ``tile_blend``'s
+       appearance variant must launch); then ``tile_blend`` on the
+       billboard's last BLEND frame against its plain version, exactly, and
+       timed.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -137,8 +178,14 @@ launches of all four paths), the firework's (``[firework]``,
 ``tile_blend[add]``, ``event_compact``) and the mixed scene's (``[mixed]``,
 ``tile_blend[scene]``, ``tile_blend[scene,M=128]``, ``tile_blend[opaque]``,
 ``tile_blend[blend,split]``, ``tile_blend[add,split]``) and the ribbon
-frame's (``[ribbon]``, ``tile_blend[add,ribbon]``) and the companions'
-(``[hifi]``, ``[slots2]``, ``[exact]``, BLEND). Each row holds the
+frame's (``[ribbon]``, ``tile_blend[add,ribbon]``), the companions'
+(``[hifi]``, ``[slots2]``, ``[exact]``, BLEND) and the textured mesh
+frames' (``mesh_expand``, ``project_bin``, ``bin_keys``, ``gather_window``
+and ``tile_blend`` at ``[mesh]`` and ``[mesh,lit]``,
+``tile_blend[premultiply,mesh]`` and ``[multiply,mesh]``, which no main path
+launches, ``tile_blend[flipbook]`` and ``[round]`` with the examples'
+own launches, and ``tile_blend[textured quads]`` with the billboard's BLEND
+frames' launches). Each row holds the
 path's launches, the kernel's and its plain version's device ms, the
 library call's (``index_select`` for the gathers, of the window's indices
 for ``gather_window``, of the appearance rows by the segment order for
@@ -193,13 +240,16 @@ FP32_OPS_PER_S = 67e12
 # pair the test that finds it covered (dx, dy, two numerators of two products
 # and a difference, two comparisons) and its equation's blend (BLEND: 1 - a,
 # two products and a sum a channel, alpha's product and sum; ADD: a product
-# and a sum a channel, alpha's sum and clamp; OPAQUE selects; MASK's cutoff
-# compare; SCENE's transparent entries as BLEND). A pair no pixel of which
+# and a sum a channel, alpha's sum and clamp; PREMULTIPLY: 1 - a, a product
+# and a sum a channel, alpha's product and sum; MULTIPLY: 1 - a, three
+# products and a sum a channel; OPAQUE selects; MASK's cutoff compare;
+# SCENE's transparent entries as BLEND). A pair no pixel of which
 # is covered needs no work: a kernel may skip it by a bound per entry and
 # block, as tile_blend.cu does.
 PROJECT_OPS, KEY_OPS = 150, 10
 ENTRY_OPS, COVER_TEST_OPS = 5, 10
-BLEND_EQ_OPS = {"blend": 12, "add": 8, "opaque": 0, "mask": 1, "scene": 12}
+BLEND_EQ_OPS = {"blend": 12, "add": 8, "opaque": 0, "mask": 1, "scene": 12, "premultiply": 9,
+                "multiply": 13}
 HEADLINE_KERNELS = ("gather_window", "project_bin", "bin_keys", "tile_blend")  # tile_blend in BLEND
 # gather_rows: the trail step's event payload gather
 FIREWORK_KERNELS = ("gather_rows", "gather_window", "project_bin", "bin_keys", "tile_blend[add]",
@@ -228,6 +278,27 @@ COMPANIONS = {
     "slots2": dict(tile_slots=2),
     "exact": dict(tile_slots=0),
 }
+# a round pass's pixels that may differ between tile_blend and its plain
+# version: the squircle's powf against PyTorch's pow (last-ulp differences
+# flip pixels on the squircle's edge)
+SQUIRCLE_PIXELS = 0.002
+# the textured mesh frame: ~16 384 alive x 80 icosphere triangles =
+# 1 310 720 triangle entries, the headline's scale in raster entries
+MESH_CAPACITY = 16_384
+# every kernel of the textured mesh frame (tile_blend in its appearance BLEND variant)
+MESH_KERNELS = ("mesh_expand", "project_bin", "bin_keys", "gather_window",
+                "tile_blend[blend,appearance]")
+# FP32 operations of mesh_expand an entry (the frame: cross product, two
+# square roots and the normalisation, three mapped vectors; with normals,
+# two more normalised axes and three normalised mapped normals)
+MESH_OPS, MESH_LIT_OPS = 60, 130
+# the reference examples held card against CPU (Lambert on mesh normals,
+# the flipbook, the squircle), and their spawns a frame
+EXAMPLES = ("example_puffs", "example_circle", "example_2d")
+EXAMPLE_SPAWN = 32
+# the textured quads held card against CPU (phase 15f): (mesh, alpha mode)
+TEXTURED_QUADS = (("billboard", "BLEND"), ("billboard", "MULTIPLY"), ("cross", "ADD"),
+                  ("cross", "PREMULTIPLY"))
 FF_CAPACITY = 100_000  # bench.py:568
 FF_MOVED = (9.0, 1.0, 0.0)  # the gate's attractor from FF_MOVE_AT: lanes leave the kill box
 FF_MOVE_AT = 180
@@ -315,17 +386,21 @@ def torch_equal_nan(a, b) -> bool:
     return bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
 
 
-def compare_project_bin(pb_args, nt: int, label: str, row: int, extra=None, config=None):
+def compare_project_bin(pb_args, nt: int, label: str, row: int, extra=None, config=None,
+                        appearance=None):
     """``project_bin`` against its plain version on ``pb_args``, with
-    ``row``-float rows and ``config``'s binning (``tile_slots`` and
-    ``tile_span``; the centre tile without one): tiles, depths and the depth
-    range equal, rows at max abs err 0. Returns the result row and the plain
-    outputs (tile, depth, rows, range)."""
+    ``row``-float rows (then the ``appearance`` columns, if any) and
+    ``config``'s binning (``tile_slots`` and ``tile_span``; the centre tile
+    without one): tiles, depths and the depth range equal, rows at max abs
+    err 0. Returns the result row and the plain outputs (tile, depth, rows,
+    range)."""
     import torch
 
     from bevy_hanabi_tpu_torch.render import raster
 
     kw = dict(extra=extra, row=row)
+    if appearance is not None:
+        kw["appearance"] = appearance
     if config is not None:
         kw.update(tile_slots=config.tile_slots, tile_span=config.tile_span)
     tile_k, depth_k, rows_k, range_k = raster.project_bin(*pb_args, **kw)
@@ -336,7 +411,7 @@ def compare_project_bin(pb_args, nt: int, label: str, row: int, extra=None, conf
     rows_err = float((rows_k - rows_p).abs().nan_to_num(0.0).max())
     n, entries = rows_p.shape[0], tile_p.shape[0]
     valid = int((tile_p < nt).sum())
-    print(f"{label}: {n} particles, {entries} entries, {valid} binned on screen, {row}-float "
+    print(f"{label}: {n} particles, {entries} entries, {valid} binned on screen, {rows_p.shape[1]}-float "
           f"rows, {bad} tile/depth mismatches, rows max abs err {rows_err:g}, depth range "
           f"{range_k.tolist()} (plain {range_p.tolist()})")
     if bad:
@@ -345,7 +420,7 @@ def compare_project_bin(pb_args, nt: int, label: str, row: int, extra=None, conf
         fail(f"{label}: rows differ from the plain version (max abs err {rows_err:g})")
     if not torch_equal_nan(range_k, range_p):
         fail(f"{label}: depth range {range_k.tolist()} differs from the plain {range_p.tolist()}")
-    inputs = (*pb_args[:5], extra)
+    inputs = (*pb_args[:5], extra, *(appearance or ()))
     result = {
         "max_abs_err": rows_err,
         "ms": cuda_ms(lambda: raster.project_bin(*pb_args, **kw), 50),
@@ -390,10 +465,11 @@ def compare_bin_keys(projected, nt: int, mode, label: str) -> dict:
     return result
 
 
-def covered_pairs(window, has, T: int, ntx: int) -> int:
+def covered_pairs(window, has, T: int, ntx: int, tri_col: int = -1) -> int:
     """The (entry, pixel) pairs of a ``tile_blend`` window that the
-    reference's test covers (raster.py:620-640; a pair that then fails a
-    depth test included)."""
+    reference's test covers (raster.py:620-642, the triangle test for the
+    entries whose ``tri_col`` is set; a pair that then fails a depth test
+    or the squircle included: those tests run on it)."""
     import torch
 
     nt, M, _ = window.shape
@@ -410,22 +486,50 @@ def covered_pairs(window, has, T: int, ntx: int) -> int:
         dx, dy = px - cx, py - cy
         u = (a2y * dx - a2x * dy) / det
         v = (-a1y * dx + a1x * dy) / det
-        total += ((u.abs() <= 1.0) & (v.abs() <= 1.0) & has[:, m, None, None]).sum()
+        inside = (u.abs() <= 1.0) & (v.abs() <= 1.0)
+        if tri_col >= 0:
+            is_tri = window[:, m, tri_col, None, None] > 0.5
+            inside = torch.where(is_tri, (u >= -0.5) & (v >= -0.5) & (u + v <= 0.0), inside)
+        total += (inside & has[:, m, None, None]).sum()
     return int(total)
 
 
+def appearance_ops(ap) -> int:
+    """FP32 operations of a covered pair's appearance (raster.py:686-776),
+    counted from the reference's code: the triangle test and the divisions
+    for u, v (8), the squircle (two pows of ~20, 8 more), vertex colours
+    (4 interpolations of 5, 4 products), Lambert (3 interpolations, the
+    norm and its square root, 3 divisions, the dot product, the clip and 3
+    products: 35), a triangle's UVs (2 interpolations), the flipbook cell
+    (10), and a texture layer (the indices and fractions, 14; 3 lerps of 4
+    channels, 24; the modulation, 4)."""
+    if ap is None:
+        return 0
+    ops = 8
+    ops += 48 if ap.offset("roundness") >= 0 else 0
+    ops += 24 if ap.offset("vcol") >= 0 else 0
+    ops += 35 if ap.lighting is not None else 0
+    ops += 10 if ap.offset("uv") >= 0 else 0
+    ops += 10 if tuple(ap.grid) != (1, 1) and ap.layers else 0
+    return ops + 42 * len(ap.layers)
+
+
 def blend_bound(mode: str, window, has, T: int, ntx: int, fb_out, depth_out=None, fb_in=None,
-                depth_in=None) -> dict:
+                depth_in=None, appearance=None, textures=()) -> dict:
     """``tile_blend``'s bound: the bytes the function must move (the filled
-    entries' rows, the ``has`` flags, the planes in and out) and the FP32
-    operations every correct kernel must do (``ENTRY_OPS`` a filled entry,
-    the test and the blend of each covered pair). Also returns the filled
-    entries and the covered pairs."""
+    entries' rows, the ``has`` flags, the planes in and out, each texture
+    layer once) and the FP32 operations every correct kernel must do
+    (``ENTRY_OPS`` a filled entry, the test, the appearance and the blend of
+    each covered pair). Also returns the filled entries and the covered
+    pairs."""
     filled = int(has.sum())
-    pairs = covered_pairs(window, has, T, ntx)
+    tri_col = -1 if appearance is None else appearance.offset("tri")
+    pairs = covered_pairs(window, has, T, ntx, tri_col)
     rows = filled * window.shape[2] * window.element_size()
-    ops = ENTRY_OPS * filled + (COVER_TEST_OPS + BLEND_EQ_OPS[mode]) * pairs
-    return {**bound(rows + nbytes(has, fb_out, depth_out, fb_in, depth_in), ops),
+    ops = ENTRY_OPS * filled + (COVER_TEST_OPS + BLEND_EQ_OPS[mode]
+                                + appearance_ops(appearance)) * pairs
+    texs = {slot: textures[slot] for slot, _ in (appearance.layers if appearance else ())}
+    return {**bound(rows + nbytes(has, fb_out, depth_out, fb_in, depth_in, *texs.values()), ops),
             "filled_entries": filled, "covered_pairs": pairs}
 
 
@@ -488,8 +592,11 @@ def compare_gather_window(projected, nt: int, m: int, mode, label: str):
 def compare_tile_blend(label: str, window, has, T: int, ntx: int, nty: int, background, mode: str,
                        **kw):
     """``tile_blend`` against its plain version on a pass's window: the
-    framebuffer at max abs err 0 and, where written, the depth plane equal;
-    both timed. Returns the row and the kernel's depth plane (or None)."""
+    framebuffer at max abs err 0 and, where written, the depth plane equal
+    (a round draw's squircle: at most :data:`SQUIRCLE_PIXELS` of the pixels
+    differ and the checksums agree within 0.5%, since the card's powf and
+    PyTorch's pow may differ in the last ulp); both timed. Returns the row
+    and the kernel's depth plane (or None)."""
     import torch
 
     from bevy_hanabi_tpu_torch.render import raster
@@ -503,18 +610,26 @@ def compare_tile_blend(label: str, window, has, T: int, ntx: int, nty: int, back
     err = float((fb_k - fb_p).abs().max())
     depth_ok = not write or torch.equal(d_k, d_p)
     entries = int(has.sum())
-    print(f"tile_blend {label}: {entries} window entries, max abs err {err:g}"
-          + (f", depth planes {'equal' if depth_ok else 'DIFFER'}" if write else ""))
-    if err != 0.0 or not depth_ok or entries == 0:
-        fail(f"tile_blend {label}: max abs err {err:g}, or the depth planes differ, or an "
-             f"empty window")
+    ap = kw.get("appearance")
+    round_ = ap is not None and ap.offset("roundness") >= 0
+    differ = int(((fb_k - fb_p).abs() > 0).any(-1).sum())
+    print(f"tile_blend {label}: {entries} window entries, max abs err {err:g}, {differ} pixels "
+          f"differ" + (f", depth planes {'equal' if depth_ok else 'DIFFER'}" if write else ""))
+    if round_:
+        s_k, s_p = float(fb_k.sum()), float(fb_p.sum())
+        if differ > SQUIRCLE_PIXELS * fb_p[..., 0].numel() or not checksum_close(s_k, s_p):
+            fail(f"tile_blend {label}: {differ} pixels differ, checksums {s_k} and {s_p}")
+    elif err != 0.0:
+        fail(f"tile_blend {label}: max abs err {err:g}")
+    if not depth_ok or entries == 0:
+        fail(f"tile_blend {label}: the depth planes differ, or an empty window")
     return {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: raster.tile_blend(*args, **kw), 50),
         "plain_ms": cuda_ms(lambda: raster.tile_blend_plain(*args, **kw), 3),
         "library_ms": None,
         **blend_bound(mode, window, has, T, ntx, fb_k, d_k, kw.get("framebuffer"),
-                      kw.get("scene_depth")),
+                      kw.get("scene_depth"), ap, kw.get("textures", ())),
     }, d_k
 
 
@@ -637,18 +752,24 @@ def small_frame(device):
 def reset_launches(kernels) -> None:
     for kernel in kernels.values():
         kernel.wrapper.launches = 0
-    by_mode = kernels["tile_blend"].wrapper.launches_by_mode
-    for mode in by_mode:
-        by_mode[mode] = 0
+    tb = kernels["tile_blend"].wrapper
+    for by_mode in (tb.launches_by_mode, tb.launches_appearance):
+        for mode in by_mode:
+            by_mode[mode] = 0
 
 
 def read_launches(kernels) -> dict:
     """Launches by kernel, ``tile_blend`` by equation: ``tile_blend`` is
-    BLEND, ``tile_blend[add]``, ``[opaque]``, ``[mask]``, ``[scene]`` the
-    others."""
+    BLEND, ``tile_blend[add]``, ``[opaque]``, ``[mask]``, ``[scene]``,
+    ``[premultiply]``, ``[multiply]`` the others, and
+    ``tile_blend[<mode>,appearance]`` the appearance variants' launches
+    among them."""
     counts = {name: k.wrapper.launches for name, k in kernels.items()}
-    for mode, n in kernels["tile_blend"].wrapper.launches_by_mode.items():
+    tb = kernels["tile_blend"].wrapper
+    for mode, n in tb.launches_by_mode.items():
         counts["tile_blend" if mode == "blend" else f"tile_blend[{mode}]"] = n
+    for mode, n in tb.launches_appearance.items():
+        counts[f"tile_blend[{mode},appearance]"] = n
     return counts
 
 
@@ -1705,6 +1826,342 @@ def force_field_full():
         fail(f"force field: {alive_after} alive lanes")
 
 
+def mesh_asset(capacity: int, lit: bool = False):
+    """The textured mesh gate's composition (bench.py:295-327): an
+    icosphere (80 triangles) per particle, the circle texture through
+    ParticleTextureModifier, lit per fragment where ``lit``."""
+    from bevy_hanabi_tpu_torch import ParticleTextureModifier
+    from bevy_hanabi_tpu_torch.models import LambertianLightingModifier, textured_mesh_check_effect
+    from bevy_hanabi_tpu_torch.render.mesh import ParticleMesh
+
+    asset = textured_mesh_check_effect(capacity).render(ParticleTextureModifier(0))
+    if lit:
+        asset = asset.render(LambertianLightingModifier((0.577, 0.577, 0.577), 0.7))
+    return asset.with_mesh(ParticleMesh.icosphere(radius=0.4, subdivisions=1))
+
+
+def mesh_camera(size: int):
+    """The gate's camera (bench.py:195-199) at ``size`` squared."""
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+
+    return CameraParams(look_at((0, 0, 6), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0),
+                        (size, size))
+
+
+def mesh_gate():
+    """Phase 15a: the JAX package's ``textured_mesh_2k`` (bench.py:295-327),
+    ``HanabiScene(seed=5)``, three updates and a 128x128 render at
+    ``RasterConfig(128, 128)``, card against CPU."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch import HanabiScene, RasterConfig
+    from bevy_hanabi_tpu_torch.models import make_circle_texture
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        scene = HanabiScene(seed=5, device=device)
+        scene.add(mesh_asset(2048), "mesh", textures=[make_circle_texture(32)])
+        for _ in range(3):
+            scene.update(DT)
+        img = scene.render(mesh_camera(128), RasterConfig(width=128, height=128))
+        out[device] = scene["mesh"].pool.to_numpy()[1], img.cpu()
+    (alive_g, img_g), (alive_c, img_c) = out["cuda"], out["cpu"]
+    s_g, s_c = float(img_g.sum()), float(img_c.sum())
+    print(f"textured_mesh_2k: alive {int(alive_c.sum())}, checksum card {s_g:.6e} cpu {s_c:.6e}")
+    if not np.array_equal(alive_g, alive_c):
+        fail("textured_mesh_2k: alive masks differ between the card and the CPU")
+    if not bool(img_g.isfinite().all()) or not s_c > 0.0 or not checksum_close(s_g, s_c):
+        fail(f"textured_mesh_2k: checksum {s_g} on the card vs {s_c} on the CPU")
+
+
+def example_checks(kernels) -> dict:
+    """Phase 15b: ``example_puffs`` (Lambert on mesh normals),
+    ``example_circle`` (the flipbook) and ``example_2d`` (the squircle),
+    each 30 frames of :data:`EXAMPLE_SPAWN` spawns through
+    ``step_render_chunk`` at 512x512, card against CPU: masks and seeds
+    equal, every frame's checksum within 0.5%. Returns, by example, the
+    card's last pool, its camera, textures and launches."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch import CompiledEffect, RasterConfig, SimParams, StepInputs
+    from bevy_hanabi_tpu_torch.models import examples, make_anim_sprite_sheet
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+
+    cam = CameraParams(look_at((0, 0, 3), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0), (512, 512))
+    out = {}
+    for name in EXAMPLES:
+        textures = [make_anim_sprite_sheet(8, 32)] if name == "example_circle" else []
+
+        def run(device):
+            fx = CompiledEffect(getattr(examples, name)(), device=device)
+            ins = [StepInputs.make(EXAMPLE_SPAWN, 7 * i + 1) for i in range(30)]
+            sims = [SimParams(time=i * DT, delta_time=DT) for i in range(30)]
+            pool, img, sums = fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims),
+                                                   cam, RasterConfig(width=512, height=512),
+                                                   textures)
+            return fx, pool, img, sums.cpu()
+
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        fx, pool_g, img_g, sums_g = run("cuda")
+        launches = read_launches(kernels)
+        t1 = time.perf_counter()
+        _, pool_c, _, sums_c = run("cpu")
+        t2 = time.perf_counter()
+        (_, alive_g, seed_g, _), (_, alive_c, seed_c, _) = pool_g.to_numpy(), pool_c.to_numpy()
+        print(f"{name}: 30 frames at 512x512, alive {int(alive_c.sum())}, last checksum card "
+              f"{float(sums_g[-1]):.6e} cpu {float(sums_c[-1]):.6e} (card {t1 - t0:.1f} s, cpu "
+              f"{t2 - t1:.1f} s); launches {launches}")
+        if not np.array_equal(alive_g, alive_c) or not np.array_equal(seed_g, seed_c):
+            fail(f"{name}: alive masks or PCG seeds differ between the card and the CPU")
+        if not bool(img_g.isfinite().all()) or not float(sums_c[-1]) > 0.0:
+            fail(f"{name}: the image is not finite or its checksum is not positive")
+        for k, (a, b) in enumerate(zip(sums_g.tolist(), sums_c.tolist())):
+            if not checksum_close(a, b):
+                fail(f"{name} frame {k}: checksum {a} on the card vs {b} on the CPU")
+        out[name] = (fx, pool_g, cam, textures, launches)
+    return out
+
+
+def compare_mesh_expand(draw, mesh, label: str) -> dict:
+    """``mesh_expand`` against its plain version on a frame's draw: every
+    output equal (NaN where it is NaN), both timed. The bound counts the
+    particles' inputs, the mesh's tables and every output once."""
+    import torch
+
+    from bevy_hanabi_tpu_torch.render import mesh as mesh_mod
+
+    tables = mesh_mod.mesh_tables(mesh, draw.position.device)
+    tri = mesh.num_triangles > 0
+    kw = dict(want_uv=mesh.uvs is not None and tri,
+              want_nrm=draw.lighting is not None and mesh.normals is not None and tri,
+              want_vcol=mesh.colors is not None and tri)
+    args = (draw.position.contiguous(), draw.axis_x.contiguous(), draw.axis_y.contiguous(),
+            draw.color.contiguous(), draw.alive, tables)
+    got = mesh_mod.mesh_expand(*args, **kw)
+    want = mesh_mod.mesh_expand_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if (g is None) != (w is None) or (w is not None and not torch_equal_nan(g.float(), w.float())):
+            fail(f"mesh_expand ({label}): {key} differs from the plain version")
+        if w is not None:
+            err = max(err, float((g.float() - w.float()).abs().nan_to_num(0.0).max()))
+    entries = got["position"].shape[0]
+    out_bytes = nbytes(*(t for t in got.values() if t is not None))
+    in_bytes = nbytes(*args[:5], *(t for t in tables[2:] if t is not None))
+    result = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: mesh_mod.mesh_expand(*args, **kw), 50),
+        "plain_ms": cuda_ms(lambda: mesh_mod.mesh_expand_plain(*args, **kw), 5),
+        "library_ms": None,
+        **bound(in_bytes + out_bytes, (MESH_LIT_OPS if kw["want_nrm"] else MESH_OPS) * entries),
+    }
+    print(f"mesh_expand ({label}): {draw.position.shape[0]} particles x {tables.geom.shape[0]} "
+          f"elements = {entries} entries, {out_bytes / entries:.0f} B an entry out, max abs err "
+          f"{err:g}; "
+          f"kernel {result['ms']:.4f} ms, bound {result['bound_ms']:.4f} ms")
+    return result
+
+
+def mesh_frame(kernels, lit: bool):
+    """Phases 15c-d: the textured mesh frame at full width,
+    ``textured_mesh_check_effect(16384)`` with the icosphere and the
+    circle texture (lit per fragment where ``lit``) through
+    ``step_render_chunk`` at ``RasterConfig(512, 512)`` (``tile_slots=0``,
+    span 2), BLEND: warmed three chunks (past its 5 s lifetime), then three
+    timed chunks of K frames (frames/s); every kernel of the path must
+    launch; the last frame rendered again on the CPU (checksums within
+    0.5%); each kernel held against its plain version at the frame's
+    shapes and timed; then a profile of 30 frames."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner, ParticlePool, RasterConfig
+    from bevy_hanabi_tpu_torch.models import make_circle_texture
+    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+    from bevy_hanabi_tpu_torch.render.mesh import expand_mesh_draw
+
+    tag = "mesh,lit" if lit else "mesh"
+    cam, config = mesh_camera(512), RasterConfig(width=512, height=512)
+    fx = CompiledEffect(mesh_asset(MESH_CAPACITY, lit), device="cuda")
+    asset, mesh = fx.asset, fx.asset.mesh
+    textures = [torch.from_numpy(make_circle_texture(32)).cuda()]
+    spawner = EffectSpawner(asset.spawner, rng=np.random.default_rng(0))
+    pool, frame = fx.create_pool(), 0
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pool, _, _ = fx.step_render_chunk(pool, *chunk_inputs(fx, spawner, frame), cam, config,
+                                          textures)
+        frame += K
+    alive_before = int(pool.alive_count())
+    print(f"{tag} warm-up: {frame} frames in {time.perf_counter() - t0:.2f} s, alive {alive_before}")
+    reset_launches(kernels)
+    times = []
+    for _ in range(3):
+        ins, sims = chunk_inputs(fx, spawner, frame)
+        frame += K
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool, img, sums = fx.step_render_chunk(pool, ins, sims, cam, config, textures)
+        alive_after = int(pool.alive_count())  # readback: waits for the chunk
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    launches = read_launches(kernels)
+    alive_mean = 0.5 * (alive_before + alive_after)
+    k = mesh.num_quads + mesh.num_triangles
+    print(f"{tag} chunk times (s): {times}")
+    print(f"{tag} frame {MESH_CAPACITY} x {k} triangles: {K} frames in {best:.4f} s: "
+          f"{K / best:.2f} frames/s, {alive_mean * K / best:.4e} particle-frames/s, "
+          f"{alive_mean * k * K / best:.4e} triangle-frames/s, alive {alive_after} "
+          f"({alive_after * k} triangle entries alive of {MESH_CAPACITY * k}), "
+          f"checksum {float(sums[-1]):.6e}")
+    print(f"launches in the timed chunks: {launches}")
+    require_launches(launches, MESH_KERNELS, f"the {tag} frame")
+    if not bool(img.isfinite().all()) or not float(sums[-1]) > 0.0 or tuple(img.shape) != (512, 512, 4):
+        fail(f"{tag} frame is not finite, not positive or not 512x512x4")
+
+    # the last pool again: by the kernels, and on the CPU through the plain versions
+    def render(p, texs):
+        draw = extract_draw_data(asset, p, cam, textures=texs)
+        return raster.rasterize(expand_mesh_draw(draw, mesh), cam, config, textures=texs), draw
+
+    img_k, draw = render(pool, textures)
+    t0 = time.perf_counter()
+    img_p, _ = render(ParticlePool.from_numpy(*pool.to_numpy(), device="cpu"),
+                      [t.cpu() for t in textures])
+    s_k, s_p = float(img_k.sum()), float(img_p.sum())
+    print(f"{tag} frame re-rendered: card {s_k:.6e} vs cpu plain {s_p:.6e} "
+          f"({time.perf_counter() - t0:.1f} s on the CPU)")
+    if not checksum_close(s_k, s_p):
+        fail(f"{tag} frame checksum {s_k} on the card vs {s_p} on the CPU")
+
+    # every kernel of the path at the frame's shapes
+    T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
+    M = config.max_entries_per_tile
+    results = {f"mesh_expand[{tag}]": compare_mesh_expand(draw, mesh, tag)}
+    expanded = expand_mesh_draw(draw, mesh)
+    ap, columns = raster.draw_appearance(expanded, raster.row_width("blend", False))
+    results[f"project_bin[{tag}]"], projected = compare_project_bin(
+        project_args(expanded, cam, config), nt, f"project_bin ({tag}, triangles)",
+        raster.row_width("blend", False), config=config, appearance=columns)
+    results[f"bin_keys[{tag}]"] = compare_bin_keys(projected, nt, None, f"bin_keys ({tag})")
+    results[f"gather_window[{tag}]"], win = compare_gather_window(projected, nt, M, None, tag)
+    for mode in ("blend",) if lit else ("blend", "premultiply", "multiply"):
+        name = f"tile_blend[{tag}]" if mode == "blend" else f"tile_blend[{mode},{tag}]"
+        results[name], _ = compare_tile_blend(f"{mode} ({tag}, {ap.row}-float rows)", *win, T, ntx,
+                                              nty, config.background, mode, appearance=ap,
+                                              textures=textures)
+    for name, r in results.items():
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+
+    def run(k):
+        nonlocal pool, frame
+        pool, _, _ = fx.step_render_chunk(pool, *chunk_inputs(fx, spawner, frame, k), cam, config,
+                                          textures)
+        frame += k
+        int(pool.alive_count())
+
+    profile_frames(tag, run)
+    return results, launches
+
+
+def example_kernels(example_runs) -> dict:
+    """Phase 15e: ``tile_blend`` on the last frame of ``example_circle``
+    (the flipbook, 11-float rows) and ``example_2d`` (the squircle), each
+    against its plain version, timed."""
+    from bevy_hanabi_tpu_torch import RasterConfig
+    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+
+    config = RasterConfig(width=512, height=512)
+    T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
+    results = {}
+    for name, label in (("example_circle", "flipbook"), ("example_2d", "round")):
+        fx, pool, cam, textures, _ = example_runs[name]
+        texs = [raster.texture_tensor(t, "cuda") for t in textures]
+        draw = extract_draw_data(fx.asset, pool, cam, textures=texs)
+        ap, columns = raster.draw_appearance(draw, raster.ROW_QUAD)
+        projected = raster.project_bin(*project_args(draw, cam, config), row=raster.ROW_QUAD,
+                                       tile_slots=config.tile_slots, tile_span=config.tile_span,
+                                       appearance=columns)
+        _, win = compare_gather_window(projected, nt, config.max_entries_per_tile, None, label)
+        results[f"tile_blend[{label}]"], _ = compare_tile_blend(
+            f"blend ({label}, {ap.row}-float rows)", *win, T, ntx, nty, config.background, "blend",
+            appearance=ap, textures=texs)
+    return results
+
+
+def textured_quad_checks(kernels):
+    """Phase 15f: the textured quads of :data:`TEXTURED_QUADS`, 20 frames
+    each through ``step_render_chunk`` at 256x256, card against CPU (masks
+    equal, every checksum within 0.5%); the appearance variant of the
+    effect's equation must launch. Then ``tile_blend`` on the billboard's
+    last BLEND frame (10-float rows) against its plain version, timed.
+    Returns that row and the billboard's BLEND launches."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch import (AlphaMode, CompiledEffect, ParticleTextureModifier,
+                                       RasterConfig, SimParams, StepInputs)
+    from bevy_hanabi_tpu_torch.models import make_circle_texture, textured_mesh_check_effect
+    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+    from bevy_hanabi_tpu_torch.render.mesh import ParticleMesh
+
+    cam = mesh_camera(256)
+    config = RasterConfig(width=256, height=256, background=(0.9, 0.8, 0.7, 0.5))
+    textures = [make_circle_texture(32)]
+    blend_run = None
+    for mesh, alpha_mode in TEXTURED_QUADS:
+        asset = (textured_mesh_check_effect(2048).render(ParticleTextureModifier(0))
+                 .with_alpha_mode(getattr(AlphaMode, alpha_mode)))
+        if mesh == "cross":
+            asset = asset.with_mesh(ParticleMesh.cross())
+        mode, label = asset.alpha_mode.kind, f"textured {mesh} ({alpha_mode})"
+
+        def run(device):
+            fx = CompiledEffect(asset, device=device)
+            ins = [StepInputs.make(64, 7 * i + 1) for i in range(20)]
+            sims = [SimParams(time=i * DT, delta_time=DT) for i in range(20)]
+            pool, _, sums = fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam,
+                                                 config, textures)
+            return fx, pool, sums.cpu()
+
+        reset_launches(kernels)
+        fx, pool_g, sums_g = run("cuda")
+        launches = read_launches(kernels)
+        _, pool_c, sums_c = run("cpu")
+        print(f"{label}: 20 frames at 256x256, alive {int(pool_c.alive_count())}, last checksum "
+              f"card {float(sums_g[-1]):.6e} cpu {float(sums_c[-1]):.6e}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        require_launches(launches, (f"tile_blend[{mode},appearance]",), label)
+        if not np.array_equal(pool_g.to_numpy()[1], pool_c.to_numpy()[1]):
+            fail(f"{label}: alive masks differ between the card and the CPU")
+        if not float(sums_c[-1]) > 0.0:
+            fail(f"{label}: the checksum is not positive")
+        for k, (a, b) in enumerate(zip(sums_g.tolist(), sums_c.tolist())):
+            if not checksum_close(a, b):
+                fail(f"{label} frame {k}: checksum {a} on the card vs {b} on the CPU")
+        if (mesh, alpha_mode) == ("billboard", "BLEND"):
+            blend_run = fx, pool_g, launches
+
+    fx, pool, launches = blend_run
+    T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
+    texs = [raster.texture_tensor(t, "cuda") for t in textures]
+    draw = extract_draw_data(fx.asset, pool, cam, textures=texs)
+    ap, columns = raster.draw_appearance(draw, raster.ROW_QUAD)
+    projected = raster.project_bin(*project_args(draw, cam, config), row=raster.ROW_QUAD,
+                                   tile_slots=config.tile_slots, tile_span=config.tile_span,
+                                   appearance=columns)
+    _, win = compare_gather_window(projected, nt, config.max_entries_per_tile, None,
+                                   "textured quads")
+    result, _ = compare_tile_blend(f"blend (textured quads, {ap.row}-float rows)", *win, T, ntx,
+                                   nty, config.background, "blend", appearance=ap, textures=texs)
+    return {"tile_blend[textured quads]": result}, launches
+
+
 def main() -> int:
     import torch
 
@@ -1717,10 +2174,11 @@ def main() -> int:
     from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner, RasterConfig, cuda_build
     from bevy_hanabi_tpu_torch.models import gradient_effect
     from bevy_hanabi_tpu_torch.ops import gather
-    from bevy_hanabi_tpu_torch.render import raster, ribbon
+    from bevy_hanabi_tpu_torch.render import mesh, raster, ribbon
     from bevy_hanabi_tpu_torch.runtime import events
 
-    kernels = {**gather.KERNELS, **raster.KERNELS, **events.KERNELS, **ribbon.KERNELS}
+    kernels = {**gather.KERNELS, **raster.KERNELS, **events.KERNELS, **ribbon.KERNELS,
+               **mesh.KERNELS}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1836,9 +2294,21 @@ def main() -> int:
     force_field_gate()
     force_field_full()
 
+    # Phase 15: textured and mesh particles.
+    mesh_gate()
+    example_runs = example_checks(kernels)
+    ms_results, ms_launches = mesh_frame(kernels, lit=False)
+    lit_results, lit_launches = mesh_frame(kernels, lit=True)
+    ex_results = example_kernels(example_runs)
+    tq_results, tq_launches = textured_quad_checks(kernels)
+
     results.update(fw_results)
     results.update(mx_results)
     results.update(rb_results)
+    results.update(ms_results)
+    results.update(lit_results)
+    results.update(ex_results)
+    results.update(tq_results)
     # name, kernel, launches: each row holds one path's launches and its
     # comparison at that path's shapes (the headline's, the firework's,
     # then the mixed scene's, by pipeline)
@@ -1874,6 +2344,26 @@ def main() -> int:
             (f"{name}[{c}]", name, comp_launches[c][name])
             for c in COMPANIONS
             for name in HEADLINE_KERNELS
+        ]
+        + [
+            (f"{name}[{tag}]", name, counts[name])
+            for tag, counts in (("mesh", ms_launches), ("mesh,lit", lit_launches))
+            for name in ("mesh_expand", "project_bin", "bin_keys", "gather_window")
+        ]
+        + [
+            ("tile_blend[mesh]", "tile_blend", ms_launches["tile_blend[blend,appearance]"]),
+            ("tile_blend[mesh,lit]", "tile_blend", lit_launches["tile_blend[blend,appearance]"]),
+            # no main path runs these: the launches of the mesh frames (0)
+            ("tile_blend[premultiply,mesh]", "tile_blend",
+             ms_launches["tile_blend[premultiply]"] + lit_launches["tile_blend[premultiply]"]),
+            ("tile_blend[multiply,mesh]", "tile_blend",
+             ms_launches["tile_blend[multiply]"] + lit_launches["tile_blend[multiply]"]),
+            # the examples' own 30 frames
+            ("tile_blend[flipbook]", "tile_blend",
+             example_runs["example_circle"][4]["tile_blend[blend,appearance]"]),
+            ("tile_blend[round]", "tile_blend",
+             example_runs["example_2d"][4]["tile_blend[blend,appearance]"]),
+            ("tile_blend[textured quads]", "tile_blend", tq_launches["tile_blend[blend,appearance]"]),
         ]
     )
     kernel_rows = [

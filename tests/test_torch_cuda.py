@@ -14,7 +14,11 @@ bit-exact; ``project_bin`` must give equal tiles, depths and depth range
 real windows, exactly (max abs err 0, NaN where the plain version is NaN) on
 the adversarial ones, and its depth plane exactly; the mixed scene card
 against CPU with alive masks and PCG seeds bit for bit and checksums within
-0.5%.
+0.5%. ``mesh_expand``, ``project_bin``'s appearance columns and
+``tile_blend``'s appearance variants exactly (max abs err 0), except a
+round draw's squircle, where the card's ``powf`` and PyTorch's ``pow`` may
+differ in the last ulp: at most 0.2% of its pixels differ and its checksum
+within 0.5%.
 """
 
 import numpy as np
@@ -870,3 +874,306 @@ def test_force_field_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(attrs_g["position"][alive_c], attrs_c["position"][alive_c],
                                rtol=1e-2, atol=1e-3)
     assert 0 < alive_c.sum() < 3000  # the box killed lanes before their lifetime
+
+
+# ---- textured and mesh particles -------------------------------------------
+
+
+def _test_mesh(name):
+    """A stock mesh, or a quad + triangle union with vertex UVs (some
+    outside [0, 1]), normals and colours."""
+    from bevy_hanabi_tpu_torch.render.mesh import ParticleMesh
+
+    if name != "union":
+        return getattr(ParticleMesh, name)()
+    r = np.random.default_rng(4)
+    verts = r.normal(size=(5, 3)).astype(np.float32)
+    normals = r.normal(size=(5, 3)).astype(np.float32)
+    return ParticleMesh([[0.0, 0.0, 0.2], [0.1, 0.0, 0.0]], [[1, 0, 0], [0, 0, 1]], [[0, 1, 0], [0, 1, 0]],
+                        vertices=verts, indices=[[0, 1, 2], [2, 3, 4], [4, 0, 1]],
+                        uvs=r.uniform(-1.5, 2.5, (5, 2)), normals=normals / np.linalg.norm(normals, axis=1)[:, None],
+                        colors=r.uniform(0, 1, (5, 4)))
+
+
+@pytest.mark.parametrize("lit", [False, True])
+@pytest.mark.parametrize("mesh_name", ["cross", "cube", "tetrahedron", "icosphere", "union"])
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 4096])
+def test_mesh_expand_is_bit_exact(cuda, n, mesh_name, lit):
+    """Every output of the kernel equal to the plain version's (max abs err
+    0, NaN where it is NaN; zero-length axes and NaN positions among the
+    particles)."""
+    from bevy_hanabi_tpu_torch.render import mesh as mesh_mod
+
+    m = _test_mesh(mesh_name)
+    _, _, t = _draw(n, cuda, seed=n)
+    if n > 8:
+        t["axis_x"][:4] = 0.0
+        t["position"][4:8] = torch.nan
+    tables = mesh_mod.mesh_tables(m, cuda)
+    tri = m.num_triangles > 0
+    kw = dict(want_uv=m.uvs is not None and tri, want_nrm=lit and m.normals is not None and tri,
+              want_vcol=m.colors is not None and tri)
+    args = (t["position"], t["axis_x"].contiguous(), t["axis_y"].contiguous(), t["color"], t["alive"],
+            tables)
+    before = mesh_mod.mesh_expand.launches
+    got = mesh_mod.mesh_expand(*args, **kw)
+    assert mesh_mod.mesh_expand.launches == before + 1
+    want = mesh_mod.mesh_expand_plain(*args, **kw)
+    for key, w in want.items():
+        g = got[key]
+        assert (g is None) == (w is None), key
+        if w is not None:
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True, msg=key)
+
+
+# appearance columns of the tile_blend / project_bin cases
+APPEARANCE_CASES = {
+    # texture layers and no column: a textured billboard's rows stay 10 (13) floats
+    "textured quads": dict(layers=(("modulate", "circle"),)),
+    "textured triangles": dict(tri=True, uv=True, layers=(("modulate", "circle"),)),
+    "lit triangles": dict(tri=True, uv=True, nrm=True,
+                          layers=(("modulate_rgb", "sheet"), ("modulate_opacity_from_r", "circle"))),
+    "vertex colours": dict(tri=True, vcol=True),
+    "flipbook": dict(sprite=True, grid=(4, 2), layers=(("modulate", "sheet"),)),
+    "round": dict(round=True),
+    "everything": dict(round=True, tri=True, sprite=True, uv=True, nrm=True, vcol=True, grid=(3, 2),
+                       layers=(("modulate", "circle"),)),
+}
+
+
+def _appearance_draw(n, device, case, seed=3):
+    """A random draw with ``case``'s appearance columns (UVs outside
+    [0, 1] and some NaN-padded, negative and large flipbook frames) and its
+    textures (a 32x32 circle and a non-square 8x32 sprite sheet)."""
+    from bevy_hanabi_tpu_torch.models import make_anim_sprite_sheet, make_circle_texture
+    from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData
+
+    spec = APPEARANCE_CASES[case]
+    view, proj, t = _draw(n, device, seed)
+    r = np.random.default_rng(seed)
+
+    def col(*shape, lo=-1.5, hi=2.5):
+        return torch.from_numpy(r.uniform(lo, hi, shape).astype(np.float32)).to(device)
+
+    uv = col(n, 6)
+    uv[: n // 8, 0] = torch.nan
+    textures = {"circle": make_circle_texture(32), "sheet": make_anim_sprite_sheet(4, 8)}
+    names = sorted({name for _, name in spec.get("layers", ())})
+    draw = ParticleDrawData(
+        **t,
+        roundness=col(n, lo=-0.2, hi=1.0) if spec.get("round") else None,
+        tri=(col(n, lo=0, hi=1) > 0.5).to(torch.float32) if spec.get("tri") else None,
+        sprite_index=torch.from_numpy(r.integers(-9, 40, n).astype(np.int32)).to(device)
+        if spec.get("sprite") else None,
+        sprite_grid_size=spec.get("grid", (1, 1)),
+        texture_layers=tuple((names.index(name), mapping) for mapping, name in spec.get("layers", ())),
+        uv_abc=uv if spec.get("uv") else None,
+        nrm_abc=col(n, 9) if spec.get("nrm") else None,
+        vcol_abc=col(n, 12, lo=0, hi=1) if spec.get("vcol") else None,
+        lighting=((0.577, 0.577, 0.577), 0.3) if spec.get("nrm") else None,
+    )
+    texs = [torch.from_numpy(textures[name]).to(device) for name in names]
+    return view, proj, draw, texs
+
+
+@pytest.mark.parametrize("base", [raster.ROW_QUAD, raster.ROW])
+@pytest.mark.parametrize("slots,span", [(1, 2), (2, 2), (0, 2), (0, 3)])
+@pytest.mark.parametrize("case", list(APPEARANCE_CASES))
+def test_project_bin_appearance_columns_match_plain(cuda, case, slots, span, base):
+    """The appearance columns appended in JAX's order and the triangles'
+    halved radii: tiles, depths and range equal, rows exact."""
+    view, proj, draw, _ = _appearance_draw(5000, cuda, case)
+    cfg = raster.RasterConfig(128, 128, tile_slots=slots, tile_span=span)
+    ap, inputs = raster.draw_appearance(draw, base)
+    args = (draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color, view, proj, (128, 128),
+            cfg.tile_size, cfg.tiles_x, cfg.tiles_y)
+    extra = torch.rand((5000, 2), device=cuda) if base == raster.ROW else None
+    kw = dict(extra=extra, row=base, tile_slots=slots, tile_span=span, appearance=inputs)
+    got = raster.project_bin(*args, **kw)
+    want = raster.project_bin_plain(*args, **kw)
+    assert got[2].shape == (5000, ap.row)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("from_start", [False, True])
+@pytest.mark.parametrize("F", [11, 17, 20, 26, 43])  # flipbook / round, textured mesh, lit, all
+def test_gather_window_at_appearance_widths_is_bit_exact(cuda, F, from_start):
+    rows, pidx, starts, ends = _window_entries(1024, 64, F, torch.int64, seed=F)
+    args = (rows.to(cuda), pidx.to(cuda), starts.to(cuda), ends.to(cuda), 64, from_start)
+    got = gather.gather_window(*args)
+    want = gather.gather_window_plain(*args)
+    assert torch.equal(got[1], want[1]) and _bits_equal(got[0], want[0])
+
+
+# (mode, depth_test, write_depth)
+APPEARANCE_VARIANTS = [("blend", False, False), ("premultiply", False, False), ("add", False, False),
+                       ("multiply", False, False), ("blend", True, False), ("opaque", True, True),
+                       ("mask", True, True), ("multiply", True, False)]
+
+
+def _appearance_window(cuda, case, mode, depth_test, seed=3):
+    view, proj, draw, texs = _appearance_draw(6000, cuda, case, seed)
+    cfg = raster.RasterConfig(128, 128, tile_slots=0)
+    row = raster.row_width(mode, depth_test)
+    ap, inputs = raster.draw_appearance(draw, row)
+    extra = None
+    if row == raster.ROW:
+        extra = torch.stack([torch.rand(6000, device=cuda), torch.zeros(6000, device=cuda)], dim=1)
+    projected = raster.project_bin(draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color,
+                                   view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y,
+                                   extra=extra, row=row, tile_slots=0, appearance=inputs)
+    fmode = raster.fast_mode(cfg, mode, projected[0].shape[0])
+    pidx_sorted, starts, ends = raster.sort_tiles(projected[0], projected[1], cfg.num_tiles, fmode,
+                                                  projected[3])
+    window, has = gather.gather_window(projected[2], pidx_sorted, starts, ends, 64,
+                                       from_start=fmode is not None)
+    return cfg, ap, texs, window, has
+
+
+@pytest.mark.parametrize("mode,depth_test,write_depth", APPEARANCE_VARIANTS)
+@pytest.mark.parametrize("case", list(APPEARANCE_CASES))
+def test_tile_blend_appearance_variants_match_plain(cuda, case, mode, depth_test, write_depth):
+    """Each appearance variant against the plain version on a real window:
+    exact (max abs err 0, depth planes equal), except the squircle, whose
+    powf may differ from PyTorch's pow in the last ulp: there at most 0.2%
+    of the pixels differ and the checksums agree within 0.5%."""
+    cfg, ap, texs, window, has = _appearance_window(cuda, case, mode, depth_test)
+    nt, T = cfg.num_tiles, cfg.tile_size
+    kw = dict(depth_test=depth_test, write_depth=write_depth, appearance=ap, textures=texs)
+    if depth_test:
+        kw["scene_depth"] = torch.rand((nt, T, T), device=cuda) * 8.0
+    fb0 = torch.rand((nt, T, T, 4), device=cuda)
+    before = dict(raster.tile_blend.launches_appearance)
+    got = raster.tile_blend(window, has, T, cfg.tiles_x, cfg.tiles_y, (0.0, 0.0, 0.0, 0.0), mode,
+                            framebuffer=fb0, **kw)
+    assert raster.tile_blend.launches_appearance[mode] == before[mode] + 1
+    want = raster.tile_blend_plain(window, has, T, cfg.tiles_x, cfg.tiles_y, (0.0, 0.0, 0.0, 0.0),
+                                   mode, framebuffer=fb0, **kw)
+    (fb_g, d_g), (fb_p, d_p) = (got, want) if write_depth else ((got, None), (want, None))
+    changed = int(((fb_p - fb0).abs() > 0).any(-1).sum())
+    assert changed > 0
+    if ap.offset("roundness") >= 0:
+        differ = int(((fb_g - fb_p).abs() > 0).any(-1).sum())
+        assert differ <= 0.002 * nt * T * T
+        assert abs(float(fb_g.sum()) - float(fb_p.sum())) <= 0.005 * abs(float(fb_p.sum()))
+    else:
+        torch.testing.assert_close(fb_g, fb_p, rtol=0, atol=0, equal_nan=True)
+        if write_depth:
+            assert torch.equal(d_g, d_p)
+
+
+@pytest.mark.parametrize("mode", ["premultiply", "multiply", "multiply first", "multiply ordered"])
+def test_premultiply_and_multiply_quads_match_plain(cuda, mode):
+    """The standalone premultiply and multiply equations (multiply on each
+    fast path and the ordered one) without appearance: the card's image
+    against the CPU's plain path within 1e-5 (the sort's ties)."""
+    from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData
+
+    alpha_mode, _, variant = mode.partition(" ")
+    extra = {"first": dict(overflow_policy="first"), "ordered": dict(order_independent_fast=False)}
+    cfg = RasterConfig(128, 128, background=(0.9, 0.8, 0.7, 0.5), **extra.get(variant, {}))
+    view, proj, t = _draw(8192, "cpu", seed=11)
+    cam = CameraParams(view, proj, (128, 128))
+    images = [raster.rasterize(ParticleDrawData(**{k: v.to(d) for k, v in t.items()}), cam, cfg,
+                               alpha_mode).cpu() for d in (cuda, "cpu")]
+    torch.testing.assert_close(images[0], images[1], rtol=0, atol=1e-5)
+
+
+def _mesh_gate(device, capacity=2048, frames=3):
+    """The JAX package's textured_mesh_2k check (bench.py:295-327)."""
+    from bevy_hanabi_tpu_torch import ParticleTextureModifier
+    from bevy_hanabi_tpu_torch.models import make_circle_texture, textured_mesh_check_effect
+    from bevy_hanabi_tpu_torch.render.mesh import ParticleMesh
+
+    s = HanabiScene(seed=5, device=device)
+    asset = (textured_mesh_check_effect(capacity).render(ParticleTextureModifier(0))
+             .with_mesh(ParticleMesh.icosphere(0.4, 1)))
+    s.add(asset, "mesh", textures=[make_circle_texture(32)])
+    for _ in range(frames):
+        s.update(1 / 60.0)
+    cam = CameraParams(look_at((0, 0, 6), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0), (128, 128))
+    return s, s.render(cam, RasterConfig(128, 128))
+
+
+def test_textured_mesh_gate_on_the_card_matches_the_cpu(cuda):
+    (s_g, img_g), (s_c, img_c) = _mesh_gate(cuda), _mesh_gate("cpu")
+    np.testing.assert_array_equal(s_g["mesh"].pool.to_numpy()[1], s_c["mesh"].pool.to_numpy()[1])
+    assert torch.isfinite(img_g).all() and float(img_c.sum()) > 0
+    assert abs(float(img_g.sum()) - float(img_c.sum())) <= 0.005 * float(img_c.sum())
+
+
+@pytest.mark.parametrize("alpha_mode", ["BLEND", "ADD", "PREMULTIPLY", "MULTIPLY"])
+@pytest.mark.parametrize("mesh", ["billboard", "cross"])
+def test_textured_quads_on_the_card_match_the_cpu(cuda, mesh, alpha_mode):
+    """A textured billboard (texture layers and no appearance column, so
+    its rows are the 10 quad floats) and a textured quad-only mesh
+    (ParticleMesh.cross(): no triangle, so no UV column), 20 frames through
+    step_render_chunk, card against CPU: masks equal, every frame's
+    checksum within 0.5%; then the card's last pool through rasterize on
+    both devices, within 1e-5 (the sort's ties)."""
+    from bevy_hanabi_tpu_torch import AlphaMode, ParticlePool, ParticleTextureModifier
+    from bevy_hanabi_tpu_torch.models import make_circle_texture, textured_mesh_check_effect
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+    from bevy_hanabi_tpu_torch.render.mesh import ParticleMesh, expand_mesh_draw
+
+    asset = (textured_mesh_check_effect(2048).render(ParticleTextureModifier(0))
+             .with_alpha_mode(getattr(AlphaMode, alpha_mode)))
+    if mesh == "cross":
+        asset = asset.with_mesh(ParticleMesh.cross())
+    textures = [make_circle_texture(32)]
+    cam = CameraParams(look_at((0, 0, 6), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0), (128, 128))
+    cfg = RasterConfig(128, 128, background=(0.9, 0.8, 0.7, 0.5))  # not black: multiply shows
+    mode = asset.alpha_mode.kind
+
+    def run(device):
+        fx = CompiledEffect(asset, device=device)
+        ins = [StepInputs.make(64, 7 * i + 1) for i in range(20)]
+        sims = [SimParams(time=i / 60.0, delta_time=1 / 60.0) for i in range(20)]
+        return fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam, cfg,
+                                    textures)
+
+    before = raster.tile_blend.launches_appearance[mode]
+    pool_g, _, sums_g = run(cuda)
+    assert raster.tile_blend.launches_appearance[mode] > before
+    pool_c, _, sums_c = run("cpu")
+    np.testing.assert_array_equal(pool_g.to_numpy()[1], pool_c.to_numpy()[1])
+    assert float(sums_c[-1]) > 0
+    for a, b in zip(sums_g.cpu().tolist(), sums_c.tolist()):
+        assert abs(a - b) <= 0.005 * max(abs(b), 1.0)
+
+    images = []
+    for device in (cuda, "cpu"):
+        pool = ParticlePool.from_numpy(*pool_g.to_numpy(), device=device)
+        texs = [torch.from_numpy(t).to(device) for t in textures]
+        draw = extract_draw_data(asset, pool, cam, textures=texs)
+        if asset.mesh is not None:
+            draw = expand_mesh_draw(draw, asset.mesh)
+        images.append(raster.rasterize(draw, cam, cfg, mode, textures=texs).cpu())
+    assert float(images[1].sum()) > 0
+    torch.testing.assert_close(images[0], images[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("example", ["example_puffs", "example_circle", "example_2d"])
+def test_examples_on_the_card_match_the_cpu(cuda, example):
+    """30 frames through step_render_chunk: masks and seeds equal, every
+    frame's checksum within 0.5%."""
+    from bevy_hanabi_tpu_torch.models import examples, make_anim_sprite_sheet
+
+    textures = [make_anim_sprite_sheet(8, 16)] if example == "example_circle" else []
+    cam = CameraParams(look_at((0, 0, 3), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0), (128, 128))
+
+    def run(device):
+        fx = CompiledEffect(getattr(examples, example)(), device=device)
+        ins = [StepInputs.make(32, 7 * i + 1) for i in range(30)]
+        sims = [SimParams(time=i / 60.0, delta_time=1 / 60.0) for i in range(30)]
+        return fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam,
+                                    RasterConfig(128, 128), textures)
+
+    (pool_g, _, sums_g), (pool_c, _, sums_c) = run(cuda), run("cpu")
+    np.testing.assert_array_equal(pool_g.to_numpy()[1], pool_c.to_numpy()[1])
+    np.testing.assert_array_equal(pool_g.to_numpy()[2], pool_c.to_numpy()[2])
+    assert float(sums_c[-1]) > 0
+    for a, b in zip(sums_g.cpu().tolist(), sums_c.tolist()):
+        assert abs(a - b) <= 0.005 * max(abs(b), 1.0)

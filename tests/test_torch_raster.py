@@ -294,9 +294,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 @pytest.mark.parametrize(
     "kwargs,config",
     [
-        ({"alpha_mode": "multiply"}, dict(tile_slots=1)),
         ({}, dict(tile_slots=1, antialias=True)),
-        ({"alpha_mode": "premultiply"}, dict(tile_slots=1)),
         ({"y_offset": 4.0}, dict(tile_slots=1)),
     ],
 )

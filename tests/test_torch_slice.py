@@ -183,7 +183,8 @@ def test_port_imports_without_jax():
         "import bevy_hanabi_tpu_torch, bevy_hanabi_tpu_torch.models\n"
         "import bevy_hanabi_tpu_torch.render.raster, bevy_hanabi_tpu_torch.cuda_build\n"
         "import bevy_hanabi_tpu_torch.runtime.scene, bevy_hanabi_tpu_torch.render.renderer\n"
-        "import bevy_hanabi_tpu_torch.render.ribbon\n"
+        "import bevy_hanabi_tpu_torch.render.ribbon, bevy_hanabi_tpu_torch.render.mesh\n"
+        "import bevy_hanabi_tpu_torch.models.examples, bevy_hanabi_tpu_torch.models.texutils\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
