@@ -91,23 +91,100 @@
 // reaches a pixel it does not cover. The det clamp that is not
 // sign-preserving (raster.py:629-630) is kept.
 //
-// Appearance (the kAppear variants, for a draw with any appearance column
+// Appearance (the appearance kernel, for a draw with any appearance column
 // or texture layer). The row holds, after its 10 or 13 floats, the draw's
 // appearance columns in JAX's order (roundness, tri, sprite, uv (6), nrm
 // (9), vcol (12)), each present or absent for the whole call; a per-call
 // descriptor (Appearance) gives each column's offset, or -1, the flipbook
 // grid, the Lambert parameters and up to kMaxLayers texture layers (pointer,
 // size, mapping). Every field is uniform across the grid, so each of its
-// branches is uniform across a warp. Per covered pixel, in JAX's op order:
-// * Triangle test. A triangle entry keeps the reference's divisions,
-//   u = num_u / det and v = num_v / det, and its test u >= -0.5, v >= -0.5,
-//   fl(u) + fl(v) <= 0 in float (fl(u) + fl(v) is not (num_u + num_v) /
-//   det). The warp-block cull stays valid for it: a pixel the triangle
-//   covers has |fl(u)|, |fl(v)| <= 0.5 <= 1 (u >= -0.5 and v >= -0.5 with
-//   u + v <= 0 bound each by 0.5 above), so the quad bound, which culls only
-//   pairs with |fl(u)| > 1 or |fl(v)| > 1 at every pixel of the block,
-//   never culls it. A quad entry takes the division-free test, then the two
-//   divisions for its UVs.
+// branches is uniform across a warp; the layer loop is unrolled, so each
+// layer's fields are read from the parameter bank at constant offsets and
+// the descriptor never goes to local memory. What a covered pair costs is
+// instructions (~8 covered pairs a pixel on the mesh frame: divisions,
+// Lambert's square root and divisions, per layer the wrap and four texel
+// loads), so the design cuts the instructions a pair and the idle lanes:
+// 1. Per entry, once per CTA (the per-entry pass): besides the det and the
+//    test, the triangle flag, the differences B - A and C - A of every
+//    barycentric attribute (UVs, normals, vertex colours), written over B
+//    and C in the tile's shared rows, and the flipbook cell of the sprite.
+//    bary() computes A + s (B - A) + t (C - A) per pair as JAX does, so the
+//    difference computed once rounds as the one computed per pair.
+// 2. Warp culling as for quads, with a triangle-tight bound for triangle
+//    entries (below): a triangle covers u >= -1/2, v >= -1/2, u + v <= 0,
+//    an eighth of the quad bound's |u|, |v| <= 1.
+// 3. Coverage, per lane, for each surviving entry: the quad test as for
+//    quads; a triangle's half-planes decided without dividing where that is
+//    exact (below), the two divisions and the reference's test only where it
+//    is not. With a depth test that writes no depth the test joins coverage
+//    (it is then pure); with depth writes it waits for the blend.
+// 4. Compaction: the warp's covered (entry, pixel) pairs go, by
+//    __ballot_sync and a prefix __popc, into a per-warp buffer of kPairs
+//    pairs in shared memory (entry, lane; the entry's coverage mask once).
+//    A pair's source colour is a pure function of (entry, pixel), so when
+//    the buffer would overflow, and after the last run, the warp shades the
+//    buffered pairs 32 at a time with every lane busy (the divisions for u,
+//    v, the squircle, vertex colours, Lambert, the UVs, the texture layers),
+//    each lane the pixel of another through __shfl_sync, writes each
+//    pair's colour (or a squircle discard) to shared memory, and then each
+//    lane blends its own pixel's pairs in ascending entry order: the depth
+//    test against the running plane where depth is written, then the
+//    equation. Blend order and every float op of a pair are the reference's.
+//    Only a draw with the squircle takes this path: there each covered pair
+//    pays two powf, and compacting them measured faster than shading them
+//    on the covering lane; for every other draw the buffer's shared-memory
+//    round trips and its registers cost more than the idle lanes they save
+//    (PERF.md, Findings), so each covered pair is shaded on its own lane inside
+//    the entry loop.
+// 5. Wrap addressing (_bilinear_wrap's jnp.mod of floor(u tw - 1/2) by tw)
+//    without fmodf where it is exact (below).
+//
+// Why the new tests are the reference's, pair for pair (finite det, so
+// D = |det| >= 1e-9 is normal; sg = sign(det); x_u = sg num_u and x_v =
+// sg num_v, exact negations, so fl(u) = fl(x_u / D) and fl(v) = fl(x_v / D)):
+// * u >= -1/2 exactly when x_u >= -D/2 (D/2 is exact). If x_u >= -D/2 then
+//   x_u / D >= -1/2 and fl is monotone. If x_u < -D/2, both floats, then
+//   |x_u| >= D/2 + ulp(D/2), ulp(D/2) / (D/2) > 2^-24, so x_u / D lies
+//   below -1/2 (1 + 2^-24), the rounding midpoint below -1/2, and fl(u) <
+//   -1/2. A NaN x_u fails as the reference's NaN u; an infinite one passes
+//   or fails as the reference's infinite u. The same for v.
+// * fl(u) + fl(v) <= 0: the float sum of two floats is positive exactly when
+//   their exact sum is (subnormals are kept). fl(u) + fl(v) >= (x_u + x_v) /
+//   D - 2^-24 (|x_u| + |x_v|) / D - 2^-149 (the divisions' roundings, an
+//   absolute 2^-150 each where subnormal). The lane's float sum fl(x_u +
+//   x_v) is within 2^-24 |x_u + x_v| of the exact one, so fl(x_u + x_v) >
+//   2^-20 (|x_u| + |x_v|) + 2^-60 D (each side rounded once more) proves
+//   fl(u) + fl(v) > 0: uncovered, with no division. Any other lane,
+//   including a NaN or infinite x, takes the divisions and the reference's
+//   test verbatim; covered lanes need u and v for the shading anyway.
+// * Triangle warp block. With the header's notation, sg N_u = sg (a2y (px -
+//   cx) - a2x (py - cy)) and sg N_v are affine in the pixel, and so is sg
+//   (N_u + N_v) = sg ((a2y - a1y)(px - cx) + (a1x - a2x)(py - cy)); their
+//   extremes over the block are at its corners, evaluated in double. The
+//   float numerators are within gamma_3 S of them (S <= S_u resp. S_v as
+//   above). So, m = 2^-20 (four times the needed margin, covering the
+//   double's own rounding and the subnormal terms, as |det| >= 1e-9):
+//   max sg N_u < -(D/2 (1 + m) + m S_u) gives fl(u) < -1/2 at every pixel,
+//   min sg N_u > D/2 (1 + m) + m S_u gives fl(u) > 1/2, which with fl(v) >=
+//   -1/2 makes fl(u) + fl(v) > 0, the same for v, and min sg (N_u + N_v) >
+//   m (D + S_u + S_v) gives x_u + x_v > 2^-24 (|x_u| + |x_v|) + 2^-148 D
+//   hence fl(u) + fl(v) > 0 at every pixel. Any of the five culls the
+//   block. As for quads, only entries with a finite det that was not
+//   clamped and finite quad columns are culled; quad entries keep the quad
+//   bound.
+// * Wrap. u0 = floor(u tw - 1/2) is an integer-valued float or NaN/inf, and
+//   jnp.mod(u0, tw) is C's fmodf with the sign fixed, exact. For tw <= 2^22
+//   and u0 in [-tw, 2 tw), |u0| < 2^23: u0 + tw, u0 - tw and u0 + 1 are
+//   exact, so the index is u0 + tw, u0 - tw or u0 by two compares (fmodf(-tw,
+//   tw) is -0, index 0 all the same), and jnp.mod(u0 + 1, tw) is that index
+//   plus one, wrapped at tw. Everything else, NaN included (which converts
+//   to index 0), takes fmodf as before. The flipbook cell is once per entry,
+//   a sprite in [0, cols) its own column in row 0 without fmodf.
+// Per covered pixel, in JAX's op order:
+// * Triangle test: u = num_u / det and v = num_v / det, u >= -0.5, v >=
+//   -0.5, fl(u) + fl(v) <= 0 in float (fl(u) + fl(v) is not (num_u + num_v) /
+//   det). A quad entry: the division-free test, then the two divisions for
+//   its UVs.
 // * Squircle: |1 - 2u'|^n + |1 - 2v'|^n <= 1 (u' = u/2 + 1/2, n = 2 /
 //   max(roundness, 1e-6); powf, which may differ from XLA's pow in the last
 //   ulp, so a pixel on the squircle's edge may flip), skipped for triangles
@@ -128,9 +205,9 @@
 //   fractions, four taps at floored-mod indices, two lerps; then modulate,
 //   modulate_rgb or modulate_opacity_from_r.
 //
-// Variants: the equation, the two depth flags and kAppear are template
-// parameters, so each variant reads only the columns it uses; without
-// appearance, from rows of its own width (RowWidth):
+// Variants: the equation and the two depth flags are template parameters of
+// both kernels, so each variant reads only the columns it uses; the quad
+// kernel from rows of its own width (RowWidth):
 // * kDepth: the test frag_d <= dbuf (LessEqual). dbuf starts as the scene
 //   depth; with kWrite it is the running plane, which opaque and mask
 //   writes (and the painter's opaque and mask entries) move forward
@@ -157,6 +234,14 @@ constexpr int kMaxLayers = 4;            // texture layers of one call
 // an entry's test (shared memory): no real entry; the reference's
 // divisions; the comparisons; the comparisons after the warp-block bound
 constexpr uint8_t kSkip = 0, kDivide = 1, kCompare = 2, kCullable = 3;
+// the appearance kernel's test byte: the kind above, and a triangle entry's bit
+constexpr uint8_t kKindBits = 3, kTri = 4;
+
+// a warp's buffer of covered (entry, pixel) pairs in the appearance kernel:
+// at least a run's 32, a multiple of 4 (the rows after it stay 16-byte
+// aligned); 32 and 128 measured no faster (PERF.md, Findings)
+constexpr int kPairs = 64;
+static_assert(kPairs >= 32 && kPairs % 4 == 0);
 
 enum Eq { kBlend = 0, kAdd = 1, kOpaque = 2, kMask = 3, kScene = 4, kPremultiply = 5,
           kMultiply = 6 };
@@ -270,161 +355,81 @@ __device__ __forceinline__ void equation(float4 s, const float* __restrict__ r, 
   }
 }
 
-// jnp.mod of floats: the remainder with the sign of the divisor
-__device__ __forceinline__ float floor_mod(float x, float y) {
-  float m = fmodf(x, y);
-  if (m != 0.0f && ((m < 0.0f) != (y < 0.0f))) m += y;
-  return m;
-}
-
-// jnp.floor_divide of floats (jax's _float_divmod): (x - fmod(x, y)) / y,
-// less one where the remainder's sign differs from y's, rounded
-__device__ __forceinline__ float floor_div(float x, float y) {
-  const float m = fmodf(x, y);
-  float q = (x - m) / y;
-  if (m != 0.0f && ((m < 0.0f) != (y < 0.0f))) q -= 1.0f;
-  return roundf(q);
-}
-
-// A + s (B - A) + t (C - A) (raster.py:706-716)
-__device__ __forceinline__ float bary(float va, float vb, float vc, float s, float t) {
-  return va + s * (vb - va) + t * (vc - va);
-}
-
-__device__ __forceinline__ float4 lerp4(float4 a, float4 b, float f) {
-  return make_float4(a.x + (b.x - a.x) * f, a.y + (b.y - a.y) * f, a.z + (b.z - a.z) * f,
-                     a.w + (b.w - a.w) * f);
-}
-
-// _bilinear_wrap (raster.py:121-146) on a [th, tw, 4] texture
-__device__ __forceinline__ float4 sample(const float4* __restrict__ tex, int tw, int th, float u,
-                                         float v) {
-  const float twf = (float)tw, thf = (float)th;
-  const float uu = u * twf - 0.5f, vv = v * thf - 0.5f;
-  const float u0 = floorf(uu), v0 = floorf(vv);
-  const float fu = uu - u0, fv = vv - v0;
-  // in [0, tw) and [0, th); a NaN converts to 0, as XLA's saturating cast
-  const int u0i = (int)floor_mod(u0, twf), v0i = (int)floor_mod(v0, thf);
-  const int u1i = (int)floor_mod(u0 + 1.0f, twf), v1i = (int)floor_mod(v0 + 1.0f, thf);
-  const float4 t00 = __ldg(tex + v0i * tw + u0i), t01 = __ldg(tex + v0i * tw + u1i);
-  const float4 t10 = __ldg(tex + v1i * tw + u0i), t11 = __ldg(tex + v1i * tw + u1i);
-  return lerp4(lerp4(t00, t01, fu), lerp4(t10, t11, fu), fv);
-}
-
 // One entry into one pixel: the reference's coverage test (the comparisons,
-// or the divisions where `divide`; with kAppear a triangle entry's own test),
-// depth test, with kAppear the call's appearance (the header: the squircle,
-// then the source colour by vertex colours, Lambert and texture layers), and
-// the equation. Returns without touching the pixel where the entry does not
-// cover it. Without kAppear it reads only the row's first 10 or 13 floats.
-template <int kEq, bool kDepth, bool kWrite, bool kAppear>
+// or the divisions where `divide`), depth test and equation. Returns without
+// touching the pixel where the entry does not cover it. Reads only the row's
+// first 10 or 13 floats.
+template <int kEq, bool kDepth, bool kWrite>
 __device__ __forceinline__ void blend_entry(const float* __restrict__ r, float det, bool divide,
-                                            float px, float py, float4& d, float& dbuf,
-                                            const Appearance& ap) {
+                                            float px, float py, float4& d, float& dbuf) {
   const float dx = px - r[0];
   const float dy = py - r[1];
   const float a1x = r[2], a1y = r[3], a2x = r[4], a2y = r[5];
   const float nu = a2y * dx - a2x * dy;
   const float nv = -a1y * dx + a1x * dy;
-  bool is_tri = false;
-  if constexpr (kAppear) is_tri = ap.o_tri >= 0 && r[ap.o_tri] > 0.5f;
-  float u = 0.0f, v = 0.0f;
-  if (is_tri) {
-    u = nu / det;
-    v = nv / det;
-    if (!(u >= -0.5f && v >= -0.5f && u + v <= 0.0f)) return;
-  } else if (divide) {
-    u = nu / det;
-    v = nv / det;
+  if (divide) {
+    const float u = nu / det;
+    const float v = nv / det;
     if (!(fabsf(u) <= 1.0f && fabsf(v) <= 1.0f)) return;
   } else {
     const float ad = fabsf(det);
     if (!(fabsf(nu) <= ad && fabsf(nv) <= ad)) return;  // |u|, |v| <= 1, exactly
-    if constexpr (kAppear) {
-      u = nu / det;
-      v = nv / det;
-    }
   }
   float frag_d = 0.0f;
   if (kDepth) {
     frag_d = r[kColDepth];
     if (!(frag_d <= dbuf)) return;
   }
-  float4 s = make_float4(r[6], r[7], r[8], r[9]);
-  if constexpr (kAppear) {
-    const float u01 = u * 0.5f + 0.5f, v01 = v * 0.5f + 0.5f;
-    if (ap.o_round >= 0 && !is_tri) {  // raster.py:690-700
-      const float rnd = r[ap.o_round];
-      if (!(rnd <= 0.0f)) {
-        const float nexp = 2.0f / at_least(rnd, 1e-6f);
-        const float sq =
-            powf(fabsf(1.0f - 2.0f * u01), nexp) + powf(fabsf(1.0f - 2.0f * v01), nexp);
-        if (!(sq <= 1.0f)) return;
-      }
-    }
-    const float bs = u + 0.5f, bt = v + 0.5f;
-    if (ap.o_vcol >= 0) {  // raster.py:719-722
-      const float* c = r + ap.o_vcol;
-      s.x = s.x * bary(c[0], c[4], c[8], bs, bt);
-      s.y = s.y * bary(c[1], c[5], c[9], bs, bt);
-      s.z = s.z * bary(c[2], c[6], c[10], bs, bt);
-      s.w = s.w * bary(c[3], c[7], c[11], bs, bt);
-    }
-    if (ap.lit) {  // raster.py:723-740
-      const float* nr = r + ap.o_nrm;
-      float n0 = bary(nr[0], nr[3], nr[6], bs, bt);
-      float n1 = bary(nr[1], nr[4], nr[7], bs, bt);
-      float n2 = bary(nr[2], nr[5], nr[8], bs, bt);
-      const float len = at_least(sqrtf(n0 * n0 + n1 * n1 + n2 * n2), 1e-9f);
-      n0 = n0 / len;
-      n1 = n1 / len;
-      n2 = n2 / len;
-      const float ndotl = n0 * ap.lx + n1 * ap.ly + n2 * ap.lz;
-      const float shade = at_most(at_least(ndotl, ap.band), 1.0f);
-      s.x = s.x * shade;
-      s.y = s.y * shade;
-      s.z = s.z * shade;
-    }
-    if (ap.layers) {  // raster.py:741-776
-      float tu = u01, tv = v01;
-      if (is_tri && ap.o_uv >= 0 && isfinite(r[ap.o_uv])) {
-        const float* w = r + ap.o_uv;
-        tu = bary(w[0], w[2], w[4], bs, bt);
-        tv = bary(w[1], w[3], w[5], bs, bt);
-      }
-      if (ap.grid_c != 1 || ap.grid_r != 1) {
-        const float sprite = (float)(int)r[ap.o_sprite];  // the row's f32, astype(int32)
-        const float gc = (float)ap.grid_c;
-        // XLA compiles JAX's division by the grid constant into a product with
-        // its f32 reciprocal
-        tu = (tu + floor_mod(sprite, gc)) * (1.0f / gc);
-        tv = (tv + floor_div(sprite, gc)) * (1.0f / (float)ap.grid_r);
-      }
-      for (int l = 0; l < ap.layers; ++l) {
-        const float4 t = sample(ap.tex[l], ap.tw[l], ap.th[l], tu, tv);
-        if (ap.map[l] == kModulate) {
-          s = make_float4(s.x * t.x, s.y * t.y, s.z * t.z, s.w * t.w);
-        } else if (ap.map[l] == kModulateRgb) {
-          s = make_float4(s.x * t.x, s.y * t.y, s.z * t.z, s.w);
-        } else {
-          s.w = s.w * t.x;
-        }
-      }
-    }
-  }
-  equation<kEq, kWrite>(s, r, frag_d, d, dbuf);
+  equation<kEq, kWrite>(make_float4(r[6], r[7], r[8], r[9]), r, frag_d, d, dbuf);
 }
 
-template <int kEq, bool kDepth, bool kWrite, bool kAppear>
+// the thread's pixel inside the tile: a warp's 8x4 block where T is a
+// multiple of 8, else row-major (a padding lane repeats the last pixel)
+__device__ __forceinline__ void pixel_of(int t, int T, int& pi, int& pj) {
+  const int lane = t & 31, warp = t >> 5;
+  if (T % kBlockW == 0) {
+    const int per_row = T / kBlockW;
+    pi = (warp / per_row) * kBlockH + lane / kBlockW;
+    pj = (warp % per_row) * kBlockW + lane % kBlockW;
+  } else {
+    const int lin = t < T * T ? t : T * T - 1;
+    pi = lin / T;
+    pj = lin - pi * T;
+  }
+}
+
+// the pixel-centre bounds of the warp's block
+__device__ __forceinline__ void warp_block(float px, float py, float& x0, float& x1, float& y0,
+                                           float& y1) {
+  x0 = x1 = px;
+  y0 = y1 = py;
+  for (int o = 16; o > 0; o >>= 1) {
+    x0 = fminf(x0, __shfl_xor_sync(0xffffffffu, x0, o));
+    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, o));
+    y0 = fminf(y0, __shfl_xor_sync(0xffffffffu, y0, o));
+    y1 = fmaxf(y1, __shfl_xor_sync(0xffffffffu, y1, o));
+  }
+}
+
+// the clamped det and the entry's test (the header's step 1)
+__device__ __forceinline__ uint8_t entry_test(const float* r, bool has, float& det) {
+  det = r[2] * r[5] - r[3] * r[4];
+  const bool clamped = fabsf(det) < 1e-9f;
+  det = clamped ? 1e-9f : det;
+  bool finite = true;
+  for (int c = 0; c < 6; ++c) finite = finite && isfinite(r[c]);
+  return !has ? kSkip : !isfinite(det) ? kDivide : (finite && !clamped) ? kCullable : kCompare;
+}
+
+template <int kEq, bool kDepth, bool kWrite>
 __global__ void tile_blend_kernel(const float* __restrict__ window,
                                   const uint8_t* __restrict__ has,
                                   const float4* __restrict__ fb_in,
                                   const float* __restrict__ depth_in,
                                   float4* __restrict__ fb,
                                   float* __restrict__ depth_out,
-                                  int M, int T, int ntx, int vec, float4 background,
-                                  Appearance ap) {
-  const int kRow = kAppear ? ap.row : RowWidth<kEq, kDepth>::value;
+                                  int M, int T, int ntx, int vec, float4 background) {
+  constexpr int kRow = RowWidth<kEq, kDepth>::value;
   extern __shared__ __align__(16) float smem[];
   const int row_floats = (M * kRow + 3) & ~3;
   float* rows = smem;                                           // [M, kRow]
@@ -432,20 +437,12 @@ __global__ void tile_blend_kernel(const float* __restrict__ window,
   uint8_t* s_test = reinterpret_cast<uint8_t*>(s_det + M);      // [M] has, then the test
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
+  const int lane = t & 31;
 
   // ---- this thread's pixel ----
   const bool live = t < T * T;
-  int pi, pj;  // row and column inside the tile
-  if (T % kBlockW == 0) {
-    const int per_row = T / kBlockW;
-    pi = (warp / per_row) * kBlockH + lane / kBlockW;
-    pj = (warp % per_row) * kBlockW + lane % kBlockW;
-  } else {
-    const int lin = live ? t : T * T - 1;  // a padding lane repeats the last pixel
-    pi = lin / T;
-    pj = lin - pi * T;
-  }
+  int pi, pj;
+  pixel_of(t, T, pi, pj);
   const int64_t pix = (int64_t)tile * T * T + pi * T + pj;
   const float px = (float)((tile % ntx) * T + pj) + 0.5f;
   const float py = (float)((tile / ntx) * T + pi) + 0.5f;
@@ -465,29 +462,12 @@ __global__ void tile_blend_kernel(const float* __restrict__ window,
   }
   for (int m = t; m < M; m += blockDim.x) s_test[m] = has[(int64_t)tile * M + m];
   __syncthreads();
-  for (int m = t; m < M; m += blockDim.x) {
-    const float* r = rows + m * kRow;
-    float det = r[2] * r[5] - r[3] * r[4];
-    const bool clamped = fabsf(det) < 1e-9f;
-    det = clamped ? 1e-9f : det;
-    s_det[m] = det;
-    bool finite = true;
-    for (int c = 0; c < 6; ++c) finite = finite && isfinite(r[c]);
-    s_test[m] = !s_test[m] ? kSkip
-                : !isfinite(det) ? kDivide
-                : (finite && !clamped) ? kCullable
-                : kCompare;
-  }
+  for (int m = t; m < M; m += blockDim.x)
+    s_test[m] = entry_test(rows + m * kRow, s_test[m], s_det[m]);
   __syncthreads();
 
-  // the pixel-centre bounds of the warp's block
-  float x0 = px, x1 = px, y0 = py, y1 = py;
-  for (int o = 16; o > 0; o >>= 1) {
-    x0 = fminf(x0, __shfl_xor_sync(0xffffffffu, x0, o));
-    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, o));
-    y0 = fminf(y0, __shfl_xor_sync(0xffffffffu, y0, o));
-    y1 = fmaxf(y1, __shfl_xor_sync(0xffffffffu, y1, o));
-  }
+  float x0, x1, y0, y1;
+  warp_block(px, py, x0, x1, y0, y1);
 
   // ---- 2-3. runs of 32 entries: cull against the block, blend the rest ----
   for (int m0 = 0; m0 < M; m0 += 32) {
@@ -502,8 +482,406 @@ __global__ void tile_blend_kernel(const float* __restrict__ window,
     while (mask) {
       const int e = m0 + __ffs(mask) - 1;
       mask &= mask - 1;
-      blend_entry<kEq, kDepth, kWrite, kAppear>(rows + e * kRow, s_det[e], s_test[e] == kDivide,
-                                                px, py, d, dbuf, ap);
+      blend_entry<kEq, kDepth, kWrite>(rows + e * kRow, s_det[e], s_test[e] == kDivide, px, py, d,
+                                       dbuf);
+    }
+  }
+  if (live) {
+    fb[pix] = d;
+    if (kWrite) depth_out[pix] = dbuf;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the appearance kernel
+// ---------------------------------------------------------------------------
+
+// True when the triangle entry provably covers no pixel centre in [x0, x1] x
+// [y0, y1] under the reference's float test (the header's triangle bound).
+__device__ __forceinline__ bool tri_block_culled(const float* r, float det, float x0, float x1,
+                                                 float y0, float y1) {
+  const double sg = det < 0.0f ? -1.0 : 1.0;
+  const double cx = r[0], cy = r[1];
+  const double a1x = r[2], a1y = r[3], a2x = r[4], a2y = r[5];
+  const double ad = fabs((double)det);
+  const double dx0 = (double)x0 - cx, dx1 = (double)x1 - cx;
+  const double dy0 = (double)y0 - cy, dy1 = (double)y1 - cy;
+  const double mx = fmax(fabs(dx0), fabs(dx1)), my = fmax(fabs(dy0), fabs(dy1));
+  constexpr double kRel = 0x1p-20;
+  const double su = kRel * (fabs(a2y) * mx + fabs(a2x) * my);
+  const double sv = kRel * (fabs(a1y) * mx + fabs(a1x) * my);
+  const double h = 0.5 * ad * (1.0 + kRel);
+  // the range over the block of p (px - cx) + q (py - cy): its corners
+  auto lo = [&](double p, double q) { return fmin(p * dx0, p * dx1) + fmin(q * dy0, q * dy1); };
+  auto hi = [&](double p, double q) { return fmax(p * dx0, p * dx1) + fmax(q * dy0, q * dy1); };
+  const double pu = sg * a2y, qu = -sg * a2x;  // sg N_u
+  const double pv = -sg * a1y, qv = sg * a1x;  // sg N_v
+  if (hi(pu, qu) < -(h + su) || lo(pu, qu) > h + su) return true;  // u < -1/2 or u > 1/2
+  if (hi(pv, qv) < -(h + sv) || lo(pv, qv) > h + sv) return true;  // v < -1/2 or v > 1/2
+  return lo(pu + pv, qu + qv) > kRel * ad + su + sv;                // u + v > 0
+}
+
+// num_u and num_v of the entry at the pixel, as the reference rounds them
+__device__ __forceinline__ void numerators(const float* __restrict__ r, float px, float py,
+                                           float& nu, float& nv) {
+  const float dx = px - r[0];
+  const float dy = py - r[1];
+  const float a1x = r[2], a1y = r[3], a2x = r[4], a2y = r[5];
+  nu = a2y * dx - a2x * dy;
+  nv = -a1y * dx + a1x * dy;
+}
+
+// Whether the entry covers the pixel (the header's step 3): no division for
+// a quad's test, nor for a triangle lane that the half-planes settle; where
+// it covers, u = num_u / det and v = num_v / det as the reference divides.
+__device__ __forceinline__ bool covers(const float* __restrict__ r, float det, uint8_t test,
+                                       float px, float py, float& u, float& v) {
+  float nu, nv;
+  numerators(r, px, py, nu, nv);
+  const uint8_t kind = test & kKindBits;
+  if (test & kTri) {
+    if (kind != kDivide) {
+      const float ad = fabsf(det);
+      const float xu = det < 0.0f ? -nu : nu, xv = det < 0.0f ? -nv : nv;
+      const float h = -0.5f * ad;
+      if (!(xu >= h && xv >= h)) return false;  // u >= -1/2, v >= -1/2, exactly
+      if (xu + xv > 0x1p-20f * (fabsf(xu) + fabsf(xv)) + 0x1p-60f * ad) return false;
+    }
+    u = nu / det;
+    v = nv / det;
+    return u >= -0.5f && v >= -0.5f && u + v <= 0.0f;
+  }
+  if (kind != kDivide) {
+    const float ad = fabsf(det);
+    if (!(fabsf(nu) <= ad && fabsf(nv) <= ad)) return false;  // |u|, |v| <= 1, exactly
+    u = nu / det;
+    v = nv / det;
+    return true;
+  }
+  u = nu / det;
+  v = nv / det;
+  return fabsf(u) <= 1.0f && fabsf(v) <= 1.0f;
+}
+
+// jnp.mod of floats: the remainder with the sign of the divisor
+__device__ __forceinline__ float floor_mod(float x, float y) {
+  float m = fmodf(x, y);
+  if (m != 0.0f && ((m < 0.0f) != (y < 0.0f))) m += y;
+  return m;
+}
+
+// jnp.floor_divide of floats (jax's _float_divmod): (x - fmod(x, y)) / y,
+// less one where the remainder's sign differs from y's, rounded
+__device__ __forceinline__ float floor_div(float x, float y) {
+  const float m = fmodf(x, y);
+  float q = (x - m) / y;
+  if (m != 0.0f && ((m < 0.0f) != (y < 0.0f))) q -= 1.0f;
+  return roundf(q);
+}
+
+// A + s (B - A) + t (C - A) (raster.py:706-716), B - A and C - A computed
+// once per entry (the per-entry pass writes them over B and C)
+__device__ __forceinline__ float bary(float va, float dba, float dca, float s, float t) {
+  return va + s * dba + t * dca;
+}
+
+__device__ __forceinline__ float4 lerp4(float4 a, float4 b, float f) {
+  return make_float4(a.x + (b.x - a.x) * f, a.y + (b.y - a.y) * f, a.z + (b.z - a.z) * f,
+                     a.w + (b.w - a.w) * f);
+}
+
+// jnp.mod(x, n) and jnp.mod(x + 1, n) of an integer-valued float x as
+// indices in [0, n) (the header's wrap); a NaN converts to 0, as XLA's
+// saturating cast
+__device__ __forceinline__ void wrap(float x, float n, int ni, int& i0, int& i1) {
+  if (x >= -n && x < 2.0f * n && n <= 0x1p22f) {
+    i0 = (int)(x < 0.0f ? x + n : (x >= n ? x - n : x));
+    i1 = i0 + 1 == ni ? 0 : i0 + 1;
+  } else {
+    i0 = (int)floor_mod(x, n);
+    i1 = (int)floor_mod(x + 1.0f, n);
+  }
+}
+
+// _bilinear_wrap (raster.py:121-146) on a [th, tw, 4] texture
+__device__ __forceinline__ float4 sample(const float4* __restrict__ tex, int tw, int th, float u,
+                                         float v) {
+  const float twf = (float)tw, thf = (float)th;
+  const float uu = u * twf - 0.5f, vv = v * thf - 0.5f;
+  const float u0 = floorf(uu), v0 = floorf(vv);
+  const float fu = uu - u0, fv = vv - v0;
+  int u0i, u1i, v0i, v1i;
+  wrap(u0, twf, tw, u0i, u1i);
+  wrap(v0, thf, th, v0i, v1i);
+  const float4 t00 = __ldg(tex + v0i * tw + u0i), t01 = __ldg(tex + v0i * tw + u1i);
+  const float4 t10 = __ldg(tex + v1i * tw + u0i), t11 = __ldg(tex + v1i * tw + u1i);
+  return lerp4(lerp4(t00, t01, fu), lerp4(t10, t11, fu), fv);
+}
+
+// The source colour of a covered pair at (u, v) (the header's per-pixel list
+// after the test); false where the squircle discards it. `cell`: the entry's
+// flipbook cell (column, row).
+__device__ __forceinline__ bool shade(const float* __restrict__ r, bool is_tri,
+                                      const float* __restrict__ cell, float u, float v,
+                                      const Appearance& ap, float4& s) {
+  s = make_float4(r[6], r[7], r[8], r[9]);
+  const float u01 = u * 0.5f + 0.5f, v01 = v * 0.5f + 0.5f;
+  if (ap.o_round >= 0 && !is_tri) {  // raster.py:690-700
+    const float rnd = r[ap.o_round];
+    if (!(rnd <= 0.0f)) {
+      const float nexp = 2.0f / at_least(rnd, 1e-6f);
+      const float sq =
+          powf(fabsf(1.0f - 2.0f * u01), nexp) + powf(fabsf(1.0f - 2.0f * v01), nexp);
+      if (!(sq <= 1.0f)) return false;
+    }
+  }
+  const float bs = u + 0.5f, bt = v + 0.5f;
+  if (ap.o_vcol >= 0) {  // raster.py:719-722
+    const float* c = r + ap.o_vcol;
+    s.x = s.x * bary(c[0], c[4], c[8], bs, bt);
+    s.y = s.y * bary(c[1], c[5], c[9], bs, bt);
+    s.z = s.z * bary(c[2], c[6], c[10], bs, bt);
+    s.w = s.w * bary(c[3], c[7], c[11], bs, bt);
+  }
+  if (ap.lit) {  // raster.py:723-740
+    const float* nr = r + ap.o_nrm;
+    float n0 = bary(nr[0], nr[3], nr[6], bs, bt);
+    float n1 = bary(nr[1], nr[4], nr[7], bs, bt);
+    float n2 = bary(nr[2], nr[5], nr[8], bs, bt);
+    const float len = at_least(sqrtf(n0 * n0 + n1 * n1 + n2 * n2), 1e-9f);
+    n0 = n0 / len;
+    n1 = n1 / len;
+    n2 = n2 / len;
+    const float ndotl = n0 * ap.lx + n1 * ap.ly + n2 * ap.lz;
+    const float shade = at_most(at_least(ndotl, ap.band), 1.0f);
+    s.x = s.x * shade;
+    s.y = s.y * shade;
+    s.z = s.z * shade;
+  }
+  if (ap.layers) {  // raster.py:741-776
+    float tu = u01, tv = v01;
+    if (is_tri && ap.o_uv >= 0 && isfinite(r[ap.o_uv])) {
+      const float* w = r + ap.o_uv;
+      tu = bary(w[0], w[2], w[4], bs, bt);
+      tv = bary(w[1], w[3], w[5], bs, bt);
+    }
+    if (ap.grid_c != 1 || ap.grid_r != 1) {
+      // XLA compiles JAX's division by the grid constant into a product with
+      // its f32 reciprocal
+      tu = (tu + cell[0]) * (1.0f / (float)ap.grid_c);
+      tv = (tv + cell[1]) * (1.0f / (float)ap.grid_r);
+    }
+#pragma unroll
+    for (int l = 0; l < kMaxLayers; ++l) {  // constant indices: the descriptor stays in its bank
+      if (l < ap.layers) {
+        const float4 t = sample(ap.tex[l], ap.tw[l], ap.th[l], tu, tv);
+        if (ap.map[l] == kModulate) {
+          s = make_float4(s.x * t.x, s.y * t.y, s.z * t.z, s.w * t.w);
+        } else if (ap.map[l] == kModulateRgb) {
+          s = make_float4(s.x * t.x, s.y * t.y, s.z * t.z, s.w);
+        } else {
+          s.w = s.w * t.x;
+        }
+      }
+    }
+  }
+  return true;
+}
+
+// Whether entry m may cover a pixel of the warp's block: a real entry not
+// culled by its bound (the triangle bound for a triangle entry)
+__device__ __forceinline__ bool appear_keep(const float* rows, int kRow, const float* s_det,
+                                            const uint8_t* s_test, int M, int m, float x0,
+                                            float x1, float y0, float y1) {
+  if (m >= M) return false;
+  const uint8_t test = s_test[m], kind = test & kKindBits;
+  if (kind != kCullable) return kind != kSkip;
+  const float* r = rows + m * kRow;
+  return !((test & kTri) ? tri_block_culled(r, s_det[m], x0, x1, y0, y1)
+                         : block_culled(r, s_det[m], x0, x1, y0, y1));
+}
+
+// B - A and C - A of an attribute of nc floats a vertex, over B and C
+__device__ __forceinline__ void vertex_differences(float* c, int nc) {
+  for (int k = 0; k < nc; ++k) {
+    c[nc + k] = c[nc + k] - c[k];
+    c[2 * nc + k] = c[2 * nc + k] - c[k];
+  }
+}
+
+// shared memory of the appearance kernel: the warps' pair buffers where it
+// compacts, then the rows and the per-entry terms
+__host__ __device__ constexpr size_t appear_pair_bytes(int warps, bool compact) {
+  return compact ? (size_t)warps * kPairs * (sizeof(float4) + 3 * sizeof(int)) : 0;
+}
+
+// kCompact: shade compacted pairs (the header's step 4), for a draw with the
+// squircle, whose powf pairs pay for it, on tiles of at most 256 pixels; else
+// each covered pair is shaded on its own lane inside the entry loop, in at
+// most 64 registers a thread (4 CTAs of 256 threads an SM, and a 32x32
+// tile's 1024 threads fit; a few registers spill, which measured faster than
+// 3 CTAs an SM without spills).
+template <int kEq, bool kDepth, bool kWrite, bool kCompact>
+__global__ void __launch_bounds__(kCompact ? 256 : 1024, 1)
+tile_blend_appear_kernel(const float* __restrict__ window, const uint8_t* __restrict__ has,
+                         const float4* __restrict__ fb_in, const float* __restrict__ depth_in,
+                         float4* __restrict__ fb, float* __restrict__ depth_out, int M, int T,
+                         int ntx, int vec, float4 background,
+                         const __grid_constant__ Appearance ap) {
+  const int kRow = ap.row;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
+  float4* s_col = reinterpret_cast<float4*>(smem);  // [warps, kPairs] colours
+  int* s_key = reinterpret_cast<int*>(s_col + (kCompact ? warps * kPairs : 0));  // entry, lane
+  unsigned* s_cov = reinterpret_cast<unsigned*>(s_key + (kCompact ? warps * kPairs : 0));
+  int* s_ent = reinterpret_cast<int*>(s_cov + (kCompact ? warps * kPairs : 0));
+  float* rows = reinterpret_cast<float*>(s_ent + (kCompact ? warps * kPairs : 0));  // [M, kRow]
+  const int row_floats = (M * kRow + 3) & ~3;
+  float* s_det = rows + row_floats;                                // [M] clamped det
+  float* s_cell = s_det + M;                                       // [M, 2] flipbook cell
+  uint8_t* s_test = reinterpret_cast<uint8_t*>(s_cell + 2 * M);    // [M] has, then the test
+  const int tile = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const unsigned below = (1u << lane) - 1u;
+
+  // ---- this thread's pixel ----
+  const bool live = t < T * T;
+  int pi, pj;
+  pixel_of(t, T, pi, pj);
+  const int64_t pix = (int64_t)tile * T * T + pi * T + pj;
+  const float px = (float)((tile % ntx) * T + pj) + 0.5f;
+  const float py = (float)((tile / ntx) * T + pi) + 0.5f;
+  float4 d = (fb_in && live) ? fb_in[pix] : background;
+  float dbuf = (kDepth && depth_in && live) ? depth_in[pix] : INFINITY;
+  if (kEq == kAdd && M > 0) d.w = d.w > 1.0f ? 1.0f : d.w;
+
+  // ---- 1. the tile's rows and the per-entry terms ----
+  const float* src = window + (int64_t)tile * M * kRow;
+  if (vec) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(rows);
+    for (int k = t; k < M * kRow / 4; k += blockDim.x) d4[k] = s4[k];
+  } else {
+    for (int k = t; k < M * kRow; k += blockDim.x) rows[k] = src[k];
+  }
+  for (int m = t; m < M; m += blockDim.x) s_test[m] = has[(int64_t)tile * M + m];
+  __syncthreads();
+  const bool flipbook = (ap.grid_c != 1 || ap.grid_r != 1) && ap.layers;
+  for (int m = t; m < M; m += blockDim.x) {
+    float* r = rows + m * kRow;
+    const bool tri = ap.o_tri >= 0 && r[ap.o_tri] > 0.5f;
+    s_test[m] = entry_test(r, s_test[m], s_det[m]) | (tri ? kTri : 0);
+    if (ap.o_uv >= 0) vertex_differences(r + ap.o_uv, 2);
+    if (ap.o_nrm >= 0) vertex_differences(r + ap.o_nrm, 3);
+    if (ap.o_vcol >= 0) vertex_differences(r + ap.o_vcol, 4);
+    if (flipbook) {
+      const float sprite = (float)(int)r[ap.o_sprite];  // the row's f32, astype(int32)
+      const float gc = (float)ap.grid_c;
+      const bool first_row = sprite >= 0.0f && sprite < gc;  // fmod-free: (sprite, 0)
+      s_cell[2 * m] = first_row ? sprite : floor_mod(sprite, gc);
+      s_cell[2 * m + 1] = first_row ? 0.0f : floor_div(sprite, gc);
+    }
+  }
+  __syncthreads();
+
+  float x0, x1, y0, y1;
+  warp_block(px, py, x0, x1, y0, y1);
+
+  // ---- 2-4. runs of 32 entries: cull, cover; shade and blend ----
+  if constexpr (!kCompact) {
+    for (int m0 = 0; m0 < M; m0 += 32) {
+      unsigned int mask = __ballot_sync(
+          0xffffffffu, appear_keep(rows, kRow, s_det, s_test, M, m0 + lane, x0, x1, y0, y1));
+      while (mask) {
+        const int e = m0 + __ffs(mask) - 1;
+        mask &= mask - 1;
+        const float* r = rows + e * kRow;
+        float u, v;
+        bool cov = live && covers(r, s_det[e], s_test[e], px, py, u, v);
+        if (kDepth && !kWrite) cov = cov && r[kColDepth] <= dbuf;
+        float4 s;
+        if (cov && shade(r, s_test[e] & kTri, s_cell + 2 * e, u, v, ap, s)) {
+          const float frag_d = kWrite ? r[kColDepth] : 0.0f;
+          if (!kWrite || frag_d <= dbuf) equation<kEq, kWrite>(s, r, frag_d, d, dbuf);
+        }
+      }
+    }
+  } else {
+    // the warp's pair buffer: pairs (entry << 5 | lane, then -1 where the
+    // squircle discards it) and their colours; per buffered entry its
+    // coverage mask and index
+    float4* w_col = s_col + warp * kPairs;
+    int* w_key = s_key + warp * kPairs;
+    unsigned* w_cov = s_cov + warp * kPairs;
+    int* w_ent = s_ent + warp * kPairs;
+    int n_pairs = 0, n_ent = 0, m0 = 0;
+    unsigned int mask = 0;
+    for (;;) {
+      while (!mask && m0 < M) {
+        mask = __ballot_sync(
+            0xffffffffu, appear_keep(rows, kRow, s_det, s_test, M, m0 + lane, x0, x1, y0, y1));
+        m0 += 32;
+      }
+      const bool end = !mask;  // uniform: no entry left
+      bool cov = false;
+      int e = 0;
+      if (!end) {
+        e = m0 - 32 + __ffs(mask) - 1;
+        mask &= mask - 1;
+        const float* r = rows + e * kRow;
+        float u, v;
+        cov = live && covers(r, s_det[e], s_test[e], px, py, u, v);
+        if (kDepth && !kWrite) cov = cov && r[kColDepth] <= dbuf;  // the scene depth: pure
+      }
+      const unsigned cm = __ballot_sync(0xffffffffu, cov);
+      if (!end && !cm) continue;
+      if (end || n_pairs + __popc(cm) > kPairs) {
+        // shade the buffered pairs 32 at a time, each lane the pixel of
+        // another, then blend each lane's own in ascending entry order
+        __syncwarp();
+        for (int p0 = 0; p0 < n_pairs; p0 += 32) {
+          const int p = p0 + lane;
+          const int key = w_key[p < n_pairs ? p : p0];
+          const float qx = __shfl_sync(0xffffffffu, px, key & 31);
+          const float qy = __shfl_sync(0xffffffffu, py, key & 31);
+          if (p < n_pairs) {
+            const int k = key >> 5;
+            const float* r = rows + k * kRow;
+            float nu, nv;
+            numerators(r, qx, qy, nu, nv);
+            float4 s;
+            const bool kept = shade(r, s_test[k] & kTri, s_cell + 2 * k, nu / s_det[k],
+                                    nv / s_det[k], ap, s);
+            w_col[p] = s;
+            if (!kept) w_key[p] = -1;
+          }
+        }
+        __syncwarp();
+        int base = 0;
+        for (int j = 0; j < n_ent; ++j) {
+          const unsigned c = w_cov[j];
+          if (c >> lane & 1u) {
+            const int p = base + __popc(c & below);
+            if (ap.o_round < 0 || w_key[p] >= 0) {  // only the squircle discards
+              const float* r = rows + w_ent[j] * kRow;
+              const float frag_d = kWrite ? r[kColDepth] : 0.0f;
+              if (!kWrite || frag_d <= dbuf) equation<kEq, kWrite>(w_col[p], r, frag_d, d, dbuf);
+            }
+          }
+          base += __popc(c);
+        }
+        __syncwarp();
+        n_pairs = n_ent = 0;
+        if (end) break;
+      }
+      if (cov) w_key[n_pairs + __popc(cm & below)] = (e << 5) | lane;
+      if (lane == 0) {
+        w_cov[n_ent] = cm;
+        w_ent[n_ent] = e;
+      }
+      n_pairs += __popc(cm);
+      ++n_ent;
     }
   }
   if (live) {
@@ -513,17 +891,34 @@ __global__ void tile_blend_kernel(const float* __restrict__ window,
 }
 
 template <int kEq, bool kDepth, bool kWrite, bool kAppear>
-void launch(int nt, int M, int T, cudaStream_t stream, const void* window,
-            const void* has, const void* fb_in, const void* depth_in, void* fb,
-            void* depth_out, int ntx, float4 bg, const Appearance& ap) {
+int launch(int nt, int M, int T, cudaStream_t stream, const void* window, const void* has,
+           const void* fb_in, const void* depth_in, void* fb, void* depth_out, int ntx,
+           float4 bg, const Appearance& ap) {
   const int row = kAppear ? ap.row : RowWidth<kEq, kDepth>::value;
   const size_t row_floats = ((size_t)M * row + 3) & ~(size_t)3;
-  const size_t smem = row_floats * sizeof(float) + (size_t)M * sizeof(float) + (size_t)M;
   const int vec = ((uintptr_t)window & 15u) == 0 && (M * row) % 4 == 0;
   const int threads = (T * T + 31) / 32 * 32;
-  tile_blend_kernel<kEq, kDepth, kWrite, kAppear><<<nt, threads, smem, stream>>>(
-      (const float*)window, (const uint8_t*)has, (const float4*)fb_in,
-      (const float*)depth_in, (float4*)fb, (float*)depth_out, M, T, ntx, vec, bg, ap);
+  if constexpr (!kAppear) {
+    const size_t smem = row_floats * sizeof(float) + (size_t)M * sizeof(float) + (size_t)M;
+    tile_blend_kernel<kEq, kDepth, kWrite><<<nt, threads, smem, stream>>>(
+        (const float*)window, (const uint8_t*)has, (const float4*)fb_in,
+        (const float*)depth_in, (float4*)fb, (float*)depth_out, M, T, ntx, vec, bg);
+  } else {
+    const bool compact = ap.o_round >= 0 && threads <= 256;
+    const size_t smem = appear_pair_bytes(threads / 32, compact) +
+                        (row_floats + 3 * (size_t)M) * sizeof(float) + (size_t)M;
+    auto kernel = compact ? tile_blend_appear_kernel<kEq, kDepth, kWrite, true>
+                          : tile_blend_appear_kernel<kEq, kDepth, kWrite, false>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<nt, threads, smem, stream>>>((const float*)window, (const uint8_t*)has,
+                                         (const float4*)fb_in, (const float*)depth_in,
+                                         (float4*)fb, (float*)depth_out, M, T, ntx, vec, bg, ap);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -581,8 +976,9 @@ extern "C" int hanabi_tile_blend_appearance(const void* window, const void* has,
   }
   cudaStream_t s = (cudaStream_t)stream;
   const int key = eq * 4 + (depth_test ? 2 : 0) + (write_depth ? 1 : 0);
+  int code = 0;
 #define HANABI_TB(E, D, W, A) \
-  launch<E, D, W, A>(nt, M, T, s, window, has, fb_in, depth_in, fb, depth_out, ntx, bg, ap)
+  code = launch<E, D, W, A>(nt, M, T, s, window, has, fb_in, depth_in, fb, depth_out, ntx, bg, ap)
   if (!ap_i) {
     switch (key) {
       case kBlend * 4 + 0: HANABI_TB(kBlend, false, false, false); break;
@@ -623,7 +1019,7 @@ extern "C" int hanabi_tile_blend_appearance(const void* window, const void* has,
     }
   }
 #undef HANABI_TB
-  return (int)cudaGetLastError();
+  return code ? code : (int)cudaGetLastError();
 }
 
 // The same without appearance (the entry experiments/torch_tile_blend_variants.py links).

@@ -734,6 +734,79 @@ def tile_blend_plain(window, has, T, ntx, nty, background, mode="blend", framebu
     return (fb, dbuf.contiguous()) if write_depth else fb
 
 
+def warp_blocks(T: int, ntx: int, nt: int, device) -> torch.Tensor:
+    """The pixel-centre bounds ``(x0, x1, y0, y1)`` f64 [nt, W, 4] of each
+    warp's block of ``tile_blend``'s tiles (W = ceil(T*T / 32) warps a
+    tile): 8x4 pixels where T is a multiple of 8, else 32 pixels of the
+    row-major order (a padding lane repeating the last pixel)."""
+    lanes = (T * T + 31) // 32 * 32
+    t = torch.arange(lanes, device=device)
+    if T % 8 == 0:
+        warp, lane = t // 32, t % 32
+        pi = (warp // (T // 8)) * 4 + lane // 8
+        pj = (warp % (T // 8)) * 8 + lane % 8
+    else:
+        lin = torch.clamp(t, max=T * T - 1)
+        pi, pj = lin // T, lin % T
+    tiles = torch.arange(nt, device=device)[:, None]
+    px = ((tiles % ntx) * T + pj[None]).to(torch.float64) + 0.5
+    py = ((tiles // ntx) * T + pi[None]).to(torch.float64) + 0.5
+    px, py = px.reshape(nt, -1, 32), py.reshape(nt, -1, 32)
+    return torch.stack([px.amin(-1), px.amax(-1), py.amin(-1), py.amax(-1)], dim=-1)
+
+
+def warp_entries_plain(window, has, T: int, ntx: int, tri_col: int = -1,
+                       triangle_bound: bool = True) -> torch.Tensor:
+    """The (warp, entry) iterations of ``tile_blend``'s blend loop, bool
+    [nt, W, M]: a real entry whose bound does not cull the warp's block
+    (:func:`warp_blocks`). The bounds of ``csrc/tile_blend.cu`` on whole
+    tensors, in float64 at the block's corners with the kernel's margins
+    (m = 2^-20), for entries with a finite det that was not clamped and
+    finite quad columns (the others are never culled): a quad entry is
+    culled where its numerator N_u or N_v lies beyond +-(|det| (1 + m) +
+    m S) over the block; a triangle entry (``tri_col``'s value above 0.5)
+    where sg N_u or sg N_v (sg the det's sign) lies below -(|det|/2 (1 + m)
+    + m S) or above its negative, or sg (N_u + N_v) above m (|det| + S_u +
+    S_v). ``triangle_bound=False`` takes the quad bound for triangles too
+    (the first appearance kernel's). Counts only: no kernel or main path
+    calls it."""
+    nt, M, _ = window.shape
+    r = window[..., :6]
+    det = r[..., 2] * r[..., 5] - r[..., 3] * r[..., 4]
+    clamped = det.abs() < 1e-9
+    det = torch.where(clamped, 1e-9, det)
+    cullable = torch.isfinite(r).all(-1) & torch.isfinite(det) & ~clamped
+    blocks = warp_blocks(T, ntx, nt, window.device)[:, :, None, :]  # [nt, W, 1, 4]
+    cx, cy, a1x, a1y, a2x, a2y = (r[..., k].to(torch.float64)[:, None, :] for k in range(6))
+    ad = det.abs().to(torch.float64)[:, None, :]
+    sg = torch.where(det < 0, -1.0, 1.0).to(torch.float64)[:, None, :]
+    dx0, dx1 = blocks[..., 0] - cx, blocks[..., 1] - cx
+    dy0, dy1 = blocks[..., 2] - cy, blocks[..., 3] - cy
+    mx = torch.maximum(dx0.abs(), dx1.abs())
+    my = torch.maximum(dy0.abs(), dy1.abs())
+    rel = 2.0**-20
+
+    def lo(p, q):
+        return torch.minimum(p * dx0, p * dx1) + torch.minimum(q * dy0, q * dy1)
+
+    def hi(p, q):
+        return torch.maximum(p * dx0, p * dx1) + torch.maximum(q * dy0, q * dy1)
+
+    su = rel * (a2y.abs() * mx + a2x.abs() * my)
+    sv = rel * (a1y.abs() * mx + a1x.abs() * my)
+    bu, bv = ad * (1.0 + rel) + su, ad * (1.0 + rel) + sv
+    culled = ((lo(a2y, -a2x) > bu) | (hi(a2y, -a2x) < -bu)
+              | (lo(-a1y, a1x) > bv) | (hi(-a1y, a1x) < -bv))
+    if tri_col >= 0 and triangle_bound:
+        h = 0.5 * ad * (1.0 + rel)
+        pu, qu, pv, qv = sg * a2y, -sg * a2x, -sg * a1y, sg * a1x
+        tri = ((hi(pu, qu) < -(h + su)) | (lo(pu, qu) > h + su)
+               | (hi(pv, qv) < -(h + sv)) | (lo(pv, qv) > h + sv)
+               | (lo(pu + pv, qu + qv) > rel * ad + su + sv))
+        culled = torch.where((window[..., tri_col] > 0.5)[:, None, :], tri, culled)
+    return has[:, None, :] & ~(cullable[:, None, :] & culled)
+
+
 def texture_tensor(tex, device) -> torch.Tensor:
     """A texture image (array or tensor, [H, W, 4]) as a contiguous f32
     tensor on ``device``; no copy where it already is one."""
@@ -798,6 +871,28 @@ def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=N
                                 scene_depth, depth_test, write_depth, appearance, textures)
     if not 1 <= T * T <= 1024:
         raise ValueError(f"tile_blend runs one thread per pixel: T*T must be <= 1024, got T={T}")
+    if appearance is not None and len(appearance.layers) > MAX_LAYERS:
+        raise ValueError(f"tile_blend samples at most {MAX_LAYERS} texture layers a call, "
+                         f"got {len(appearance.layers)}")
+    out = tile_blend_launch(cuda_build.library(), window, has, T, ntx, background, mode,
+                            framebuffer, scene_depth, depth_test, write_depth, appearance,
+                            textures)
+    tile_blend.launches += 1
+    tile_blend.launches_by_mode[mode] += 1
+    if appearance is not None:
+        tile_blend.launches_appearance[mode] += 1
+    return out
+
+
+def tile_blend_launch(lib, window, has, T, ntx, background, mode="blend", framebuffer=None,
+                      scene_depth=None, depth_test=False, write_depth=False, appearance=None,
+                      textures=()):
+    """One launch of ``lib``'s ``tile_blend`` on arguments that
+    :func:`tile_blend` has checked, counted nowhere: the wrapper's launch,
+    and the one scripts use to time another build of the kernel (a library
+    with the same C entry point) on the same inputs."""
+    dev = window.device
+    nt, M, width = window.shape
     fb = torch.empty((nt, T, T, 4), dtype=torch.float32, device=dev)
     depth = torch.empty((nt, T, T), dtype=torch.float32, device=dev) if write_depth else None
     bg = np.asarray(background, np.float32)
@@ -807,9 +902,6 @@ def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=N
 
     ap_i = ap_f = tex = None
     if appearance is not None:
-        if len(appearance.layers) > MAX_LAYERS:
-            raise ValueError(f"tile_blend samples at most {MAX_LAYERS} texture layers a call, "
-                             f"got {len(appearance.layers)}")
         lit = appearance.lighting is not None
         (lx, ly, lz), band = appearance.lighting if lit else ((0.0, 0.0, 0.0), 0.0)
         ap_i = np.zeros(10 + 3 * MAX_LAYERS, np.int32)
@@ -821,17 +913,13 @@ def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=N
             ap_i[10 + 3 * k: 13 + 3 * k] = (t.shape[1], t.shape[0], MAPPINGS.index(mapping))
             tex[k] = t.data_ptr()
         ap_f = np.asarray([lx, ly, lz, band], np.float32)
-    code = cuda_build.library().hanabi_tile_blend_appearance(
+    code = lib.hanabi_tile_blend_appearance(
         window.data_ptr(), has.data_ptr(), ptr(framebuffer), ptr(scene_depth), fb.data_ptr(),
         ptr(depth), nt, M, T, ntx, bg.ctypes.data_as(ctypes.c_void_p), BLEND_MODES.index(mode),
         int(depth_test), int(write_depth), width,
         None if ap_i is None else ap_i.ctypes.data_as(ctypes.c_void_p),
         None if ap_f is None else ap_f.ctypes.data_as(ctypes.c_void_p), tex, _stream())
     cuda_build.check(code, "tile_blend")
-    tile_blend.launches += 1
-    tile_blend.launches_by_mode[mode] += 1
-    if appearance is not None:
-        tile_blend.launches_appearance[mode] += 1
     return (fb, depth) if write_depth else fb
 
 

@@ -12,8 +12,11 @@ JAX. Phases, each of which fails the run on any error:
 
 1. a CUDA device must be present; print its name and power limit;
 2. build the kernel library (nvcc, one process per source, ctypes) and,
-   beside it, the first version of ``ribbon_segments`` and the streaming
-   copy of its bytes (``experiments/ribbon_segments_variants/``);
+   beside it, the first version of ``ribbon_segments``, the streaming
+   copy of its bytes (``experiments/ribbon_segments_variants/``) and the
+   first appearance kernel of ``tile_blend``
+   (``experiments/tile_blend_variants/appear1.cu``), every nvcc process
+   started together;
 3. compare each raster kernel with its plain PyTorch version on the card,
    on a real 1M-particle headline frame, and time both: ``project_bin``
    (tiles, depths and depth range equal, rows at max abs err 0),
@@ -152,15 +155,21 @@ JAX. Phases, each of which fails the run on any error:
        0.5%); on it ``mesh_expand``, ``project_bin`` with triangles (17-float
        rows), ``bin_keys``, ``gather_window`` (F = 17) and ``tile_blend``
        (textured triangles, then the same window in PREMULTIPLY and
-       MULTIPLY) against their plain versions, exactly, and timed; then
-       ``torch.profiler`` over 30 frames;
+       MULTIPLY) against their plain versions, exactly, and timed, the first
+       appearance kernel (``experiments/tile_blend_variants/appear1.cu``,
+       built in phase 2) held and timed beside ``tile_blend`` (``first_ms``),
+       the warp-entry iterations under the triangle and the quad bound
+       printed beside the covered pairs; then ``tile_blend`` on the same
+       frame at M = 128 (bench.py's wider M, a timing row that no main path
+       launches); then ``torch.profiler`` over 30 frames;
     d. the same frame lit per fragment
        (``LambertianLightingModifier((0.577, 0.577, 0.577), 0.7)``: 26-float
        rows, the normals through ``mesh_expand``), as in c;
     e. ``tile_blend`` on the last frame of ``example_circle`` (the flipbook,
        11-float rows) and ``example_2d`` (the squircle: at most 0.2% of the
        pixels may differ, checksums within 0.5%, since the card's ``powf``
-       and PyTorch's ``pow`` may differ in the last ulp), timed;
+       and PyTorch's ``pow`` may differ in the last ulp), timed, the first
+       appearance kernel beside it;
     f. textured quads: a billboard (``textured_mesh_check_effect(2048)``
        with ``ParticleTextureModifier(0)`` and no mesh: texture layers and no
        appearance column, so 10-float rows) under BLEND and MULTIPLY, and
@@ -170,7 +179,7 @@ JAX. Phases, each of which fails the run on any error:
        against CPU (masks equal, every checksum within 0.5%; ``tile_blend``'s
        appearance variant must launch); then ``tile_blend`` on the
        billboard's last BLEND frame against its plain version, exactly, and
-       timed.
+       timed, the first appearance kernel beside it.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -181,7 +190,8 @@ launches of all four paths), the firework's (``[firework]``,
 frame's (``[ribbon]``, ``tile_blend[add,ribbon]``), the companions'
 (``[hifi]``, ``[slots2]``, ``[exact]``, BLEND) and the textured mesh
 frames' (``mesh_expand``, ``project_bin``, ``bin_keys``, ``gather_window``
-and ``tile_blend`` at ``[mesh]`` and ``[mesh,lit]``,
+and ``tile_blend`` at ``[mesh]`` and ``[mesh,lit]``, ``tile_blend[mesh,M=128]``
+with 0 launches,
 ``tile_blend[premultiply,mesh]`` and ``[multiply,mesh]``, which no main path
 launches, ``tile_blend[flipbook]`` and ``[round]`` with the examples'
 own launches, and ``tile_blend[textured quads]`` with the billboard's BLEND
@@ -308,6 +318,12 @@ _VARIANTS = Path(__file__).resolve().parent / "experiments" / "ribbon_segments_v
 RIBBON_VARIANTS = (
     ("first", _VARIANTS / "first.cu", []),
     ("copy", _VARIANTS / "probe.cu", ["-DHANABI_PROBE=1"]),
+)
+# tile_blend's first appearance kernel, built beside the library and timed
+# beside the port's on every appearance row (``first_ms``)
+TILE_BLEND_VARIANTS = (
+    ("appear1", Path(__file__).resolve().parent / "experiments" / "tile_blend_variants"
+     / "appear1.cu", []),
 )
 
 
@@ -590,47 +606,62 @@ def compare_gather_window(projected, nt: int, m: int, mode, label: str):
 
 
 def compare_tile_blend(label: str, window, has, T: int, ntx: int, nty: int, background, mode: str,
-                       **kw):
+                       first=None, **kw):
     """``tile_blend`` against its plain version on a pass's window: the
     framebuffer at max abs err 0 and, where written, the depth plane equal
     (a round draw's squircle: at most :data:`SQUIRCLE_PIXELS` of the pixels
     differ and the checksums agree within 0.5%, since the card's powf and
-    PyTorch's pow may differ in the last ulp); both timed. Returns the row
-    and the kernel's depth plane (or None)."""
+    PyTorch's pow may differ in the last ulp); both timed. ``first``: a
+    library holding another build of the kernel (the first appearance
+    kernel), held to the same standard and timed beside it as
+    ``first_ms``. Returns the row and the kernel's depth plane (or None)."""
     import torch
 
     from bevy_hanabi_tpu_torch.render import raster
 
     args = (window, has, T, ntx, nty, background, mode)
     write = kw.get("write_depth", False)
-    got = raster.tile_blend(*args, **kw)
     want = raster.tile_blend_plain(*args, **kw)
-    torch.cuda.synchronize()
-    (fb_k, d_k), (fb_p, d_p) = (got, want) if write else ((got, None), (want, None))
-    err = float((fb_k - fb_p).abs().max())
-    depth_ok = not write or torch.equal(d_k, d_p)
+    fb_p, d_p = want if write else (want, None)
     entries = int(has.sum())
     ap = kw.get("appearance")
     round_ = ap is not None and ap.offset("roundness") >= 0
-    differ = int(((fb_k - fb_p).abs() > 0).any(-1).sum())
-    print(f"tile_blend {label}: {entries} window entries, max abs err {err:g}, {differ} pixels "
-          f"differ" + (f", depth planes {'equal' if depth_ok else 'DIFFER'}" if write else ""))
-    if round_:
-        s_k, s_p = float(fb_k.sum()), float(fb_p.sum())
-        if differ > SQUIRCLE_PIXELS * fb_p[..., 0].numel() or not checksum_close(s_k, s_p):
-            fail(f"tile_blend {label}: {differ} pixels differ, checksums {s_k} and {s_p}")
-    elif err != 0.0:
-        fail(f"tile_blend {label}: max abs err {err:g}")
-    if not depth_ok or entries == 0:
-        fail(f"tile_blend {label}: the depth planes differ, or an empty window")
-    return {
+
+    def check(got, who):
+        torch.cuda.synchronize()
+        fb_k, d_k = got if write else (got, None)
+        err = float((fb_k - fb_p).abs().max())
+        depth_ok = not write or torch.equal(d_k, d_p)
+        differ = int(((fb_k - fb_p).abs() > 0).any(-1).sum())
+        planes = f", depth planes {'equal' if depth_ok else 'DIFFER'}" if write else ""
+        print(f"tile_blend {label}{who}: {entries} window entries, max abs err {err:g}, {differ} "
+              f"pixels differ{planes}")
+        if round_:
+            s_k, s_p = float(fb_k.sum()), float(fb_p.sum())
+            if differ > SQUIRCLE_PIXELS * fb_p[..., 0].numel() or not checksum_close(s_k, s_p):
+                fail(f"tile_blend {label}{who}: {differ} pixels differ, checksums {s_k} and {s_p}")
+        elif err != 0.0:
+            fail(f"tile_blend {label}{who}: max abs err {err:g}")
+        if not depth_ok or entries == 0:
+            fail(f"tile_blend {label}{who}: the depth planes differ, or an empty window")
+        return err, fb_k, d_k
+
+    err, fb_k, d_k = check(raster.tile_blend(*args, **kw), "")
+    row = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: raster.tile_blend(*args, **kw), 50),
         "plain_ms": cuda_ms(lambda: raster.tile_blend_plain(*args, **kw), 3),
         "library_ms": None,
         **blend_bound(mode, window, has, T, ntx, fb_k, d_k, kw.get("framebuffer"),
                       kw.get("scene_depth"), ap, kw.get("textures", ())),
-    }, d_k
+    }
+    if first is not None:
+        def run_first():
+            return raster.tile_blend_launch(first, window, has, T, ntx, background, mode, **kw)
+
+        check(run_first(), " (first version)")
+        row["first_ms"] = cuda_ms(run_first, 50)
+    return row, d_k
 
 
 def gather_row(table, idx) -> dict:
@@ -1874,6 +1905,24 @@ def mesh_gate():
         fail(f"textured_mesh_2k: checksum {s_g} on the card vs {s_c} on the CPU")
 
 
+def example_run(name: str, device):
+    """One of :data:`EXAMPLES`, 30 frames of :data:`EXAMPLE_SPAWN` spawns
+    through ``step_render_chunk`` at 512x512 on ``device``: ``(fx, pool,
+    image, checksums, camera, textures)``."""
+    from bevy_hanabi_tpu_torch import CompiledEffect, RasterConfig, SimParams, StepInputs
+    from bevy_hanabi_tpu_torch.models import examples, make_anim_sprite_sheet
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+
+    cam = CameraParams(look_at((0, 0, 3), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0), (512, 512))
+    textures = [make_anim_sprite_sheet(8, 32)] if name == "example_circle" else []
+    fx = CompiledEffect(getattr(examples, name)(), device=device)
+    ins = [StepInputs.make(EXAMPLE_SPAWN, 7 * i + 1) for i in range(30)]
+    sims = [SimParams(time=i * DT, delta_time=DT) for i in range(30)]
+    pool, img, sums = fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam,
+                                           RasterConfig(width=512, height=512), textures)
+    return fx, pool, img, sums.cpu(), cam, textures
+
+
 def example_checks(kernels) -> dict:
     """Phase 15b: ``example_puffs`` (Lambert on mesh normals),
     ``example_circle`` (the flipbook) and ``example_2d`` (the squircle),
@@ -1883,30 +1932,14 @@ def example_checks(kernels) -> dict:
     card's last pool, its camera, textures and launches."""
     import numpy as np
 
-    from bevy_hanabi_tpu_torch import CompiledEffect, RasterConfig, SimParams, StepInputs
-    from bevy_hanabi_tpu_torch.models import examples, make_anim_sprite_sheet
-    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
-
-    cam = CameraParams(look_at((0, 0, 3), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0), (512, 512))
     out = {}
     for name in EXAMPLES:
-        textures = [make_anim_sprite_sheet(8, 32)] if name == "example_circle" else []
-
-        def run(device):
-            fx = CompiledEffect(getattr(examples, name)(), device=device)
-            ins = [StepInputs.make(EXAMPLE_SPAWN, 7 * i + 1) for i in range(30)]
-            sims = [SimParams(time=i * DT, delta_time=DT) for i in range(30)]
-            pool, img, sums = fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims),
-                                                   cam, RasterConfig(width=512, height=512),
-                                                   textures)
-            return fx, pool, img, sums.cpu()
-
         reset_launches(kernels)
         t0 = time.perf_counter()
-        fx, pool_g, img_g, sums_g = run("cuda")
+        fx, pool_g, img_g, sums_g, cam, textures = example_run(name, "cuda")
         launches = read_launches(kernels)
         t1 = time.perf_counter()
-        _, pool_c, _, sums_c = run("cpu")
+        _, pool_c, _, sums_c, _, _ = example_run(name, "cpu")
         t2 = time.perf_counter()
         (_, alive_g, seed_g, _), (_, alive_c, seed_c, _) = pool_g.to_numpy(), pool_c.to_numpy()
         print(f"{name}: 30 frames at 512x512, alive {int(alive_c.sum())}, last checksum card "
@@ -1965,7 +1998,72 @@ def compare_mesh_expand(draw, mesh, label: str) -> dict:
     return result
 
 
-def mesh_frame(kernels, lit: bool):
+def warp_iterations(window, has, T: int, ntx: int, ap, label: str) -> dict:
+    """The (warp, entry) iterations of ``tile_blend``'s blend loop on a
+    window under the triangle-tight bound and under the quad bound of the
+    first appearance kernel (``raster.warp_entries_plain``), printed beside
+    the covered pairs."""
+    from bevy_hanabi_tpu_torch.render import raster
+
+    tri_col = ap.offset("tri")
+    out = {
+        "warp_iterations": int(raster.warp_entries_plain(window, has, T, ntx, tri_col).sum()),
+        "warp_iterations_quad_bound": int(raster.warp_entries_plain(
+            window, has, T, ntx, tri_col, triangle_bound=False).sum()),
+    }
+    pairs = covered_pairs(window, has, T, ntx, tri_col)
+    print(f"tile_blend ({label}): {out['warp_iterations']} warp-entry iterations under the "
+          f"triangle bound, {out['warp_iterations_quad_bound']} under the quad bound; "
+          f"{pairs} covered pairs")
+    return out
+
+
+def warm_mesh(lit: bool):
+    """The textured mesh frame's effect (:func:`mesh_asset` at
+    :data:`MESH_CAPACITY`) on the card, warmed three chunks of K frames
+    through ``step_render_chunk`` at ``RasterConfig(512, 512)``, past its
+    5 s lifetime: ``(fx, pool, spawner, frame, camera, config, textures)``."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner, RasterConfig
+    from bevy_hanabi_tpu_torch.models import make_circle_texture
+
+    cam, config = mesh_camera(512), RasterConfig(width=512, height=512)
+    fx = CompiledEffect(mesh_asset(MESH_CAPACITY, lit), device="cuda")
+    textures = [torch.from_numpy(make_circle_texture(32)).cuda()]
+    spawner = EffectSpawner(fx.asset.spawner, rng=np.random.default_rng(0))
+    pool, frame = fx.create_pool(), 0
+    for _ in range(3):
+        pool, _, _ = fx.step_render_chunk(pool, *chunk_inputs(fx, spawner, frame), cam, config,
+                                          textures)
+        frame += K
+    return fx, pool, spawner, frame, cam, config, textures
+
+
+def appearance_window(asset, pool, cam, config, textures, m=None):
+    """``(window, has, appearance)`` of a textured or mesh draw's BLEND pass
+    as ``rasterize`` builds it on the ordered path, through the kernels
+    (``mesh_expand``, ``project_bin``, ``bin_keys``, ``gather_window``), with
+    ``m`` slots a tile (the config's ``max_entries_per_tile`` by default)."""
+    from bevy_hanabi_tpu_torch.ops import gather
+    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+    from bevy_hanabi_tpu_torch.render.mesh import expand_mesh_draw
+
+    draw = extract_draw_data(asset, pool, cam, textures=textures)
+    if asset.mesh is not None:
+        draw = expand_mesh_draw(draw, asset.mesh)
+    ap, columns = raster.draw_appearance(draw, raster.ROW_QUAD)
+    tile, depth, rows, rng = raster.project_bin(
+        *project_args(draw, cam, config), row=raster.ROW_QUAD, tile_slots=config.tile_slots,
+        tile_span=config.tile_span, appearance=columns)
+    sorted_ = raster.sort_tiles(tile, depth, config.num_tiles, None, rng)
+    window, has = gather.gather_window(rows, *sorted_, m or config.max_entries_per_tile, False)
+    return window, has, ap
+
+
+def mesh_frame(kernels, lit: bool, first=None):
     """Phases 15c-d: the textured mesh frame at full width,
     ``textured_mesh_check_effect(16384)`` with the icosphere and the
     circle texture (lit per fragment where ``lit``) through
@@ -1975,27 +2073,17 @@ def mesh_frame(kernels, lit: bool):
     launch; the last frame rendered again on the CPU (checksums within
     0.5%); each kernel held against its plain version at the frame's
     shapes and timed; then a profile of 30 frames."""
-    import numpy as np
     import torch
 
-    from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner, ParticlePool, RasterConfig
-    from bevy_hanabi_tpu_torch.models import make_circle_texture
+    from bevy_hanabi_tpu_torch import ParticlePool
     from bevy_hanabi_tpu_torch.render import raster
     from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
     from bevy_hanabi_tpu_torch.render.mesh import expand_mesh_draw
 
     tag = "mesh,lit" if lit else "mesh"
-    cam, config = mesh_camera(512), RasterConfig(width=512, height=512)
-    fx = CompiledEffect(mesh_asset(MESH_CAPACITY, lit), device="cuda")
-    asset, mesh = fx.asset, fx.asset.mesh
-    textures = [torch.from_numpy(make_circle_texture(32)).cuda()]
-    spawner = EffectSpawner(asset.spawner, rng=np.random.default_rng(0))
-    pool, frame = fx.create_pool(), 0
     t0 = time.perf_counter()
-    for _ in range(3):
-        pool, _, _ = fx.step_render_chunk(pool, *chunk_inputs(fx, spawner, frame), cam, config,
-                                          textures)
-        frame += K
+    fx, pool, spawner, frame, cam, config, textures = warm_mesh(lit)
+    asset, mesh = fx.asset, fx.asset.mesh
     alive_before = int(pool.alive_count())
     print(f"{tag} warm-up: {frame} frames in {time.perf_counter() - t0:.2f} s, alive {alive_before}")
     reset_launches(kernels)
@@ -2052,8 +2140,17 @@ def mesh_frame(kernels, lit: bool):
     for mode in ("blend",) if lit else ("blend", "premultiply", "multiply"):
         name = f"tile_blend[{tag}]" if mode == "blend" else f"tile_blend[{mode},{tag}]"
         results[name], _ = compare_tile_blend(f"{mode} ({tag}, {ap.row}-float rows)", *win, T, ntx,
-                                              nty, config.background, mode, appearance=ap,
-                                              textures=textures)
+                                              nty, config.background, mode, first=first,
+                                              appearance=ap, textures=textures)
+    results[f"tile_blend[{tag}]"].update(warp_iterations(*win, T, ntx, ap, tag))
+    if not lit:
+        # the same frame's blend on twice the entries a tile: bench.py's wider M
+        wide = f"mesh,M={MIXED_M_WIDE}"
+        _, win = compare_gather_window(projected, nt, MIXED_M_WIDE, None, wide)
+        results[f"tile_blend[{wide}]"], _ = compare_tile_blend(
+            f"blend ({wide}, {ap.row}-float rows)", *win, T, ntx, nty, config.background, "blend",
+            first=first, appearance=ap, textures=textures)
+        results[f"tile_blend[{wide}]"].update(warp_iterations(*win, T, ntx, ap, wide))
     for name, r in results.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
 
@@ -2068,10 +2165,11 @@ def mesh_frame(kernels, lit: bool):
     return results, launches
 
 
-def example_kernels(example_runs) -> dict:
+def example_kernels(example_runs, first=None) -> dict:
     """Phase 15e: ``tile_blend`` on the last frame of ``example_circle``
     (the flipbook, 11-float rows) and ``example_2d`` (the squircle), each
-    against its plain version, timed."""
+    against its plain version, timed, and the first appearance kernel
+    (``first``) beside it."""
     from bevy_hanabi_tpu_torch import RasterConfig
     from bevy_hanabi_tpu_torch.render import raster
     from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
@@ -2090,49 +2188,56 @@ def example_kernels(example_runs) -> dict:
         _, win = compare_gather_window(projected, nt, config.max_entries_per_tile, None, label)
         results[f"tile_blend[{label}]"], _ = compare_tile_blend(
             f"blend ({label}, {ap.row}-float rows)", *win, T, ntx, nty, config.background, "blend",
-            appearance=ap, textures=texs)
+            first=first, appearance=ap, textures=texs)
     return results
 
 
-def textured_quad_checks(kernels):
-    """Phase 15f: the textured quads of :data:`TEXTURED_QUADS`, 20 frames
-    each through ``step_render_chunk`` at 256x256, card against CPU (masks
-    equal, every checksum within 0.5%); the appearance variant of the
-    effect's equation must launch. Then ``tile_blend`` on the billboard's
-    last BLEND frame (10-float rows) against its plain version, timed.
-    Returns that row and the billboard's BLEND launches."""
-    import numpy as np
-
+def textured_quad_run(mesh: str, alpha_mode: str, device):
+    """A textured quad of :data:`TEXTURED_QUADS` (the check effect with the
+    circle texture, a billboard or ``ParticleMesh.cross()``), 20 frames of 64
+    spawns through ``step_render_chunk`` at 256x256 on ``device``: ``(fx,
+    pool, checksums, camera, config, textures)``."""
     from bevy_hanabi_tpu_torch import (AlphaMode, CompiledEffect, ParticleTextureModifier,
                                        RasterConfig, SimParams, StepInputs)
     from bevy_hanabi_tpu_torch.models import make_circle_texture, textured_mesh_check_effect
-    from bevy_hanabi_tpu_torch.render import raster
-    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
     from bevy_hanabi_tpu_torch.render.mesh import ParticleMesh
 
     cam = mesh_camera(256)
     config = RasterConfig(width=256, height=256, background=(0.9, 0.8, 0.7, 0.5))
     textures = [make_circle_texture(32)]
+    asset = (textured_mesh_check_effect(2048).render(ParticleTextureModifier(0))
+             .with_alpha_mode(getattr(AlphaMode, alpha_mode)))
+    if mesh == "cross":
+        asset = asset.with_mesh(ParticleMesh.cross())
+    fx = CompiledEffect(asset, device=device)
+    ins = [StepInputs.make(64, 7 * i + 1) for i in range(20)]
+    sims = [SimParams(time=i * DT, delta_time=DT) for i in range(20)]
+    pool, _, sums = fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam, config,
+                                         textures)
+    return fx, pool, sums.cpu(), cam, config, textures
+
+
+def textured_quad_checks(kernels, first=None):
+    """Phase 15f: the textured quads of :data:`TEXTURED_QUADS`, 20 frames
+    each through ``step_render_chunk`` at 256x256, card against CPU (masks
+    equal, every checksum within 0.5%); the appearance variant of the
+    effect's equation must launch. Then ``tile_blend`` on the billboard's
+    last BLEND frame (10-float rows) against its plain version, timed, and
+    the first appearance kernel (``first``) beside it. Returns that row and
+    the billboard's BLEND launches."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+
     blend_run = None
     for mesh, alpha_mode in TEXTURED_QUADS:
-        asset = (textured_mesh_check_effect(2048).render(ParticleTextureModifier(0))
-                 .with_alpha_mode(getattr(AlphaMode, alpha_mode)))
-        if mesh == "cross":
-            asset = asset.with_mesh(ParticleMesh.cross())
-        mode, label = asset.alpha_mode.kind, f"textured {mesh} ({alpha_mode})"
-
-        def run(device):
-            fx = CompiledEffect(asset, device=device)
-            ins = [StepInputs.make(64, 7 * i + 1) for i in range(20)]
-            sims = [SimParams(time=i * DT, delta_time=DT) for i in range(20)]
-            pool, _, sums = fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam,
-                                                 config, textures)
-            return fx, pool, sums.cpu()
-
+        label = f"textured {mesh} ({alpha_mode})"
         reset_launches(kernels)
-        fx, pool_g, sums_g = run("cuda")
+        fx, pool_g, sums_g, cam, config, textures = textured_quad_run(mesh, alpha_mode, "cuda")
         launches = read_launches(kernels)
-        _, pool_c, sums_c = run("cpu")
+        _, pool_c, sums_c, _, _, _ = textured_quad_run(mesh, alpha_mode, "cpu")
+        mode = fx.asset.alpha_mode.kind
         print(f"{label}: 20 frames at 256x256, alive {int(pool_c.alive_count())}, last checksum "
               f"card {float(sums_g[-1]):.6e} cpu {float(sums_c[-1]):.6e}; launches "
               f"{ {k: v for k, v in launches.items() if v} }")
@@ -2145,9 +2250,9 @@ def textured_quad_checks(kernels):
             if not checksum_close(a, b):
                 fail(f"{label} frame {k}: checksum {a} on the card vs {b} on the CPU")
         if (mesh, alpha_mode) == ("billboard", "BLEND"):
-            blend_run = fx, pool_g, launches
+            blend_run = fx, pool_g, launches, cam, config, textures
 
-    fx, pool, launches = blend_run
+    fx, pool, launches, cam, config, textures = blend_run
     T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
     texs = [raster.texture_tensor(t, "cuda") for t in textures]
     draw = extract_draw_data(fx.asset, pool, cam, textures=texs)
@@ -2158,7 +2263,8 @@ def textured_quad_checks(kernels):
     _, win = compare_gather_window(projected, nt, config.max_entries_per_tile, None,
                                    "textured quads")
     result, _ = compare_tile_blend(f"blend (textured quads, {ap.row}-float rows)", *win, T, ntx,
-                                   nty, config.background, "blend", appearance=ap, textures=texs)
+                                   nty, config.background, "blend", first=first, appearance=ap,
+                                   textures=texs)
     return {"tile_blend[textured quads]": result}, launches
 
 
@@ -2193,10 +2299,11 @@ def main() -> int:
     # Phase 2: build the kernels from the checkout's sources, and beside them
     # the variants that phase 13 times, every nvcc process started together.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as ex:
-        variant_builds = ex.submit(cuda_build.build_variants, RIBBON_VARIANTS, "ribbon_segments")
+    with ThreadPoolExecutor(2) as ex:
+        ribbon_builds = ex.submit(cuda_build.build_variants, RIBBON_VARIANTS, "ribbon_segments")
+        blend_builds = ex.submit(cuda_build.build_variants, TILE_BLEND_VARIANTS, "tile_blend")
         lib_path = cuda_build.build()
-        variant_builds = variant_builds.result()
+        variant_builds = {**ribbon_builds.result(), **blend_builds.result()}
     cuda_build.library()
     print(f"built {lib_path.name} and {len(variant_builds)} variants in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2205,8 +2312,9 @@ def main() -> int:
     for label, (lib, log) in variant_builds.items():
         print(f"== variant {label}\n{log.strip()}")
         if lib is None:
-            fail(f"the ribbon_segments variant {label!r} did not build")
+            fail(f"the variant {label!r} did not build")
         variants[label] = lib
+    first_blend = variants.pop("appear1")
 
     # Phase 3: kernels against their plain versions at the main path's shapes.
     results = compare_kernels(dev)
@@ -2297,10 +2405,10 @@ def main() -> int:
     # Phase 15: textured and mesh particles.
     mesh_gate()
     example_runs = example_checks(kernels)
-    ms_results, ms_launches = mesh_frame(kernels, lit=False)
-    lit_results, lit_launches = mesh_frame(kernels, lit=True)
-    ex_results = example_kernels(example_runs)
-    tq_results, tq_launches = textured_quad_checks(kernels)
+    ms_results, ms_launches = mesh_frame(kernels, lit=False, first=first_blend)
+    lit_results, lit_launches = mesh_frame(kernels, lit=True, first=first_blend)
+    ex_results = example_kernels(example_runs, first=first_blend)
+    tq_results, tq_launches = textured_quad_checks(kernels, first=first_blend)
 
     results.update(fw_results)
     results.update(mx_results)
@@ -2353,6 +2461,8 @@ def main() -> int:
         + [
             ("tile_blend[mesh]", "tile_blend", ms_launches["tile_blend[blend,appearance]"]),
             ("tile_blend[mesh,lit]", "tile_blend", lit_launches["tile_blend[blend,appearance]"]),
+            # a timing row: the mesh frame's blend at M = 128 (its path runs M = 64)
+            (f"tile_blend[mesh,M={MIXED_M_WIDE}]", "tile_blend", 0),
             # no main path runs these: the launches of the mesh frames (0)
             ("tile_blend[premultiply,mesh]", "tile_blend",
              ms_launches["tile_blend[premultiply]"] + lit_launches["tile_blend[premultiply]"]),

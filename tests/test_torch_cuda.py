@@ -1064,6 +1064,152 @@ def test_tile_blend_appearance_variants_match_plain(cuda, case, mode, depth_test
             assert torch.equal(d_g, d_p)
 
 
+# the equations and depth flags of the adversarial appearance windows: those of
+# APPEARANCE_VARIANTS and the painter's scene equation (depth tested and written)
+ADVERSARIAL_VARIANTS = APPEARANCE_VARIANTS + [("scene", True, True)]
+ADVERSARIAL_KINDS = ["lattice", "clamp", "uv", "sprite", "overflow", "compact", "round"]
+
+
+def _appearance_adversarial_window(device, kind, mode, depth_test, seed=0):
+    """A 2x2-tile window (T = 16, M = 64) of triangle and quad entries with
+    every appearance column (the squircle's only for ``compact`` and
+    ``round``), lit, a 3x2
+    flipbook and three texture layers (the 32x32 circle, the 8x32 sheet and
+    a 24x17 noise texture), and of ``kind``:
+
+    * ``lattice``: triangle vertices and quad centres on pixel centres with
+      integer edges (u = -1/2, v = -1/2, u + v = 0, |u| = 1 in float);
+    * ``clamp``: dets at, just below and just above the 1e-9 clamp, and
+      infinite and NaN quad columns on triangle entries;
+    * ``uv``: UVs at +-2^24, +-(2^24 + 2), +-1e30, infinite, NaN and far
+      outside [0, 1];
+    * ``sprite``: negative and large flipbook sprites, and NaN;
+    * ``overflow``: 48 triangles each covering its whole tile (more covered
+      pairs in one run of 32 entries than a warp's pair buffer holds);
+    * ``compact``: ``overflow``'s 48 triangles at random places among
+      random triangles and quads, with the squircle column at roundness <= 0
+      (-0.5, -0.0, 0.0: no ``powf``, so exact), so that the draw is shaded
+      on compacted pairs and the buffer overflows within one run of 32;
+    * ``round``: quads with the squircle column (roundness <= 0, tiny, 1).
+
+    Returns (window, has, appearance, textures)."""
+    from bevy_hanabi_tpu_torch.models import make_anim_sprite_sheet, make_circle_texture
+
+    r = np.random.default_rng(seed)
+    T, M, nt = 16, 64, 4
+    base = raster.row_width(mode, depth_test)
+    present = {"tri", "sprite", "uv", "nrm", "vcol"} | (
+        {"roundness"} if kind in ("compact", "round") else set())
+    offsets, o = [], base
+    for name, width in raster.APPEARANCE_COLUMNS:
+        offsets.append(o if name in present else -1)
+        o += width if name in present else 0
+    ap = raster.Appearance(o, tuple(offsets), (3, 2), ((0.577, 0.577, 0.577), 0.3),
+                           ((0, "modulate"), (1, "modulate_rgb"), (2, "modulate_opacity_from_r")))
+    w = np.zeros((nt, M, o), np.float32)
+    origin = np.stack([np.arange(nt) % 2, np.arange(nt) // 2], -1).astype(np.float32) * T
+    tri = r.random((nt, M)) < (0.0 if kind == "round" else 0.6)
+    full = np.zeros((nt, M), bool)  # the stacked full-tile triangles
+    if kind == "overflow":
+        full[:] = True
+    elif kind == "compact":
+        for tile in range(nt):
+            full[tile, r.choice(M, 48, replace=False)] = True
+    tri |= full
+    for tile in range(nt):
+        for m in range(M):
+            o0 = origin[tile]
+            if tri[tile, m]:
+                if full[tile, m]:
+                    a = o0 - r.uniform(0.5, 3.0, 2)
+                    b, c = a + [40.0, 0.0], a + [0.0, 40.0]
+                elif kind == "lattice":
+                    a = o0 + r.integers(-2, T + 2, 2) + 0.5
+                    b, c = a + r.integers(-12, 13, 2), a + r.integers(-12, 13, 2)
+                else:
+                    a = o0 + r.uniform(-4.0, T + 4.0, 2)
+                    b, c = a + r.uniform(-12.0, 12.0, 2), a + r.uniform(-12.0, 12.0, 2)
+                a, b, c = (np.asarray(p, np.float32) for p in (a, b, c))
+                w[tile, m, :6] = [*((b + c) * np.float32(0.5)), *(b - a), *(c - a)]
+            elif kind == "lattice":
+                w[tile, m, :6] = [*(o0 + r.integers(-2, T + 2, 2) + 0.5), r.integers(1, 6), 0.0,
+                                  0.0, r.integers(1, 6)]
+            else:
+                w[tile, m, :2] = o0 + r.uniform(-4.0, T + 4.0, 2)
+                w[tile, m, 2:6] = r.uniform(-8.0, 8.0, 4)
+    if kind == "clamp":
+        s = np.float32(3.1622776e-5)
+        k = r.choice(np.asarray([0.999, 1.0, 1.0000001, 1.001, 1.01], np.float32), (nt, M))
+        near = r.random((nt, M)) < 0.5
+        w[..., 2:6] = np.where(near[..., None], np.stack(
+            [np.full((nt, M), s), np.zeros((nt, M)), np.zeros((nt, M)), s * k], -1), w[..., 2:6])
+        bad = r.random((nt, M)) < 0.15
+        col = r.integers(0, 6, (nt, M))
+        val = r.choice(np.asarray([np.inf, -np.inf, np.nan], np.float32), (nt, M))
+        w[bad, col[bad]] = val[bad]
+    w[..., 6:9] = r.uniform(0.0, 1.0, (nt, M, 3))
+    w[..., 9] = r.uniform(0.1, 1.0, (nt, M))
+    if base == raster.ROW:
+        w[..., 10] = r.uniform(0.0, 8.0, (nt, M))
+        w[..., 11] = r.uniform(0.0, 1.0, (nt, M))
+        w[..., 12] = r.integers(0, 6, (nt, M))
+    if kind == "round":
+        w[..., ap.offset("roundness")] = r.choice(
+            np.asarray([-0.5, 0.0, 1e-7, 0.3, 0.5, 1.0], np.float32), (nt, M))
+    elif kind == "compact":
+        w[..., ap.offset("roundness")] = r.choice(np.asarray([-0.5, -0.0, 0.0], np.float32), (nt, M))
+    w[..., ap.offset("tri")] = tri
+    sprite = r.integers(-9, 40, (nt, M)).astype(np.float32)
+    if kind == "sprite":
+        sprite = r.choice(np.asarray([-(2.0**30), -7.0, -6.0, -3.0, -1.0, 0.0, 2.0, 5.0, 6.0,
+                                      2.0**24 + 2, 2.0**30, np.nan], np.float32), (nt, M))
+    w[..., ap.offset("sprite")] = sprite
+    uv = r.uniform(-1.5, 2.5, (nt, M, 6)).astype(np.float32)
+    if kind == "uv":
+        ext = np.asarray([2.0**24, -(2.0**24), 2.0**24 + 2, -(2.0**24) - 2, 1e30, -1e30, np.inf,
+                          np.nan, 40.25, -33.5, 0.5], np.float32)
+        pick = r.random((nt, M, 6)) < 0.5
+        uv = np.where(pick, r.choice(ext, (nt, M, 6)), uv)
+    w[..., ap.offset("uv"): ap.offset("uv") + 6] = uv
+    w[..., ap.offset("nrm"): ap.offset("nrm") + 9] = r.uniform(-1.0, 1.0, (nt, M, 9))
+    w[..., ap.offset("vcol"): ap.offset("vcol") + 12] = r.uniform(0.0, 1.0, (nt, M, 12))
+    has = (r.random((nt, M)) < 0.9) | full
+    textures = [make_circle_texture(32), make_anim_sprite_sheet(4, 8),
+                r.uniform(0.0, 1.0, (17, 24, 4)).astype(np.float32)]
+    return (torch.from_numpy(w).to(device), torch.from_numpy(has).to(device), ap,
+            [torch.from_numpy(np.ascontiguousarray(t)).to(device) for t in textures])
+
+
+@pytest.mark.parametrize("mode,depth_test,write_depth", ADVERSARIAL_VARIANTS)
+@pytest.mark.parametrize("kind", ADVERSARIAL_KINDS)
+def test_tile_blend_appearance_adversarial_windows_match_plain(cuda, kind, mode, depth_test,
+                                                               write_depth):
+    """The appearance kernel on :func:`_appearance_adversarial_window`'s windows against
+    the plain version: exact (max abs err 0, NaN where it is NaN, depth
+    planes equal), the squircle within its allowance (at most 0.2% of the
+    pixels differ, checksums within 0.5%)."""
+    window, has, ap, texs = _appearance_adversarial_window(cuda, kind, mode, depth_test)
+    nt, T = 4, 16
+    kw = dict(depth_test=depth_test, write_depth=write_depth, appearance=ap, textures=texs)
+    if depth_test:
+        kw["scene_depth"] = torch.rand((nt, T, T), device=cuda) * 8.0
+    fb0 = torch.rand((nt, T, T, 4), device=cuda)
+    got = raster.tile_blend(window, has, T, 2, 2, (0.0, 0.0, 0.0, 0.0), mode, framebuffer=fb0, **kw)
+    want = raster.tile_blend_plain(window, has, T, 2, 2, (0.0, 0.0, 0.0, 0.0), mode,
+                                   framebuffer=fb0, **kw)
+    (fb_g, d_g), (fb_p, d_p) = (got, want) if write_depth else ((got, None), (want, None))
+    assert int(((fb_p - fb0).abs() > 0).any(-1).sum()) > 0
+    if kind == "round":
+        differ = int(((fb_g - fb_p).abs() > 0).any(-1).sum())
+        assert differ <= 0.002 * nt * T * T
+        s_g, s_p = float(fb_g.nan_to_num(0.0).sum()), float(fb_p.nan_to_num(0.0).sum())
+        assert abs(s_g - s_p) <= 0.005 * abs(s_p)
+    else:
+        torch.testing.assert_close(fb_g, fb_p, rtol=0, atol=0, equal_nan=True)
+    if write_depth:
+        assert torch.equal(d_g, d_p)
+
+
 @pytest.mark.parametrize("mode", ["premultiply", "multiply", "multiply first", "multiply ordered"])
 def test_premultiply_and_multiply_quads_match_plain(cuda, mode):
     """The standalone premultiply and multiply equations (multiply on each

@@ -305,3 +305,206 @@ def test_unported_raster_branches_raise(kwargs, config):
     with pytest.raises(NotImplementedError, match="not ported"):
         raster.rasterize(draw, CamT(view, proj, (SIZE, SIZE)),
                          raster.RasterConfig(SIZE, SIZE, **config), **kwargs)
+
+
+# ---- (e) tile_blend's triangle bounds against JAX's triangle test -----------
+#
+# csrc/tile_blend.cu culls a triangle entry for a warp's block by five
+# half-planes in float64 (raster.warp_entries_plain states the bound on whole
+# tensors), decides a lane's u >= -1/2, v >= -1/2 without dividing and
+# u + v <= 0 by the sign of num_u + num_v beyond a margin, and wraps texture
+# indices without fmodf where u0 lies in [-tw, 2 tw). Each is held here
+# against JAX's own float test (bevy_hanabi_tpu/render/raster.py:635-642 and
+# _bilinear_wrap's jnp.mod), run eagerly through jax.numpy on the CPU.
+
+TRI_T = (16, 12)  # 8x4 warp blocks, and the row-major lanes of a T that 8 does not divide
+TRI_NT = 4  # 2x2 tiles
+
+
+def _tri_row(a, b, c):
+    """A triangle entry's quad columns as mesh.py builds them: centre (B + C)
+    / 2, h1 = B - A, h2 = C - A (f32), then an opaque white colour and the
+    tri flag."""
+    a, b, c = (np.asarray(p, np.float32) for p in (a, b, c))
+    centre = (b + c) * np.float32(0.5)
+    return np.asarray([*centre, *(b - a), *(c - a), 1.0, 1.0, 1.0, 1.0, 1.0], np.float32)
+
+
+def _jax_tri_inside(row, T):
+    """raster.py:620-642's triangle coverage of one entry over the 2x2-tile
+    grid, jnp eagerly (op by op, as the reference rounds): bool [nt, T, T]."""
+    ar = jnp.arange(T, dtype=jnp.int32)
+    tiles = jnp.arange(TRI_NT, dtype=jnp.int32)
+    py = ((tiles // 2)[:, None, None] * T + ar[None, :, None]).astype(jnp.float32) + 0.5
+    px = ((tiles % 2)[:, None, None] * T + ar[None, None, :]).astype(jnp.float32) + 0.5
+    cx, cy, a1x, a1y, a2x, a2y = (jnp.float32(v) for v in row[:6])
+    dx, dy = px - cx, py - cy
+    det_f = a1x * a2y - a1y * a2x
+    det_f = jnp.where(jnp.abs(det_f) < 1e-9, 1e-9, det_f)
+    u = (a2y * dx - a2x * dy) / det_f
+    v = (-a1y * dx + a1x * dy) / det_f
+    return np.asarray((u >= -0.5) & (v >= -0.5) & (u + v <= 0.0))
+
+
+def _tri_covers(row, T):
+    """csrc/tile_blend.cu's ``covers`` for a triangle entry in numpy f32: the
+    half-planes decided without dividing where the margins prove them, the
+    reference's divisions and test elsewhere. bool [nt, T, T]."""
+    r = np.asarray(row, np.float32)
+    ar = np.arange(T)
+    tiles = np.arange(TRI_NT)
+    py = ((tiles // 2)[:, None, None] * T + ar[None, :, None]).astype(np.float32) + np.float32(0.5)
+    px = ((tiles % 2)[:, None, None] * T + ar[None, None, :]).astype(np.float32) + np.float32(0.5)
+    with np.errstate(all="ignore"):
+        det = r[2] * r[5] - r[3] * r[4]
+        det = np.float32(1e-9) if np.abs(det) < np.float32(1e-9) else det
+        dx, dy = px - r[0], py - r[1]
+        nu = r[5] * dx - r[4] * dy
+        nv = -r[3] * dx + r[2] * dy
+        u, v = nu / det, nv / det
+        test = (u >= -0.5) & (v >= -0.5) & (u + v <= 0.0)
+        if not np.isfinite(det):
+            return test
+        ad = np.abs(det)
+        xu, xv = (-nu, -nv) if det < 0 else (nu, nv)
+        h = np.float32(-0.5) * ad
+        out = ~((xu >= h) & (xv >= h))
+        margin = np.float32(2.0**-20) * (np.abs(xu) + np.abs(xv)) + np.float32(2.0**-60) * ad
+        out |= xu + xv > margin
+    return np.where(out, False, test)
+
+
+def _warp_of_pixel(T):
+    """The warp of each pixel of a tile, [T, T], as tile_blend lays them out."""
+    pi, pj = np.meshgrid(np.arange(T), np.arange(T), indexing="ij")
+    if T % 8 == 0:
+        return (pi // 4) * (T // 8) + pj // 8
+    return (pi * T + pj) // 32
+
+
+def _tri_blocks(row, T, triangle_bound=True):
+    """warp_entries_plain of one triangle entry in every tile: bool [nt, W]."""
+    window = torch.from_numpy(np.tile(row, (TRI_NT, 1, 1)))
+    has = torch.ones((TRI_NT, 1), dtype=torch.bool)
+    return raster.warp_entries_plain(window, has, T, 2, tri_col=10,
+                                     triangle_bound=triangle_bound)[..., 0].numpy()
+
+
+def _check_triangle(row, T):
+    """No culled block holds a pixel JAX covers, and the kernel's per-lane
+    test is JAX's coverage; returns the blocks kept by the triangle and the
+    quad bound."""
+    want = _jax_tri_inside(row, T)
+    np.testing.assert_array_equal(_tri_covers(row, T), want, err_msg=f"lane test, {row.tolist()}")
+    kept, kept_quad = _tri_blocks(row, T), _tri_blocks(row, T, triangle_bound=False)
+    warp = _warp_of_pixel(T)
+    for tile in range(TRI_NT):
+        for w in range(kept.shape[1]):
+            if not kept[tile, w]:
+                assert not want[tile][warp == w].any(), f"covered block culled: {row.tolist()}"
+    assert not (kept & ~kept_quad).any(), "the triangle bound kept a block the quad bound culls"
+    return int(kept.sum()), int(kept_quad.sum())
+
+
+def _triangles(st):
+    """Adversarial triangle rows over the 2x2-tile grid, from ``hypothesis``'s
+    ``strategies`` module ``st``: random, thin, collinear, degenerate around
+    the 1e-9 det clamp, vertices on pixel centres (edges through them: u =
+    -1/2, v = -1/2, u + v = 0 in float), huge and non-finite."""
+    coord = st.floats(-8.0, 40.0, width=32)
+    special = st.sampled_from([np.nan, np.inf, -np.inf, 3e38, -3e38, 1e-45])
+
+    @st.composite
+    def triangles(draw):
+        kind = draw(st.sampled_from(["random", "thin", "collinear", "degenerate", "lattice",
+                                     "huge", "nonfinite"]))
+        a = [draw(coord), draw(coord)]
+        b = [draw(coord), draw(coord)]
+        c = [draw(coord), draw(coord)]
+        if kind == "thin":
+            eps = st.floats(-0.015625, 0.015625, width=32)
+            c = [b[0] + draw(eps), b[1] + draw(eps)]
+        elif kind == "collinear":
+            k = draw(st.floats(-3.0, 3.0, width=32))
+            c = [a[0] + k * (b[0] - a[0]), a[1] + k * (b[1] - a[1])]
+        elif kind == "degenerate":
+            # |det| a few ulps either side of the clamp
+            s = draw(st.sampled_from([1e-5, 3.1622776e-5, 3.2e-5, 1e-4]))
+            a, b = [a[0], a[1]], [a[0] + s, a[1]]
+            k = draw(st.sampled_from([0.999, 1.0, 1.001]))
+            c = [a[0] + draw(st.sampled_from([0.0, 0.3])), a[1] + s * k]
+        elif kind == "lattice":
+            ints = st.integers(-2, 34)
+            a = [draw(ints) + 0.5, draw(ints) + 0.5]
+            b = [a[0] + draw(st.integers(-12, 12)), a[1] + draw(st.integers(-12, 12))]
+            c = [a[0] + draw(st.integers(-12, 12)), a[1] + draw(st.integers(-12, 12))]
+        elif kind == "huge":
+            m = draw(st.sampled_from([1e6, 1e15, 1e30]))
+            b = [b[0] * m, b[1]]
+        row = _tri_row(a, b, c)
+        if kind == "nonfinite":
+            row[draw(st.integers(0, 5))] = draw(special)
+        return row
+
+    return triangles()
+
+
+@pytest.mark.parametrize("T", TRI_T)
+def test_triangle_bounds_cull_no_pixel_that_jax_covers(T):
+    hypothesis = pytest.importorskip("hypothesis")
+    from hypothesis import strategies as st
+
+    @hypothesis.settings(max_examples=250, deadline=None, derandomize=True,
+                         suppress_health_check=[hypothesis.HealthCheck.too_slow])
+    @hypothesis.given(_triangles(st))
+    def check(row):
+        _check_triangle(row, T)
+
+    check()
+
+
+@pytest.mark.parametrize("T", TRI_T)
+def test_triangle_bound_culls_more_than_the_quad_bound(T):
+    """On ordinary triangles (a mesh's, 2-20 px a side) the triangle bound
+    keeps strictly fewer (warp, entry) iterations than the quad bound, and
+    no more on any triangle."""
+    r = np.random.default_rng(T)
+    tri, quad = 0, 0
+    for _ in range(60):
+        a = r.uniform(0.0, 2.0 * T, 2)
+        b = a + r.uniform(-20.0, 20.0, 2)
+        c = a + r.uniform(-20.0, 20.0, 2)
+        k, kq = _check_triangle(_tri_row(a, b, c), T)
+        tri, quad = tri + k, quad + kq
+    assert tri < 0.8 * quad, (tri, quad)
+
+
+def _wrap_np(x, n):
+    """csrc/tile_blend.cu's ``wrap`` in numpy f32: jnp.mod(x, n) and
+    jnp.mod(x + 1, n) of an integer-valued float as indices, by compares in
+    [-n, 2 n) and by the floored remainder elsewhere (NaN to index 0)."""
+    x, nf = np.float32(x), np.float32(n)
+    if x >= -nf and x < np.float32(2.0) * nf and nf <= np.float32(2.0**22):
+        i0 = int(x + nf if x < 0 else (x - nf if x >= nf else x))
+        return i0, 0 if i0 + 1 == n else i0 + 1
+    with np.errstate(invalid="ignore"):
+        m0 = np.fmod(x, nf)
+        m1 = np.fmod(np.float32(x + np.float32(1.0)), nf)
+    m0 = m0 + nf if m0 != 0 and (m0 < 0) != (nf < 0) else m0
+    m1 = m1 + nf if m1 != 0 and (m1 < 0) != (nf < 0) else m1
+    return tuple(0 if np.isnan(m) else int(m) for m in (m0, m1))
+
+
+@pytest.mark.parametrize("n", [1, 8, 17, 24, 32])
+def test_wrap_without_fmod_is_jnp_mod(n):
+    """The texture wrap's fast path and its fallback give jnp.mod's index of
+    u0 and u0 + 1 (JAX's _bilinear_wrap, astype(int32) after the mod) for
+    integer-valued u0 in and far outside [-n, 2 n), at +-2^24 and beyond,
+    and NaN (index 0)."""
+    xs = [float(k) for k in range(-3 * n - 2, 3 * n + 3)]
+    xs += [2.0**24, -2.0**24, 2.0**24 + 2.0, -(2.0**24) - 2.0, 2.0**30, -3e9, float("nan")]
+    x = jnp.asarray(np.asarray(xs, np.float32))
+    want0 = np.asarray(jnp.mod(x, jnp.float32(n)).astype(jnp.int32))
+    want1 = np.asarray(jnp.mod(x + 1.0, jnp.float32(n)).astype(jnp.int32))
+    for k, v in enumerate(xs):
+        assert _wrap_np(v, n) == (int(want0[k]), int(want1[k])), (v, n)
