@@ -341,6 +341,16 @@ def _promote(a, b):
     return a, b
 
 
+def _saturating_int(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 -> i32 or u32 (int64) as XLA's ``convert``: truncated toward
+    zero, NaN to 0, out-of-range values to the type's ends. The clamp is in
+    float first (both ends exact in f32), so the int64 conversion is always
+    in range; the top end, 2^31 or 2^32 in f32, gets its own integer clamp."""
+    lo, hi = (0, 2**32) if dtype == rng.U32 else (-(2**31), 2**31)
+    y = torch.clamp(x.nan_to_num(0.0), lo, hi).to(torch.int64).clamp(max=hi - 1)
+    return y.to(dtype)
+
+
 def eval_expr(module: Module, handle: ExprHandle, ctx: EvalContext) -> torch.Tensor:
     # Every handle memoizes within one context, INCLUDING side-effecting
     # (rand) exprs, as in the JAX package (modifier/mod.rs:309-313).
@@ -393,10 +403,9 @@ def _eval(module: Module, e: Expr, ctx: EvalContext) -> torch.Tensor:
     if e.kind == "cast":
         x = eval_expr(module, e.args[0], ctx)
         dtype = _torch_dtype(e.target_type)
+        if x.dtype.is_floating_point and dtype in (rng.U32, torch.int32):
+            return _saturating_int(x, dtype)
         if dtype == rng.U32:
-            if x.dtype.is_floating_point:
-                # f32 -> u32 truncates toward zero like XLA's convert
-                x = x.to(torch.int64)
             return rng.as_u32(x)
         return x.to(dtype)
 
@@ -531,8 +540,11 @@ def _eval_binary(module: Module, e: Expr, ctx: EvalContext) -> torch.Tensor:
     if op is BinaryOp.DIV:
         return a2 / b2
     if op is BinaryOp.REM:
-        # WGSL %: truncated modulo for floats and ints alike
-        return torch.fmod(a2, b2)
+        # WGSL %: truncated modulo; an integer by zero is the dividend, as lax.rem
+        if a2.dtype.is_floating_point:
+            return torch.fmod(a2, b2)
+        zero = b2 == 0
+        return torch.where(zero, a2, torch.fmod(a2, torch.where(zero, 1, b2)))
     if op is BinaryOp.MIN:
         return torch.minimum(a2, b2)
     if op is BinaryOp.MAX:

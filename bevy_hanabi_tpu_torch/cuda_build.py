@@ -59,9 +59,9 @@ SIGNATURES = {
     # (table, idx, out, n_out, n_table, F, stream)
     "hanabi_gather_rows": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
     # (rows, pidx_sorted, starts, ends, window, has, nt, n_entries, n_rows, M, F, from_start,
-    #  idx64, vec4, stream)
+    #  idx64, stream)
     "hanabi_gather_window": [_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
-                             _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _P],
     # (position, axis_x, axis_y, alive, color, extra, tile, depth, rows, range, n, row, params,
     #  ntx, nty, tile_slots, tile_span, base_row, roundness, tri, sprite, uv, nrm, vcol, stream)
     "hanabi_project_bin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,

@@ -27,10 +27,6 @@ __all__ = [
     "KERNELS",
 ]
 
-# floats of a staged tile window: the kernel's shared memory (48 KB)
-_STAGE_FLOATS = 12288
-
-
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` row gather (plain version of :func:`gather_rows`)."""
     return table.index_select(0, idx)
@@ -124,17 +120,12 @@ def gather_window(rows, pidx_sorted, starts, ends, M: int, from_start: bool = Fa
     if not rows.is_cuda:
         return gather_window_plain(rows, pidx_sorted, starts, ends, M, from_start)
     width = rows.shape[1]
-    if M * width > _STAGE_FLOATS:
-        raise ValueError(f"gather_window stages a tile's M * F floats in 48 KB of shared "
-                         f"memory: M={M}, F={width} is too wide")
     window = torch.empty((nt, M, width), dtype=torch.float32, device=dev)
     has = torch.empty((nt, M), dtype=torch.bool, device=dev)
-    # every tile's window starts 16-byte aligned when M * F is a multiple of 4
-    vec4 = (M * width) % 4 == 0 and window.data_ptr() % 16 == 0
     code = cuda_build.library().hanabi_gather_window(
         rows.data_ptr(), pidx_sorted.data_ptr(), starts.data_ptr(), ends.data_ptr(),
         window.data_ptr(), has.data_ptr(), nt, pidx_sorted.shape[0], rows.shape[0], M, width,
-        int(from_start), int(pidx_sorted.dtype == torch.int64), int(vec4), _stream(),
+        int(from_start), int(pidx_sorted.dtype == torch.int64), _stream(),
     )
     cuda_build.check(code, "gather_window")
     gather_window.launches += 1

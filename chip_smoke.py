@@ -15,15 +15,16 @@ JAX. Phases, each of which fails the run on any error:
    beside it, the first version of ``ribbon_segments``, the streaming
    copy of its bytes (``experiments/ribbon_segments_variants/``) and the
    first appearance kernel of ``tile_blend``
-   (``experiments/tile_blend_variants/appear1.cu``), every nvcc process
-   started together;
+   (``experiments/tile_blend_variants/appear1.cu``) and the earlier
+   ``gather_window`` (``experiments/gather_window_variants/first.cu``), every
+   nvcc process started together;
 3. compare each raster kernel with its plain PyTorch version on the card,
    on a real 1M-particle headline frame, and time both: ``project_bin``
    (tiles, depths and depth range equal, rows at max abs err 0),
    ``bin_keys`` (bit-equal; beside it the stable sort of its int32 keys
    and of the same keys widened to int64), ``gather_window`` (bit-exact
-   over the whole window and ``has``; beside it the route it replaced,
-   ``window_index`` then ``gather_rows``, timed in the same call) and
+   over the whole window and ``has``; beside it the earlier kernel, held
+   bit-exact too and timed in the same call) and
    ``tile_blend`` in BLEND (max abs err 0); then ``tile_blend`` in MASK,
    which no main path runs, on the same draw's 13-float window with a
    cutoff of 0.5, depth written (max abs err 0, depth planes equal); then
@@ -161,12 +162,17 @@ JAX. Phases, each of which fails the run on any error:
        the warp-entry iterations under the triangle and the quad bound
        printed beside the covered pairs; then ``tile_blend`` on the same
        frame at M = 128 (bench.py's wider M, a timing row that no main path
-       launches); then ``torch.profiler`` over 30 frames;
+       launches; its ``gather_window`` a timing row too); then
+       ``torch.profiler`` over 30 frames;
     d. the same frame lit per fragment
        (``LambertianLightingModifier((0.577, 0.577, 0.577), 0.7)``: 26-float
-       rows, the normals through ``mesh_expand``), as in c;
-    e. ``tile_blend`` on the last frame of ``example_circle`` (the flipbook,
-       11-float rows) and ``example_2d`` (the squircle: at most 0.2% of the
+       rows, the normals through ``mesh_expand``), as in c, and its
+       ``gather_window`` at M = 512 (M * F = 13 312, above the 12 288 floats
+       the earlier kernel staged; a timing row that no main path launches),
+       exactly;
+    e. ``gather_window`` and ``tile_blend`` on the last frame of
+       ``example_circle`` (the flipbook, 11-float rows) and ``example_2d``
+       (the squircle: at most 0.2% of the
        pixels may differ, checksums within 0.5%, since the card's ``powf``
        and PyTorch's ``pow`` may differ in the last ulp), timed, the first
        appearance kernel beside it;
@@ -177,9 +183,9 @@ JAX. Phases, each of which fails the run on any error:
        under ADD and PREMULTIPLY, 20 frames of 64 spawns each through
        ``step_render_chunk`` at 256x256 over a coloured background, card
        against CPU (masks equal, every checksum within 0.5%; ``tile_blend``'s
-       appearance variant must launch); then ``tile_blend`` on the
-       billboard's last BLEND frame against its plain version, exactly, and
-       timed, the first appearance kernel beside it.
+       appearance variant must launch); then ``gather_window`` and
+       ``tile_blend`` on the billboard's last BLEND frame against their plain
+       versions, exactly, and timed, the first appearance kernel beside it.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -195,16 +201,18 @@ with 0 launches,
 ``tile_blend[premultiply,mesh]`` and ``[multiply,mesh]``, which no main path
 launches, ``tile_blend[flipbook]`` and ``[round]`` with the examples'
 own launches, and ``tile_blend[textured quads]`` with the billboard's BLEND
-frames' launches). Each row holds the
+frames' launches; ``gather_window`` on the same windows, ``[mesh,M=128]``
+and ``[mesh,lit,M=512]`` with 0 launches). Each row holds the
 path's launches, the kernel's and its plain version's device ms, the
-library call's (``index_select`` for the gathers, of the window's indices
+library call's (``index_select`` for the gathers, of the window's rows
 for ``gather_window``, of the appearance rows by the segment order for
 ``ribbon_segments``; else null), and
 ``bound_ms``: the larger of the bytes the call must move over 3.35 TB/s and
 its FP32 operations over 67 TFLOP/s (``bound_by`` says which), computed from
 that call's inputs and counting only the work every correct kernel must
 do; ``share`` is ``bound_ms / ms``. The ``gather_window`` rows also hold
-``first_ms`` (the replaced route) and ``filled_entries``; the ``bin_keys``
+``first_ms`` (the earlier kernel; null where it refuses the window) and
+``filled_entries``; the ``bin_keys``
 rows ``sort_ms`` and ``sort_int64_ms``; the ``tile_blend`` rows
 ``filled_entries`` and ``covered_pairs``, what their bound counts (the
 filled entries' rows, and the covered (entry, pixel) pairs' test and
@@ -278,6 +286,8 @@ MIXED_KERNELS = {
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaLaunchKernelExC")
 MIXED_K = 8  # frames per chunk of the small mixed gate (phase 10)
 MIXED_M_WIDE = 128  # the third timing's max_entries_per_tile (bench.py:765)
+# the lit mesh window's M above the earlier kernel's cap (tests/test_parallel.py:146-337's M)
+MESH_M_WIDE = 512
 # every kernel of the ribbon frame: the segment build, then the ADD payload pass
 RIBBON_KERNELS = ("ribbon_keys", "ribbon_segments", "project_bin", "bin_keys", "gather_window",
                   "tile_blend[add]")
@@ -325,6 +335,16 @@ TILE_BLEND_VARIANTS = (
     ("appear1", Path(__file__).resolve().parent / "experiments" / "tile_blend_variants"
      / "appear1.cu", []),
 )
+# gather_window's earlier kernel, built beside the library and timed beside the port's
+# on every gather_window row (``first_ms``); it stages a tile's floats in
+# 48 KB, so it refuses M * F > 12 288, and its C entry point takes ``vec4``
+# (the tile's start 16-byte aligned) before the stream
+GATHER_WINDOW_VARIANTS = (
+    ("first", Path(__file__).resolve().parent / "experiments" / "gather_window_variants"
+     / "first.cu", []),
+)
+FIRST_WINDOW_FLOATS = 12288
+VARIANT_LIBS = {}  # phase 2's variant builds by label
 
 
 def fail(msg: str) -> None:
@@ -555,16 +575,47 @@ def project_args(draw, cam, config) -> tuple:
             cam.view, cam.proj, cam.viewport, config.tile_size, config.tiles_x, config.tiles_y)
 
 
+def first_window_launcher(lib, rows, pidx_sorted, starts, ends, m: int, from_start: bool):
+    """The earlier ``gather_window`` (:data:`GATHER_WINDOW_VARIANTS`) through
+    ``lib``'s C entry point: a function of no argument that returns
+    ``(window, has)`` as the port's wrapper does, or None where M * F is
+    above the 12 288 floats it stages."""
+    import ctypes
+
+    import torch
+
+    from bevy_hanabi_tpu_torch import cuda_build
+
+    nt, width = starts.shape[0], rows.shape[1]
+    if m * width > FIRST_WINDOW_FLOATS:
+        return None
+    fn = lib.hanabi_gather_window
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+    def run():
+        window = torch.empty((nt, m, width), dtype=torch.float32, device=rows.device)
+        has = torch.empty((nt, m), dtype=torch.bool, device=rows.device)
+        code = fn(rows.data_ptr(), pidx_sorted.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+                  window.data_ptr(), has.data_ptr(), nt, pidx_sorted.shape[0], rows.shape[0], m,
+                  width, int(from_start), int(pidx_sorted.dtype == torch.int64),
+                  int((m * width) % 4 == 0), cuda_build.current_stream())
+        cuda_build.check(code, "gather_window (first version)")
+        return window, has
+
+    return run
+
+
 def compare_gather_window(projected, nt: int, m: int, mode, label: str):
     """``gather_window`` against its plain version on a pass's entries
     (``project_bin``'s outputs, sorted as ``rasterize`` sorts them), bit for
-    bit over the whole window and ``has``, and timed: the kernel; the route
-    it replaced, ``window_index`` then ``gather_rows``, in the same call
-    (``first_ms``); its plain version; and one ``index_select`` of the same
-    window indices (``library_ms``: the gather half only, since no single
-    PyTorch call builds the window). The bound counts the tile bounds, the
-    filled slots' indices and rows read, and the whole window and ``has``
-    written. Returns the row and ``(window, has)``."""
+    bit over the whole window and ``has``, and timed: the kernel; the earlier
+    kernel in the same call (``first_ms``, held bit-exact too; None above
+    the M * F it stages); its plain version; and one ``index_select`` of the
+    same window's rows (``library_ms``: the gather half only, since no
+    single PyTorch call builds the window). The bound counts the tile
+    bounds, the filled slots' indices and rows read, and the whole window
+    and ``has`` written. Returns the row and ``(window, has)``."""
     import torch
 
     from bevy_hanabi_tpu_torch.ops import gather
@@ -575,33 +626,34 @@ def compare_gather_window(projected, nt: int, m: int, mode, label: str):
     args = (rows, pidx_sorted, starts, ends, m, mode is not None)
     window, has = gather.gather_window(*args)
     want_w, want_has = gather.gather_window_plain(*args)
+    first = first_window_launcher(VARIANT_LIBS["first"], *args)
+    outs = {"": (window, has)}
+    if first is not None:
+        outs[" (first version)"] = first()
     torch.cuda.synchronize()
-    if not torch.equal(has, want_has) or not torch.equal(window.view(torch.int32),
-                                                         want_w.view(torch.int32)):
-        fail(f"gather_window ({label}): differs from its plain version")
+    for name, (w, h) in outs.items():
+        if not torch.equal(h, want_has) or not torch.equal(w.view(torch.int32),
+                                                           want_w.view(torch.int32)):
+            fail(f"gather_window{name} ({label}): differs from its plain version")
     filled = int(has.sum())
     # with several entries a particle, an entry reads row entry mod N
     n_rows = rows.shape[0] if pidx_sorted.shape[0] > rows.shape[0] else None
     idx = raster.window_index(*args[1:], n_rows=n_rows)[0].reshape(-1)
-
-    def first_route():
-        pidx, _ = raster.window_index(*args[1:], n_rows=n_rows)
-        return gather.gather_rows(rows, pidx.reshape(-1))
-
     read = filled * (pidx_sorted.element_size() + rows.shape[1] * rows.element_size())
     result = {
         "max_abs_err": 0.0,
         "ms": cuda_ms(lambda: gather.gather_window(*args), 100),
-        "first_ms": cuda_ms(first_route, 100),
+        "first_ms": cuda_ms(first, 100) if first else None,
         "plain_ms": cuda_ms(lambda: gather.gather_window_plain(*args), 50),
         "library_ms": cuda_ms(lambda: rows.index_select(0, idx), 100),
         **bound(nbytes(starts, ends, window, has) + read),
         "filled_entries": filled,
     }
+    first_ms = "refused" if first is None else f"{result['first_ms']:.4f} ms"
     print(f"gather_window ({label}): {nt} tiles x {m} slots x {rows.shape[1]} floats, {filled} "
           f"filled, {pidx_sorted.shape[0]} {pidx_sorted.dtype} entry ids over {rows.shape[0]} rows, "
-          f"bit-exact; kernel {result['ms']:.4f} ms, "
-          f"window_index + gather_rows {result['first_ms']:.4f} ms")
+          f"bit-exact; kernel {result['ms']:.4f} ms, first version {first_ms}, "
+          f"index_select {result['library_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms")
     return result, (window, has)
 
 
@@ -2143,10 +2195,16 @@ def mesh_frame(kernels, lit: bool, first=None):
                                               nty, config.background, mode, first=first,
                                               appearance=ap, textures=textures)
     results[f"tile_blend[{tag}]"].update(warp_iterations(*win, T, ntx, ap, tag))
-    if not lit:
+    if lit:
+        # a window past the earlier kernel's 48 KB of staged floats (M * F = 13 312)
+        wide = f"mesh,lit,M={MESH_M_WIDE}"
+        results[f"gather_window[{wide}]"], _ = compare_gather_window(projected, nt, MESH_M_WIDE,
+                                                                     None, wide)
+    else:
         # the same frame's blend on twice the entries a tile: bench.py's wider M
         wide = f"mesh,M={MIXED_M_WIDE}"
-        _, win = compare_gather_window(projected, nt, MIXED_M_WIDE, None, wide)
+        results[f"gather_window[{wide}]"], win = compare_gather_window(projected, nt, MIXED_M_WIDE,
+                                                                       None, wide)
         results[f"tile_blend[{wide}]"], _ = compare_tile_blend(
             f"blend ({wide}, {ap.row}-float rows)", *win, T, ntx, nty, config.background, "blend",
             first=first, appearance=ap, textures=textures)
@@ -2185,7 +2243,8 @@ def example_kernels(example_runs, first=None) -> dict:
         projected = raster.project_bin(*project_args(draw, cam, config), row=raster.ROW_QUAD,
                                        tile_slots=config.tile_slots, tile_span=config.tile_span,
                                        appearance=columns)
-        _, win = compare_gather_window(projected, nt, config.max_entries_per_tile, None, label)
+        results[f"gather_window[{label}]"], win = compare_gather_window(
+            projected, nt, config.max_entries_per_tile, None, label)
         results[f"tile_blend[{label}]"], _ = compare_tile_blend(
             f"blend ({label}, {ap.row}-float rows)", *win, T, ntx, nty, config.background, "blend",
             first=first, appearance=ap, textures=texs)
@@ -2260,12 +2319,13 @@ def textured_quad_checks(kernels, first=None):
     projected = raster.project_bin(*project_args(draw, cam, config), row=raster.ROW_QUAD,
                                    tile_slots=config.tile_slots, tile_span=config.tile_span,
                                    appearance=columns)
-    _, win = compare_gather_window(projected, nt, config.max_entries_per_tile, None,
-                                   "textured quads")
+    window_row, win = compare_gather_window(projected, nt, config.max_entries_per_tile, None,
+                                            "textured quads")
     result, _ = compare_tile_blend(f"blend (textured quads, {ap.row}-float rows)", *win, T, ntx,
                                    nty, config.background, "blend", first=first, appearance=ap,
                                    textures=texs)
-    return {"tile_blend[textured quads]": result}, launches
+    return ({"tile_blend[textured quads]": result, "gather_window[textured quads]": window_row},
+            launches)
 
 
 def main() -> int:
@@ -2299,11 +2359,14 @@ def main() -> int:
     # Phase 2: build the kernels from the checkout's sources, and beside them
     # the variants that phase 13 times, every nvcc process started together.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         ribbon_builds = ex.submit(cuda_build.build_variants, RIBBON_VARIANTS, "ribbon_segments")
         blend_builds = ex.submit(cuda_build.build_variants, TILE_BLEND_VARIANTS, "tile_blend")
+        window_builds = ex.submit(cuda_build.build_variants, GATHER_WINDOW_VARIANTS,
+                                  "gather_window")
         lib_path = cuda_build.build()
         variant_builds = {**ribbon_builds.result(), **blend_builds.result()}
+        window_builds = window_builds.result()
     cuda_build.library()
     print(f"built {lib_path.name} and {len(variant_builds)} variants in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2315,6 +2378,11 @@ def main() -> int:
             fail(f"the variant {label!r} did not build")
         variants[label] = lib
     first_blend = variants.pop("appear1")
+    for label, (lib, log) in window_builds.items():
+        print(f"== gather_window variant {label}\n{log.strip()}")
+        if lib is None:
+            fail(f"the gather_window variant {label!r} did not build")
+        VARIANT_LIBS[label] = lib
 
     # Phase 3: kernels against their plain versions at the main path's shapes.
     results = compare_kernels(dev)
@@ -2474,6 +2542,14 @@ def main() -> int:
             ("tile_blend[round]", "tile_blend",
              example_runs["example_2d"][4]["tile_blend[blend,appearance]"]),
             ("tile_blend[textured quads]", "tile_blend", tq_launches["tile_blend[blend,appearance]"]),
+            # timing rows of windows no main path gathers at that M
+            (f"gather_window[mesh,M={MIXED_M_WIDE}]", "gather_window", 0),
+            (f"gather_window[mesh,lit,M={MESH_M_WIDE}]", "gather_window", 0),
+            ("gather_window[flipbook]", "gather_window",
+             example_runs["example_circle"][4]["gather_window"]),
+            ("gather_window[round]", "gather_window",
+             example_runs["example_2d"][4]["gather_window"]),
+            ("gather_window[textured quads]", "gather_window", tq_launches["gather_window"]),
         ]
     )
     kernel_rows = [
@@ -2489,11 +2565,11 @@ def main() -> int:
         for name, kernel, count in rows
     ]
     print("kernel rows: name, launches, ms, bound ms (by), share of the bound, plain ms, library ms"
-          " (, the replaced route's ms)")
+          " (, the first version's ms)")
     for r in kernel_rows:
         print(f"  {r['name']:28s} {r['launches']:6d} {r['ms']:.4f} {r['bound_ms']:.4f} "
               f"({r['bound_by']}) {100.0 * r['share']:.1f}% {r['plain_ms']:.4f} {r['library_ms']}"
-              + (f" {r['first_ms']:.4f}" if "first_ms" in r else ""))
+              + (f" {r['first_ms']}" if "first_ms" in r else ""))
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({

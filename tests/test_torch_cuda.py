@@ -469,10 +469,12 @@ def _window_entries(nt, M, F, index_dtype, seed):
 
 @pytest.mark.parametrize("from_start", [False, True])
 @pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("M", [64, 128, 37])  # 37 x 13: a window off 16 bytes, the scalar stores
-@pytest.mark.parametrize("F", [10, 13])
+# 37: 301 * 37 * F floats, not a multiple of 4: the last CTA's scalar tail
+@pytest.mark.parametrize("M", [64, 128, 37])
+@pytest.mark.parametrize("F", [10, 11, 13, 17, 26])  # quads, flipbook, mask, mesh, lit mesh
 def test_gather_window_is_bit_exact(cuda, F, M, index_dtype, from_start):
-    rows, pidx, starts, ends = (t.to(cuda) for t in _window_entries(300, M, F, index_dtype, seed=F * M))
+    entries = _window_entries(301, M, F, index_dtype, seed=F * M)
+    rows, pidx, starts, ends = (t.to(cuda) for t in entries)
     before = gather.gather_window.launches
     window, has = gather.gather_window(rows, pidx, starts, ends, M, from_start)
     assert gather.gather_window.launches == before + 1
@@ -480,6 +482,18 @@ def test_gather_window_is_bit_exact(cuda, F, M, index_dtype, from_start):
     assert has.dtype == torch.bool and torch.equal(has, want_has)
     assert bool(has.any()) and not bool(has.all())
     assert torch.equal(window.view(torch.int32), want_w.view(torch.int32))
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("M,F", [(512, 26), (1024, 13)])  # M * F above 12 288 floats
+def test_gather_window_of_wide_tiles_is_bit_exact(cuda, M, F, index_dtype):
+    """Tiles of many slots, runs ragged up to 3 M: no cap on M * F."""
+    rows, pidx, starts, ends = (t.to(cuda) for t in _window_entries(48, M, F, index_dtype, seed=M))
+    for from_start in (False, True):
+        window, has = gather.gather_window(rows, pidx, starts, ends, M, from_start)
+        want_w, want_has = gather.gather_window_plain(rows, pidx, starts, ends, M, from_start)
+        assert torch.equal(has, want_has) and bool(has.any()) and not bool(has.all())
+        assert torch.equal(window.view(torch.int32), want_w.view(torch.int32))
 
 
 def test_gather_window_on_a_rasterized_frame_is_bit_exact(cuda):
@@ -997,6 +1011,29 @@ def test_project_bin_appearance_columns_match_plain(cuda, case, slots, span, bas
     torch.testing.assert_close(got[3], want[3], rtol=0, atol=0, equal_nan=True)
 
 
+@pytest.mark.parametrize("case,F", [("textured triangles", 17), ("lit triangles", 26)])
+def test_gather_window_on_a_frame_of_triangles_is_bit_exact(cuda, case, F):
+    """A ``rasterize`` frame of textured triangles launches the window
+    gather at the mesh's row width; that window, built as the frame builds
+    it, equals the plain version's bit for bit."""
+    view, proj, draw, texs = _appearance_draw(6000, cuda, case)
+    cfg = raster.RasterConfig(128, 128, tile_slots=0)
+    before = gather.gather_window.launches
+    img = raster.rasterize(draw, CameraParams(view, proj, (128, 128)), cfg, textures=texs)
+    assert gather.gather_window.launches > before and bool(img.isfinite().all())
+    ap, inputs = raster.draw_appearance(draw, raster.ROW_QUAD)
+    tile, depth, rows, rng = raster.project_bin(
+        draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color, view, proj, (128, 128),
+        cfg.tile_size, cfg.tiles_x, cfg.tiles_y, row=raster.ROW_QUAD, tile_slots=0,
+        appearance=inputs)
+    assert ap.row == F and rows.shape[1] == F
+    args = (rows, *raster.sort_tiles(tile, depth, cfg.num_tiles, None, rng),
+            cfg.max_entries_per_tile, False)
+    got, want = gather.gather_window(*args), gather.gather_window_plain(*args)
+    assert torch.equal(got[1], want[1]) and bool(want[1].any())
+    assert _bits_equal(got[0], want[0])
+
+
 @pytest.mark.parametrize("from_start", [False, True])
 @pytest.mark.parametrize("F", [11, 17, 20, 26, 43])  # flipbook / round, textured mesh, lit, all
 def test_gather_window_at_appearance_widths_is_bit_exact(cuda, F, from_start):
@@ -1323,3 +1360,36 @@ def test_examples_on_the_card_match_the_cpu(cuda, example):
     assert float(sums_c[-1]) > 0
     for a, b in zip(sums_g.cpu().tolist(), sums_c.tolist()):
         assert abs(a - b) <= 0.005 * max(abs(b), 1.0)
+
+
+# ---- the expression evaluator's integer edge cases --------------------------
+
+
+def test_saturating_casts_and_integer_rem_by_zero_on_the_card_match_the_cpu(cuda):
+    """f32 -> INT / UINT casts out of range (NaN, +-inf, -1, 2^31, 2^32 and
+    their neighbours) and integer ``%`` by zero, the same on the card as on
+    the CPU, bit for bit (the CPU's are held against JAX in
+    ``test_torch_modifiers.py``)."""
+    import bevy_hanabi_tpu_torch as bt
+    from bevy_hanabi_tpu_torch import compiler
+
+    r = np.random.default_rng(11)
+    age = r.uniform(0.0, 6.0, 2048).astype(np.float32)
+    age[:14] = [np.nan, np.inf, -np.inf, -1.0, -0.5, 2.0**31, 2.0**32, 2147483520.0, 4294967040.0,
+                -(2.0**31), -2147483904.0, 3e9, -3e9, 1.5]
+    w = bt.ExprWriter()
+    a = w.attr(bt.attributes.AGE)
+    exprs = [a.cast(bt.INT), a.cast(bt.UINT), ((a - 3.0) * 2e9).cast(bt.INT),
+             ((a - 3.0) * 2e9).cast(bt.UINT),
+             (a * 100.0 - 300.0).cast(bt.INT) % w.prop(w.add_property("divisor", 0)),
+             (a * 1e9).cast(bt.UINT) % w.attr(bt.attributes.ID)]
+    handles = [e.expr() for e in exprs]
+    module = w.finish()
+    out = []
+    for dev in ("cpu", cuda):
+        ctx = compiler.InitContext(module, {"age": torch.from_numpy(age).to(dev)},
+                                   torch.zeros(2048, dtype=torch.int64, device=dev),
+                                   particle_index=torch.arange(2048, device=dev))
+        out.append([ctx.eval(h).cpu() for h in handles])
+    for got, want in zip(out[1], out[0]):
+        assert got.dtype == want.dtype and torch.equal(got, want)

@@ -95,13 +95,14 @@ def _load_experiment(name):
     return mod
 
 
+@pytest.mark.parametrize("F", [10, 17, 26])  # quads, the mesh's rows, lit
 @pytest.mark.parametrize("from_start", [False, True])
-def test_gather_window_rows_match_pallas_gather(monkeypatch, from_start):
+def test_gather_window_rows_match_pallas_gather(monkeypatch, from_start, F):
     # The TPU kernel runs in Pallas interpret mode; the experiment is not edited.
     monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
     mod = _load_experiment("pallas_gather_bench")
     M = 8
-    table, pidx_sorted, starts, ends = _sorted_entries("ragged", M, seed=3, F=10)
+    table, pidx_sorted, starts, ends = _sorted_entries("ragged", M, seed=3, F=F)
     window, has = gather.gather_window(
         torch.from_numpy(table), torch.from_numpy(pidx_sorted), torch.from_numpy(starts),
         torch.from_numpy(ends), M, from_start=from_start,

@@ -117,6 +117,13 @@ EXPRS = {
     "compare": lambda w, p, A: (w.attr(A.AGE) < w.attr(A.LIFETIME)).vec2(w.attr(A.AGE) >= w.lit(3.0)).all(),
     "uint_wrap": lambda w, p, A: w.lit(0xFFFFFFF0, p.UINT) + w.attr(A.AGE).cast(p.UINT) * w.lit(0x10001, p.UINT),
     "int_rem": lambda w, p, A: (w.attr(A.AGE) * 100.0 - 300.0).cast(p.INT) % w.lit(7, p.INT),
+    # out of range on most lanes: XLA's convert saturates
+    "int_cast_saturates": lambda w, p, A: ((w.attr(A.AGE) - 3.0) * 2e9).cast(p.INT),
+    "uint_cast_saturates": lambda w, p, A: ((w.attr(A.AGE) - 3.0) * 2e9).cast(p.UINT),
+    # by zero: lax.rem gives the dividend (a property at 0 on every lane, the id on lane 0)
+    "int_rem_by_zero": lambda w, p, A: (w.attr(A.AGE) * 100.0 - 300.0).cast(p.INT)
+    % w.prop(w.add_property("divisor", 0)),
+    "uint_rem_by_zero": lambda w, p, A: (w.attr(A.AGE) * 1e9).cast(p.UINT) % w.attr(A.ID),
     "pack_unpack": lambda w, p, A: w.attr(A.POSITION).vec4_xyz_w(w.attr(A.AGE) / 6.0).pack4x8snorm().unpack4x8snorm()
     + w.attr(A.POSITION).vec4_xyz_w(w.attr(A.AGE) / 6.0).pack4x8unorm().unpack4x8unorm(),
     "uniform_rand": lambda w, p, A: w.lit(1.0).uniform(w.lit(3.0)) + w.lit((0.0, 1.0, 2.0)).uniform(w.lit(4.0)).x(),
@@ -147,6 +154,27 @@ def test_eval_expr_matches_jax(name):
     got, want, ct, cj = _eval_pair(name)
     _close(got, want)
     _close(ct.seed, cj.seed)
+
+
+# NaN, +-inf, -1, 2^31, 2^32, the largest f32 below each top end, both ends' neighbours
+OUT_OF_RANGE = np.array([np.nan, np.inf, -np.inf, -1.0, -0.5, 2.0**31, 2.0**32, 2147483520.0,
+                         4294967040.0, -(2.0**31), -2147483904.0, 3e9, -3e9, 1.5], np.float32)
+
+
+@pytest.mark.parametrize("target", ["INT", "UINT"])
+def test_out_of_range_cast_matches_jax_astype(target):
+    data = _inputs(7)
+    data["age"][: OUT_OF_RANGE.size] = OUT_OF_RANGE
+    out = []
+    for pkg in (bj, bt):
+        w = pkg.ExprWriter()
+        h = w.attr(pkg.attributes.AGE).cast(getattr(pkg, target)).expr()
+        out.append((w.finish(), h))
+    (mj, hj), (mt, ht) = out
+    cj, ct = _ctx_pair("InitContext", mj, mt, data)
+    got, want = ct.eval(ht), cj.eval(hj)
+    assert want.dtype == (jnp.int32 if target == "INT" else jnp.uint32)
+    _close(got, want)
 
 
 def test_texture_sample_is_not_ported():
