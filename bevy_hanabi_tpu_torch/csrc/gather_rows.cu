@@ -1,7 +1,7 @@
 // gather_rows and gather_window: row gathers from an f32 row table.
 //
-// Both replace the TPU kernel `pallas_gather` (experiments/pallas_gather_bench.py:64,
-// and its second version experiments/pallas_gather2.py:57), a per-row DMA
+// Both replace the TPU kernel `pallas_gather` (experiments/pallas_gather_bench.py:65,
+// and its second version experiments/pallas_gather2.py:58), a per-row DMA
 // gather with scalar-prefetched indices.
 //
 // gather_rows: out[j, :] = table[idx[j], :]. On the main paths it is the

@@ -34,11 +34,13 @@
 // painter columns (the mask cutoff and the blend-mode id, raster.py:549-555),
 // copied from the optional `extra` [N, 2] input (zeros without it). A draw
 // with appearance columns (the kAppear variants: a round, flipbook, textured
-// or mesh draw) appends, after those 10 or 13, each column it has in JAX's
-// order (raster.py:530-577): roundness, tri, the flipbook frame (int32, as
-// f32), the UV (6), normal (9) and vertex-colour (12) triplets, copied from
-// their inputs; which are present is a property of the draw, so the same
-// for every particle of a call. A triangle entry (tri > 0.5) spans |u|,
+// or mesh draw, or the painter's merge of them) appends, after those 10 or
+// 13, each column it has in JAX's order (raster.py:530-577): roundness, tri,
+// the flipbook frame (int32, as f32), the painter's per-entry texture state
+// (2 + 4 per atlas layer), the UV (6) and normal (9) triplets, the painter's
+// per-entry Lambert setup (4) and the vertex-colour triplet (12), copied
+// from their inputs; which are present is a property of the draw, so the
+// same for every particle of a call. A triangle entry (tri > 0.5) spans |u|,
 // |v| <= 0.5 around its anchor: its screen radii are halved before the
 // screen test and the binning, in every binning (raster.py:259-263).
 //
@@ -73,11 +75,13 @@
 // unsigned sort: `torch.sort` then sorts 32-bit keys (4 radix passes, not
 // the 8 of an int64 key that the sentinel tile's bit 31 forced before).
 //
-// The kAppear variants stage the wider rows (at most 43 floats) in dynamic
-// shared memory and read the appearance inputs with scalar loads (a warp's
-// loads of one input still cover one contiguous run); they bin a span^2
-// square by the run-time loop. The variants without appearance are
-// unchanged.
+// The kAppear variants stage the wider rows in dynamic shared memory, kBlock
+// rows of up to 13 + 53 floats (the painter's widest row, four atlas layers
+// and every column, is 65: 66.6 KB beside the 15.6 KB of static staging, so
+// two CTAs an SM; the mesh frame's 17- and 26-float rows take 17-27 KB),
+// and read the appearance inputs with scalar loads (a warp's loads of one
+// input still cover one contiguous run); they bin a span^2 square by the
+// run-time loop. The variants without appearance are unchanged.
 //
 // Numerics: the op order is the JAX package's, and the library is built
 // with -fmad=false so no multiply-add is contracted; the tile floors at
@@ -98,9 +102,12 @@ struct AppearanceIn {
   const float* roundness;  // [n]
   const float* tri;        // [n]
   const int32_t* sprite;   // [n]
+  const float* tex;        // [n, tex_w]: the painter's (grid, then 4 a layer)
   const float* uv;         // [n, 6]
   const float* nrm;        // [n, 9]
+  const float* light;      // [n, 4]: the painter's per-entry (lx, ly, lz, band)
   const float* vcol;       // [n, 12]
+  int tex_w;
 };
 
 struct ProjectParams {
@@ -317,10 +324,14 @@ __global__ void __launch_bounds__(kBlock) project_bin_kernel(
       if (ap.roundness) r[o++] = ap.roundness[i];
       if (ap.tri) r[o++] = ap.tri[i];
       if (ap.sprite) r[o++] = (float)ap.sprite[i];
+      if (ap.tex)
+        for (int j = 0; j < ap.tex_w; ++j) r[o++] = ap.tex[(int64_t)ap.tex_w * i + j];
       if (ap.uv)
         for (int j = 0; j < 6; ++j) r[o++] = ap.uv[6 * i + j];
       if (ap.nrm)
         for (int j = 0; j < 9; ++j) r[o++] = ap.nrm[9 * i + j];
+      if (ap.light)
+        for (int j = 0; j < 4; ++j) r[o++] = ap.light[4 * i + j];
       if (ap.vcol)
         for (int j = 0; j < 12; ++j) r[o++] = ap.vcol[12 * i + j];
     }
@@ -412,8 +423,9 @@ bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15u) == 0
 // params: mvp[16], view row 2 [4], vp_w, vp_h, width, height, tile (25 floats)
 // extra: [n, 2] f32 (cutoff, mode) or NULL; base_row: 10 or 13; row: floats
 // per row, base_row plus the widths of the appearance inputs given
-// (roundness [n] f32, tri [n] f32, sprite [n] int32, uv [n, 6], nrm [n, 9],
-// vcol [n, 12] f32; each NULL where the draw has no such column);
+// (roundness [n] f32, tri [n] f32, sprite [n] int32, tex [n, tex_width]
+// with tex_width 2 + 4 * (1 to 4) layers, uv [n, 6], nrm [n, 9], light
+// [n, 4], vcol [n, 12] f32; each NULL where the draw has no such column);
 // range: f32 [2], out: (min, max) of the binned depths, NaN where none
 // tile_slots: 0 (span^2 entries a particle), 1 or 2; tile_out and depth_out
 // hold S * n entries, slot-major
@@ -423,15 +435,18 @@ extern "C" int hanabi_project_bin(const void* position, const void* axis_x, cons
                                   int n, int row, const float* params, int ntx, int nty,
                                   int tile_slots, int tile_span, int base_row,
                                   const void* roundness, const void* tri, const void* sprite,
-                                  const void* uv, const void* nrm, const void* vcol,
+                                  const void* tex, const void* uv, const void* nrm,
+                                  const void* light, const void* vcol, int tex_width,
                                   void* stream) {
   const AppearanceIn ap{(const float*)roundness, (const float*)tri, (const int32_t*)sprite,
-                        (const float*)uv, (const float*)nrm, (const float*)vcol};
-  const int appear_width = (roundness ? 1 : 0) + (tri ? 1 : 0) + (sprite ? 1 : 0) +
-                           (uv ? 6 : 0) + (nrm ? 9 : 0) + (vcol ? 12 : 0);
+                        (const float*)tex, (const float*)uv, (const float*)nrm,
+                        (const float*)light, (const float*)vcol, tex ? tex_width : 0};
+  const int appear_width = (roundness ? 1 : 0) + (tri ? 1 : 0) + (sprite ? 1 : 0) + ap.tex_w +
+                           (uv ? 6 : 0) + (nrm ? 9 : 0) + (light ? 4 : 0) + (vcol ? 12 : 0);
   const bool appear = appear_width > 0;
   // (with no particle the inputs, appearance columns included, may be NULL)
   if ((base_row != 10 && base_row != 13) || (n > 0 && row != base_row + appear_width) ||
+      (tex && (tex_width < 6 || tex_width > 18 || (tex_width - 2) % 4 != 0)) ||
       !range || tile_slots < 0 || tile_slots > 2 ||
       (tile_slots == 0 && (tile_span < 1 || tile_span > 46340)))  // span^2 fits an int
     return (int)cudaErrorInvalidValue;

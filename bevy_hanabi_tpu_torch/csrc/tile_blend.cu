@@ -1,15 +1,18 @@
 // tile_blend: the per-tile bounded blend loop of the tile rasterizer, for
 // every equation of the port: BLEND, PREMULTIPLY, ADD, MULTIPLY, OPAQUE,
 // MASK and the painter's per-entry SCENE equation, with an optional
-// per-pixel depth test, and the per-fragment appearance of textured, round
-// and mesh particles.
+// per-pixel depth test, the per-fragment appearance of textured, round and
+// mesh particles, the painter's per-entry texture atlas and Lambert setups,
+// and analytic antialiasing.
 //
 // Replaces bevy_hanabi_tpu/render/raster.py:616-911 (`blend_one` / `body`:
 // the six equations and the scene branch, raster.py:832-895; the depth test
 // and depth writes, raster.py:675-682, 854-855, 894-895, 909; the triangle
 // inside test, the squircle, barycentric UVs / normals / vertex colours,
 // the Lambert shade, the flipbook cell and the texture layers,
-// raster.py:121-146, 616-618, 635-642, 683-776; no antialiasing). The JAX package
+// raster.py:121-146, 616-618, 635-642, 683-776; the painter's atlas and
+// per-entry light, raster.py:724-733, 777-813; antialiased coverage,
+// raster.py:644-671, 834-839). The JAX package
 // leaves it to XLA on the TPU, which streams the whole [nt, T, T, 4]
 // framebuffer (and the [nt, T, T] depth plane) through device memory once
 // per group of `blend_unroll` entries; it has no Pallas kernel.
@@ -87,7 +90,11 @@
 // at most 1: that is the limit of the skip. ADD's `min(a + a_d, 1)` also
 // runs on uncovered lanes in JAX, so the standalone ADD variant clamps the
 // starting alpha once before the loop, which gives JAX's result for any
-// alpha; the painter's ADD entries assume alpha <= 1. A NaN row never
+// alpha; in SCENE an ADD entry is never culled, and every lane it does not
+// write (uncovered, behind the depth plane, discarded by the squircle)
+// clamps its alpha to 1 in the entry's place in the sequence, as JAX's
+// uncovered lanes do (alpha above 1 comes from a source alpha above 1:
+// HDR colours, vertex colours extrapolated on quads). A NaN row never
 // reaches a pixel it does not cover. The det clamp that is not
 // sign-preserving (raster.py:629-630) is kept.
 //
@@ -218,6 +225,56 @@
 //   alpha the sum of three selected terms, with zeros in the unused terms,
 //   so it rounds op for op as JAX's (with -fmad=false, as the library is
 //   built).
+//
+// The painter's atlas (the appearance kernel's SCENE variants, the only
+// ones a painter draw takes, an Appearance with atlas_layers; the other
+// variants compile without the code below): the row carries, after the sprite, the entry's texture
+// state (grid cols, grid rows, then per layer: atlas layer, true width,
+// true height, map code) and, after the normals, its Lambert setup (lx, ly,
+// lz, band) where the merge had several. The per-entry pass computes the
+// cell as JAX does with a traced grid, mod(sprite, cols) and floor(sprite /
+// cols) (true divisions: the grid is a per-entry float), and the UVs divide
+// by the grid per pair. Each layer samples layer `tid` of the one [L, H, W,
+// 4] atlas at texel tid*H*W + v*W + u, at the entry's true size, so the
+// zero padding is never read; its map code gives neutral factors (0: the
+// layer is absent and is not sampled, as JAX's factors are exactly 1).
+// The wrap takes the compare path only for an integer-valued size in [1,
+// 2^22] (then exact, as for per-call textures); indices are clamped into
+// the atlas as JAX's gather clamps them. The per-call texture layers and
+// their descriptor are not used by an atlas draw.
+//
+// Antialiasing (kAA, RasterConfig.antialias): a pair's coverage is JAX's,
+// op for op: quads clip((1 - |u|) eu + 1/2) clip((1 - |v|) ev + 1/2) with
+// eu = |h1|, ev = |h2|; triangles the product of clip(d + 1/2) over the
+// three half-planes, d1 = (u + 1/2) |det| / max(ev, 1e-9), d2 = (v + 1/2)
+// |det| / max(eu, 1e-9), d3 = -(u + v) |det| / max(|h2 - h1|, 1e-9). A lane
+// covers where coverage > 0 (the fringe included); the source alpha is
+// scaled by it, and PREMULTIPLY's RGB too (SCENE's premultiply term cs is
+// the coverage); MASK's and SCENE's cutoffs test the unscaled alpha; opaque
+// and mask writes (colour, alpha 1 and depth) take every covered lane. The
+// lane computes u, v by division and the coverage in full (no
+// division-free test). The warp-block bounds widen to the fringe, with the
+// header's notation, D = |det|, e the edge lengths in double and m = 2^-20:
+// * Quad: coverage is 0 where fl(fl(1 - |u|) eu) <= -1/2, which holds once
+//   |x_u| >= (D + D / (2 eu) (1 + 2^-20)) (1 + 2^-23) (the divisions' and
+//   products' roundings, and the float eu within 2^-22 of the double's).
+//   So the block is culled where N_u lies beyond +-((D + D / (2 eu)) (1 + 2
+//   m) + m S_u) at every corner, or N_v beyond the same with ev.
+// * Triangle: a half-plane's factor is 0 where fl(d) <= -1/2, which holds
+//   once fl(u + 1/2) <= -(1/2)(1 + 2^-20) max(ev, 1e-9) / D (three
+//   roundings of 2^-24), so where sg N_u < -((D + max(ev, 1e-9)) / 2 (1 +
+//   2 m) + m S_u) at every corner; the same for v with eu; and sg (N_u +
+//   N_v) > max(e12, 1e-9) / 2 (1 + 2 m) + m (D + S_u + S_v) at every
+//   corner for the third (the sum's and the divisions' roundings, as in the
+//   triangle bound above). The quad-extent culls (u > 1/2, v > 1/2) do not
+//   hold under the fringe and are dropped.
+// Only entries that are cullable as before and whose three edge lengths in
+// float lie in [2^-40, 2^60] (their squares neither underflow nor
+// overflow, so the float lengths are within 2^-22 of the double's) are
+// culled. A NaN coverage (JAX's on a non-finite row) is not > 0: such a
+// lane leaves its pixel untouched, where JAX's PREMULTIPLY term rgb_s *
+// coverage would write NaN; no binned entry has a non-finite quad. The
+// compacted-pair path is not instantiated with kAA.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -261,6 +318,12 @@ struct Appearance {
   int layers;
   const float4* tex[kMaxLayers];
   int tw[kMaxLayers], th[kMaxLayers], map[kMaxLayers];
+  // the painter's atlas: the tex column's offset and layers an entry (0:
+  // none), the per-entry light's offset (-1: the static one above), and the
+  // [L, H, W, 4] atlas
+  int o_tex, atlas_layers, o_light;
+  const float4* atlas;
+  int atlas_l, atlas_h, atlas_w;
 };
 
 // floats per window row: 13 where the variant reads depth, cutoff or mode
@@ -269,40 +332,66 @@ struct RowWidth {
   static constexpr int value = (kDepth || kEq == kMask || kEq == kScene) ? 13 : 10;
 };
 
-// True when the entry's quad provably covers no pixel centre in
-// [x0, x1] x [y0, y1] under the reference's float test (the header's proof).
-__device__ __forceinline__ bool block_culled(const float* r, float det, float x0, float x1,
-                                             float y0, float y1) {
+constexpr double kRel = 0x1p-20;  // four times gamma_3 ~ 3 * 2^-24
+
+// True when |N_u| exceeds fu + m S_u and |N_v| exceeds fv + m S_v at every
+// pixel centre in [x0, x1] x [y0, y1] (the header's quad bound: fu = fv =
+// D (1 + m); under antialiasing, the fringe's).
+__device__ __forceinline__ bool quad_block_culled(const float* r, double fu, double fv,
+                                                  float x0, float x1, float y0, float y1) {
   const double cx = r[0], cy = r[1];
   const double a1x = r[2], a1y = r[3], a2x = r[4], a2y = r[5];
-  const double ad = fabs((double)det);
   const double dx0 = (double)x0 - cx, dx1 = (double)x1 - cx;
   const double dy0 = (double)y0 - cy, dy1 = (double)y1 - cy;
   const double mx = fmax(fabs(dx0), fabs(dx1)), my = fmax(fabs(dy0), fabs(dy1));
-  constexpr double kRel = 0x1p-20;  // four times gamma_3 ~ 3 * 2^-24
   // u: N = a2y dx - a2x dy, separable, so its range over the block is the
   // sum of the two terms' ranges (the corners)
-  const double bu = ad * (1.0 + kRel) + kRel * (fabs(a2y) * mx + fabs(a2x) * my);
+  const double bu = fu + kRel * (fabs(a2y) * mx + fabs(a2x) * my);
   const double ux0 = a2y * dx0, ux1 = a2y * dx1, uy0 = -a2x * dy0, uy1 = -a2x * dy1;
   const double u_lo = fmin(ux0, ux1) + fmin(uy0, uy1), u_hi = fmax(ux0, ux1) + fmax(uy0, uy1);
   if (u_lo > bu || u_hi < -bu) return true;
   // v: N = -a1y dx + a1x dy
-  const double bv = ad * (1.0 + kRel) + kRel * (fabs(a1y) * mx + fabs(a1x) * my);
+  const double bv = fv + kRel * (fabs(a1y) * mx + fabs(a1x) * my);
   const double vx0 = -a1y * dx0, vx1 = -a1y * dx1, vy0 = a1x * dy0, vy1 = a1x * dy1;
   const double v_lo = fmin(vx0, vx1) + fmin(vy0, vy1), v_hi = fmax(vx0, vx1) + fmax(vy0, vy1);
   return v_lo > bv || v_hi < -bv;
 }
 
+// the edge lengths |h1|, |h2| and |h2 - h1| in double
+__device__ __forceinline__ void edges(const float* r, double& eu, double& ev, double& e12) {
+  const double a1x = r[2], a1y = r[3], a2x = r[4], a2y = r[5];
+  eu = sqrt(a1x * a1x + a1y * a1y);
+  ev = sqrt(a2x * a2x + a2y * a2y);
+  e12 = sqrt((a2x - a1x) * (a2x - a1x) + (a2y - a1y) * (a2y - a1y));
+}
+
+// True when the entry's quad provably covers no pixel centre in
+// [x0, x1] x [y0, y1] under the reference's float test (the header's proof);
+// with kAA, no pixel centre with coverage > 0 (the header's fringe bound).
+template <bool kAA = false>
+__device__ __forceinline__ bool block_culled(const float* r, float det, float x0, float x1,
+                                             float y0, float y1) {
+  const double ad = fabs((double)det);
+  if (!kAA) return quad_block_culled(r, ad * (1.0 + kRel), ad * (1.0 + kRel), x0, x1, y0, y1);
+  double eu, ev, e12;
+  edges(r, eu, ev, e12);
+  constexpr double k = 1.0 + 2.0 * kRel;
+  return quad_block_culled(r, (ad + 0.5 * ad / eu) * k, (ad + 0.5 * ad / ev) * k, x0, x1, y0, y1);
+}
+
 // jnp.maximum / jnp.minimum against a constant: a NaN stays NaN
 __device__ __forceinline__ float at_least(float x, float lo) { return x < lo ? lo : x; }
 __device__ __forceinline__ float at_most(float x, float hi) { return x > hi ? hi : x; }
+// jnp.clip(x, 0, 1)
+__device__ __forceinline__ float clip01(float x) { return at_most(at_least(x, 0.0f), 1.0f); }
 
-// The equation of a covered fragment of source colour s (alpha * coverage,
-// coverage == 1 here) onto the pixel d: raster.py:832-895.
-template <int kEq, bool kWrite>
-__device__ __forceinline__ void equation(float4 s, const float* __restrict__ r, float frag_d,
-                                         float4& d, float& dbuf) {
-  const float a = s.w;
+// The equation of a covered fragment of source colour s (its alpha before
+// coverage) onto the pixel d: raster.py:832-895. `cov` is the pair's
+// coverage with kAA (1 without: the alpha is then s.w itself).
+template <int kEq, bool kWrite, bool kAA = false>
+__device__ __forceinline__ void equation(float4 s, float cov, const float* __restrict__ r,
+                                         float frag_d, float4& d, float& dbuf) {
+  const float a = kAA ? s.w * cov : s.w;
   if (kEq == kAdd) {
     d.x = s.x * a + d.x;
     d.y = s.y * a + d.y;
@@ -317,9 +406,15 @@ __device__ __forceinline__ void equation(float4 s, const float* __restrict__ r, 
     d.w = a + d.w * ia;
   } else if (kEq == kPremultiply) {  // rgb_s * coverage + rgb_d * (1 - a)
     const float ia = 1.0f - a;
-    d.x = s.x + d.x * ia;
-    d.y = s.y + d.y * ia;
-    d.z = s.z + d.z * ia;
+    if (kAA) {
+      d.x = s.x * cov + d.x * ia;
+      d.y = s.y * cov + d.y * ia;
+      d.z = s.z * cov + d.z * ia;
+    } else {
+      d.x = s.x + d.x * ia;
+      d.y = s.y + d.y * ia;
+      d.z = s.z + d.z * ia;
+    }
     d.w = a + d.w * ia;
   } else if (kEq == kMultiply) {  // rgb_s * rgb_d * a + rgb_d * (1 - a); alpha kept
     const float ia = 1.0f - a;
@@ -327,14 +422,14 @@ __device__ __forceinline__ void equation(float4 s, const float* __restrict__ r, 
     d.y = s.y * d.y * a + d.y * ia;
     d.z = s.z * d.z * a + d.z * ia;
   } else if (kEq == kOpaque || kEq == kMask) {
-    if (kEq == kMask && !(a >= r[kColCutoff])) return;
+    if (kEq == kMask && !(s.w >= r[kColCutoff])) return;  // the alpha before coverage
     d = make_float4(s.x, s.y, s.z, 1.0f);
     if (kWrite) dbuf = frag_d;
   } else {  // kScene
     const float mode = r[kColMode];
     const bool is_o = mode == 4.0f, is_k = mode == 5.0f;
     if (is_o || is_k) {
-      if (is_o || a >= r[kColCutoff]) {
+      if (is_o || s.w >= r[kColCutoff]) {
         d = make_float4(s.x, s.y, s.z, 1.0f);
         dbuf = frag_d;
       }
@@ -342,7 +437,7 @@ __device__ __forceinline__ void equation(float4 s, const float* __restrict__ r, 
     }
     const bool b_ = mode == 0.0f, p_ = mode == 1.0f, a_ = mode == 2.0f, m_ = mode == 3.0f;
     const float one_m_a = 1.0f - a;
-    const float cs = ((b_ || a_) ? a : 0.0f) + (p_ ? 1.0f : 0.0f);
+    const float cs = ((b_ || a_) ? a : 0.0f) + (p_ ? (kAA ? cov : 1.0f) : 0.0f);
     const float cd = ((b_ || p_ || m_) ? one_m_a : 0.0f) + (a_ ? 1.0f : 0.0f);
     const float cm = m_ ? a : 0.0f;
     const float sa = a + d.w;
@@ -355,11 +450,42 @@ __device__ __forceinline__ void equation(float4 s, const float* __restrict__ r, 
   }
 }
 
+// JAX's antialiased coverage of a pair (the header's formulas), u = num_u /
+// det and v = num_v / det as the reference divides
+__device__ __forceinline__ float aa_coverage(const float* __restrict__ r, float det, bool tri,
+                                             float nu, float nv, float& u, float& v) {
+  u = nu / det;
+  v = nv / det;
+  const float a1x = r[2], a1y = r[3], a2x = r[4], a2y = r[5];
+  const float eu = sqrtf(a1x * a1x + a1y * a1y), ev = sqrtf(a2x * a2x + a2y * a2y);
+  if (!tri) return clip01((1.0f - fabsf(u)) * eu + 0.5f) * clip01((1.0f - fabsf(v)) * ev + 0.5f);
+  const float ad = fabsf(det);
+  const float ex = a2x - a1x, ey = a2y - a1y;
+  const float e12 = sqrtf(ex * ex + ey * ey);
+  const float d1 = (u + 0.5f) * ad / at_least(ev, 1e-9f);
+  const float d2 = (v + 0.5f) * ad / at_least(eu, 1e-9f);
+  const float d3 = -(u + v) * ad / at_least(e12, 1e-9f);
+  return clip01(d1 + 0.5f) * clip01(d2 + 0.5f) * clip01(d3 + 0.5f);
+}
+
+// SCENE's ADD entry on a lane it does not write: JAX's min(0 + a_d, 1)
+template <int kEq>
+__device__ __forceinline__ void unwritten(const float* __restrict__ r, float4& d) {
+  if (kEq == kScene && r[kColMode] == 2.0f) d.w = d.w > 1.0f ? 1.0f : d.w;
+}
+
+// whether a real entry may not be culled: SCENE's ADD entries, which touch
+// every lane (unwritten)
+template <int kEq>
+__device__ __forceinline__ bool unculled(const float* __restrict__ r) {
+  return kEq == kScene && r[kColMode] == 2.0f;
+}
+
 // One entry into one pixel: the reference's coverage test (the comparisons,
-// or the divisions where `divide`), depth test and equation. Returns without
-// touching the pixel where the entry does not cover it. Reads only the row's
-// first 10 or 13 floats.
-template <int kEq, bool kDepth, bool kWrite>
+// or the divisions where `divide`; with kAA the coverage), depth test and
+// equation. Returns without touching the pixel where the entry does not
+// cover it. Reads only the row's first 10 or 13 floats.
+template <int kEq, bool kDepth, bool kWrite, bool kAA>
 __device__ __forceinline__ void blend_entry(const float* __restrict__ r, float det, bool divide,
                                             float px, float py, float4& d, float& dbuf) {
   const float dx = px - r[0];
@@ -367,20 +493,26 @@ __device__ __forceinline__ void blend_entry(const float* __restrict__ r, float d
   const float a1x = r[2], a1y = r[3], a2x = r[4], a2y = r[5];
   const float nu = a2y * dx - a2x * dy;
   const float nv = -a1y * dx + a1x * dy;
-  if (divide) {
+  float cov = 1.0f;
+  if (kAA) {
+    float u, v;
+    cov = aa_coverage(r, det, false, nu, nv, u, v);
+    if (!(cov > 0.0f)) return unwritten<kEq>(r, d);
+  } else if (divide) {
     const float u = nu / det;
     const float v = nv / det;
-    if (!(fabsf(u) <= 1.0f && fabsf(v) <= 1.0f)) return;
+    if (!(fabsf(u) <= 1.0f && fabsf(v) <= 1.0f)) return unwritten<kEq>(r, d);
   } else {
     const float ad = fabsf(det);
-    if (!(fabsf(nu) <= ad && fabsf(nv) <= ad)) return;  // |u|, |v| <= 1, exactly
+    // |u|, |v| <= 1, exactly
+    if (!(fabsf(nu) <= ad && fabsf(nv) <= ad)) return unwritten<kEq>(r, d);
   }
   float frag_d = 0.0f;
   if (kDepth) {
     frag_d = r[kColDepth];
-    if (!(frag_d <= dbuf)) return;
+    if (!(frag_d <= dbuf)) return unwritten<kEq>(r, d);
   }
-  equation<kEq, kWrite>(make_float4(r[6], r[7], r[8], r[9]), r, frag_d, d, dbuf);
+  equation<kEq, kWrite, kAA>(make_float4(r[6], r[7], r[8], r[9]), cov, r, frag_d, d, dbuf);
 }
 
 // the thread's pixel inside the tile: a warp's 8x4 block where T is a
@@ -411,17 +543,31 @@ __device__ __forceinline__ void warp_block(float px, float py, float& x0, float&
   }
 }
 
+// Whether the fringe bounds may cull the entry: its three edge lengths in
+// float (as the lane computes them) in [2^-40, 2^60] (the header's kAA)
+__device__ __forceinline__ bool aa_cullable(const float* r) {
+  const float a1x = r[2], a1y = r[3], a2x = r[4], a2y = r[5];
+  const float ex = a2x - a1x, ey = a2y - a1y;
+  const float e[3] = {sqrtf(a1x * a1x + a1y * a1y), sqrtf(a2x * a2x + a2y * a2y),
+                      sqrtf(ex * ex + ey * ey)};
+  bool ok = true;
+  for (int k = 0; k < 3; ++k) ok = ok && e[k] >= 0x1p-40f && e[k] <= 0x1p60f;
+  return ok;
+}
+
 // the clamped det and the entry's test (the header's step 1)
+template <bool kAA = false>
 __device__ __forceinline__ uint8_t entry_test(const float* r, bool has, float& det) {
   det = r[2] * r[5] - r[3] * r[4];
   const bool clamped = fabsf(det) < 1e-9f;
   det = clamped ? 1e-9f : det;
   bool finite = true;
   for (int c = 0; c < 6; ++c) finite = finite && isfinite(r[c]);
+  if (kAA) finite = finite && aa_cullable(r);
   return !has ? kSkip : !isfinite(det) ? kDivide : (finite && !clamped) ? kCullable : kCompare;
 }
 
-template <int kEq, bool kDepth, bool kWrite>
+template <int kEq, bool kDepth, bool kWrite, bool kAA>
 __global__ void tile_blend_kernel(const float* __restrict__ window,
                                   const uint8_t* __restrict__ has,
                                   const float4* __restrict__ fb_in,
@@ -463,7 +609,7 @@ __global__ void tile_blend_kernel(const float* __restrict__ window,
   for (int m = t; m < M; m += blockDim.x) s_test[m] = has[(int64_t)tile * M + m];
   __syncthreads();
   for (int m = t; m < M; m += blockDim.x)
-    s_test[m] = entry_test(rows + m * kRow, s_test[m], s_det[m]);
+    s_test[m] = entry_test<kAA>(rows + m * kRow, s_test[m], s_det[m]);
   __syncthreads();
 
   float x0, x1, y0, y1;
@@ -476,14 +622,15 @@ __global__ void tile_blend_kernel(const float* __restrict__ window,
     if (m < M) {
       const uint8_t test = s_test[m];
       keep = test == kDivide || test == kCompare ||
-             (test == kCullable && !block_culled(rows + m * kRow, s_det[m], x0, x1, y0, y1));
+             (test == kCullable && (unculled<kEq>(rows + m * kRow) ||
+                                    !block_culled<kAA>(rows + m * kRow, s_det[m], x0, x1, y0, y1)));
     }
     unsigned int mask = __ballot_sync(0xffffffffu, keep);
     while (mask) {
       const int e = m0 + __ffs(mask) - 1;
       mask &= mask - 1;
-      blend_entry<kEq, kDepth, kWrite>(rows + e * kRow, s_det[e], s_test[e] == kDivide, px, py, d,
-                                       dbuf);
+      blend_entry<kEq, kDepth, kWrite, kAA>(rows + e * kRow, s_det[e], s_test[e] == kDivide, px,
+                                            py, d, dbuf);
     }
   }
   if (live) {
@@ -497,7 +644,10 @@ __global__ void tile_blend_kernel(const float* __restrict__ window,
 // ---------------------------------------------------------------------------
 
 // True when the triangle entry provably covers no pixel centre in [x0, x1] x
-// [y0, y1] under the reference's float test (the header's triangle bound).
+// [y0, y1] under the reference's float test (the header's triangle bound);
+// with kAA, no pixel centre with coverage > 0 (the header's fringe bound:
+// the three widened half-planes).
+template <bool kAA = false>
 __device__ __forceinline__ bool tri_block_culled(const float* r, float det, float x0, float x1,
                                                  float y0, float y1) {
   const double sg = det < 0.0f ? -1.0 : 1.0;
@@ -507,7 +657,6 @@ __device__ __forceinline__ bool tri_block_culled(const float* r, float det, floa
   const double dx0 = (double)x0 - cx, dx1 = (double)x1 - cx;
   const double dy0 = (double)y0 - cy, dy1 = (double)y1 - cy;
   const double mx = fmax(fabs(dx0), fabs(dx1)), my = fmax(fabs(dy0), fabs(dy1));
-  constexpr double kRel = 0x1p-20;
   const double su = kRel * (fabs(a2y) * mx + fabs(a2x) * my);
   const double sv = kRel * (fabs(a1y) * mx + fabs(a1x) * my);
   const double h = 0.5 * ad * (1.0 + kRel);
@@ -516,6 +665,14 @@ __device__ __forceinline__ bool tri_block_culled(const float* r, float det, floa
   auto hi = [&](double p, double q) { return fmax(p * dx0, p * dx1) + fmax(q * dy0, q * dy1); };
   const double pu = sg * a2y, qu = -sg * a2x;  // sg N_u
   const double pv = -sg * a1y, qv = sg * a1x;  // sg N_v
+  if (kAA) {
+    double eu, ev, e12;
+    edges(r, eu, ev, e12);
+    constexpr double k = 1.0 + 2.0 * kRel, eps = (double)1e-9f;
+    if (hi(pu, qu) < -(0.5 * (ad + fmax(ev, eps)) * k + su)) return true;  // d1 <= -1/2
+    if (hi(pv, qv) < -(0.5 * (ad + fmax(eu, eps)) * k + sv)) return true;  // d2 <= -1/2
+    return lo(pu + pv, qu + qv) > 0.5 * fmax(e12, eps) * k + kRel * ad + su + sv;  // d3
+  }
   if (hi(pu, qu) < -(h + su) || lo(pu, qu) > h + su) return true;  // u < -1/2 or u > 1/2
   if (hi(pv, qv) < -(h + sv) || lo(pv, qv) > h + sv) return true;  // v < -1/2 or v > 1/2
   return lo(pu + pv, qu + qv) > kRel * ad + su + sv;                // u + v > 0
@@ -618,9 +775,44 @@ __device__ __forceinline__ float4 sample(const float4* __restrict__ tex, int tw,
   return lerp4(lerp4(t00, t01, fu), lerp4(t10, t11, fu), fv);
 }
 
+// wrap() for the painter's per-entry float size n: the compare path only
+// for an integer-valued n in [1, 2^22] (then exact), else the floored
+// remainder (NaN and a zero size to index 0)
+__device__ __forceinline__ void wrap_entry(float x, float n, int& i0, int& i1) {
+  if (n >= 1.0f && n <= 0x1p22f && n == floorf(n) && x >= -n && x < 2.0f * n) {
+    i0 = (int)(x < 0.0f ? x + n : (x >= n ? x - n : x));
+    i1 = i0 + 1 == (int)n ? 0 : i0 + 1;
+  } else {
+    i0 = (int)floor_mod(x, n);
+    i1 = (int)floor_mod(x + 1.0f, n);
+  }
+}
+
+// _bilinear_wrap (raster.py:121-146) on the atlas layer at `tex` ([h, w, 4]
+// of the atlas's extent) at the entry's true size tw x th (floats)
+__device__ __forceinline__ float4 sample_atlas(const float4* __restrict__ tex, int h, int w,
+                                               float twf, float thf, float u, float v) {
+  const float uu = u * twf - 0.5f, vv = v * thf - 0.5f;
+  const float u0 = floorf(uu), v0 = floorf(vv);
+  const float fu = uu - u0, fv = vv - v0;
+  int u0i, u1i, v0i, v1i;
+  wrap_entry(u0, twf, u0i, u1i);
+  wrap_entry(v0, thf, v0i, v1i);
+  u0i = min(max(u0i, 0), w - 1);
+  u1i = min(max(u1i, 0), w - 1);
+  v0i = min(max(v0i, 0), h - 1);
+  v1i = min(max(v1i, 0), h - 1);
+  const float4 t00 = __ldg(tex + v0i * w + u0i), t01 = __ldg(tex + v0i * w + u1i);
+  const float4 t10 = __ldg(tex + v1i * w + u0i), t11 = __ldg(tex + v1i * w + u1i);
+  return lerp4(lerp4(t00, t01, fu), lerp4(t10, t11, fu), fv);
+}
+
 // The source colour of a covered pair at (u, v) (the header's per-pixel list
 // after the test); false where the squircle discards it. `cell`: the entry's
-// flipbook cell (column, row).
+// flipbook cell (column, row). kPainter: the SCENE variants, which also read
+// the painter's per-entry Lambert setups and atlas layers; the other
+// variants compile without them.
+template <bool kPainter>
 __device__ __forceinline__ bool shade(const float* __restrict__ r, bool is_tri,
                                       const float* __restrict__ cell, float u, float v,
                                       const Appearance& ap, float4& s) {
@@ -643,7 +835,11 @@ __device__ __forceinline__ bool shade(const float* __restrict__ r, bool is_tri,
     s.z = s.z * bary(c[2], c[6], c[10], bs, bt);
     s.w = s.w * bary(c[3], c[7], c[11], bs, bt);
   }
-  if (ap.lit) {  // raster.py:723-740
+  if (ap.lit) {  // raster.py:723-740; per entry where the painter merged setups
+    const float* lt = r + ap.o_light;
+    const bool per_entry = kPainter && ap.o_light >= 0;
+    const float lx = per_entry ? lt[0] : ap.lx, ly = per_entry ? lt[1] : ap.ly;
+    const float lz = per_entry ? lt[2] : ap.lz, band = per_entry ? lt[3] : ap.band;
     const float* nr = r + ap.o_nrm;
     float n0 = bary(nr[0], nr[3], nr[6], bs, bt);
     float n1 = bary(nr[1], nr[4], nr[7], bs, bt);
@@ -652,13 +848,42 @@ __device__ __forceinline__ bool shade(const float* __restrict__ r, bool is_tri,
     n0 = n0 / len;
     n1 = n1 / len;
     n2 = n2 / len;
-    const float ndotl = n0 * ap.lx + n1 * ap.ly + n2 * ap.lz;
-    const float shade = at_most(at_least(ndotl, ap.band), 1.0f);
+    const float ndotl = n0 * lx + n1 * ly + n2 * lz;
+    const float shade = at_most(at_least(ndotl, band), 1.0f);
     s.x = s.x * shade;
     s.y = s.y * shade;
     s.z = s.z * shade;
   }
-  if (ap.layers) {  // raster.py:741-776
+  if (kPainter && ap.atlas_layers) {  // raster.py:777-813: the painter's atlas, per entry
+    float tu = u01, tv = v01;
+    if (is_tri && ap.o_uv >= 0 && isfinite(r[ap.o_uv])) {
+      const float* w = r + ap.o_uv;
+      tu = bary(w[0], w[2], w[4], bs, bt);
+      tv = bary(w[1], w[3], w[5], bs, bt);
+    }
+    const float* pt = r + ap.o_tex;
+    tu = (tu + cell[0]) / pt[0];  // the grid is a per-entry float: true divisions
+    tv = (tv + cell[1]) / pt[1];
+#pragma unroll
+    for (int l = 0; l < kMaxLayers; ++l) {
+      if (l < ap.atlas_layers) {
+        const float* e = pt + 2 + 4 * l;
+        const float mm = e[3];
+        if (mm == 1.0f || mm == 2.0f || mm == 3.0f) {  // else factors of exactly 1
+          const int tid = min(max((int)e[0], 0), ap.atlas_l - 1);
+          const float4 t = sample_atlas(ap.atlas + (int64_t)tid * ap.atlas_h * ap.atlas_w,
+                                        ap.atlas_h, ap.atlas_w, e[1], e[2], tu, tv);
+          if (mm == 1.0f) {
+            s = make_float4(s.x * t.x, s.y * t.y, s.z * t.z, s.w * t.w);
+          } else if (mm == 2.0f) {
+            s = make_float4(s.x * t.x, s.y * t.y, s.z * t.z, s.w);
+          } else {
+            s.w = s.w * t.x;
+          }
+        }
+      }
+    }
+  } else if (ap.layers) {  // raster.py:741-776
     float tu = u01, tv = v01;
     if (is_tri && ap.o_uv >= 0 && isfinite(r[ap.o_uv])) {
       const float* w = r + ap.o_uv;
@@ -690,6 +915,7 @@ __device__ __forceinline__ bool shade(const float* __restrict__ r, bool is_tri,
 
 // Whether entry m may cover a pixel of the warp's block: a real entry not
 // culled by its bound (the triangle bound for a triangle entry)
+template <int kEq, bool kAA = false>
 __device__ __forceinline__ bool appear_keep(const float* rows, int kRow, const float* s_det,
                                             const uint8_t* s_test, int M, int m, float x0,
                                             float x1, float y0, float y1) {
@@ -697,8 +923,8 @@ __device__ __forceinline__ bool appear_keep(const float* rows, int kRow, const f
   const uint8_t test = s_test[m], kind = test & kKindBits;
   if (kind != kCullable) return kind != kSkip;
   const float* r = rows + m * kRow;
-  return !((test & kTri) ? tri_block_culled(r, s_det[m], x0, x1, y0, y1)
-                         : block_culled(r, s_det[m], x0, x1, y0, y1));
+  return unculled<kEq>(r) || !((test & kTri) ? tri_block_culled<kAA>(r, s_det[m], x0, x1, y0, y1)
+                                             : block_culled<kAA>(r, s_det[m], x0, x1, y0, y1));
 }
 
 // B - A and C - A of an attribute of nc floats a vertex, over B and C
@@ -721,7 +947,7 @@ __host__ __device__ constexpr size_t appear_pair_bytes(int warps, bool compact) 
 // most 64 registers a thread (4 CTAs of 256 threads an SM, and a 32x32
 // tile's 1024 threads fit; a few registers spill, which measured faster than
 // 3 CTAs an SM without spills).
-template <int kEq, bool kDepth, bool kWrite, bool kCompact>
+template <int kEq, bool kDepth, bool kWrite, bool kCompact, bool kAA>
 __global__ void __launch_bounds__(kCompact ? 256 : 1024, 1)
 tile_blend_appear_kernel(const float* __restrict__ window, const uint8_t* __restrict__ has,
                          const float4* __restrict__ fb_in, const float* __restrict__ depth_in,
@@ -771,7 +997,7 @@ tile_blend_appear_kernel(const float* __restrict__ window, const uint8_t* __rest
   for (int m = t; m < M; m += blockDim.x) {
     float* r = rows + m * kRow;
     const bool tri = ap.o_tri >= 0 && r[ap.o_tri] > 0.5f;
-    s_test[m] = entry_test(r, s_test[m], s_det[m]) | (tri ? kTri : 0);
+    s_test[m] = entry_test<kAA>(r, s_test[m], s_det[m]) | (tri ? kTri : 0);
     if (ap.o_uv >= 0) vertex_differences(r + ap.o_uv, 2);
     if (ap.o_nrm >= 0) vertex_differences(r + ap.o_nrm, 3);
     if (ap.o_vcol >= 0) vertex_differences(r + ap.o_vcol, 4);
@@ -781,6 +1007,11 @@ tile_blend_appear_kernel(const float* __restrict__ window, const uint8_t* __rest
       const bool first_row = sprite >= 0.0f && sprite < gc;  // fmod-free: (sprite, 0)
       s_cell[2 * m] = first_row ? sprite : floor_mod(sprite, gc);
       s_cell[2 * m + 1] = first_row ? 0.0f : floor_div(sprite, gc);
+    } else if (kEq == kScene && ap.atlas_layers) {  // the entry's grid: jnp.mod, floor(s / cols)
+      const float sprite = (float)(int)r[ap.o_sprite];
+      const float gc = r[ap.o_tex];
+      s_cell[2 * m] = floor_mod(sprite, gc);
+      s_cell[2 * m + 1] = floorf(sprite / gc);
     }
   }
   __syncthreads();
@@ -792,22 +1023,37 @@ tile_blend_appear_kernel(const float* __restrict__ window, const uint8_t* __rest
   if constexpr (!kCompact) {
     for (int m0 = 0; m0 < M; m0 += 32) {
       unsigned int mask = __ballot_sync(
-          0xffffffffu, appear_keep(rows, kRow, s_det, s_test, M, m0 + lane, x0, x1, y0, y1));
+          0xffffffffu, appear_keep<kEq, kAA>(rows, kRow, s_det, s_test, M, m0 + lane, x0, x1, y0,
+                                             y1));
       while (mask) {
         const int e = m0 + __ffs(mask) - 1;
         mask &= mask - 1;
         const float* r = rows + e * kRow;
-        float u, v;
-        bool cov = live && covers(r, s_det[e], s_test[e], px, py, u, v);
+        float u, v, c = 1.0f;
+        bool cov;
+        if (kAA) {
+          float nu, nv;
+          numerators(r, px, py, nu, nv);
+          c = aa_coverage(r, s_det[e], s_test[e] & kTri, nu, nv, u, v);
+          cov = live && c > 0.0f;
+        } else {
+          cov = live && covers(r, s_det[e], s_test[e], px, py, u, v);
+        }
         if (kDepth && !kWrite) cov = cov && r[kColDepth] <= dbuf;
         float4 s;
-        if (cov && shade(r, s_test[e] & kTri, s_cell + 2 * e, u, v, ap, s)) {
+        bool wrote = false;
+        if (cov && shade<kEq == kScene>(r, s_test[e] & kTri, s_cell + 2 * e, u, v, ap, s)) {
           const float frag_d = kWrite ? r[kColDepth] : 0.0f;
-          if (!kWrite || frag_d <= dbuf) equation<kEq, kWrite>(s, r, frag_d, d, dbuf);
+          if (!kWrite || frag_d <= dbuf) {
+            equation<kEq, kWrite, kAA>(s, c, r, frag_d, d, dbuf);
+            wrote = true;
+          }
         }
+        if (!wrote) unwritten<kEq>(r, d);
       }
     }
   } else {
+    static_assert(!kAA, "the compacted-pair path has no antialiased variant");
     // the warp's pair buffer: pairs (entry << 5 | lane, then -1 where the
     // squircle discards it) and their colours; per buffered entry its
     // coverage mask and index
@@ -819,8 +1065,8 @@ tile_blend_appear_kernel(const float* __restrict__ window, const uint8_t* __rest
     unsigned int mask = 0;
     for (;;) {
       while (!mask && m0 < M) {
-        mask = __ballot_sync(
-            0xffffffffu, appear_keep(rows, kRow, s_det, s_test, M, m0 + lane, x0, x1, y0, y1));
+        mask = __ballot_sync(0xffffffffu, appear_keep<kEq>(rows, kRow, s_det, s_test, M, m0 + lane,
+                                                           x0, x1, y0, y1));
         m0 += 32;
       }
       const bool end = !mask;  // uniform: no entry left
@@ -835,8 +1081,8 @@ tile_blend_appear_kernel(const float* __restrict__ window, const uint8_t* __rest
         if (kDepth && !kWrite) cov = cov && r[kColDepth] <= dbuf;  // the scene depth: pure
       }
       const unsigned cm = __ballot_sync(0xffffffffu, cov);
-      if (!end && !cm) continue;
-      if (end || n_pairs + __popc(cm) > kPairs) {
+      if (!end && !cm && !unculled<kEq>(rows + e * kRow)) continue;
+      if (end || n_pairs + __popc(cm) > kPairs || n_ent == kPairs) {
         // shade the buffered pairs 32 at a time, each lane the pixel of
         // another, then blend each lane's own in ascending entry order
         __syncwarp();
@@ -851,8 +1097,8 @@ tile_blend_appear_kernel(const float* __restrict__ window, const uint8_t* __rest
             float nu, nv;
             numerators(r, qx, qy, nu, nv);
             float4 s;
-            const bool kept = shade(r, s_test[k] & kTri, s_cell + 2 * k, nu / s_det[k],
-                                    nv / s_det[k], ap, s);
+            const bool kept = shade<kEq == kScene>(r, s_test[k] & kTri, s_cell + 2 * k,
+                                                   nu / s_det[k], nv / s_det[k], ap, s);
             w_col[p] = s;
             if (!kept) w_key[p] = -1;
           }
@@ -861,14 +1107,19 @@ tile_blend_appear_kernel(const float* __restrict__ window, const uint8_t* __rest
         int base = 0;
         for (int j = 0; j < n_ent; ++j) {
           const unsigned c = w_cov[j];
+          const float* r = rows + w_ent[j] * kRow;
+          bool wrote = false;
           if (c >> lane & 1u) {
             const int p = base + __popc(c & below);
             if (ap.o_round < 0 || w_key[p] >= 0) {  // only the squircle discards
-              const float* r = rows + w_ent[j] * kRow;
               const float frag_d = kWrite ? r[kColDepth] : 0.0f;
-              if (!kWrite || frag_d <= dbuf) equation<kEq, kWrite>(w_col[p], r, frag_d, d, dbuf);
+              if (!kWrite || frag_d <= dbuf) {
+                equation<kEq, kWrite>(w_col[p], 1.0f, r, frag_d, d, dbuf);
+                wrote = true;
+              }
             }
           }
+          if (!wrote) unwritten<kEq>(r, d);
           base += __popc(c);
         }
         __syncwarp();
@@ -890,7 +1141,7 @@ tile_blend_appear_kernel(const float* __restrict__ window, const uint8_t* __rest
   }
 }
 
-template <int kEq, bool kDepth, bool kWrite, bool kAppear>
+template <int kEq, bool kDepth, bool kWrite, bool kAppear, bool kAA>
 int launch(int nt, int M, int T, cudaStream_t stream, const void* window, const void* has,
            const void* fb_in, const void* depth_in, void* fb, void* depth_out, int ntx,
            float4 bg, const Appearance& ap) {
@@ -900,15 +1151,15 @@ int launch(int nt, int M, int T, cudaStream_t stream, const void* window, const 
   const int threads = (T * T + 31) / 32 * 32;
   if constexpr (!kAppear) {
     const size_t smem = row_floats * sizeof(float) + (size_t)M * sizeof(float) + (size_t)M;
-    tile_blend_kernel<kEq, kDepth, kWrite><<<nt, threads, smem, stream>>>(
+    tile_blend_kernel<kEq, kDepth, kWrite, kAA><<<nt, threads, smem, stream>>>(
         (const float*)window, (const uint8_t*)has, (const float4*)fb_in,
         (const float*)depth_in, (float4*)fb, (float*)depth_out, M, T, ntx, vec, bg);
   } else {
-    const bool compact = ap.o_round >= 0 && threads <= 256;
+    const bool compact = !kAA && ap.o_round >= 0 && threads <= 256;
     const size_t smem = appear_pair_bytes(threads / 32, compact) +
                         (row_floats + 3 * (size_t)M) * sizeof(float) + (size_t)M;
-    auto kernel = compact ? tile_blend_appear_kernel<kEq, kDepth, kWrite, true>
-                          : tile_blend_appear_kernel<kEq, kDepth, kWrite, false>;
+    auto kernel = compact ? tile_blend_appear_kernel<kEq, kDepth, kWrite, !kAA, kAA>
+                          : tile_blend_appear_kernel<kEq, kDepth, kWrite, false, kAA>;
     if (smem > 48 * 1024) {
       const cudaError_t e =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -923,16 +1174,21 @@ int launch(int nt, int M, int T, cudaStream_t stream, const void* window, const 
 
 }  // namespace
 
-// eq: 0 blend, 1 add, 2 opaque, 3 mask, 4 scene, 5 premultiply, 6 multiply.
+// eq: 0 blend, 1 add, 2 opaque, 3 mask, 4 scene, 5 premultiply, 6 multiply,
+// plus 8 for the antialiased variant (every quad variant; the appearance
+// variants of kAppearAA).
 // depth_test / write_depth as the wrapper validates them: write_depth needs
 // depth_test and an opaque, mask or scene equation; scene needs both. fb_in
 // and depth_in may be NULL. ap_i NULL: no appearance, the window's rows
 // RowWidth<eq, depth_test>::value floats wide (row is then not read).
 // Otherwise rows of `row` floats and the descriptor: ap_i = [o_round, o_tri,
 // o_sprite, o_uv, o_nrm, o_vcol (-1 where absent), grid_c, grid_r, lit,
-// layers, then tw, th, mapping of each layer], ap_f = [lx, ly, lz, band],
-// textures = the layers' [th, tw, 4] f32 tensors (16-byte aligned). Returns
-// cudaErrorInvalidValue for a combination the wrapper never passes.
+// layers, then tw, th, mapping of each of kMaxLayers layers, then o_tex,
+// atlas_layers, o_light (-1 / 0 / -1 where absent), then the atlas's L, H,
+// W], ap_f = [lx, ly, lz, band], textures = the layers' [th, tw, 4] f32
+// tensors, then at [kMaxLayers] the [L, H, W, 4] atlas (all 16-byte
+// aligned). Returns cudaErrorInvalidValue for a combination the wrapper
+// never passes.
 extern "C" int hanabi_tile_blend_appearance(const void* window, const void* has,
                                             const void* fb_in, const void* depth_in, void* fb,
                                             void* depth_out, int nt, int M, int T, int ntx,
@@ -941,16 +1197,22 @@ extern "C" int hanabi_tile_blend_appearance(const void* window, const void* has,
                                             const float* ap_f, const void* const* textures,
                                             void* stream) {
   float4 bg = make_float4(background[0], background[1], background[2], background[3]);
+  const bool aa = eq >= 8;
+  eq = aa ? eq - 8 : eq;
   if (nt <= 0) return (int)cudaGetLastError();
   if (T <= 0 || T * T > 1024) return (int)cudaErrorInvalidValue;
   Appearance ap = {};
+  ap.o_tex = ap.o_light = -1;
   if (ap_i) {
     ap.row = row;
-    int* offsets[6] = {&ap.o_round, &ap.o_tri, &ap.o_sprite, &ap.o_uv, &ap.o_nrm, &ap.o_vcol};
-    const int widths[6] = {1, 1, 1, 6, 9, 12};
-    for (int c = 0; c < 6; ++c) {
-      *offsets[c] = ap_i[c];
-      if (ap_i[c] < -1 || (ap_i[c] >= 0 && ap_i[c] + widths[c] > row))
+    int* offsets[8] = {&ap.o_round, &ap.o_tri, &ap.o_sprite, &ap.o_uv, &ap.o_nrm, &ap.o_vcol,
+                       &ap.o_tex, &ap.o_light};
+    const int at[8] = {0, 1, 2, 3, 4, 5, 10 + 3 * kMaxLayers, 12 + 3 * kMaxLayers};
+    ap.atlas_layers = ap_i[11 + 3 * kMaxLayers];
+    const int widths[8] = {1, 1, 1, 6, 9, 12, 2 + 4 * ap.atlas_layers, 4};
+    for (int c = 0; c < 8; ++c) {
+      *offsets[c] = ap_i[at[c]];
+      if (ap_i[at[c]] < -1 || (ap_i[at[c]] >= 0 && ap_i[at[c]] + widths[c] > row))
         return (int)cudaErrorInvalidValue;
     }
     ap.grid_c = ap_i[6];
@@ -958,7 +1220,8 @@ extern "C" int hanabi_tile_blend_appearance(const void* window, const void* has,
     ap.lit = ap_i[8];
     ap.layers = ap_i[9];
     if (ap.layers < 0 || ap.layers > kMaxLayers || (ap.lit && ap.o_nrm < 0) || ap.grid_c < 1 ||
-        ap.grid_r < 1 || ((ap.grid_c != 1 || ap.grid_r != 1) && ap.layers && ap.o_sprite < 0))
+        ap.grid_r < 1 || ((ap.grid_c != 1 || ap.grid_r != 1) && ap.layers && ap.o_sprite < 0) ||
+        (ap.o_light >= 0 && (!ap.lit || eq != kScene)))
       return (int)cudaErrorInvalidValue;
     ap.lx = ap_f[0];
     ap.ly = ap_f[1];
@@ -973,51 +1236,62 @@ extern "C" int hanabi_tile_blend_appearance(const void* window, const void* has,
           ap.map[l] < kModulate || ap.map[l] > kOpacityFromR)
         return (int)cudaErrorInvalidValue;
     }
+    if (ap.atlas_layers) {
+      ap.atlas = (const float4*)textures[kMaxLayers];
+      ap.atlas_l = ap_i[13 + 3 * kMaxLayers];
+      ap.atlas_h = ap_i[14 + 3 * kMaxLayers];
+      ap.atlas_w = ap_i[15 + 3 * kMaxLayers];
+      if (eq != kScene || ap.atlas_layers < 0 || ap.atlas_layers > kMaxLayers || ap.layers ||
+          ap.o_tex < 0 ||
+          ap.o_sprite < 0 || !ap.atlas || ((uintptr_t)ap.atlas & 15u) || ap.atlas_l < 1 ||
+          ap.atlas_h < 1 || ap.atlas_w < 1)
+        return (int)cudaErrorInvalidValue;
+    }
   }
   cudaStream_t s = (cudaStream_t)stream;
   const int key = eq * 4 + (depth_test ? 2 : 0) + (write_depth ? 1 : 0);
   int code = 0;
-#define HANABI_TB(E, D, W, A) \
-  code = launch<E, D, W, A>(nt, M, T, s, window, has, fb_in, depth_in, fb, depth_out, ntx, bg, ap)
-  if (!ap_i) {
-    switch (key) {
-      case kBlend * 4 + 0: HANABI_TB(kBlend, false, false, false); break;
-      case kBlend * 4 + 2: HANABI_TB(kBlend, true, false, false); break;
-      case kAdd * 4 + 0: HANABI_TB(kAdd, false, false, false); break;
-      case kAdd * 4 + 2: HANABI_TB(kAdd, true, false, false); break;
-      case kOpaque * 4 + 0: HANABI_TB(kOpaque, false, false, false); break;
-      case kOpaque * 4 + 2: HANABI_TB(kOpaque, true, false, false); break;
-      case kOpaque * 4 + 3: HANABI_TB(kOpaque, true, true, false); break;
-      case kMask * 4 + 0: HANABI_TB(kMask, false, false, false); break;
-      case kMask * 4 + 2: HANABI_TB(kMask, true, false, false); break;
-      case kMask * 4 + 3: HANABI_TB(kMask, true, true, false); break;
-      case kScene * 4 + 3: HANABI_TB(kScene, true, true, false); break;
-      case kPremultiply * 4 + 0: HANABI_TB(kPremultiply, false, false, false); break;
-      case kPremultiply * 4 + 2: HANABI_TB(kPremultiply, true, false, false); break;
-      case kMultiply * 4 + 0: HANABI_TB(kMultiply, false, false, false); break;
-      case kMultiply * 4 + 2: HANABI_TB(kMultiply, true, false, false); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+#define HANABI_TB(E, D, W, A, AA)                                                            \
+  code = launch<E, D, W, A, AA>(nt, M, T, s, window, has, fb_in, depth_in, fb, depth_out, ntx, bg, \
+                                ap)
+#define HANABI_TB_ALL(A, AA)                                                              \
+  switch (key) {                                                                          \
+    case kBlend * 4 + 0: HANABI_TB(kBlend, false, false, A, AA); break;                   \
+    case kBlend * 4 + 2: HANABI_TB(kBlend, true, false, A, AA); break;                    \
+    case kAdd * 4 + 0: HANABI_TB(kAdd, false, false, A, AA); break;                       \
+    case kAdd * 4 + 2: HANABI_TB(kAdd, true, false, A, AA); break;                        \
+    case kOpaque * 4 + 0: HANABI_TB(kOpaque, false, false, A, AA); break;                 \
+    case kOpaque * 4 + 2: HANABI_TB(kOpaque, true, false, A, AA); break;                  \
+    case kOpaque * 4 + 3: HANABI_TB(kOpaque, true, true, A, AA); break;                   \
+    case kMask * 4 + 0: HANABI_TB(kMask, false, false, A, AA); break;                     \
+    case kMask * 4 + 2: HANABI_TB(kMask, true, false, A, AA); break;                      \
+    case kMask * 4 + 3: HANABI_TB(kMask, true, true, A, AA); break;                       \
+    case kScene * 4 + 3: HANABI_TB(kScene, true, true, A, AA); break;                     \
+    case kPremultiply * 4 + 0: HANABI_TB(kPremultiply, false, false, A, AA); break;       \
+    case kPremultiply * 4 + 2: HANABI_TB(kPremultiply, true, false, A, AA); break;        \
+    case kMultiply * 4 + 0: HANABI_TB(kMultiply, false, false, A, AA); break;             \
+    case kMultiply * 4 + 2: HANABI_TB(kMultiply, true, false, A, AA); break;              \
+    default: return (int)cudaErrorInvalidValue;                                           \
+  }
+  if (!ap_i && !aa) {
+    HANABI_TB_ALL(false, false)
+  } else if (!ap_i) {
+    HANABI_TB_ALL(false, true)
+  } else if (!aa) {
+    HANABI_TB_ALL(true, false)
   } else {
+    // kAppearAA: the antialiased appearance variants a path reaches (meshes
+    // in BLEND and OPAQUE, alone or after the opaque phase; the painter)
     switch (key) {
-      case kBlend * 4 + 0: HANABI_TB(kBlend, false, false, true); break;
-      case kBlend * 4 + 2: HANABI_TB(kBlend, true, false, true); break;
-      case kAdd * 4 + 0: HANABI_TB(kAdd, false, false, true); break;
-      case kAdd * 4 + 2: HANABI_TB(kAdd, true, false, true); break;
-      case kOpaque * 4 + 0: HANABI_TB(kOpaque, false, false, true); break;
-      case kOpaque * 4 + 2: HANABI_TB(kOpaque, true, false, true); break;
-      case kOpaque * 4 + 3: HANABI_TB(kOpaque, true, true, true); break;
-      case kMask * 4 + 0: HANABI_TB(kMask, false, false, true); break;
-      case kMask * 4 + 2: HANABI_TB(kMask, true, false, true); break;
-      case kMask * 4 + 3: HANABI_TB(kMask, true, true, true); break;
-      case kScene * 4 + 3: HANABI_TB(kScene, true, true, true); break;
-      case kPremultiply * 4 + 0: HANABI_TB(kPremultiply, false, false, true); break;
-      case kPremultiply * 4 + 2: HANABI_TB(kPremultiply, true, false, true); break;
-      case kMultiply * 4 + 0: HANABI_TB(kMultiply, false, false, true); break;
-      case kMultiply * 4 + 2: HANABI_TB(kMultiply, true, false, true); break;
+      case kBlend * 4 + 0: HANABI_TB(kBlend, false, false, true, true); break;
+      case kBlend * 4 + 2: HANABI_TB(kBlend, true, false, true, true); break;
+      case kOpaque * 4 + 0: HANABI_TB(kOpaque, false, false, true, true); break;
+      case kOpaque * 4 + 3: HANABI_TB(kOpaque, true, true, true, true); break;
+      case kScene * 4 + 3: HANABI_TB(kScene, true, true, true, true); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }
+#undef HANABI_TB_ALL
 #undef HANABI_TB
   return code ? code : (int)cudaGetLastError();
 }

@@ -63,15 +63,16 @@ SIGNATURES = {
     "hanabi_gather_window": [_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
                              _I, _I, _I, _I, _P],
     # (position, axis_x, axis_y, alive, color, extra, tile, depth, rows, range, n, row, params,
-    #  ntx, nty, tile_slots, tile_span, base_row, roundness, tri, sprite, uv, nrm, vcol, stream)
+    #  ntx, nty, tile_slots, tile_span, base_row, roundness, tri, sprite, tex, uv, nrm, light,
+    #  vcol, tex_width, stream)
     "hanabi_project_bin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
-                           _I, _P, _P, _P, _P, _P, _P, _P],
+                           _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # (tile, depth, range, key, n, tile_shift, q_bits, idx_bits, far_first, stream)
     "hanabi_bin_keys": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
     # (window, has, fb_in, depth_in, fb, depth_out, nt, M, T, ntx, background, eq,
     #  depth_test, write_depth, stream)
     "hanabi_tile_blend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],
-    # (the same, then row, ap_i, ap_f, textures, before the stream)
+    # (the same, then row, ap_i, ap_f, textures, before the stream; eq + 8 antialiases)
     "hanabi_tile_blend_appearance": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I,
                                      _P, _P, _P, _P],
     # (mask, count, payload, out_slot, out_count, out_payload, num_events, scratch, n, W, stream)

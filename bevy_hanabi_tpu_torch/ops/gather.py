@@ -139,12 +139,12 @@ KERNELS = {
         gather_rows,
         gather_rows_plain,
         "bevy_hanabi_tpu_torch/csrc/gather_rows.cu",
-        "experiments/pallas_gather_bench.py:64",
+        "experiments/pallas_gather_bench.py:65",
     ),
     "gather_window": Kernel(
         gather_window,
         gather_window_plain,
         "bevy_hanabi_tpu_torch/csrc/gather_rows.cu",
-        "experiments/pallas_gather_bench.py:64",
+        "experiments/pallas_gather_bench.py:65",
     ),
 }

@@ -8,9 +8,10 @@ alpha-mask cutoff, and the ribbon sort's columns (``ribbon_id``, ``age``,
 ``counter``), which :func:`~.ribbon.build_ribbon_segments` turns into
 segment quads; :func:`~.mesh.expand_mesh_draw` expands a mesh effect's draw
 into its quad and triangle entries. :func:`concat_painter_draws` merges
-draw sets without textures or meshes into one painter draw set (the
-painter's texture atlas and its mesh and Lambert merge raise).
-Local-space effects raise ``NotImplementedError``.
+draw sets into one painter draw set: plain, round and mask quads, ribbon
+segments, mesh triangles with their Lambert lighting, and textured draws
+through a stacked texture atlas. Local-space effects raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -66,6 +67,11 @@ class ParticleDrawData:
     # ((lx,ly,lz), band) Lambert params when a lighting render modifier
     # deferred shading to the rasterizer (per-fragment mesh normals)
     lighting: Any = None
+    # [N, 4] per-entry Lambert params (lx, ly, lz, band) where a painter
+    # merge carries several distinct lighting setups (concat_painter_draws;
+    # unlit entries band 1.0, so their shade is exactly 1). None elsewhere:
+    # one setup stays per draw in ``lighting``.
+    light_entry: Any = None
     # [N] per-entry blend mode id for the painter pass (alpha_mode="scene"):
     # PAINTER_MODE_IDS. None everywhere else.
     mode_id: Any = None
@@ -75,6 +81,14 @@ class ParticleDrawData:
     ribbon_id: Any = None
     age: Any = None
     counter: Any = None
+    # Painter texture merging (concat_painter_draws): every merged effect's
+    # texture layers zero-padded to the largest extent and stacked,
+    # [L, Hmax, Wmax, 4], and per entry [N, 2 + 4 * Lmax]: (grid cols, grid
+    # rows), then per texture layer (atlas layer, true width, true height,
+    # map code), map code 0 an absent layer (factor 1), 1 modulate, 2
+    # modulate_rgb, 3 modulate_opacity_from_r. None outside merged draws.
+    atlas: Any = None
+    tex_entry: Any = None
 
 
 def extract_draw_data(
@@ -205,17 +219,21 @@ def extract_draw_data(
     )
 
 
-def _cat_or(draws, field: str, fill: float):
-    """An optional [n] column of ``draws`` concatenated, ``fill`` where a
-    draw lacks it; None where none has it (extract.py:418-430)."""
+def _cat_or(draws, field: str, fill: float, width=None):
+    """An optional [n] (or [n, width]) column of ``draws`` concatenated,
+    ``fill`` where a draw lacks it; None where none has it
+    (extract.py:418-430)."""
     if all(getattr(d, field) is None for d in draws):
         return None
-    return torch.cat([
-        getattr(d, field)
-        if getattr(d, field) is not None
-        else torch.full(d.alive.shape, fill, dtype=torch.float32, device=d.alive.device)
-        for d in draws
-    ])
+    parts = []
+    for d in draws:
+        v = getattr(d, field)
+        if v is None:
+            n = d.alive.shape[0]
+            shape = (n,) if width is None else (n, width)
+            v = torch.full(shape, fill, dtype=torch.float32, device=d.alive.device)
+        parts.append(v)
+    return torch.cat(parts)
 
 
 def concat_draws(draws) -> ParticleDrawData:
@@ -242,31 +260,99 @@ PAINTER_MODE_IDS = {
     "mask": 5,
 }
 
+# the painter's per-layer map codes (tex_entry); 0 is an absent layer
+MAP_CODES = {"modulate": 1.0, "modulate_rgb": 2.0, "modulate_opacity_from_r": 3.0}
+
+
+def _rows(values, n: int, device) -> torch.Tensor:
+    """One f32 row of ``values`` repeated ``n`` times."""
+    return torch.tensor(values, dtype=torch.float32, device=device).expand(n, len(values))
+
+
+def _merge_lighting(draws):
+    """``(lighting, nrm_abc, light_entry)`` of a painter merge
+    (extract.py:463-526): one distinct Lambert setup stays per draw, the
+    unlit entries' normals padded with its light direction (the raster
+    normalises them: shade exactly 1 for a unit direction); several ride
+    per-entry (lx, ly, lz, band) columns, unlit entries at band 1 with
+    normals (0, 0, 1)."""
+    lit = [d.lighting is not None and d.nrm_abc is not None for d in draws]
+    setups = {(tuple(d.lighting[0]), d.lighting[1]) for d, x in zip(draws, lit) if x}
+    if not setups:
+        return None, None, None
+    if len(setups) == 1:
+        lighting = next(d.lighting for d, x in zip(draws, lit) if x)
+        ldir = [float(x) for x in lighting[0]] * 3
+        nrm = [d.nrm_abc if x else _rows(ldir, d.alive.shape[0], d.alive.device)
+               for d, x in zip(draws, lit)]
+        return lighting, torch.cat(nrm), None
+    nrm, light = [], []
+    for d, x in zip(draws, lit):
+        n, dev = d.alive.shape[0], d.alive.device
+        if x:
+            (lx, ly, lz), band = d.lighting
+            nrm.append(d.nrm_abc)
+            light.append(_rows([float(lx), float(ly), float(lz), float(band)], n, dev))
+        else:
+            nrm.append(_rows([0.0, 0.0, 1.0] * 3, n, dev))
+            light.append(_rows([0.0, 0.0, 1.0, 1.0], n, dev))
+    return None, torch.cat(nrm), torch.cat(light)
+
+
+def _merge_textures(draws, textures_per_draw):
+    """``(atlas, tex_entry)`` of a painter merge (extract.py:530-593):
+    each distinct texture (by object identity) one atlas layer, in the
+    order the draws first reference them."""
+    if textures_per_draw is None:
+        raise ValueError("textured draw sets need textures_per_draw to merge into the painter pass")
+    lmax = max(len(d.texture_layers) for d in draws)
+    uniq = {}  # id(texture) -> (atlas layer, texture)
+    parts = []
+    for d, texs in zip(draws, textures_per_draw):
+        gc, gr = d.sprite_grid_size
+        row = [float(gc), float(gr)]
+        for slot, mapping in d.texture_layers:
+            if slot >= len(texs):
+                raise ValueError(
+                    f"texture slot {slot} is referenced but only {len(texs)} texture(s) were "
+                    "provided for the effect — pass textures=[...] when adding it"
+                )
+            tex = torch.as_tensor(texs[slot], dtype=torch.float32, device=d.alive.device)
+            if tex.dim() != 3 or tex.shape[2] != 4:
+                raise ValueError(
+                    f"painter texture merging needs [H, W, 4] RGBA textures, got shape "
+                    f"{tuple(tex.shape)} — render with pipeline='split'"
+                )
+            tid = uniq.setdefault(id(tex), (len(uniq), tex))[0]
+            row += [float(tid), float(tex.shape[1]), float(tex.shape[0]),
+                    MAP_CODES[getattr(mapping, "value", mapping)]]
+        row += [0.0, 1.0, 1.0, 0.0] * (lmax - len(d.texture_layers))
+        parts.append(_rows(row, d.alive.shape[0], d.alive.device))
+    texs = [t for _, t in sorted(uniq.values(), key=lambda p: p[0])]
+    hm = max(t.shape[0] for t in texs)
+    wm = max(t.shape[1] for t in texs)
+    atlas = torch.stack([
+        torch.nn.functional.pad(t, (0, 0, 0, wm - t.shape[1], 0, hm - t.shape[0])) for t in texs
+    ])
+    return atlas.contiguous(), torch.cat(parts)
+
 
 def concat_painter_draws(draws, kinds, textures_per_draw=None) -> ParticleDrawData:
     """Concatenate per-effect draw sets into ONE painter draw set
-    (extract.py:394-619, without textures or meshes).
+    (extract.py:394-619).
 
     ``kinds`` are the effects' alpha-mode kinds, becoming the per-entry
     ``mode_id`` column; mask effects contribute their per-particle
     ``alpha_cutoff`` (others pad 0, never read), round effects their
     roundness (others pad 0: a plain quad). Ribbon segments join as the
     quads :func:`~.ribbon.build_ribbon_segments` makes, their appearance
-    already in segment order. The JAX package also merges textured draw
-    sets through a stacked texture atlas, and mesh triangles with their
-    Lambert lighting; neither is ported, and both raise."""
-    if (textures_per_draw is not None and any(textures_per_draw)) or any(
-        d.texture_layers for d in draws
-    ):
-        raise NotImplementedError(
-            "concat_painter_draws: the painter texture atlas (textured effects in the painter "
-            "pass) is not ported; render with pipeline='split'"
-        )
-    if any(d.tri is not None or d.lighting is not None for d in draws):
-        raise NotImplementedError(
-            "concat_painter_draws: the painter texture atlas and mesh/Lambert merge (mesh "
-            "effects in the painter pass) is not ported; render with pipeline='split'"
-        )
+    already in segment order; expanded meshes join as their quad and
+    triangle entries (``tri`` padded 0, vertex colours 1, and the Lambert
+    merge of :func:`_merge_lighting`). Textured draw sets merge through a
+    stacked atlas (:func:`_merge_textures`): ``textures_per_draw`` aligns
+    with ``draws``, each effect's textures by slot; a textured mesh's
+    vertex UVs ride ``uv_abc``, NaN on quads and on meshes without UVs,
+    which keep the quad parameterisation."""
     cutoff = torch.cat(
         [
             d.alpha_cutoff
@@ -281,4 +367,28 @@ def concat_painter_draws(draws, kinds, textures_per_draw=None) -> ParticleDrawDa
             for d, k in zip(draws, kinds)
         ]
     )
-    return dataclasses.replace(concat_draws(draws), alpha_cutoff=cutoff, mode_id=mode_id)
+    lighting, nrm_abc, light_entry = _merge_lighting(draws)
+    atlas = tex_entry = uv_abc = sprite = None
+    if any(d.texture_layers for d in draws):
+        atlas, tex_entry = _merge_textures(draws, textures_per_draw)
+        uv_abc = _cat_or(draws, "uv_abc", float("nan"), width=6)
+    if any(d.sprite_index is not None for d in draws):
+        sprite = torch.cat([
+            d.sprite_index if d.sprite_index is not None
+            else torch.zeros(d.alive.shape, dtype=torch.int32, device=d.alive.device)
+            for d in draws
+        ])
+    return dataclasses.replace(
+        concat_draws(draws),
+        sprite_index=sprite,
+        alpha_cutoff=cutoff,
+        mode_id=mode_id,
+        tri=_cat_or(draws, "tri", 0.0),
+        uv_abc=uv_abc,
+        nrm_abc=nrm_abc,
+        vcol_abc=_cat_or(draws, "vcol_abc", 1.0, width=12),
+        lighting=lighting,
+        light_entry=light_entry,
+        atlas=atlas,
+        tex_entry=tex_entry,
+    )

@@ -9,7 +9,8 @@ depth test against a scene depth plane, the depth plane written by opaque
 and mask passes, a seeded framebuffer, and the appearance of round,
 flipbook, textured and mesh draws (triangle entries, squircles, barycentric
 UVs, normals and vertex colours, the Lambert shade, flipbook cells and
-bilinear texture layers):
+bilinear texture layers, and the painter's per-entry atlas layers and
+Lambert setups), with analytic antialiasing (``RasterConfig.antialias``):
 
 1. :func:`project_bin` (CUDA kernel) projects every quad, tests it against
    the screen (a triangle entry at half its quad's radii), bins it into
@@ -18,7 +19,8 @@ bilinear texture layers):
    b, a]``, with ``[depth, cutoff, mode]`` appended where the pass's blend
    variant reads them (:func:`row_width`) and then the draw's appearance
    columns (:func:`draw_appearance`), and reduces the binned depths'
-   range;
+   range (a triangle entry at half its quad's radii, with or without
+   antialiasing, as JAX bins);
 2. :func:`sort_tiles` packs the JAX package's 32-bit keys with
    :func:`bin_keys` (CUDA kernel) — ``(tile | far-first depth)`` on the
    ordered path, one of the three fast variants of :func:`fast_mode` for
@@ -31,13 +33,14 @@ bilinear texture layers):
 4. :func:`tile_blend` (CUDA kernel) blends each tile in one CTA, one thread
    per pixel, its depth plane in registers, and culls the entries that
    cover no pixel of a warp's block before the exact per-pixel test; a
-   draw's appearance reaches it as a per-call :class:`Appearance`.
+   draw's appearance reaches it as a per-call :class:`Appearance`; under
+   antialiasing each pair's fractional coverage scales its alpha.
 
 Every kernel wrapper has a plain PyTorch version beside it, used only for
 tensors on the CPU; for CUDA tensors the wrapper launches its kernel (or
-raises) and adds one to its ``launches`` counter. The other branches of the
-JAX rasterizer (antialiasing, slice rendering) raise
-``NotImplementedError`` naming the branch.
+raises) and adds one to its ``launches`` counter. Slice rendering
+(``y_offset``), which the JAX package reaches only from its sharded
+renderer, raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -88,13 +91,20 @@ __all__ = [
 ROW_QUAD, ROW = 10, 13
 COL_DEPTH, COL_CUTOFF, COL_MODE = 10, 11, 12
 # the appearance columns a draw may append to its rows, in the JAX package's
-# order (raster.py:530-577), and their widths
-APPEARANCE_COLUMNS = (("roundness", 1), ("tri", 1), ("sprite", 1), ("uv", 6), ("nrm", 9),
-                      ("vcol", 12))
-# texture layers one tile_blend call samples (the kernel's descriptor)
+# order (raster.py:530-577), and their widths: the painter's per-entry
+# texture state ``tex`` is 2 + 4 * its layer count wide (None here)
+APPEARANCE_COLUMNS = (("roundness", 1), ("tri", 1), ("sprite", 1), ("tex", None), ("uv", 6),
+                      ("nrm", 9), ("light", 4), ("vcol", 12))
+# texture layers one tile_blend call samples (the kernel's descriptor), and
+# the painter's atlas layers an entry samples
 MAX_LAYERS = 4
 # ImageSampleMapping values by the id the kernel takes
 MAPPINGS = ("modulate", "modulate_rgb", "modulate_opacity_from_r")
+# ints of tile_blend's appearance descriptor: the six column offsets, the
+# grid, lit and the layer count, (tw, th, mapping) a layer, then the
+# painter's tex offset, atlas layers an entry, light offset and the atlas's
+# [L, H, W]
+AP_INTS = 10 + 3 * MAX_LAYERS + 6
 
 
 @dataclass(frozen=True)
@@ -250,7 +260,15 @@ def bin_entries_plain(cx, cy, rx, ry, valid, dist, T, ntx, nty, tile_slots=1, ti
 def _appearance_width(appearance) -> int:
     if appearance is None:
         return 0
-    return sum(w for (_, w), t in zip(APPEARANCE_COLUMNS, appearance) if t is not None)
+    return sum(1 if t.dim() == 1 else t.shape[1] for t in appearance if t is not None)
+
+
+def _tex_layers(width: int) -> int:
+    """The layers of a ``tex`` column ``width`` floats wide (2 + 4 a layer)."""
+    if width < 6 or (width - 2) % 4 or (width - 2) // 4 > MAX_LAYERS:
+        raise ValueError(f"tex columns are 2 + 4 * layers wide, 1 to {MAX_LAYERS} layers; "
+                         f"got {width}")
+    return (width - 2) // 4
 
 
 def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewport,
@@ -322,8 +340,8 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
     without it; ``tile_slots`` and ``tile_span`` the binning of
     :class:`RasterConfig` (:func:`bin_entries_plain`), ``S`` =
     :func:`entry_slots`; ``appearance`` the draw's appearance columns
-    (:func:`draw_appearance`: roundness, tri, sprite, uv, nrm, vcol,
-    each None where absent), appended to each row after its ``row``
+    (:func:`draw_appearance`: roundness, tri, sprite, tex, uv, nrm, light,
+    vcol, each None where absent), appended to each row after its ``row``
     floats; a triangle entry (tri > 0.5) takes half its quad's screen radii
     (raster.py:259-263). Returns ``tile`` int32 [S * N] (``ntx * nty``
     where a slot bins nothing), ``depth`` f32 [S * N] (view distance,
@@ -345,6 +363,9 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
             raise ValueError(f"appearance holds {len(APPEARANCE_COLUMNS)} columns or None")
         for (name, width), t in zip(APPEARANCE_COLUMNS, appearance):
             if t is not None:
+                if name == "tex":
+                    width = t.shape[-1] if t.dim() == 2 else 0
+                    _tex_layers(width)
                 shape = (n,) if width == 1 else (n, width)
                 _check(t, name, torch.int32 if name == "sprite" else torch.float32, shape, dev)
     slots = entry_slots(tile_slots, tile_span)
@@ -358,13 +379,15 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
     depth = torch.empty((slots * n,), dtype=torch.float32, device=dev)
     rows = torch.empty((n, width), dtype=torch.float32, device=dev)
     rng = torch.empty((2,), dtype=torch.float32, device=dev)
-    cols = [None if t is None else t.data_ptr() for t in (appearance or (None,) * 6)]
+    cols = [None if t is None else t.data_ptr()
+            for t in (appearance or (None,) * len(APPEARANCE_COLUMNS))]
+    tex = None if appearance is None else appearance[3]
     code = cuda_build.library().hanabi_project_bin(
         position.data_ptr(), axis_x.data_ptr(), axis_y.data_ptr(), alive.data_ptr(), color.data_ptr(),
         None if extra is None else extra.data_ptr(),
         tile.data_ptr(), depth.data_ptr(), rows.data_ptr(), rng.data_ptr(),
         n, width, params.ctypes.data_as(ctypes.c_void_p), ntx, nty, tile_slots, tile_span, row,
-        *cols, _stream(),
+        *cols, 0 if tex is None else tex.shape[1], _stream(),
     )
     cuda_build.check(code, "project_bin")
     project_bin.launches += 1
@@ -463,53 +486,69 @@ def row_width(mode: str, depth_test: bool) -> int:
 class Appearance:
     """A draw's appearance as :func:`tile_blend` reads it, uniform over a
     call: ``row`` the window's floats per row; ``offsets`` the row column of
-    each of :data:`APPEARANCE_COLUMNS` (roundness, tri, sprite, uv, nrm,
-    vcol), -1 where absent; ``grid`` the flipbook's (cols, rows);
-    ``lighting`` ``((lx, ly, lz), band)`` where the draw is lit per
-    fragment; ``layers`` the texture layers ``(slot, mapping)`` in modifier
-    order, ``slot`` indexing the textures passed beside it and ``mapping``
-    one of :data:`MAPPINGS`."""
+    each of :data:`APPEARANCE_COLUMNS` (roundness, tri, sprite, tex, uv,
+    nrm, light, vcol), -1 where absent; ``grid`` the flipbook's (cols,
+    rows); ``lighting`` ``((lx, ly, lz), band)`` where the draw is lit per
+    fragment with one setup (a ``light`` column instead carries each
+    entry's); ``layers`` the texture layers ``(slot, mapping)`` in
+    modifier order, ``slot`` indexing the textures passed beside it and
+    ``mapping`` one of :data:`MAPPINGS`; ``atlas_layers`` the layers of the
+    painter's per-entry ``tex`` column (0: none), which sample the atlas
+    passed as the one texture instead."""
 
     row: int
     offsets: Tuple[int, ...]
     grid: Tuple[int, int] = (1, 1)
     lighting: Any = None
     layers: Tuple[Tuple[int, str], ...] = ()
+    atlas_layers: int = 0
 
     def offset(self, name: str) -> int:
         return self.offsets[[c for c, _ in APPEARANCE_COLUMNS].index(name)]
+
+    @property
+    def lit(self) -> bool:
+        return self.lighting is not None or self.offset("light") >= 0
 
 
 def draw_appearance(draw, base_row: int):
     """The appearance of ``draw`` for a pass whose rows start with
     ``base_row`` floats: ``(Appearance, columns)``, ``columns`` the
     appearance columns the draw carries into its rows on JAX's conditions
-    (raster.py:530-577) as ``(roundness, tri, sprite, uv, nrm, vcol)``, each
-    a contiguous tensor or None. The flipbook frame is there for a textured
-    draw with a grid other than (1, 1) (frame 0 where the draw has none),
-    the UVs for a textured one, the normals for a lit one. ``(None, None)``
-    for a draw with no appearance column and no texture layer (the plain
-    quad variants)."""
+    (raster.py:530-577) as ``(roundness, tri, sprite, tex, uv, nrm, light,
+    vcol)``, each a contiguous tensor or None. The flipbook frame is there
+    for a textured draw with a grid other than (1, 1) and for a painter
+    draw with an atlas (frame 0 where the draw has none), the per-entry
+    texture state and the UVs for a textured one, the normals for a lit
+    one and the per-entry Lambert setups where the painter merged several.
+    ``(None, None)`` for a draw with no appearance column and no texture
+    layer (the plain quad variants)."""
     n = draw.position.shape[0]
     textured = bool(draw.texture_layers)
+    ptex = draw.atlas is not None and draw.tex_entry is not None
     sprite = None
-    if textured and tuple(draw.sprite_grid_size) != (1, 1):
+    if (textured and tuple(draw.sprite_grid_size) != (1, 1)) or ptex:
         sprite = draw.sprite_index
         if sprite is None:
             sprite = torch.zeros((n,), dtype=torch.int32, device=draw.position.device)
-    uv = draw.uv_abc if textured else None
-    nrm = draw.nrm_abc if draw.lighting is not None else None
+    uv = draw.uv_abc if textured or ptex else None
+    lit = draw.nrm_abc is not None and (draw.lighting is not None or draw.light_entry is not None)
+    nrm = draw.nrm_abc if lit else None
+    light = draw.light_entry if lit else None
     columns = tuple(None if t is None else t.contiguous()
-                    for t in (draw.roundness, draw.tri, sprite, uv, nrm, draw.vcol_abc))
+                    for t in (draw.roundness, draw.tri, sprite, draw.tex_entry if ptex else None,
+                              uv, nrm, light, draw.vcol_abc))
     if all(t is None for t in columns) and not textured:
         return None, None
     offsets, o = [], base_row
-    for (_, width), t in zip(APPEARANCE_COLUMNS, columns):
+    for t in columns:
         offsets.append(o if t is not None else -1)
-        o += width if t is not None else 0
+        o += 0 if t is None else 1 if t.dim() == 1 else t.shape[1]
     layers = tuple((int(slot), getattr(m, "value", m)) for slot, m in draw.texture_layers)
-    lighting = draw.lighting if nrm is not None else None
-    return Appearance(o, tuple(offsets), tuple(draw.sprite_grid_size), lighting, layers), columns
+    lighting = draw.lighting if lit and light is None else None
+    atlas_layers = _tex_layers(draw.tex_entry.shape[1]) if ptex else 0
+    return Appearance(o, tuple(offsets), tuple(draw.sprite_grid_size), lighting, layers,
+                      atlas_layers), columns
 
 
 def _index(x) -> torch.Tensor:
@@ -523,7 +562,12 @@ def bilinear_wrap(tex, u, v):
     ``u``, ``v``: 4-tap bilinear filtering with wrap addressing,
     half-texel centred, JAX's op order, indices by floored remainder
     (``jnp.mod``, as ``torch.remainder``)."""
-    th, tw = tex.shape[0], tex.shape[1]
+    return _bilinear(lambda vi, ui: tex[vi, ui], tex.shape[1], tex.shape[0], u, v)
+
+
+def _bilinear(lookup, tw, th, u, v):
+    """``_bilinear_wrap`` through ``lookup(vi, ui)`` at the true size ``tw``
+    x ``th`` (ints, or per-entry f32 tensors: the painter's atlas layers)."""
     uu = u * tw - 0.5
     vv = v * th - 0.5
     u0 = torch.floor(uu)
@@ -534,16 +578,47 @@ def bilinear_wrap(tex, u, v):
     v0i = _index(torch.remainder(v0, th))
     u1i = _index(torch.remainder(u0 + 1.0, tw))
     v1i = _index(torch.remainder(v0 + 1.0, th))
-    t00, t01 = tex[v0i, u0i], tex[v0i, u1i]
-    t10, t11 = tex[v1i, u0i], tex[v1i, u1i]
+    t00, t01 = lookup(v0i, u0i), lookup(v0i, u1i)
+    t10, t11 = lookup(v1i, u0i), lookup(v1i, u1i)
     top = t00 + (t01 - t00) * fu
     bot = t10 + (t11 - t10) * fu
     return top + (bot - top) * fv
 
 
-def _at_least(x, lo: float):
+def _at_least(x, lo):
     """``jnp.maximum(x, lo)``: NaN stays NaN."""
     return torch.where(x < lo, lo, x)
+
+
+def _at_most(x, hi):
+    """``jnp.minimum(x, hi)``: NaN stays NaN."""
+    return torch.where(x > hi, hi, x)
+
+
+def _atlas_src(r, src, u01, v01, ap: Appearance, atlas):
+    """The painter's texture layers (raster.py:777-813): each entry's
+    flipbook grid and, per layer, its atlas layer at its true size and its
+    map code as neutral-by-default factors. The grid is a per-entry float,
+    so the cell and the UVs take true divisions."""
+    o = ap.offset("tex")
+    gc, gr = r[:, o, None, None], r[:, o + 1, None, None]
+    sprite = _index(r[:, ap.offset("sprite")]).to(torch.float32)[:, None, None]
+    cell_c = torch.remainder(sprite, gc)
+    cell_r = torch.floor(sprite / gc)
+    tu = (u01 + cell_c) / gc
+    tv = (v01 + cell_r) / gr
+    for layer in range(ap.atlas_layers):
+        k = o + 2 + 4 * layer
+        tid = torch.clamp(_index(r[:, k]), 0, atlas.shape[0] - 1)[:, None, None]
+        # indices clamped into the atlas, as JAX's gather clamps them
+        h, w = atlas.shape[1] - 1, atlas.shape[2] - 1
+        texel = _bilinear(lambda vi, ui: atlas[tid, vi.clamp(0, h), ui.clamp(0, w)],
+                          r[:, k + 1, None, None], r[:, k + 2, None, None], tu, tv)
+        mm = r[:, k + 3, None, None]
+        rgbf = torch.where(((mm == 1.0) | (mm == 2.0))[..., None], texel[..., :3], 1.0)
+        af = torch.where(mm == 1.0, texel[..., 3], torch.where(mm == 3.0, texel[..., 0], 1.0))
+        src = src * torch.cat([rgbf, af[..., None]], dim=-1)
+    return src
 
 
 def _appearance_src(r, col, u, v, u01, v01, is_tri, ap: Appearance, textures):
@@ -566,23 +641,28 @@ def _appearance_src(r, col, u, v, u01, v01, is_tri, ap: Appearance, textures):
     src = col[:, None, None, :].expand(nt, T, T, 4)
     if ap.offset("vcol") >= 0:
         src = src * bary(ap.offset("vcol"), 4)
-    if ap.lighting is not None:
-        (lx, ly, lz), band = ap.lighting
-        lx, ly, lz, band = (float(np.float32(x)) for x in (lx, ly, lz, band))
+    if ap.lit:
+        if ap.offset("light") >= 0:  # per entry (raster.py:724-733)
+            lx, ly, lz, band = (r[:, ap.offset("light") + k, None, None] for k in range(4))
+        else:
+            (lx, ly, lz), band = ap.lighting
+            lx, ly, lz, band = (float(np.float32(x)) for x in (lx, ly, lz, band))
         nvec = bary(ap.offset("nrm"), 3)
         length = sqrt_f32(nvec[..., 0] * nvec[..., 0] + nvec[..., 1] * nvec[..., 1]
                           + nvec[..., 2] * nvec[..., 2])
         nn = nvec / _at_least(length, 1e-9)[..., None]
         ndotl = nn[..., 0] * lx + nn[..., 1] * ly + nn[..., 2] * lz
-        shade = torch.clamp(ndotl, min=band, max=1.0)
+        shade = _at_most(_at_least(ndotl, band), 1.0)  # jnp.clip: a NaN stays NaN
         src = torch.cat([src[..., :3] * shade[..., None], src[..., 3:]], dim=-1)
+    if (ap.layers or ap.atlas_layers) and ap.offset("uv") >= 0 and is_tri is not None:
+        o = ap.offset("uv")
+        muv = bary(o, 2)
+        sel = is_tri & torch.isfinite(r[:, o])[:, None, None]
+        u01 = torch.where(sel, muv[..., 0], u01)
+        v01 = torch.where(sel, muv[..., 1], v01)
+    if ap.atlas_layers:  # raster.py:777-813
+        return _atlas_src(r, src, u01, v01, ap, textures[0])
     if ap.layers:
-        if ap.offset("uv") >= 0 and is_tri is not None:
-            o = ap.offset("uv")
-            muv = bary(o, 2)
-            sel = is_tri & torch.isfinite(r[:, o])[:, None, None]
-            u01 = torch.where(sel, muv[..., 0], u01)
-            v01 = torch.where(sel, muv[..., 1], v01)
         gc, gr = ap.grid
         if (gc, gr) != (1, 1):
             sprite = _index(r[:, ap.offset("sprite")]).to(torch.float32)  # astype(int32)
@@ -615,9 +695,33 @@ def _blend_flags(mode, depth_test, write_depth):
         raise ValueError("tile_blend: only a depth-tested opaque, mask or scene pass writes depth")
 
 
+def _coverage(u, v, det_f, a1x, a1y, a2x, a2y, has, is_tri):
+    """JAX's antialiased coverage (raster.py:644-671): a one-pixel ramp at
+    a quad's edges, and at a triangle's three half-planes (their uv slack
+    over the gradients' pixel lengths), times ``has``."""
+    has_f = has.to(torch.float32)
+    eu = sqrt_f32(a1x * a1x + a1y * a1y)[:, None, None]
+    ev = sqrt_f32(a2x * a2x + a2y * a2y)[:, None, None]
+    cov_u = torch.clamp((1.0 - torch.abs(u)) * eu + 0.5, 0.0, 1.0)
+    cov_v = torch.clamp((1.0 - torch.abs(v)) * ev + 0.5, 0.0, 1.0)
+    coverage = cov_u * cov_v * has_f
+    if is_tri is None:
+        return coverage
+    absdet = torch.abs(det_f)[:, None, None]
+    e12x, e12y = a2x - a1x, a2y - a1y
+    e12 = sqrt_f32(e12x * e12x + e12y * e12y)[:, None, None]
+    eps = 1e-9
+    d1 = (u + 0.5) * absdet / _at_least(ev, eps)
+    d2 = (v + 0.5) * absdet / _at_least(eu, eps)
+    d3 = -(u + v) * absdet / _at_least(e12, eps)
+    cov_tri = (torch.clamp(d1 + 0.5, 0.0, 1.0) * torch.clamp(d2 + 0.5, 0.0, 1.0)
+               * torch.clamp(d3 + 0.5, 0.0, 1.0)) * has_f
+    return torch.where(is_tri, cov_tri, coverage)
+
+
 def tile_blend_plain(window, has, T, ntx, nty, background, mode="blend", framebuffer=None,
                      scene_depth=None, depth_test=False, write_depth=False, appearance=None,
-                     textures=()):
+                     textures=(), antialias=False):
     """Plain version of :func:`tile_blend`: raster.py:616-911 on the
     columns of :data:`ROW` and the draw's :class:`Appearance`, in the JAX
     package's form (every lane through the equation, zero coverage as
@@ -656,7 +760,11 @@ def tile_blend_plain(window, has, T, ntx, nty, background, mode="blend", framebu
             tri_inside = (u >= -0.5) & (v >= -0.5) & (u + v <= 0.0)
             inside = torch.where(is_tri, tri_inside, inside)
         inside &= has[:, m, None, None]
-        coverage = inside.to(torch.float32)
+        if antialias:
+            coverage = _coverage(u, v, det_f, a1x, a1y, a2x, a2y, has[:, m, None, None], is_tri)
+            inside = coverage > 0.0
+        else:
+            coverage = inside.to(torch.float32)
         if depth_test:
             frag_d = r[:, COL_DEPTH, None, None]
             vis = frag_d <= (dbuf if dbuf is not None else scene_depth)
@@ -756,7 +864,7 @@ def warp_blocks(T: int, ntx: int, nt: int, device) -> torch.Tensor:
 
 
 def warp_entries_plain(window, has, T: int, ntx: int, tri_col: int = -1,
-                       triangle_bound: bool = True) -> torch.Tensor:
+                       triangle_bound: bool = True, antialias: bool = False) -> torch.Tensor:
     """The (warp, entry) iterations of ``tile_blend``'s blend loop, bool
     [nt, W, M]: a real entry whose bound does not cull the warp's block
     (:func:`warp_blocks`). The bounds of ``csrc/tile_blend.cu`` on whole
@@ -768,14 +876,24 @@ def warp_entries_plain(window, has, T: int, ntx: int, tri_col: int = -1,
     where sg N_u or sg N_v (sg the det's sign) lies below -(|det|/2 (1 + m)
     + m S) or above its negative, or sg (N_u + N_v) above m (|det| + S_u +
     S_v). ``triangle_bound=False`` takes the quad bound for triangles too
-    (the first appearance kernel's). Counts only: no kernel or main path
-    calls it."""
+    (the first appearance kernel's). ``antialias`` takes the kernel's
+    fringe bounds (only for entries whose edge lengths in f32 lie in
+    [2^-40, 2^60]): a quad's |N_u| beyond (|det| + |det| / (2 |h1|)) (1 +
+    2 m) + m S_u (N_v likewise with |h2|); a triangle's sg N_u below
+    -((|det| + max(|h2|, 1e-9)) / 2 (1 + 2 m) + m S_u), sg N_v below the same
+    with |h1|, or sg (N_u + N_v) above max(|h2 - h1|, 1e-9) / 2 (1 + 2 m) +
+    m (|det| + S_u + S_v). Counts only: no kernel or main path calls it."""
     nt, M, _ = window.shape
     r = window[..., :6]
     det = r[..., 2] * r[..., 5] - r[..., 3] * r[..., 4]
     clamped = det.abs() < 1e-9
     det = torch.where(clamped, 1e-9, det)
     cullable = torch.isfinite(r).all(-1) & torch.isfinite(det) & ~clamped
+    if antialias:  # the kernel's aa_cullable: the edge lengths as the lane computes them
+        for x, y in ((r[..., 2], r[..., 3]), (r[..., 4], r[..., 5]),
+                     (r[..., 4] - r[..., 2], r[..., 5] - r[..., 3])):
+            e = sqrt_f32(x * x + y * y)
+            cullable &= (e >= 2.0**-40) & (e <= 2.0**60)
     blocks = warp_blocks(T, ntx, nt, window.device)[:, :, None, :]  # [nt, W, 1, 4]
     cx, cy, a1x, a1y, a2x, a2y = (r[..., k].to(torch.float64)[:, None, :] for k in range(6))
     ad = det.abs().to(torch.float64)[:, None, :]
@@ -794,15 +912,27 @@ def warp_entries_plain(window, has, T: int, ntx: int, tri_col: int = -1,
 
     su = rel * (a2y.abs() * mx + a2x.abs() * my)
     sv = rel * (a1y.abs() * mx + a1x.abs() * my)
-    bu, bv = ad * (1.0 + rel) + su, ad * (1.0 + rel) + sv
+    if antialias:  # the edge lengths in float64, the fringe's margin k
+        eu, ev = torch.sqrt(a1x * a1x + a1y * a1y), torch.sqrt(a2x * a2x + a2y * a2y)
+        e12 = torch.sqrt((a2x - a1x) * (a2x - a1x) + (a2y - a1y) * (a2y - a1y))
+        k = 1.0 + 2.0 * rel
+        bu, bv = (ad + 0.5 * ad / eu) * k + su, (ad + 0.5 * ad / ev) * k + sv
+    else:
+        bu, bv = ad * (1.0 + rel) + su, ad * (1.0 + rel) + sv
     culled = ((lo(a2y, -a2x) > bu) | (hi(a2y, -a2x) < -bu)
               | (lo(-a1y, a1x) > bv) | (hi(-a1y, a1x) < -bv))
     if tri_col >= 0 and triangle_bound:
-        h = 0.5 * ad * (1.0 + rel)
         pu, qu, pv, qv = sg * a2y, -sg * a2x, -sg * a1y, sg * a1x
-        tri = ((hi(pu, qu) < -(h + su)) | (lo(pu, qu) > h + su)
-               | (hi(pv, qv) < -(h + sv)) | (lo(pv, qv) > h + sv)
-               | (lo(pu + pv, qu + qv) > rel * ad + su + sv))
+        if antialias:
+            eps = float(np.float32(1e-9))
+            tri = ((hi(pu, qu) < -(0.5 * (ad + ev.clamp(min=eps)) * k + su))
+                   | (hi(pv, qv) < -(0.5 * (ad + eu.clamp(min=eps)) * k + sv))
+                   | (lo(pu + pv, qu + qv) > 0.5 * e12.clamp(min=eps) * k + rel * ad + su + sv))
+        else:
+            h = 0.5 * ad * (1.0 + rel)
+            tri = ((hi(pu, qu) < -(h + su)) | (lo(pu, qu) > h + su)
+                   | (hi(pv, qv) < -(h + sv)) | (lo(pv, qv) > h + sv)
+                   | (lo(pu + pv, qu + qv) > rel * ad + su + sv))
         culled = torch.where((window[..., tri_col] > 0.5)[:, None, :], tri, culled)
     return has[:, None, :] & ~(cullable[:, None, :] & culled)
 
@@ -815,7 +945,17 @@ def texture_tensor(tex, device) -> torch.Tensor:
 
 
 def _check_textures(appearance, textures, dev):
-    """Each layer's texture: an f32 [th, tw, 4] contiguous tensor on ``dev``."""
+    """Each layer's texture: an f32 [th, tw, 4] contiguous tensor on
+    ``dev``; the painter's atlas: one f32 [L, H, W, 4]."""
+    if appearance.atlas_layers:
+        if appearance.layers or len(textures) != 1 or textures[0].dim() != 4:
+            raise ValueError("tile_blend: an atlas draw takes one [L, H, W, 4] texture, no layers")
+        atlas = textures[0]
+        if atlas.shape[3] != 4 or 0 in atlas.shape:
+            raise ValueError(f"the atlas must be [L, H, W, 4] RGBA, got {tuple(atlas.shape)}")
+        _check(atlas, "atlas", torch.float32, atlas.shape, dev)
+        if appearance.offset("tex") < 0 or appearance.offset("sprite") < 0:
+            raise ValueError("tile_blend: an atlas draw needs its tex and sprite columns")
     for slot, mapping in appearance.layers:
         if mapping not in MAPPINGS:
             raise ValueError(f"tile_blend: unknown sample mapping {mapping!r}")
@@ -827,9 +967,15 @@ def _check_textures(appearance, textures, dev):
         _check(tex, f"textures[{slot}]", torch.float32, tex.shape, dev)
 
 
+# the antialiased appearance variants the kernel holds: (equation,
+# depth_test, write_depth); every equation's quad variant has one
+ANTIALIAS_APPEARANCE = {("blend", False, False), ("blend", True, False),
+                        ("opaque", False, False), ("opaque", True, True), ("scene", True, True)}
+
+
 def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=None,
                scene_depth=None, depth_test=False, write_depth=False, appearance=None,
-               textures=()):
+               textures=(), antialias=False):
     """Blend each tile's window, entry m = 0 first, into ``fb`` [nt, T, T, 4].
 
     ``window`` f32 [nt, M, W] rows, ``W = row_width(mode, depth_test)``
@@ -845,7 +991,10 @@ def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=N
     (tiled f32 [nt, T, T]) or else +inf; ``write_depth`` lets opaque and
     mask writes move it and returns ``(fb, depth)``. ``textures``: the
     draw's textures by slot, f32 [th, tw, 4] each, which the appearance's
-    layers sample."""
+    layers sample, or the painter's one atlas [L, H, W, 4] for an
+    appearance with ``atlas_layers``. ``antialias``: JAX's fractional
+    coverage (``RasterConfig.antialias``); on the card an appearance draw
+    takes it in the variants of :data:`ANTIALIAS_APPEARANCE`."""
     _blend_flags(mode, depth_test, write_depth)
     dev = window.device
     nt = ntx * nty
@@ -868,7 +1017,17 @@ def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=N
         raise ValueError("background must be RGBA")
     if not window.is_cuda:
         return tile_blend_plain(window, has, T, ntx, nty, background, mode, framebuffer,
-                                scene_depth, depth_test, write_depth, appearance, textures)
+                                scene_depth, depth_test, write_depth, appearance, textures,
+                                antialias)
+    if appearance is not None and mode != "scene" and (
+            appearance.atlas_layers or appearance.offset("light") >= 0):
+        raise NotImplementedError("tile_blend: the painter's atlas and per-entry Lambert "
+                                  "setups are in the scene equation's variants only")
+    if antialias and appearance is not None and (
+            (mode, depth_test, write_depth) not in ANTIALIAS_APPEARANCE):
+        raise NotImplementedError(
+            f"tile_blend: no antialiased appearance variant for {mode!r} with depth_test="
+            f"{depth_test}, write_depth={write_depth} (the kernel holds {ANTIALIAS_APPEARANCE})")
     if not 1 <= T * T <= 1024:
         raise ValueError(f"tile_blend runs one thread per pixel: T*T must be <= 1024, got T={T}")
     if appearance is not None and len(appearance.layers) > MAX_LAYERS:
@@ -876,21 +1035,26 @@ def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=N
                          f"got {len(appearance.layers)}")
     out = tile_blend_launch(cuda_build.library(), window, has, T, ntx, background, mode,
                             framebuffer, scene_depth, depth_test, write_depth, appearance,
-                            textures)
+                            textures, antialias)
     tile_blend.launches += 1
     tile_blend.launches_by_mode[mode] += 1
     if appearance is not None:
         tile_blend.launches_appearance[mode] += 1
+    if antialias:
+        tile_blend.launches_antialias[mode] += 1
     return out
 
 
 def tile_blend_launch(lib, window, has, T, ntx, background, mode="blend", framebuffer=None,
                       scene_depth=None, depth_test=False, write_depth=False, appearance=None,
-                      textures=()):
+                      textures=(), antialias=False):
     """One launch of ``lib``'s ``tile_blend`` on arguments that
     :func:`tile_blend` has checked, counted nowhere: the wrapper's launch,
     and the one scripts use to time another build of the kernel (a library
-    with the same C entry point) on the same inputs."""
+    with the same C entry point) on the same inputs. The descriptor's
+    painter fields (atlas, per-entry light) follow the first version's and
+    the antialias flag rides the equation id (``eq + 8``), so an earlier
+    build reads what it knows and refuses what it does not."""
     dev = window.device
     nt, M, width = window.shape
     fb = torch.empty((nt, T, T, 4), dtype=torch.float32, device=dev)
@@ -902,21 +1066,28 @@ def tile_blend_launch(lib, window, has, T, ntx, background, mode="blend", frameb
 
     ap_i = ap_f = tex = None
     if appearance is not None:
-        lit = appearance.lighting is not None
-        (lx, ly, lz), band = appearance.lighting if lit else ((0.0, 0.0, 0.0), 0.0)
-        ap_i = np.zeros(10 + 3 * MAX_LAYERS, np.int32)
-        ap_i[:6] = appearance.offsets
-        ap_i[6:10] = (*appearance.grid, int(lit), len(appearance.layers))
-        tex = (ctypes.c_void_p * MAX_LAYERS)()
+        static = appearance.lighting is not None
+        (lx, ly, lz), band = appearance.lighting if static else ((0.0, 0.0, 0.0), 0.0)
+        ap_i = np.zeros(AP_INTS, np.int32)
+        ap_i[:6] = [appearance.offset(c) for c in ("roundness", "tri", "sprite", "uv", "nrm",
+                                                    "vcol")]
+        ap_i[6:10] = (*appearance.grid, int(appearance.lit), len(appearance.layers))
+        tex = (ctypes.c_void_p * (MAX_LAYERS + 1))()
         for k, (slot, mapping) in enumerate(appearance.layers):
             t = textures[slot]
             ap_i[10 + 3 * k: 13 + 3 * k] = (t.shape[1], t.shape[0], MAPPINGS.index(mapping))
             tex[k] = t.data_ptr()
+        ap_i[22:25] = (appearance.offset("tex"), appearance.atlas_layers,
+                       appearance.offset("light"))
+        if appearance.atlas_layers:
+            atlas = textures[0]
+            ap_i[25:28] = atlas.shape[:3]
+            tex[MAX_LAYERS] = atlas.data_ptr()
         ap_f = np.asarray([lx, ly, lz, band], np.float32)
     code = lib.hanabi_tile_blend_appearance(
         window.data_ptr(), has.data_ptr(), ptr(framebuffer), ptr(scene_depth), fb.data_ptr(),
-        ptr(depth), nt, M, T, ntx, bg.ctypes.data_as(ctypes.c_void_p), BLEND_MODES.index(mode),
-        int(depth_test), int(write_depth), width,
+        ptr(depth), nt, M, T, ntx, bg.ctypes.data_as(ctypes.c_void_p),
+        BLEND_MODES.index(mode) + (8 if antialias else 0), int(depth_test), int(write_depth), width,
         None if ap_i is None else ap_i.ctypes.data_as(ctypes.c_void_p),
         None if ap_f is None else ap_f.ctypes.data_as(ctypes.c_void_p), tex, _stream())
     cuda_build.check(code, "tile_blend")
@@ -928,6 +1099,9 @@ tile_blend.launches = 0
 tile_blend.launches_by_mode = dict.fromkeys(BLEND_MODES, 0)
 # the launches of each equation's appearance variants, counted among both
 tile_blend.launches_appearance = dict.fromkeys(BLEND_MODES, 0)
+# the launches of each equation's antialiased variants (quad and
+# appearance), counted among ``launches`` and ``launches_by_mode``
+tile_blend.launches_antialias = dict.fromkeys(BLEND_MODES, 0)
 
 KERNELS = {
     "project_bin": Kernel(
@@ -1061,19 +1235,18 @@ def rasterize(
     three order-independent fast variants of :func:`fast_mode` (or the
     ordered path with ``order_independent_fast=False``); the appearance of
     round, flipbook, textured and mesh draws (``textures``: the draw's
-    textures by slot, [H, W, 4] RGBA each). ``scene_depth`` ([height,
+    textures by slot, [H, W, 4] RGBA each; a painter draw's own atlas), with
+    ``config.antialias``'s fractional coverage. ``scene_depth`` ([height,
     width] view distances, +inf where empty) discards fragments behind it;
     ``return_depth`` (opaque, mask, scene) also returns the [height, width]
     depth of the nearest written fragment, seeded from ``scene_depth``;
     ``framebuffer`` ([height, width, 4]) seeds the target instead of
     ``config.background``. The mask cutoff is ``draw.alpha_cutoff`` per
-    particle, else ``alpha_cutoff``. Antialiasing and slice rendering
-    (``y_offset``) raise ``NotImplementedError``.
+    particle, else ``alpha_cutoff``. Slice rendering (``y_offset``) raises
+    ``NotImplementedError``.
     """
     if alpha_mode not in BLEND_MODES:
         raise ValueError(f"unknown alpha mode {alpha_mode!r}")
-    if config.antialias:
-        raise _unported("antialias")
     if y_offset is not None:
         raise _unported("slice rendering (y_offset)")
     painter = alpha_mode == "scene"
@@ -1109,6 +1282,8 @@ def rasterize(
     row = row_width(alpha_mode, depth_test)
     appearance, columns = draw_appearance(draw, row)
     texs = ()
+    if appearance is not None and appearance.atlas_layers:
+        texs = (texture_tensor(draw.atlas, dev),)
     if appearance is not None and appearance.layers:
         for slot, _ in appearance.layers:
             if slot >= len(textures):
@@ -1133,6 +1308,7 @@ def rasterize(
         framebuffer=None if framebuffer is None else to_tiles(framebuffer, config, 0.0).to(dev),
         scene_depth=None if scene_depth is None else to_tiles(scene_depth, config, torch.inf).to(dev),
         depth_test=depth_test, write_depth=write_depth, appearance=appearance, textures=texs,
+        antialias=config.antialias,
     )
     fb, dbuf = out if write_depth else (out, None)
     if return_depth:

@@ -16,12 +16,12 @@ for one camera, and ``render`` through both pipelines of the JAX package's
 render plan: the phase split (opaque and mask passes threading a depth
 plane, then transparent passes tested against it, same-blend runs batched)
 and the painter pass (every effect in one back-to-front sort with per-entry
-blend equations), ``scene_depth`` and ``return_depth`` included, ribbon
-effects as their segment quads and mesh effects as their expanded entries
-(neither batched, nor textured effects). Every other branch raises
-``NotImplementedError`` naming itself: groups and sharding, ``cull_pad``,
-a textured or mesh effect in a painter plan (the painter's texture atlas
-and mesh/Lambert merge), ``render_views`` and multi-view chunks, debug
+blend equations, textured effects through a stacked texture atlas and mesh
+effects with their Lambert setups merged), ``scene_depth`` and
+``return_depth`` included, ribbon effects as their segment quads and mesh
+effects as their expanded entries (neither batched, nor textured effects).
+Every other branch raises ``NotImplementedError`` naming itself: groups and
+sharding, ``cull_pad``, ``render_views`` and multi-view chunks, debug
 validation, and hot reload (an asset edited after ``add``).
 """
 
@@ -79,8 +79,11 @@ class EffectInstance:
     renderer: Any = None
     # asset signature captured at add() time: an edit after add() raises
     compiled_signature: Any = None
-    # texture images by slot, f32 [H, W, 4] tensors on the scene's device
+    # texture images by slot, f32 [H, W, 4] tensors on the scene's device,
+    # and the objects they were uploaded from (the painter's atlas shares a
+    # layer between effects given the same object)
     textures: tuple = ()
+    texture_sources: tuple = ()
 
     def alive_count(self) -> int:
         return int(self.pool.alive_count())
@@ -196,6 +199,7 @@ class HanabiScene:
             rng=np.random.default_rng(inst_seed + 1),
             compiled_signature=asset.signature(),
             textures=self._upload(textures),
+            texture_sources=tuple(textures),
         )
         self._effects[name] = inst
         if parent is not None:
@@ -256,6 +260,7 @@ class HanabiScene:
         lib.rs:694-702); its renderer is rebuilt on next use."""
         inst = self._effects[name]
         inst.textures = self._upload(textures)
+        inst.texture_sources = tuple(textures)
         inst.renderer = None
 
     def set_transform(self, name: str, transform) -> None:
@@ -645,13 +650,6 @@ class HanabiScene:
         transp_passes = build_passes([i for i in vis_idx if i not in opaque])
         n_passes = len(opaque_passes) + len(transp_passes)
         if vis_idx and (pipeline == "painter" or (pipeline == "auto" and n_passes >= 2)):
-            merged = [insts[i].name for i in vis_idx
-                      if insts[i].asset.mesh is not None or insts[i].textures]
-            if merged:
-                raise _unported(
-                    f"the painter texture atlas and mesh/Lambert merge (textured or mesh effects "
-                    f"{merged} in a painter plan; render with pipeline='split')"
-                )
             return (), (("painter", tuple(vis_idx), ()),)
         return opaque_passes, transp_passes
 
@@ -790,19 +788,30 @@ class HanabiScene:
         one global (tile, depth) sort, one window gather, one blend loop
         whose per-entry mode ids select the equation; opaque and mask
         entries write depth mid-loop; a ribbon effect joins as its segment
-        quads. ``insts`` are in back-to-front emitter order, which breaks
-        sort ties only."""
+        quads, a mesh effect as its expanded entries, and textured effects
+        through one atlas, a layer for each distinct texture object
+        (scene.py:47-75's shared conversion). ``insts`` are in
+        back-to-front emitter order, which breaks sort ties only."""
         from ..render.extract import concat_painter_draws, extract_draw_data
+        from ..render.mesh import expand_mesh_draw
         from ..render.raster import rasterize
         from ..render.ribbon import build_ribbon_segments
 
+        shared = {}  # id(source) -> the first upload of that object
+        textures = [
+            tuple(shared.setdefault(id(src), t) for src, t in zip(i.texture_sources, i.textures))
+            for i in insts
+        ]
         draws = []
-        for inst, (tr, pr) in zip(insts, inputs):
+        for inst, (tr, pr), texs in zip(insts, inputs, textures):
             draw = extract_draw_data(inst.asset, inst.pool, camera, sim=sim, properties=pr,
-                                     transform=tr)
+                                     textures=list(texs), transform=tr)
             if inst.fx.layout.contains("ribbon_id"):
                 draw = build_ribbon_segments(draw, camera)
+            elif inst.asset.mesh is not None:
+                draw = expand_mesh_draw(draw, inst.asset.mesh)
             draws.append(draw)
-        flat = concat_painter_draws(draws, [i.asset.alpha_mode.kind for i in insts])
+        flat = concat_painter_draws(draws, [i.asset.alpha_mode.kind for i in insts],
+                                    textures_per_draw=textures)
         return rasterize(flat, camera, config, alpha_mode="scene", scene_depth=scene_depth,
                          framebuffer=fb, return_depth=return_depth)

@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from ``bevy_hanabi_tpu_torch/csrc`` and runs
 the port's main paths through its public entry points: the
 benchmark-headline frame and its three companion binnings, the firework
 event tree, the mixed scene (``HanabiScene.update_render_chunk``), the
-ribbon frame, the force field and the textured mesh frame. It never imports
-JAX. Phases, each of which fails the run on any error:
+ribbon frame, the force field, the textured mesh frame, the painter pass
+with its texture atlas and mesh/Lambert merge, and antialiasing. It never
+imports JAX. Phases, each of which fails the run on any error:
 
 1. a CUDA device must be present; print its name and power limit;
 2. build the kernel library (nvcc, one process per source, ctypes) and,
@@ -186,6 +187,41 @@ JAX. Phases, each of which fails the run on any error:
        appearance variant must launch); then ``gather_window`` and
        ``tile_blend`` on the billboard's last BLEND frame against their plain
        versions, exactly, and timed, the first appearance kernel beside it.
+16. the painter atlas gate: the JAX package's painter compositions
+    (tests/test_scene.py:1859-2315: multilayer textures, a triangle mesh
+    with quads, a UV-less textured mesh beside one with UVs sharing a
+    texture, a lit mesh with quads, two conflicting Lambert setups, textured
+    effects, a textured flipbook) at 64x64 on the card and on the CPU: every
+    image exact card against CPU (each JAX test's painter-against-split
+    tolerance is 1e-6 there; 0.5% of the checksum where it is 1e-5),
+    painter against split on the card within that tolerance; then
+    ``update_render_chunk(4)`` of a two-layer painter against its per-frame
+    render on each device and card against CPU (checksums within 0.5%);
+17. the full-width painter frame: the mixed scene of phase 11 beside two
+    ``textured_mesh_check_effect(16384)`` icosphere effects with the 32x32
+    circle texture (one texture object, one atlas layer), lit by two
+    Lambert setups (per-entry light columns), 14 units before the camera:
+    ~3.5M entries of 40-float rows through ``update_render_chunk`` under
+    ``"auto"`` (the painter plan, asserted) at 512x512, ``tile_slots=1``,
+    M = 64; three timed chunks of K (frames/s), every kernel of the path
+    launched, the last frame re-rendered on the CPU (checksums within
+    0.5%); on the frame ``mesh_expand``, ``project_bin``, ``bin_keys``,
+    ``gather_window`` at F = 40 and ``tile_blend`` SCENE with the atlas
+    against their plain versions, exactly, and timed, the same window
+    antialiased (a timing row), each mesh effect's covered pairs (> 0);
+    then ``torch.profiler`` over 30 frames;
+18. antialiasing: (a) the headline with ``antialias=True`` on the same pool
+    right after phase 5b (two warm-up and three timed chunks, the
+    antialiased BLEND variant launched, the last frame on the CPU), and
+    ``tile_blend``'s antialiased BLEND on the headline's window in phase 3;
+    (b) the textured mesh frames of phases 15c-d, unlit and lit,
+    antialiased (frames/s, the frame on the CPU, the antialiased
+    appearance variant against its plain version on the frame's window);
+    (c) the three examples at ``examples/run_all.py``'s config
+    (``tile_size=16``, ``tile_span=2``, ``max_entries_per_tile=128``,
+    ``antialias=True``), 12 frames each, card against CPU, and the
+    flipbook's and the squircle's windows antialiased against the plain
+    version.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -202,7 +238,12 @@ with 0 launches,
 launches, ``tile_blend[flipbook]`` and ``[round]`` with the examples'
 own launches, and ``tile_blend[textured quads]`` with the billboard's BLEND
 frames' launches; ``gather_window`` on the same windows, ``[mesh,M=128]``
-and ``[mesh,lit,M=512]`` with 0 launches). Each row holds the
+and ``[mesh,lit,M=512]`` with 0 launches), the painter frame's
+(``mesh_expand``, ``project_bin``, ``bin_keys``, ``gather_window`` at
+``[painter]``, ``tile_blend[scene,atlas]`` and ``[scene,atlas,aa]`` with 0
+launches) and the antialiased variants' (``tile_blend[blend,aa]``,
+``[mesh,aa]``, ``[mesh,lit,aa]``, ``[flipbook,aa]``, ``[round,aa]``). Each
+row holds the
 path's launches, the kernel's and its plain version's device ms, the
 library call's (``index_select`` for the gathers, of the window's rows
 for ``gather_window``, of the appearance rows by the segment order for
@@ -266,6 +307,10 @@ FP32_OPS_PER_S = 67e12
 # block, as tile_blend.cu does.
 PROJECT_OPS, KEY_OPS = 150, 10
 ENTRY_OPS, COVER_TEST_OPS = 5, 10
+# antialiased coverage of a pair (raster.py:644-671): two divisions for u,
+# v, the two ramps and their clips and product (a triangle's three
+# half-planes cost more; counted as a quad's)
+AA_OPS = 14
 BLEND_EQ_OPS = {"blend": 12, "add": 8, "opaque": 0, "mask": 1, "scene": 12, "premultiply": 9,
                 "multiply": 13}
 HEADLINE_KERNELS = ("gather_window", "project_bin", "bin_keys", "tile_blend")  # tile_blend in BLEND
@@ -316,6 +361,14 @@ MESH_OPS, MESH_LIT_OPS = 60, 130
 # the flipbook, the squircle), and their spawns a frame
 EXAMPLES = ("example_puffs", "example_circle", "example_2d")
 EXAMPLE_SPAWN = 32
+# the headline antialiased (phase 18a), and examples/run_all.py:253-256's
+# raster config of the examples at 512x512 (phase 18c)
+AA_HEADLINE = {"antialias": dict(tile_slots=1, antialias=True)}
+EXAMPLES_AA = dict(width=512, height=512, tile_size=16, tile_span=2, max_entries_per_tile=128,
+                   antialias=True)
+# their frames: the CPU's plain blend of M = 128 takes 1-3 s a frame, so
+# fewer than phase 15b's 30 keep the script within half its time limit
+EXAMPLE_FRAMES_AA = 12
 # the textured quads held card against CPU (phase 15f): (mesh, alpha mode)
 TEXTURED_QUADS = (("billboard", "BLEND"), ("billboard", "MULTIPLY"), ("cross", "ADD"),
                   ("cross", "PREMULTIPLY"))
@@ -501,12 +554,15 @@ def compare_bin_keys(projected, nt: int, mode, label: str) -> dict:
     return result
 
 
-def covered_pairs(window, has, T: int, ntx: int, tri_col: int = -1) -> int:
+def covered_pairs(window, has, T: int, ntx: int, tri_col: int = -1, antialias=False) -> int:
     """The (entry, pixel) pairs of a ``tile_blend`` window that the
     reference's test covers (raster.py:620-642, the triangle test for the
-    entries whose ``tri_col`` is set; a pair that then fails a depth test
+    entries whose ``tri_col`` is set; with ``antialias`` the pairs of
+    coverage > 0, raster.py:644-671; a pair that then fails a depth test
     or the squircle included: those tests run on it)."""
     import torch
+
+    from bevy_hanabi_tpu_torch.render import raster
 
     nt, M, _ = window.shape
     dev = window.device
@@ -523,9 +579,13 @@ def covered_pairs(window, has, T: int, ntx: int, tri_col: int = -1) -> int:
         u = (a2y * dx - a2x * dy) / det
         v = (-a1y * dx + a1x * dy) / det
         inside = (u.abs() <= 1.0) & (v.abs() <= 1.0)
+        is_tri = None
         if tri_col >= 0:
             is_tri = window[:, m, tri_col, None, None] > 0.5
             inside = torch.where(is_tri, (u >= -0.5) & (v >= -0.5) & (u + v <= 0.0), inside)
+        if antialias:
+            inside = raster._coverage(u, v, det[:, 0, 0], *(window[:, m, k] for k in range(2, 6)),
+                                      torch.ones_like(inside), is_tri) > 0.0
         total += (inside & has[:, m, None, None]).sum()
     return int(total)
 
@@ -546,12 +606,12 @@ def appearance_ops(ap) -> int:
     ops += 24 if ap.offset("vcol") >= 0 else 0
     ops += 35 if ap.lighting is not None else 0
     ops += 10 if ap.offset("uv") >= 0 else 0
-    ops += 10 if tuple(ap.grid) != (1, 1) and ap.layers else 0
-    return ops + 42 * len(ap.layers)
+    ops += 10 if (tuple(ap.grid) != (1, 1) and ap.layers) or ap.atlas_layers else 0
+    return ops + 42 * (len(ap.layers) + ap.atlas_layers)
 
 
 def blend_bound(mode: str, window, has, T: int, ntx: int, fb_out, depth_out=None, fb_in=None,
-                depth_in=None, appearance=None, textures=()) -> dict:
+                depth_in=None, appearance=None, textures=(), antialias=False) -> dict:
     """``tile_blend``'s bound: the bytes the function must move (the filled
     entries' rows, the ``has`` flags, the planes in and out, each texture
     layer once) and the FP32 operations every correct kernel must do
@@ -560,11 +620,13 @@ def blend_bound(mode: str, window, has, T: int, ntx: int, fb_out, depth_out=None
     pairs."""
     filled = int(has.sum())
     tri_col = -1 if appearance is None else appearance.offset("tri")
-    pairs = covered_pairs(window, has, T, ntx, tri_col)
+    pairs = covered_pairs(window, has, T, ntx, tri_col, antialias)
     rows = filled * window.shape[2] * window.element_size()
-    ops = ENTRY_OPS * filled + (COVER_TEST_OPS + BLEND_EQ_OPS[mode]
+    ops = ENTRY_OPS * filled + (COVER_TEST_OPS + BLEND_EQ_OPS[mode] + AA_OPS * antialias
                                 + appearance_ops(appearance)) * pairs
     texs = {slot: textures[slot] for slot, _ in (appearance.layers if appearance else ())}
+    if appearance is not None and appearance.atlas_layers:
+        texs = {0: textures[0]}
     return {**bound(rows + nbytes(has, fb_out, depth_out, fb_in, depth_in, *texs.values()), ops),
             "filled_entries": filled, "covered_pairs": pairs}
 
@@ -705,7 +767,7 @@ def compare_tile_blend(label: str, window, has, T: int, ntx: int, nty: int, back
         "plain_ms": cuda_ms(lambda: raster.tile_blend_plain(*args, **kw), 3),
         "library_ms": None,
         **blend_bound(mode, window, has, T, ntx, fb_k, d_k, kw.get("framebuffer"),
-                      kw.get("scene_depth"), ap, kw.get("textures", ())),
+                      kw.get("scene_depth"), ap, kw.get("textures", ()), kw.get("antialias", False)),
     }
     if first is not None:
         def run_first():
@@ -787,6 +849,9 @@ def compare_kernels(dev):
 
     results["gather_window"], win = compare_gather_window(projected, nt, M, None, "headline")
     results["tile_blend"], _ = compare_tile_blend("blend", *win, T, ntx, nty, cfg.background, "blend")
+    # the antialiased headline's pass: the same window, tile_blend's kAA variant
+    results["tile_blend[blend,aa]"], _ = compare_tile_blend(
+        "blend (antialiased)", *win, T, ntx, nty, cfg.background, "blend", antialias=True)
 
     # MASK, which no main path runs: the headline's draw in 13-float rows
     # with rasterize's default cutoff (0.5), writing depth as the split
@@ -836,7 +901,7 @@ def reset_launches(kernels) -> None:
     for kernel in kernels.values():
         kernel.wrapper.launches = 0
     tb = kernels["tile_blend"].wrapper
-    for by_mode in (tb.launches_by_mode, tb.launches_appearance):
+    for by_mode in (tb.launches_by_mode, tb.launches_appearance, tb.launches_antialias):
         for mode in by_mode:
             by_mode[mode] = 0
 
@@ -844,15 +909,17 @@ def reset_launches(kernels) -> None:
 def read_launches(kernels) -> dict:
     """Launches by kernel, ``tile_blend`` by equation: ``tile_blend`` is
     BLEND, ``tile_blend[add]``, ``[opaque]``, ``[mask]``, ``[scene]``,
-    ``[premultiply]``, ``[multiply]`` the others, and
+    ``[premultiply]``, ``[multiply]`` the others,
     ``tile_blend[<mode>,appearance]`` the appearance variants' launches
-    among them."""
+    among them and ``tile_blend[<mode>,antialias]`` the antialiased ones'."""
     counts = {name: k.wrapper.launches for name, k in kernels.items()}
     tb = kernels["tile_blend"].wrapper
     for mode, n in tb.launches_by_mode.items():
         counts["tile_blend" if mode == "blend" else f"tile_blend[{mode}]"] = n
     for mode, n in tb.launches_appearance.items():
         counts[f"tile_blend[{mode},appearance]"] = n
+    for mode, n in tb.launches_antialias.items():
+        counts[f"tile_blend[{mode},antialias]"] = n
     return counts
 
 
@@ -1697,19 +1764,21 @@ def rerender_headline(asset, pool, cam, config, label: str) -> None:
         fail(f"{label} frame checksum {s_k} on the card vs {s_p} on the CPU")
 
 
-def companion_frames(fx, pool, spawner, frame, cam, kernels):
+def companion_frames(fx, pool, spawner, frame, cam, kernels, companions=COMPANIONS, profile=True):
     """Phase 5b: the headline's companions (bench.py:510-563) on its pool:
     for each, two warm-up chunks, then three timed ``step_render_chunk``
     chunks of K frames, each ending in an alive-count readback (frames/s
     and particle-frames/s, best of three); the raster kernels' launches
     counted over the timed chunks alone; the last frame rendered again on
-    the CPU. Returns ``(pool, frame, launches by companion)``."""
+    the CPU; then (``profile``) the profiles of 30 headline and 30 exact
+    frames. Phase 18a runs it on the antialiased headline. Returns
+    ``(pool, frame, launches by companion)``."""
     import torch
 
     from bevy_hanabi_tpu_torch import RasterConfig
 
     launches = {}
-    for name, binning in COMPANIONS.items():
+    for name, binning in companions.items():
         config = RasterConfig(width=512, height=512, **binning)
         for _ in range(2):
             pool, _, _ = fx.step_render_chunk(pool, *chunk_inputs(fx, spawner, frame), cam, config)
@@ -1737,6 +1806,8 @@ def companion_frames(fx, pool, spawner, frame, cam, kernels):
         if not bool(img.isfinite().all()) or not float(sums.sum()) > 0.0:
             fail(f"{name} image is not finite or its checksum is not positive")
         rerender_headline(fx.asset, pool, cam, config, name)
+    if not profile:
+        return pool, frame, launches
     # where the time goes: the exact frame's 4M-entry sort against the headline's 1M
     for label, binning in (("headline", dict(tile_slots=1)), ("exact", COMPANIONS["exact"])):
         config = RasterConfig(width=512, height=512, **binning)
@@ -1957,10 +2028,11 @@ def mesh_gate():
         fail(f"textured_mesh_2k: checksum {s_g} on the card vs {s_c} on the CPU")
 
 
-def example_run(name: str, device):
-    """One of :data:`EXAMPLES`, 30 frames of :data:`EXAMPLE_SPAWN` spawns
-    through ``step_render_chunk`` at 512x512 on ``device``: ``(fx, pool,
-    image, checksums, camera, textures)``."""
+def example_run(name: str, device, config=None, frames: int = 30):
+    """One of :data:`EXAMPLES`, ``frames`` frames of :data:`EXAMPLE_SPAWN`
+    spawns through ``step_render_chunk`` at 512x512 on ``device`` (at
+    ``config``, else ``RasterConfig(512, 512)``): ``(fx, pool, image,
+    checksums, camera, textures)``."""
     from bevy_hanabi_tpu_torch import CompiledEffect, RasterConfig, SimParams, StepInputs
     from bevy_hanabi_tpu_torch.models import examples, make_anim_sprite_sheet
     from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
@@ -1968,33 +2040,35 @@ def example_run(name: str, device):
     cam = CameraParams(look_at((0, 0, 3), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0), (512, 512))
     textures = [make_anim_sprite_sheet(8, 32)] if name == "example_circle" else []
     fx = CompiledEffect(getattr(examples, name)(), device=device)
-    ins = [StepInputs.make(EXAMPLE_SPAWN, 7 * i + 1) for i in range(30)]
-    sims = [SimParams(time=i * DT, delta_time=DT) for i in range(30)]
+    ins = [StepInputs.make(EXAMPLE_SPAWN, 7 * i + 1) for i in range(frames)]
+    sims = [SimParams(time=i * DT, delta_time=DT) for i in range(frames)]
     pool, img, sums = fx.step_render_chunk(fx.create_pool(), *fx.stack_frames(ins, sims), cam,
-                                           RasterConfig(width=512, height=512), textures)
+                                           config or RasterConfig(width=512, height=512), textures)
     return fx, pool, img, sums.cpu(), cam, textures
 
 
-def example_checks(kernels) -> dict:
+def example_checks(kernels, config=None, frames: int = 30) -> dict:
     """Phase 15b: ``example_puffs`` (Lambert on mesh normals),
     ``example_circle`` (the flipbook) and ``example_2d`` (the squircle),
-    each 30 frames of :data:`EXAMPLE_SPAWN` spawns through
-    ``step_render_chunk`` at 512x512, card against CPU: masks and seeds
-    equal, every frame's checksum within 0.5%. Returns, by example, the
-    card's last pool, its camera, textures and launches."""
+    each ``frames`` frames of :data:`EXAMPLE_SPAWN` spawns through
+    ``step_render_chunk`` at 512x512 (at ``config``: phase 18c runs
+    ``examples/run_all.py``'s antialiased one), card against CPU: masks and
+    seeds equal, every frame's checksum within 0.5%. Returns, by example,
+    the card's last pool, its camera, textures and launches."""
     import numpy as np
 
     out = {}
     for name in EXAMPLES:
         reset_launches(kernels)
         t0 = time.perf_counter()
-        fx, pool_g, img_g, sums_g, cam, textures = example_run(name, "cuda")
+        fx, pool_g, img_g, sums_g, cam, textures = example_run(name, "cuda", config, frames)
         launches = read_launches(kernels)
         t1 = time.perf_counter()
-        _, pool_c, _, sums_c, _, _ = example_run(name, "cpu")
+        _, pool_c, _, sums_c, _, _ = example_run(name, "cpu", config, frames)
         t2 = time.perf_counter()
         (_, alive_g, seed_g, _), (_, alive_c, seed_c, _) = pool_g.to_numpy(), pool_c.to_numpy()
-        print(f"{name}: 30 frames at 512x512, alive {int(alive_c.sum())}, last checksum card "
+        print(f"{name}{' (antialiased)' if config is not None else ''}: {frames} frames at 512x512, "
+              f"alive {int(alive_c.sum())}, last checksum card "
               f"{float(sums_g[-1]):.6e} cpu {float(sums_c[-1]):.6e} (card {t1 - t0:.1f} s, cpu "
               f"{t2 - t1:.1f} s); launches {launches}")
         if not np.array_equal(alive_g, alive_c) or not np.array_equal(seed_g, seed_c):
@@ -2070,18 +2144,19 @@ def warp_iterations(window, has, T: int, ntx: int, ap, label: str) -> dict:
     return out
 
 
-def warm_mesh(lit: bool):
+def warm_mesh(lit: bool, antialias: bool = False):
     """The textured mesh frame's effect (:func:`mesh_asset` at
     :data:`MESH_CAPACITY`) on the card, warmed three chunks of K frames
-    through ``step_render_chunk`` at ``RasterConfig(512, 512)``, past its
-    5 s lifetime: ``(fx, pool, spawner, frame, camera, config, textures)``."""
+    through ``step_render_chunk`` at ``RasterConfig(512, 512, antialias=)``,
+    past its 5 s lifetime: ``(fx, pool, spawner, frame, camera, config,
+    textures)``."""
     import numpy as np
     import torch
 
     from bevy_hanabi_tpu_torch import CompiledEffect, EffectSpawner, RasterConfig
     from bevy_hanabi_tpu_torch.models import make_circle_texture
 
-    cam, config = mesh_camera(512), RasterConfig(width=512, height=512)
+    cam, config = mesh_camera(512), RasterConfig(width=512, height=512, antialias=antialias)
     fx = CompiledEffect(mesh_asset(MESH_CAPACITY, lit), device="cuda")
     textures = [torch.from_numpy(make_circle_texture(32)).cuda()]
     spawner = EffectSpawner(fx.asset.spawner, rng=np.random.default_rng(0))
@@ -2115,7 +2190,7 @@ def appearance_window(asset, pool, cam, config, textures, m=None):
     return window, has, ap
 
 
-def mesh_frame(kernels, lit: bool, first=None):
+def mesh_frame(kernels, lit: bool, first=None, antialias=False):
     """Phases 15c-d: the textured mesh frame at full width,
     ``textured_mesh_check_effect(16384)`` with the icosphere and the
     circle texture (lit per fragment where ``lit``) through
@@ -2124,7 +2199,9 @@ def mesh_frame(kernels, lit: bool, first=None):
     timed chunks of K frames (frames/s); every kernel of the path must
     launch; the last frame rendered again on the CPU (checksums within
     0.5%); each kernel held against its plain version at the frame's
-    shapes and timed; then a profile of 30 frames."""
+    shapes and timed; then a profile of 30 frames. Phase 18b runs it
+    ``antialias``ed: the same up to the re-render, then ``tile_blend``'s
+    ``kAA`` appearance variant alone on the frame's window."""
     import torch
 
     from bevy_hanabi_tpu_torch import ParticlePool
@@ -2132,9 +2209,9 @@ def mesh_frame(kernels, lit: bool, first=None):
     from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
     from bevy_hanabi_tpu_torch.render.mesh import expand_mesh_draw
 
-    tag = "mesh,lit" if lit else "mesh"
+    tag = ("mesh,lit" if lit else "mesh") + (",aa" if antialias else "")
     t0 = time.perf_counter()
-    fx, pool, spawner, frame, cam, config, textures = warm_mesh(lit)
+    fx, pool, spawner, frame, cam, config, textures = warm_mesh(lit, antialias)
     asset, mesh = fx.asset, fx.asset.mesh
     alive_before = int(pool.alive_count())
     print(f"{tag} warm-up: {frame} frames in {time.perf_counter() - t0:.2f} s, alive {alive_before}")
@@ -2159,7 +2236,8 @@ def mesh_frame(kernels, lit: bool, first=None):
           f"({alive_after * k} triangle entries alive of {MESH_CAPACITY * k}), "
           f"checksum {float(sums[-1]):.6e}")
     print(f"launches in the timed chunks: {launches}")
-    require_launches(launches, MESH_KERNELS, f"the {tag} frame")
+    require_launches(launches, MESH_KERNELS + (("tile_blend[blend,antialias]",) if antialias else ()),
+                     f"the {tag} frame")
     if not bool(img.isfinite().all()) or not float(sums[-1]) > 0.0 or tuple(img.shape) != (512, 512, 4):
         fail(f"{tag} frame is not finite, not positive or not 512x512x4")
 
@@ -2181,9 +2259,15 @@ def mesh_frame(kernels, lit: bool, first=None):
     # every kernel of the path at the frame's shapes
     T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
     M = config.max_entries_per_tile
-    results = {f"mesh_expand[{tag}]": compare_mesh_expand(draw, mesh, tag)}
     expanded = expand_mesh_draw(draw, mesh)
     ap, columns = raster.draw_appearance(expanded, raster.row_width("blend", False))
+    if antialias:  # the other kernels are the plain frame's, at the same shapes
+        win = appearance_window(asset, pool, cam, config, textures)[:2]
+        row, _ = compare_tile_blend(f"blend ({tag}, {ap.row}-float rows)", *win, T, ntx, nty,
+                                    config.background, "blend", appearance=ap, textures=textures,
+                                    antialias=True)
+        return {f"tile_blend[{tag}]": row}, launches
+    results = {f"mesh_expand[{tag}]": compare_mesh_expand(draw, mesh, tag)}
     results[f"project_bin[{tag}]"], projected = compare_project_bin(
         project_args(expanded, cam, config), nt, f"project_bin ({tag}, triangles)",
         raster.row_width("blend", False), config=config, appearance=columns)
@@ -2223,16 +2307,18 @@ def mesh_frame(kernels, lit: bool, first=None):
     return results, launches
 
 
-def example_kernels(example_runs, first=None) -> dict:
+def example_kernels(example_runs, first=None, config=None) -> dict:
     """Phase 15e: ``tile_blend`` on the last frame of ``example_circle``
     (the flipbook, 11-float rows) and ``example_2d`` (the squircle), each
     against its plain version, timed, and the first appearance kernel
-    (``first``) beside it."""
+    (``first``) beside it; with an antialiased ``config`` (phase 18c) the
+    ``kAA`` variant alone (rows ``[flipbook,aa]``, ``[round,aa]``)."""
     from bevy_hanabi_tpu_torch import RasterConfig
     from bevy_hanabi_tpu_torch.render import raster
     from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
 
-    config = RasterConfig(width=512, height=512)
+    aa = config is not None and config.antialias
+    config = config or RasterConfig(width=512, height=512)
     T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
     results = {}
     for name, label in (("example_circle", "flipbook"), ("example_2d", "round")):
@@ -2243,8 +2329,14 @@ def example_kernels(example_runs, first=None) -> dict:
         projected = raster.project_bin(*project_args(draw, cam, config), row=raster.ROW_QUAD,
                                        tile_slots=config.tile_slots, tile_span=config.tile_span,
                                        appearance=columns)
-        results[f"gather_window[{label}]"], win = compare_gather_window(
-            projected, nt, config.max_entries_per_tile, None, label)
+        gathered, win = compare_gather_window(projected, nt, config.max_entries_per_tile, None,
+                                              label)
+        if aa:
+            results[f"tile_blend[{label},aa]"], _ = compare_tile_blend(
+                f"blend ({label}, {ap.row}-float rows, antialiased)", *win, T, ntx, nty,
+                config.background, "blend", appearance=ap, textures=texs, antialias=True)
+            continue
+        results[f"gather_window[{label}]"] = gathered
         results[f"tile_blend[{label}]"], _ = compare_tile_blend(
             f"blend ({label}, {ap.row}-float rows)", *win, T, ntx, nty, config.background, "blend",
             first=first, appearance=ap, textures=texs)
@@ -2326,6 +2418,361 @@ def textured_quad_checks(kernels, first=None):
                                    textures=texs)
     return ({"tile_blend[textured quads]": result, "gather_window[textured quads]": window_row},
             launches)
+
+
+
+# ---- phases 16-17: the painter's atlas and mesh merge, antialiasing ----------
+
+
+def phase_asset(name, pos, mode, color, sprite=None):
+    """A 4-particle effect at one point (the JAX package's
+    tests/test_scene.py:1135-1154), a flipbook frame where ``sprite``."""
+    from bevy_hanabi_tpu_torch import AlphaMode, EffectAsset, ExprWriter, SpawnerSettings
+    from bevy_hanabi_tpu_torch import attributes as A
+    from bevy_hanabi_tpu_torch.modifiers import SetAttributeModifier, SetSizeModifier
+
+    w = ExprWriter()
+    a = (EffectAsset(name, 4, SpawnerSettings.once(1.0), w.finish())
+         .init(SetAttributeModifier(A.POSITION, w.lit(pos).expr()))
+         .init(SetAttributeModifier(A.LIFETIME, w.lit(100.0).expr())))
+    if sprite is None:
+        a = a.init(SetAttributeModifier(A.HDR_COLOR, w.lit(color).expr()))
+    else:
+        a = a.init(SetAttributeModifier(A.SPRITE_INDEX, w.lit(sprite, None).expr()))
+    return a.render(SetSizeModifier((0.5, 0.5, 0.5))).with_alpha_mode(getattr(AlphaMode,
+                                                                               mode.upper()))
+
+
+def painter_textures() -> dict:
+    """The compositions' textures (the JAX package's tests/test_scene.py)."""
+    import numpy as np
+
+    ch = np.indices((8, 8)).sum(0) % 2
+    yy, xx = np.mgrid[0:6, 0:6]
+    fade = np.clip(1.0 - np.hypot(xx - 2.5, yy - 2.5) / 3.0, 0.0, 1.0)
+    ramp = np.zeros((8, 8, 4), np.float32)
+    u = np.linspace(0.1, 1.0, 8, dtype=np.float32)
+    ramp[..., 0], ramp[..., 1], ramp[..., 3] = u[None, :], u[:, None], 1.0
+    ramp[0, 0] = 0.0
+    tint = np.ones((4, 4, 4), np.float32)
+    tint[..., 0], tint[..., 2] = 0.2, 0.9
+    sheet = np.zeros((8, 8, 4), np.float32)
+    sheet[:4, :4], sheet[:4, 4:] = (1, 0, 0, 1), (0, 1, 0, 1)
+    sheet[4:, :4], sheet[4:, 4:] = (0, 0, 1, 1), (1, 1, 0, 1)
+    return {
+        "checker": np.stack([ch, 1 - ch, np.zeros_like(ch), np.ones_like(ch)], -1).astype(np.float32),
+        "fade": np.stack([fade, fade, fade, np.ones_like(fade)], -1).astype(np.float32),
+        "ramp": ramp, "tint": tint, "sheet": sheet, "flat": np.full((4, 4, 4), 0.6, np.float32),
+    }
+
+
+def painter_composition(name: str, tex: dict) -> list:
+    """One of :data:`PAINTER_COMPOSITIONS` as ``[(asset, name, textures)]``:
+    the JAX package's painter tests (tests/test_scene.py:1859-2315)."""
+    from bevy_hanabi_tpu_torch import (FlipbookModifier, ImageSampleMapping,
+                                       ParticleTextureModifier)
+    from bevy_hanabi_tpu_torch.models import LambertianLightingModifier
+    from bevy_hanabi_tpu_torch.render.mesh import ParticleMesh
+
+    M = ImageSampleMapping
+    blend_quad = phase_asset("bl", (0.6, 0.6, 0.5), "blend", (0.9, 0.1, 0.1, 0.5))
+    if name in ("multilayer", "chunk_two_layer"):
+        chunk = name == "chunk_two_layer"
+        two = phase_asset("two", (-0.3 if chunk else -0.4, 0.0, -0.5), "blend", (1, 1, 1, 0.9))
+        two = two.render(ParticleTextureModifier(0, M.MODULATE)).render(
+            ParticleTextureModifier(1, M.MODULATE_OPACITY_FROM_R))
+        plain = phase_asset("plain", (0.3, 0.0, 0.5) if chunk else (0.0, 0.5, 0.0), "add",
+                            (0.3, 0.3, 0.1, 1.0))
+        if chunk:
+            return [(two, "two", [tex["checker"], tex["flat"]]), (plain, "plain", [])]
+        one = phase_asset("one", (0.4, 0.0, 0.5), "blend", (1, 1, 1, 0.6)).render(
+            ParticleTextureModifier(0, M.MODULATE_RGB))
+        return [(two, "two", [tex["checker"], tex["fade"]]), (one, "one", [tex["checker"]]),
+                (plain, "plain", [])]
+    if name == "meshes_and_quads":
+        tri = ParticleMesh(vertices=[[-0.5, -0.4, 0.0], [0.5, -0.4, 0.0], [0.0, 0.6, 0.0]],
+                           indices=[[0, 1, 2]], colors=[[1, 1, 1, 1]] * 3)
+        return [(phase_asset("tri", (0.0, 0.0, -0.5), "opaque", (0.2, 0.3, 0.9, 1.0)).with_mesh(tri),
+                 "tri", []), (blend_quad, "bl", [])]
+    if name == "uvless_mesh":
+        verts = [[-0.5, -0.4, 0.0], [0.5, -0.4, 0.0], [0.0, 0.6, 0.0]]
+        out = []
+        for label, pos, uvs in (("nu", (-0.4, 0.0, -0.5), None),
+                                ("wu", (0.4, 0.0, 0.5), [[0.0, 1.0], [1.0, 1.0], [0.5, 0.0]])):
+            mesh = ParticleMesh(vertices=verts, indices=[[0, 1, 2]], uvs=uvs)
+            a = phase_asset(label, pos, "blend", (1.0, 1.0, 1.0, 0.8)).with_mesh(mesh)
+            out.append((a.render(ParticleTextureModifier(0)), label, [tex["ramp"]]))
+        return out
+    if name == "lit_mesh":
+        lit = phase_asset("ico", (0.0, 0.0, -0.5), "opaque", (0.8, 0.8, 0.8, 1.0)).with_mesh(
+            ParticleMesh.icosphere(0.5, subdivisions=1))
+        return [(lit.render(LambertianLightingModifier((1.0, 0.0, 0.0), 0.2)), "ico", []),
+                (blend_quad, "bl", [])]
+    if name == "two_lamberts":
+        out = []
+        for label, pos, ldir in (("a", (-0.4, 0.0, -0.5), (1.0, 0.0, 0.0)),
+                                 ("b", (0.4, 0.0, -0.5), (0.0, 1.0, 0.0))):
+            a = phase_asset(label, pos, "opaque", (0.8, 0.8, 0.8, 1.0)).with_mesh(
+                ParticleMesh.icosphere(0.4, subdivisions=0))
+            out.append((a.render(LambertianLightingModifier(ldir, 0.2)), label, []))
+        return out + [(phase_asset("bl", (0.0, 0.5, 0.5), "blend", (0.9, 0.1, 0.1, 0.5)), "bl", [])]
+    if name == "textured":
+        t1 = phase_asset("t1", (-0.4, 0.0, -0.5), "blend", (1, 1, 1, 0.8)).render(
+            ParticleTextureModifier(0, M.MODULATE))
+        t2 = phase_asset("t2", (0.4, 0.0, 0.5), "blend", (1, 1, 1, 0.6)).render(
+            ParticleTextureModifier(0, M.MODULATE_RGB))
+        return [(t1, "t1", [tex["checker"]]), (t2, "t2", [tex["tint"]]),
+                (phase_asset("plain", (0.0, 0.5, 0.0), "add", (0.3, 0.3, 0.1, 1.0)), "plain", [])]
+    # flipbook: a 2x2 sheet at frame 2 beside a blend quad
+    flip = phase_asset("flip", (-0.4, 0.0, -0.5), "blend", None, sprite=2).render(
+        FlipbookModifier((2, 2))).render(ParticleTextureModifier(0, M.MODULATE))
+    return [(flip, "flip", [tex["sheet"]]),
+            (phase_asset("bl", (0.5, 0.5, 0.5), "blend", (0.9, 0.1, 0.1, 0.5)), "bl", [])]
+
+
+# the compositions and the JAX package's painter-against-split tolerance of each
+PAINTER_COMPOSITIONS = {"multilayer": 1e-6, "meshes_and_quads": 1e-6, "uvless_mesh": 1e-5,
+                        "lit_mesh": 1e-6, "two_lamberts": 1e-6, "textured": 1e-6,
+                        "flipbook": 1e-6, "chunk_two_layer": 1e-5}
+
+
+def painter_atlas_gate(kernels):
+    """Phase 16: the JAX package's painter compositions (textured, flipbook,
+    meshes, UV-less, lit and two Lambert setups) on the card and on the
+    CPU at 64x64: each image card against CPU exactly where the JAX
+    package's own painter test is exact (1e-6), else within 0.5% of the
+    checksum, and painter against split on the card within that test's
+    tolerance; then update_render_chunk(4) of the two-layer painter against
+    its per-frame render on the card and against the CPU's chunk."""
+    import dataclasses
+
+    import torch
+
+    from bevy_hanabi_tpu_torch import HanabiScene, RasterConfig
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, orthographic
+
+    cam = CameraParams(look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0)),
+                       orthographic(-1, 1, -1, 1, 0.1, 10.0), (64, 64))
+    cfg = RasterConfig(64, 64, tile_size=16)
+    tex = painter_textures()
+
+    def build(name, device, seed=0):
+        s = HanabiScene(seed=seed, device=device)
+        for asset, label, texs in painter_composition(name, tex):
+            s.add(asset, label, textures=texs)
+        s.update(DT)
+        return s
+
+    reset_launches(kernels)
+    for name, tol in PAINTER_COMPOSITIONS.items():
+        if name == "chunk_two_layer":
+            continue
+        card, cpu = build(name, "cuda"), build(name, "cpu")
+        plan = card._scene_render_plan(card.effects(), cam, "painter")
+        img_g = card.render(cam, cfg, background=(0, 0, 0, 0), pipeline="painter").cpu()
+        img_s = card.render(cam, cfg, background=(0, 0, 0, 0), pipeline="split").cpu()
+        img_c = cpu.render(cam, cfg, background=(0, 0, 0, 0), pipeline="painter")
+        err = float((img_g - img_c).abs().max())
+        split_err = float((img_g - img_s).abs().max())
+        s_g, s_c = float(img_g.sum()), float(img_c.sum())
+        print(f"painter atlas gate {name}: plan {plan[1][0][0]}, card vs cpu max abs err {err:g} "
+              f"(checksums {s_g:.6e} / {s_c:.6e}), painter vs split on the card {split_err:g}")
+        if plan[1][0][0] != "painter" or not s_c > 0.0:
+            fail(f"painter atlas gate {name}: no painter plan, or an empty image")
+        if (err != 0.0 if tol == 1e-6 else not checksum_close(s_g, s_c)) or split_err > tol:
+            fail(f"painter atlas gate {name}: card vs cpu {err:g}, painter vs split {split_err:g}")
+    # the fused chunk: 4 frames against the per-frame render, card and CPU
+    chunk_cfg = dataclasses.replace(cfg)
+    sums = {}
+    for device in ("cuda", "cpu"):
+        a, b = build("chunk_two_layer", device, 11), build("chunk_two_layer", device, 11)
+        img, sums[device] = a.update_render_chunk(4, DT, cam, chunk_cfg)
+        for _ in range(4):
+            b.update(DT)
+        err = float((img - b.render(cam, chunk_cfg)).abs().max())
+        if err > PAINTER_COMPOSITIONS["chunk_two_layer"] or not float(img[..., :3].max()) > 0.05:
+            fail(f"painter atlas gate chunk ({device}): chunk vs frames {err:g}")
+    for k, (x, y) in enumerate(zip(sums["cuda"].cpu().tolist(), sums["cpu"].tolist())):
+        if not checksum_close(x, y):
+            fail(f"painter atlas gate chunk frame {k}: checksum {x} on the card vs {y} on the CPU")
+    launches = read_launches(kernels)
+    print(f"painter atlas gate: update_render_chunk(4) card {sums['cuda'].cpu().tolist()} cpu "
+          f"{sums['cpu'].tolist()}; launches {launches}")
+    require_launches(launches, ("tile_blend[scene,appearance]",), "the painter atlas gate")
+
+
+# the painter frame's two mesh effects: textured icospheres of
+# textured_mesh_check_effect(16384), each lit by its own Lambert setup (so the
+# merge carries per-entry light columns), at these places in the mixed view:
+# 14 units before the camera, in front of the gradient's cloud (radius ~11),
+# so that their triangles are among each tile's nearest M entries
+PAINTER_MESHES = ((((0.577, 0.577, 0.577), 0.7), (-4.0, 2.0, 12.0)),
+                  (((0.0, 1.0, 0.0), 0.2), (4.0, -2.0, 12.0)))
+PAINTER_NAMES = MIXED_NAMES + ("mesh0", "mesh1")
+# every kernel of the painter frame
+PAINTER_KERNELS = ("gather_rows", "gather_window", "project_bin", "bin_keys", "mesh_expand",
+                   "tile_blend[scene,appearance]", "event_compact")
+
+
+def painter_scene(device, circle):
+    """The mixed scene of bench.py:724-728 at full size beside the two lit
+    textured mesh effects of :data:`PAINTER_MESHES` (one texture object
+    ``circle``, so one atlas layer)."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch import ParticleTextureModifier
+    from bevy_hanabi_tpu_torch.models import LambertianLightingModifier, textured_mesh_check_effect
+    from bevy_hanabi_tpu_torch.render.mesh import ParticleMesh
+
+    scene = mixed_scene(device, 65536, 1 << 19, 65536, 262144)
+    for k, (light, at) in enumerate(PAINTER_MESHES):
+        asset = (textured_mesh_check_effect(MESH_CAPACITY).render(ParticleTextureModifier(0))
+                 .render(LambertianLightingModifier(*light))
+                 .with_mesh(ParticleMesh.icosphere(radius=0.4, subdivisions=1)))
+        tf = np.eye(3, 4, dtype=np.float32)
+        tf[:, 3] = at
+        scene.add(asset, f"mesh{k}", transform=tf, textures=[circle])
+    return scene
+
+
+def painter_frame_draw(scene, cam):
+    """The painter pass's draw of the scene's current frame as
+    ``HanabiScene._render_painter`` builds it (meshes expanded, textures
+    shared by object), each effect's entry count, and its extra columns."""
+    import torch
+
+    from bevy_hanabi_tpu_torch.render.extract import concat_painter_draws, extract_draw_data
+    from bevy_hanabi_tpu_torch.render.mesh import expand_mesh_draw
+
+    insts = [scene[n] for n in PAINTER_NAMES]
+    shared = {}
+    texs = [tuple(shared.setdefault(id(s), t) for s, t in zip(i.texture_sources, i.textures))
+            for i in insts]
+    sim = scene.clock.sim_params()
+    draws = []
+    for inst, ts in zip(insts, texs):
+        d = extract_draw_data(inst.asset, inst.pool, cam, sim=sim,
+                              properties=inst.properties.as_dict(), textures=list(ts),
+                              transform=inst.transform)
+        draws.append(expand_mesh_draw(d, inst.asset.mesh) if inst.asset.mesh is not None else d)
+    flat = concat_painter_draws(draws, [i.asset.alpha_mode.kind for i in insts],
+                                textures_per_draw=texs)
+    extra = torch.stack([flat.alpha_cutoff, flat.mode_id.to(torch.float32)], dim=1)
+    return flat, [d.alive.shape[0] for d in draws], extra
+
+
+def painter_frame(kernels):
+    """Phase 17: the full mixed scene (917 504 lanes) beside two lit textured
+    icosphere effects of 16 384 particles (~2.6M triangle entries) through
+    update_render_chunk under "auto" (the painter pass) at 512x512,
+    tile_slots=1, M = 64: frames/s (best of three chunks of K), every
+    kernel of the path launched, each mesh effect filling tiles, every kernel
+    against its plain version on a captured frame (and tile_blend's
+    antialiased SCENE variant on the same window, a timing row), a profile
+    of 30 frames, and the last frame re-rendered on the CPU."""
+    import copy
+
+    import torch
+
+    from bevy_hanabi_tpu_torch import ParticlePool, RasterConfig
+    from bevy_hanabi_tpu_torch.models import make_circle_texture
+    from bevy_hanabi_tpu_torch.ops import gather
+    from bevy_hanabi_tpu_torch.render import raster
+
+    cam, cfg = mixed_camera(), RasterConfig(width=512, height=512, tile_slots=1)
+    circle = make_circle_texture(32)
+    scene = painter_scene("cuda", circle)
+    plan = scene._scene_render_plan(scene.effects(), cam, "auto")
+    if plan[0] or plan[1][0][0] != "painter":
+        fail(f"the painter frame's plan is not the painter pass: {plan}")
+    t0 = time.perf_counter()
+    frames = warm_mixed(scene, cam, cfg)
+    print(f"painter frame warm-up: {frames} frames in {time.perf_counter() - t0:.2f} s, alive "
+          f"{[scene[n].alive_count() for n in PAINTER_NAMES]}")
+    reset_launches(kernels)
+    scene.update_render_chunk(K, DT, cam, cfg)  # untimed, as bench.py:749
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, sums = scene.update_render_chunk(K, DT, cam, cfg)
+        checksum = float(sums[-1])  # readback: waits for the chunk
+        times.append(time.perf_counter() - t0)
+    launches = read_launches(kernels)
+    best = min(times)
+    alive = [scene[n].alive_count() for n in PAINTER_NAMES]
+    print(f"painter frame: {K} frames in {best:.4f} s: {K / best:.2f} frames/s "
+          f"({1e3 * best / K:.3f} ms a frame), chunk times (s) {times}, alive {alive}, "
+          f"checksum {checksum:.6e}")
+    print(f"launches in the painter frame chunks (4 x {K} frames): {launches}")
+    require_launches(launches, PAINTER_KERNELS, "the painter frame")
+    if not bool(img.isfinite().all()) or not checksum > 0.0 or tuple(img.shape) != (512, 512, 4):
+        fail("painter frame is not finite, not positive or not 512x512x4")
+
+    # the last frame again on the CPU through the plain versions
+    cpu = painter_scene("cpu", circle)
+    cpu.clock = copy.deepcopy(scene.clock)
+    for name in PAINTER_NAMES:
+        cpu[name].pool = ParticlePool.from_numpy(*scene[name].pool.to_numpy(), device="cpu")
+    t0 = time.perf_counter()
+    s_p = float(cpu.render(cam, cfg).sum())
+    s_k = float(scene.render(cam, cfg).sum())
+    print(f"painter frame re-rendered: card {s_k:.6e} vs cpu plain {s_p:.6e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not checksum_close(s_k, s_p):
+        fail(f"painter frame checksum {s_k} on the card vs {s_p} on the CPU")
+
+    # every kernel at the frame's shapes
+    T, ntx, nty, nt = cfg.tile_size, cfg.tiles_x, cfg.tiles_y, cfg.num_tiles
+    M = cfg.max_entries_per_tile
+    flat, counts, extra = painter_frame_draw(scene, cam)
+    ap, columns = raster.draw_appearance(flat, raster.ROW)
+    results = {"mesh_expand[painter]": compare_mesh_expand(
+        extract_mesh_draw(scene, "mesh1", cam), scene["mesh1"].asset.mesh, "painter, mesh1")}
+    results["project_bin[painter]"], projected = compare_project_bin(
+        project_args(flat, cam, cfg), nt, f"project_bin (painter, {flat.alive.shape[0]} entries)",
+        raster.ROW, extra, appearance=columns)
+    results["bin_keys[painter]"] = compare_bin_keys(projected, nt, None, "bin_keys (painter)")
+    results["gather_window[painter]"], win = compare_gather_window(projected, nt, M, None,
+                                                                    f"painter, F={ap.row}")
+    fb0 = painter_target(cfg, extra.device)
+    texs = (flat.atlas,)
+    for name, aa in (("tile_blend[scene,atlas]", False), ("tile_blend[scene,atlas,aa]", True)):
+        results[name], _ = compare_tile_blend(
+            f"scene ({ap.row}-float rows, {ap.atlas_layers} atlas layer{'s' * (ap.atlas_layers > 1)}"
+            f"{', antialiased' if aa else ''})", *win, T, ntx, nty, cfg.background, "scene",
+            framebuffer=fb0, depth_test=True, write_depth=True, appearance=ap, textures=texs,
+            antialias=aa)
+    # each mesh effect fills tiles: its entries' covered pairs in the window
+    pidx_sorted, starts, ends = raster.sort_tiles(*projected[:2], nt, None, projected[3])
+    pidx, _ = raster.window_index(pidx_sorted, starts, ends, M)
+    first = [sum(counts[:k]) for k in range(len(counts))]
+    for k, name in enumerate(PAINTER_NAMES):
+        if not name.startswith("mesh"):
+            continue
+        mine = (pidx >= first[k]) & (pidx < first[k] + counts[k]) & win[1]
+        pairs = covered_pairs(win[0], mine, T, ntx, ap.offset("tri"))
+        print(f"painter frame: {name} holds {int(mine.sum())} window entries, {pairs} covered pairs")
+        if pairs == 0:
+            fail(f"painter frame: {name} fills no tile")
+    for name, r in results.items():
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+
+    def run(k):
+        float(scene.update_render_chunk(k, DT, cam, cfg)[1][-1])
+
+    profile_frames("painter", run)
+    return results, launches
+
+
+def extract_mesh_draw(scene, name, cam):
+    """One mesh effect's draw of the scene's current frame (not expanded)."""
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+
+    inst = scene[name]
+    return extract_draw_data(inst.asset, inst.pool, cam, sim=scene.clock.sim_params(),
+                             properties=inst.properties.as_dict(), textures=list(inst.textures),
+                             transform=inst.transform)
 
 
 def main() -> int:
@@ -2445,6 +2892,11 @@ def main() -> int:
 
     # Phase 5b: the headline's three companion frames on the same pool.
     pool, frame, comp_launches = companion_frames(fx, pool, spawner, frame, cam, kernels)
+    # Phase 18a: the headline antialiased, on the same pool.
+    pool, frame, aa_launches = companion_frames(fx, pool, spawner, frame, cam, kernels,
+                                                AA_HEADLINE, profile=False)
+    require_launches(aa_launches["antialias"], ("tile_blend[blend,antialias]",),
+                     "the antialiased headline")
     del pool
 
     # Phase 6: the 2k -> 8k firework tree, card against CPU.
@@ -2478,6 +2930,16 @@ def main() -> int:
     ex_results = example_kernels(example_runs, first=first_blend)
     tq_results, tq_launches = textured_quad_checks(kernels, first=first_blend)
 
+    # Phases 16-17: the painter's atlas and mesh/Lambert merge.
+    painter_atlas_gate(kernels)
+    pt_results, pt_launches = painter_frame(kernels)
+
+    # Phase 18b-c: the textured mesh frames and the examples antialiased.
+    msaa_results, msaa_launches = mesh_frame(kernels, lit=False, antialias=True)
+    litaa_results, litaa_launches = mesh_frame(kernels, lit=True, antialias=True)
+    example_runs_aa = example_checks(kernels, RasterConfig(**EXAMPLES_AA), EXAMPLE_FRAMES_AA)
+    exaa_results = example_kernels(example_runs_aa, config=RasterConfig(**EXAMPLES_AA))
+
     results.update(fw_results)
     results.update(mx_results)
     results.update(rb_results)
@@ -2485,6 +2947,8 @@ def main() -> int:
     results.update(lit_results)
     results.update(ex_results)
     results.update(tq_results)
+    for r in (pt_results, msaa_results, litaa_results, exaa_results):
+        results.update(r)
     # name, kernel, launches: each row holds one path's launches and its
     # comparison at that path's shapes (the headline's, the firework's,
     # then the mixed scene's, by pipeline)
@@ -2550,6 +3014,23 @@ def main() -> int:
             ("gather_window[round]", "gather_window",
              example_runs["example_2d"][4]["gather_window"]),
             ("gather_window[textured quads]", "gather_window", tq_launches["gather_window"]),
+        ]
+        + [
+            (f"{name}[painter]", name, pt_launches[name])
+            for name in ("mesh_expand", "project_bin", "bin_keys", "gather_window")
+        ]
+        + [
+            ("tile_blend[scene,atlas]", "tile_blend", pt_launches["tile_blend[scene,appearance]"]),
+            # a timing row: the painter frame's window antialiased (its path is not)
+            ("tile_blend[scene,atlas,aa]", "tile_blend", pt_launches["tile_blend[scene,antialias]"]),
+            ("tile_blend[blend,aa]", "tile_blend",
+             aa_launches["antialias"]["tile_blend[blend,antialias]"]),
+            ("tile_blend[mesh,aa]", "tile_blend", msaa_launches["tile_blend[blend,antialias]"]),
+            ("tile_blend[mesh,lit,aa]", "tile_blend", litaa_launches["tile_blend[blend,antialias]"]),
+            ("tile_blend[flipbook,aa]", "tile_blend",
+             example_runs_aa["example_circle"][4]["tile_blend[blend,antialias]"]),
+            ("tile_blend[round,aa]", "tile_blend",
+             example_runs_aa["example_2d"][4]["tile_blend[blend,antialias]"]),
         ]
     )
     kernel_rows = [

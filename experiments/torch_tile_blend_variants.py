@@ -67,9 +67,9 @@ VARIANTS = ROOT / "experiments" / "tile_blend_variants"
 
 # designs measured and dropped, as edits of the port's source: label ->
 # [(text that occurs once in tile_blend.cu, its replacement)]
-_COMPACT = "const bool compact = ap.o_round >= 0 && threads <= 256;"
+_COMPACT = "const bool compact = !kAA && ap.o_round >= 0 && threads <= 256;"
 PORT_EDITS = {
-    "port,compact": [(_COMPACT, "const bool compact = threads <= 256;")],
+    "port,compact": [(_COMPACT, "const bool compact = !kAA && threads <= 256;")],
     "port,inline": [(_COMPACT, "const bool compact = false;")],
     "port,nocap": [("__launch_bounds__(kCompact ? 256 : 1024, 1)", "__launch_bounds__(256, 1)")],
 }

@@ -1393,3 +1393,283 @@ def test_saturating_casts_and_integer_rem_by_zero_on_the_card_match_the_cpu(cuda
         out.append([ctx.eval(h).cpu() for h in handles])
     for got, want in zip(out[1], out[0]):
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# ---- the painter's atlas and Lambert merge, and antialiasing ----------------
+
+
+def _painter_draw(n, device, layers=4, seed=5):
+    """A painter draw (``concat_painter_draws``' columns) with every
+    appearance column: round and triangle entries, sprites, per-entry texture
+    state of ``layers`` atlas layers (random layer ids, true sizes below the
+    atlas's extent, every map code, grids of 1-3 by 1-2), NaN-padded UVs,
+    normals with per-entry Lambert setups (unlit entries at band 1), vertex
+    colours, mode ids and cutoffs; and its [3, 24, 32, 4] atlas."""
+    from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData
+
+    view, proj, t = _draw(n, device, seed)
+    r = np.random.default_rng(seed)
+
+    def col(*shape, lo=-1.5, hi=2.5):
+        return torch.from_numpy(r.uniform(lo, hi, shape).astype(np.float32)).to(device)
+
+    sizes = np.asarray([[32, 24], [17, 9], [8, 24]], np.float32)  # (w, h) of each layer
+    tex = np.zeros((n, 2 + 4 * layers), np.float32)
+    tex[:, 0] = r.integers(1, 4, n)
+    tex[:, 1] = r.integers(1, 3, n)
+    for k in range(layers):
+        tid = r.integers(0, 3, n)
+        tex[:, 2 + 4 * k] = tid
+        tex[:, 3 + 4 * k: 5 + 4 * k] = sizes[tid]
+        tex[:, 5 + 4 * k] = r.integers(0, 4, n)
+    uv = col(n, 6)
+    uv[: n // 3] = torch.nan
+    light = col(n, 4, lo=-1.0, hi=1.0)
+    light[: n // 4, 3] = 1.0
+    tri = (col(n, lo=0, hi=1) > 0.4).to(torch.float32)
+    # vertex colours on quads too, which extrapolate past 1 there: alpha
+    # above 1, which a later ADD entry's unwritten lanes clamp
+    vcol = col(n, 12, lo=0.0, hi=1.0)
+    draw = ParticleDrawData(
+        **t,
+        roundness=col(n, lo=-0.5, hi=0.0),  # <= 0: no powf, so exact
+        tri=tri,
+        sprite_index=torch.from_numpy(r.integers(-9, 40, n).astype(np.int32)).to(device),
+        uv_abc=uv, nrm_abc=col(n, 9), light_entry=light, vcol_abc=vcol,
+        mode_id=torch.from_numpy(r.integers(0, 6, n).astype(np.int32)).to(device),
+        alpha_cutoff=col(n, lo=0.0, hi=0.8),
+        atlas=torch.from_numpy(r.uniform(0, 1, (3, 24, 32, 4)).astype(np.float32)).to(device),
+        tex_entry=torch.from_numpy(tex).to(device),
+    )
+    return view, proj, draw
+
+
+@pytest.mark.parametrize("slots,span", [(1, 2), (0, 2)])
+@pytest.mark.parametrize("layers", [1, 4])
+def test_project_bin_painter_columns_match_plain(cuda, layers, slots, span):
+    """The painter's widest rows (13 + 53 = 65 floats at four atlas layers):
+    tiles, depths and range equal, rows exact."""
+    view, proj, draw = _painter_draw(5000, cuda, layers)
+    cfg = raster.RasterConfig(128, 128, tile_slots=slots, tile_span=span)
+    ap, inputs = raster.draw_appearance(draw, raster.ROW)
+    assert ap.row == 49 + 4 * layers and ap.atlas_layers == layers
+    extra = torch.stack([draw.alpha_cutoff, draw.mode_id.to(torch.float32)], dim=1)
+    args = (draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color, view, proj, (128, 128),
+            cfg.tile_size, cfg.tiles_x, cfg.tiles_y)
+    kw = dict(extra=extra, row=raster.ROW, tile_slots=slots, tile_span=span, appearance=inputs)
+    got = raster.project_bin(*args, **kw)
+    want = raster.project_bin_plain(*args, **kw)
+    assert got[2].shape == (5000, ap.row)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("from_start", [False, True])
+@pytest.mark.parametrize("F", [36, 65])  # the painter frame's rows, the widest painter row
+def test_gather_window_at_painter_widths_is_bit_exact(cuda, F, from_start):
+    rows, pidx, starts, ends = _window_entries(1024, 64, F, torch.int64, seed=F)
+    args = (rows.to(cuda), pidx.to(cuda), starts.to(cuda), ends.to(cuda), 64, from_start)
+    got = gather.gather_window(*args)
+    want = gather.gather_window_plain(*args)
+    assert torch.equal(got[1], want[1]) and _bits_equal(got[0], want[0])
+
+
+def _painter_window(cuda, layers, antialias=False):
+    view, proj, draw = _painter_draw(6000, cuda, layers)
+    cfg = raster.RasterConfig(128, 128, tile_slots=0, antialias=antialias)
+    ap, inputs = raster.draw_appearance(draw, raster.ROW)
+    extra = torch.stack([draw.alpha_cutoff, draw.mode_id.to(torch.float32)], dim=1)
+    projected = raster.project_bin(draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color,
+                                   view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y,
+                                   extra=extra, row=raster.ROW, tile_slots=0, appearance=inputs)
+    sorted_ = raster.sort_tiles(projected[0], projected[1], cfg.num_tiles, None, projected[3])
+    window, has = gather.gather_window(projected[2], *sorted_, 64, False)
+    return cfg, ap, (draw.atlas,), window, has
+
+
+def _check_blend(cfg, window, has, mode, depth_test, write_depth, **kw):
+    """tile_blend against its plain version over a random seeded target:
+    exact (max abs err 0, NaN where it is NaN), depth planes equal."""
+    nt, T = cfg.num_tiles, cfg.tile_size
+    kw.update(depth_test=depth_test, write_depth=write_depth)
+    if depth_test:
+        kw["scene_depth"] = torch.rand((nt, T, T), device=window.device) * 8.0
+    fb0 = torch.rand((nt, T, T, 4), device=window.device)
+    got = raster.tile_blend(window, has, T, cfg.tiles_x, cfg.tiles_y, (0.0, 0.0, 0.0, 0.0), mode,
+                            framebuffer=fb0, **kw)
+    want = raster.tile_blend_plain(window, has, T, cfg.tiles_x, cfg.tiles_y, (0.0, 0.0, 0.0, 0.0),
+                                   mode, framebuffer=fb0, **kw)
+    (fb_g, d_g), (fb_p, d_p) = (got, want) if write_depth else ((got, None), (want, None))
+    assert int(((fb_p - fb0).abs() > 0).any(-1).sum()) > 0
+    torch.testing.assert_close(fb_g, fb_p, rtol=0, atol=0, equal_nan=True)
+    if write_depth:
+        assert torch.equal(d_g, d_p)
+
+
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("layers", [1, 4])
+def test_tile_blend_atlas_variant_matches_plain(cuda, layers, antialias):
+    """SCENE with the painter's atlas and per-entry Lambert setups, plain
+    and antialiased, exactly."""
+    cfg, ap, texs, window, has = _painter_window(cuda, layers, antialias)
+    before = dict(raster.tile_blend.launches_antialias)
+    _check_blend(cfg, window, has, "scene", True, True, appearance=ap, textures=texs,
+                 antialias=antialias)
+    assert raster.tile_blend.launches_antialias["scene"] == before["scene"] + int(antialias)
+
+
+# every quad variant, antialiased: (mode, depth_test, write_depth)
+QUAD_VARIANTS = [("blend", False, False), ("blend", True, False), ("add", False, False),
+                 ("add", True, False), ("opaque", False, False), ("opaque", True, False),
+                 ("opaque", True, True), ("mask", False, False), ("mask", True, False),
+                 ("mask", True, True), ("scene", True, True), ("premultiply", False, False),
+                 ("premultiply", True, False), ("multiply", False, False),
+                 ("multiply", True, False)]
+
+
+@pytest.mark.parametrize("mode,depth_test,write_depth", QUAD_VARIANTS)
+def test_tile_blend_antialias_quad_variants_match_plain(cuda, mode, depth_test, write_depth):
+    """Each antialiased quad variant on a real window (quads from sub-pixel
+    to tens of pixels, random cutoffs and mode ids), exactly."""
+    view, proj, t = _draw(8192, cuda, seed=21)
+    cfg = raster.RasterConfig(128, 128, tile_slots=0, antialias=True)
+    row = raster.row_width(mode, depth_test)
+    extra = None
+    if row == raster.ROW:
+        extra = torch.stack([torch.rand(8192, device=cuda),
+                             torch.randint(0, 6, (8192,), device=cuda).to(torch.float32)], dim=1)
+    projected = raster.project_bin(t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
+                                   view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y,
+                                   extra=extra, row=row, tile_slots=0)
+    sorted_ = raster.sort_tiles(projected[0], projected[1], cfg.num_tiles, None, projected[3])
+    window, has = gather.gather_window(projected[2], *sorted_, 64, False)
+    _check_blend(cfg, window, has, mode, depth_test, write_depth, antialias=True)
+
+
+@pytest.mark.parametrize("mode,depth_test,write_depth", sorted(raster.ANTIALIAS_APPEARANCE))
+@pytest.mark.parametrize("case", ["textured triangles", "lit triangles", "everything"])
+def test_tile_blend_antialias_appearance_variants_match_plain(cuda, case, mode, depth_test,
+                                                              write_depth):
+    """Each antialiased appearance variant (meshes in BLEND and OPAQUE, the
+    painter's SCENE) on a real window of textured, lit, round (roundness
+    in [-0.2, 1], the squircle's powf: at most 0.2% of the pixels may
+    differ) and flipbook entries."""
+    if mode == "scene":
+        cfg, ap, texs, window, has = _painter_window(cuda, 2, True)
+    else:
+        cfg, ap, texs, window, has = _appearance_window(cuda, case, mode, depth_test)
+        cfg = raster.RasterConfig(128, 128, tile_slots=0, antialias=True)
+    if ap.offset("roundness") >= 0 and mode != "scene":
+        nt, T = cfg.num_tiles, cfg.tile_size
+        kw = dict(depth_test=depth_test, write_depth=write_depth, appearance=ap, textures=texs,
+                  antialias=True)
+        if depth_test:
+            kw["scene_depth"] = torch.rand((nt, T, T), device=cuda) * 8.0
+        fb0 = torch.rand((nt, T, T, 4), device=cuda)
+        args = (window, has, T, cfg.tiles_x, cfg.tiles_y, (0.0, 0.0, 0.0, 0.0), mode)
+        got = raster.tile_blend(*args, framebuffer=fb0, **kw)
+        want = raster.tile_blend_plain(*args, framebuffer=fb0, **kw)
+        fb_g, fb_p = (got[0], want[0]) if write_depth else (got, want)
+        assert int(((fb_g - fb_p).abs() > 0).any(-1).sum()) <= 0.002 * nt * T * T
+        return
+    _check_blend(cfg, window, has, mode, depth_test, write_depth, appearance=ap, textures=texs,
+                 antialias=True)
+
+
+@pytest.mark.parametrize("antialias", [False, True])
+def test_painter_add_entries_clamp_alpha_like_plain(cuda, antialias):
+    """SCENE quads of HDR alpha (up to 1.6) among ADD entries: an ADD
+    entry's uncovered, depth-failed or culled lanes clamp the pixel's alpha
+    to 1 in its place, as JAX's (and the plain version's) zero-coverage
+    lanes do; exactly."""
+    view, proj, t = _draw(8192, cuda, seed=33)
+    t["color"] = t["color"] * torch.tensor([1.0, 1.0, 1.0, 1.6], device=cuda)
+    cfg = raster.RasterConfig(128, 128, tile_slots=0, antialias=antialias)
+    extra = torch.stack([torch.rand(8192, device=cuda),
+                         torch.randint(0, 6, (8192,), device=cuda).to(torch.float32)], dim=1)
+    projected = raster.project_bin(t["position"], t["axis_x"], t["axis_y"], t["alive"], t["color"],
+                                   view, proj, (128, 128), cfg.tile_size, cfg.tiles_x, cfg.tiles_y,
+                                   extra=extra, row=raster.ROW, tile_slots=0)
+    sorted_ = raster.sort_tiles(projected[0], projected[1], cfg.num_tiles, None, projected[3])
+    window, has = gather.gather_window(projected[2], *sorted_, 64, False)
+    nt, T = cfg.num_tiles, cfg.tile_size
+    fb0 = torch.rand((nt, T, T, 4), device=cuda)
+    kw = dict(framebuffer=fb0, depth_test=True, write_depth=True, antialias=antialias,
+              scene_depth=torch.rand((nt, T, T), device=cuda) * 8.0)
+    args = (window, has, T, cfg.tiles_x, cfg.tiles_y, (0.0, 0.0, 0.0, 0.0), "scene")
+    (fb_g, d_g), (fb_p, d_p) = raster.tile_blend(*args, **kw), raster.tile_blend_plain(*args, **kw)
+    assert bool((fb_p != fb0).any())
+    torch.testing.assert_close(fb_g, fb_p, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(d_g, d_p)
+
+
+def test_unported_antialias_appearance_variant_raises(cuda):
+    """An antialiased appearance variant the kernel does not hold raises
+    before any launch (no fallback to the plain version)."""
+    cfg, ap, texs, window, has = _appearance_window(cuda, "textured triangles", "add", False)
+    with pytest.raises(NotImplementedError, match="antialiased appearance"):
+        raster.tile_blend(window, has, cfg.tile_size, cfg.tiles_x, cfg.tiles_y, (0, 0, 0, 0), "add",
+                          appearance=ap, textures=texs, antialias=True)
+
+
+def _painter_scene(device):
+    """A painter scene of the port alone: a two-layer textured flipbook
+    quad, an opaque lit icosphere, a differently lit textured icosphere
+    sharing a texture object, a UV-less textured triangle and an additive
+    quad (the compositions of test_torch_painter_atlas.py), stepped."""
+    import bevy_hanabi_tpu_torch as bt
+    from bevy_hanabi_tpu_torch.models import LambertianLightingModifier, make_circle_texture
+    from bevy_hanabi_tpu_torch.render.mesh import ParticleMesh
+
+    def phase(name, pos, mode, color):
+        A = bt.attributes
+        w = bt.ExprWriter()
+        return (bt.EffectAsset(name, 4, bt.SpawnerSettings.once(1.0), w.finish())
+                .init(bt.SetAttributeModifier(A.POSITION, w.lit(pos).expr()))
+                .init(bt.SetAttributeModifier(A.LIFETIME, w.lit(100.0).expr()))
+                .init(bt.SetAttributeModifier(A.HDR_COLOR, w.lit(color).expr()))
+                .init(bt.SetAttributeModifier(A.SPRITE_INDEX, w.lit(3, None).expr()))
+                .render(bt.SetSizeModifier((0.5, 0.5, 0.5)))
+                .with_alpha_mode(getattr(bt.AlphaMode, mode.upper())))
+
+    circle = make_circle_texture(16)
+    ch = np.indices((8, 8)).sum(0) % 2
+    checker = np.stack([ch, 1 - ch, np.zeros_like(ch), np.ones_like(ch)], -1).astype(np.float32)
+    M = bt.ImageSampleMapping
+    s = HanabiScene(seed=3, device=device)
+    flip = phase("flip", (-0.5, 0.4, -0.5), "blend", (1, 1, 1, 0.9))
+    flip.render(bt.FlipbookModifier((2, 2)))
+    flip.render(bt.ParticleTextureModifier(0, M.MODULATE))
+    flip.render(bt.ParticleTextureModifier(1, M.MODULATE_OPACITY_FROM_R))
+    s.add(flip, "flip", textures=[checker, circle])
+    ico = phase("ico", (0.0, 0.0, -0.5), "opaque", (0.8, 0.8, 0.8, 1.0)).with_mesh(
+        ParticleMesh.icosphere(0.5, 1))
+    s.add(ico.render(LambertianLightingModifier((1.0, 0.0, 0.0), 0.2)), "ico")
+    tico = phase("tico", (0.5, -0.4, 0.0), "blend", (1, 1, 1, 0.8)).with_mesh(
+        ParticleMesh.icosphere(0.4, 1))
+    tico.render(bt.ParticleTextureModifier(0)).render(LambertianLightingModifier((0.0, 1.0, 0.0), 0.3))
+    s.add(tico, "tico", textures=[circle])
+    tri = phase("tri", (-0.4, -0.4, 0.3), "blend", (1, 1, 1, 0.8)).with_mesh(
+        ParticleMesh(vertices=[[-0.5, -0.4, 0.0], [0.5, -0.4, 0.0], [0.0, 0.6, 0.0]],
+                     indices=[[0, 1, 2]]))
+    s.add(tri.render(bt.ParticleTextureModifier(0)), "tri", textures=[checker])
+    s.add(phase("plain", (0.3, 0.5, 0.5), "add", (0.3, 0.3, 0.1, 1.0)), "plain")
+    s.update(1 / 60.0)
+    return s
+
+
+@pytest.mark.parametrize("antialias", [False, True])
+def test_painter_atlas_scene_on_the_card_matches_the_cpu(cuda, antialias):
+    """The painter scene's frame (the atlas, two Lambert setups, meshes and
+    quads) card against CPU within 1e-6 (every kernel rounds as its plain
+    version; the stable sort orders ties alike on both)."""
+    from bevy_hanabi_tpu_torch.render.camera import orthographic
+
+    cam = CameraParams(look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0)),
+                       orthographic(-1, 1, -1, 1, 0.1, 10.0), (64, 64))
+    cfg = RasterConfig(64, 64, antialias=antialias)
+    images = [_painter_scene(device).render(cam, cfg, background=(0, 0, 0, 0),
+                                            pipeline="painter").cpu() for device in (cuda, "cpu")]
+    assert float(images[1].sum()) > 0
+    torch.testing.assert_close(images[0], images[1], rtol=0, atol=1e-6)

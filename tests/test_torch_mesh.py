@@ -30,6 +30,7 @@ from bevy_hanabi_tpu.models import textured_mesh_check_effect as check_j
 from bevy_hanabi_tpu.models.texutils import make_circle_texture
 from bevy_hanabi_tpu.render import camera as camera_j
 from bevy_hanabi_tpu.render.extract import ParticleDrawData as DrawJ
+from bevy_hanabi_tpu.render.extract import concat_painter_draws as concat_painter_draws_j
 from bevy_hanabi_tpu.render.mesh import ParticleMesh as MeshJ
 from bevy_hanabi_tpu.render.mesh import expand_mesh_draw as expand_j
 from bevy_hanabi_tpu.render.raster import RasterConfig as CfgJ
@@ -230,7 +231,7 @@ def test_triangles_bin_at_half_their_quad_radii():
     _, dt = _mesh_draws(False, False, seed=5, n=200)
     args = (dt.position, dt.axis_x, dt.axis_y, dt.alive, dt.color, _camera(camera_t).view,
             _camera(camera_t).proj, (SIZE, SIZE), 16, 4, 4)
-    tile, _, _, _ = raster.project_bin(*args, tile_slots=0, appearance=(None, dt.tri) + (None,) * 4)
+    tile, _, _, _ = raster.project_bin(*args, tile_slots=0, appearance=(None, dt.tri) + (None,) * 6)
     quad, _, _, _ = raster.project_bin(*args, tile_slots=0)
     tri = dt.tri.repeat(4).bool()
     assert bool((tile[tri] != quad[tri]).any())  # halving changes triangles' tiles
@@ -301,22 +302,52 @@ def _scene(textured_mesh=True, other=True):
     return s
 
 
+def _scene_j(textured_mesh=True, other=True):
+    """:func:`_scene` in the JAX package."""
+    from bevy_hanabi_tpu.models import gradient_effect
+
+    s = SceneJ(seed=5)
+    asset = check_j(512).render(bj.ParticleTextureModifier(0))
+    s.add(asset.with_mesh(MeshJ.icosphere(0.4, 0)) if textured_mesh else asset, "mesh",
+          textures=[make_circle_texture(16)])
+    if other:
+        s.add(gradient_effect(256), "grad")
+    for _ in range(6):
+        s.update(4 * DT)
+    return s
+
+
 @pytest.mark.parametrize("mesh,other,pipeline", [(True, True, "auto"), (True, False, "painter"),
                                                  (False, True, "auto"), (False, False, "painter")])
 def test_painter_plans_with_textures_or_meshes_raise(mesh, other, pipeline):
-    s = _scene(mesh, other)
-    cam = _camera(camera_t, eye=(0, 0, 6))
-    with pytest.raises(NotImplementedError, match="painter texture atlas"):
-        s.render(cam, pipeline=pipeline)
-    with pytest.raises(NotImplementedError, match="painter texture atlas"):
-        s.update_render_chunk(2, DT, cam, pipeline=pipeline)
-    assert float(s.render(cam, pipeline="split").sum()) > 0
+    """Textured and mesh effects in a painter plan (the atlas and the
+    mesh merge) render as the JAX package's: the frame, then a two-frame
+    update_render_chunk, images within 1e-5 and checksums within 0.5%."""
+    s, sj = _scene(mesh, other), _scene_j(mesh, other)
+    cam, cam_j = _camera(camera_t, eye=(0, 0, 6)), _camera(camera_j, eye=(0, 0, 6))
+    assert s._scene_render_plan(s.effects(), cam, pipeline)[1][0][0] == "painter"
+    img = s.render(cam, pipeline=pipeline).numpy()
+    img_j = np.asarray(sj.render(cam_j, pipeline=pipeline))
+    assert img_j[..., :3].sum() > 0
+    np.testing.assert_allclose(img, img_j, rtol=0, atol=ATOL)
+    img, sums = s.update_render_chunk(2, DT, cam, pipeline=pipeline)
+    img_j, sums_j = sj.update_render_chunk(2, DT, cam_j, pipeline=pipeline)
+    np.testing.assert_allclose(img.numpy(), np.asarray(img_j), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(sums.numpy(), np.asarray(sums_j), rtol=REL)
 
 
 def test_concat_painter_draws_refuses_meshes():
-    _, dt = _mesh_draws(False, False)
-    with pytest.raises(NotImplementedError, match="mesh/Lambert merge"):
-        concat_painter_draws([dt], ["blend"])
+    """A mesh draw's painter merge (its triangle, UV-less and vertex-colour
+    columns) equals the JAX package's, field for field."""
+    dj, dt = _mesh_draws(False, False)
+    want = concat_painter_draws_j([dj], ["blend"])
+    got = concat_painter_draws([dt], ["blend"])
+    for f in ("position", "axis_x", "axis_y", "color", "alive", "tri", "vcol_abc", "mode_id"):
+        w, g = getattr(want, f), getattr(got, f)
+        assert (w is None) == (g is None), f
+        if w is not None:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f)
+    assert got.nrm_abc is None and want.nrm_abc is None and got.atlas is None
 
 
 def test_mesh_scene_chunk_matches_its_frames():

@@ -276,8 +276,18 @@ def test_concat_painter_draws_matches_jax():
     for f in ("position", "axis_x", "axis_y", "color", "alive"):
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
     assert PAINTER_MODE_IDS == {"blend": 0, "premultiply": 1, "add": 2, "multiply": 3, "opaque": 4, "mask": 5}
-    with pytest.raises(NotImplementedError, match="atlas"):
-        concat_painter_draws([p[0] for p in pairs], kinds, textures_per_draw=[[], [np.ones((2, 2, 4))], [], []])
+    # the atlas: the second draw textured (two layers of one 3x2 texture,
+    # then a 2x5 one), the others padded with absent layers
+    layers = ((0, bj.ImageSampleMapping.MODULATE), (1, bj.ImageSampleMapping.MODULATE_RGB))
+    pairs[1] = tuple(dataclasses.replace(d, texture_layers=layers) for d in pairs[1])
+    tex = [r.uniform(0, 1, (2, 3, 4)).astype(np.float32), r.uniform(0, 1, (5, 2, 4)).astype(np.float32)]
+    texs_t = [[], [torch.from_numpy(t) for t in tex], [], []]
+    texs_j = [[], [jnp.asarray(t) for t in tex], [], []]
+    got = concat_painter_draws([p[0] for p in pairs], kinds, textures_per_draw=texs_t)
+    want = concat_j([p[1] for p in pairs], kinds, textures_per_draw=texs_j)
+    for f in ("atlas", "tex_entry"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
+    assert got.atlas.shape == (2, 5, 3, 4) and got.uv_abc is None and want.uv_abc is None
 
 
 # ---- assets in both packages -------------------------------------------------

@@ -299,6 +299,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     ],
 )
 def test_unported_raster_branches_raise(kwargs, config):
+    """Slice rendering (``y_offset``, reached only by the JAX package's
+    sharded renderer) raises; antialiasing, ported, renders the same draw as
+    the JAX package's ``rasterize`` (within 1e-5, as the other images)."""
+    if "y_offset" not in kwargs:
+        img_t, img_j = _images(0, **config)
+        np.testing.assert_allclose(img_t, img_j, atol=1e-5)
+        assert not np.array_equal(img_t, _images(0, tile_slots=1)[0])  # the fringe is drawn
+        return
     view, proj, d = _scene()
     t = _torch_draw(d)
     draw = DrawT(t["position"], t["axis_x"], t["axis_y"], t["color"], t["alive"])
