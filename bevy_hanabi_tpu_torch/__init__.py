@@ -14,8 +14,10 @@ event tree (``firework_effect`` →
 ``firework_trail_effect`` through :class:`HanabiScene`'s ``add``,
 ``update``, ``update_chunk`` and ``render``, GPU spawn events, ``add``
 blending), the mixed scene (opaque and mask particles, the depth test, the
-painter and phase-split pipelines, ``update_render_chunk``) and ribbons
-(``render/ribbon.py``: sorted segment quads). The hot regions are hand-written CUDA kernels for Hopper
+painter and phase-split pipelines, ``update_render_chunk``), ribbons
+(``render/ribbon.py``: sorted segment quads, round and textured), instanced
+groups (:class:`InstancedEffect`, ``HanabiScene.add_group``) and every
+reference example (``models/examples.py``). The hot regions are hand-written CUDA kernels for Hopper
 (``csrc/``, built on first use). Every device tensor lives where
 ``CompiledEffect(asset, device=...)`` or ``HanabiScene(device=...)`` puts
 it.
@@ -49,6 +51,7 @@ from .spawn import EffectSpawner, SpawnerSettings  # noqa: F401
 from . import modifiers  # noqa: F401
 from .modifiers import *  # noqa: F401,F403
 from .runtime.effect import CompiledEffect, StepInputs  # noqa: F401
+from .runtime.instanced import InstancedEffect  # noqa: F401
 from .runtime.pool import ParticlePool  # noqa: F401
 from .runtime.events import EventBuffer  # noqa: F401
 from .runtime.scene import EffectInstance, HanabiScene  # noqa: F401

@@ -105,7 +105,11 @@ class EvalContext:
     """Evaluation environment for one pass over one effect's particles.
 
     ``seed`` is the per-lane PCG state tensor; its device is the device
-    every constant of the pass is created on.
+    every constant of the pass is created on. ``textures`` ([H, W, 4] f32
+    tensors, by slot) are what ``texture_sample`` reads. With
+    ``lane_properties`` every given property value is per lane (``[N]`` /
+    ``[N, k]``): an instanced group's lanes each carry their instance's
+    value.
     """
 
     context_name = "generic"
@@ -121,6 +125,8 @@ class EvalContext:
         particle_index: Optional[torch.Tensor] = None,
         alive: Optional[torch.Tensor] = None,
         alpha_cutoff: Optional[Any] = None,
+        textures: Optional[list] = None,
+        lane_properties: bool = False,
     ) -> None:
         self.module = module
         self.particle = particle
@@ -132,6 +138,8 @@ class EvalContext:
         self.particle_index = particle_index
         self.alive = alive
         self.alpha_cutoff = alpha_cutoff
+        self.textures = textures or []
+        self.lane_properties = lane_properties
         self._memo: Dict[ExprHandle, torch.Tensor] = {}
 
     def const(self, value, dtype) -> torch.Tensor:
@@ -187,7 +195,13 @@ class EvalContext:
             return self.const(default.to_numpy(), dtype)
         out = raw.to(self.device, dtype) if isinstance(raw, torch.Tensor) else self.const(raw, dtype)
         expected = default.to_numpy().shape
-        if tuple(out.shape) != expected and tuple(out.shape[-len(expected) or 99 :]) != expected:
+        if self.lane_properties:
+            if out.dim() != len(expected) + 1 or tuple(out.shape[1:]) != expected:
+                raise ValueError(
+                    f"property {name!r} expects per-lane shape [N]x{expected}, "
+                    f"got {tuple(out.shape)}"
+                )
+        elif tuple(out.shape) != expected and tuple(out.shape[-len(expected) or 99 :]) != expected:
             raise ValueError(
                 f"property {name!r} expects shape {expected} "
                 f"(or batched ...x{expected}), got {tuple(out.shape)}"
@@ -410,7 +424,8 @@ def _eval(module: Module, e: Expr, ctx: EvalContext) -> torch.Tensor:
         return x.to(dtype)
 
     if e.kind == "texture_sample":
-        raise NotImplementedError("eval_expr: texture_sample expressions are not ported")
+        uv = eval_expr(module, e.args[0], ctx)
+        return _sample_texture(ctx, e.texture_slot, uv)
 
     if e.kind == "unary":
         return _eval_unary(module, e, ctx)
@@ -596,3 +611,34 @@ def _eval_ternary(module: Module, e: Expr, ctx: EvalContext) -> torch.Tensor:
         t = torch.clamp((c - a) / (b - a), 0.0, 1.0)
         return t * t * (3.0 - 2.0 * t)
     raise ValueError(f"unhandled ternary op {op}")
+
+
+def _sample_texture(ctx: EvalContext, slot: int, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear texture sample, repeat addressing (compiler.py:663-690).
+
+    Textures are ``[H, W, 4]`` f32 tensors in :attr:`EvalContext.textures`.
+    Equivalent of WGSL ``textureSampleLevel(t, s, uv, 0)``; the texel
+    indices are JAX's: ``floor`` cast to int32 as XLA's ``convert`` does,
+    then a floored modulo (``jnp.mod``)."""
+    if slot >= len(ctx.textures):
+        raise IndexError(f"texture slot {slot} not bound ({len(ctx.textures)} bound)")
+    tex = torch.as_tensor(ctx.textures[slot], dtype=torch.float32, device=ctx.device)
+    h, w = tex.shape[0], tex.shape[1]
+    uv = uv.to(torch.float32)
+    u = uv[..., 0] * w - 0.5
+    v = uv[..., 1] * h - 0.5
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    fu = (u - u0)[..., None]
+    fv = (v - v0)[..., None]
+    u0i = torch.remainder(_saturating_int(u0, torch.int32), w).long()
+    v0i = torch.remainder(_saturating_int(v0, torch.int32), h).long()
+    u1i = torch.remainder(u0i + 1, w)
+    v1i = torch.remainder(v0i + 1, h)
+    t00 = tex[v0i, u0i]
+    t01 = tex[v0i, u1i]
+    t10 = tex[v1i, u0i]
+    t11 = tex[v1i, u1i]
+    top = t00 + (t01 - t00) * fu
+    bot = t10 + (t11 - t10) * fu
+    return top + (bot - top) * fv

@@ -27,14 +27,17 @@
 // normalize(cross(centre - camera, axis_x)) * |axis_y| (the normalize divides
 // by 1 where the norm is <= 1e-8), its valid flag (rows i - 1 and i alive in
 // one ribbon, i > 0; alive and the ribbon read from the sorted key) and row
-// s's colour and mask cutoff. The op order is the plain version's, and the
-// library is built with -fmad=false, so the two agree bit for bit.
+// s's colour, mask cutoff and, for a textured ribbon with a flipbook, sprite
+// index (int32, one more 4-byte column read through the same chain). The op
+// order is the plain version's, and the library is built with -fmad=false,
+// so the two agree bit for bit.
 //
 // Bound on the H100: device-memory bandwidth. ribbon_keys moves 13 B a lane
 // in stage 1 (alive, counter, key) and 29 B in stage 2 (perm1, alive, rid,
 // age, key); ribbon_segments ~117 B a row (perm1 and perm2, the sorted key,
 // 24 B of geometry, 37 B of segment out, 16 B of colour read and written,
-// +8 B with a cutoff): ~123 MB, ~0.037 ms at 1M rows and 3.35 TB/s.
+// +8 B with a cutoff, +8 B with a sprite column): ~123 MB, ~0.037 ms at 1M
+// rows and 3.35 TB/s.
 //
 // The reads through the permutations are scattered: a ribbon's particles are
 // far apart in the pool (ribbon_bench_effect puts counter c in ribbon
@@ -56,8 +59,8 @@
 //  - centre, axis_x, side and colour pass through the warp's staging buffer
 //    in shared memory and leave as 16-byte stores, each warp instruction
 //    writing 512 contiguous bytes (whole sectors); valid (4 bytes a lane)
-//    and the cutoff (16) are contiguous a lane already. The tile that holds
-//    row n - 1 writes row by row.
+//    and the cutoff and sprite (16 each) are contiguous a lane already. The
+//    tile that holds row n - 1 writes row by row.
 // At the ribbon frame's shapes the in-order work (perm1 None, perm2 the
 // identity) takes ~0.040 ms and the frame ~0.057-0.060: the scattered
 // gathers cost the rest, in L2 requests and in device-memory accesses to
@@ -154,13 +157,17 @@ __device__ __forceinline__ void store_tile3(float4* stage, const Vec3 (&v)[kRows
   __syncwarp();
 }
 
+// kSprite: the sprite column is gathered (a template constant, so the
+// kernel without it keeps its registers and its loads).
+template <bool kSprite>
 __global__ void __launch_bounds__(kSegThreads) ribbon_segments_kernel(
     const float* __restrict__ position, const float* __restrict__ axis_y,
     const float4* __restrict__ color, const float* __restrict__ cutoff,
     const int64_t* __restrict__ perm1, const int64_t* __restrict__ perm2,
     const int64_t* __restrict__ key, Vec3 cam, float* __restrict__ center,
     float* __restrict__ axis_x, float* __restrict__ side_out, uint8_t* __restrict__ valid,
-    float4* __restrict__ color_out, float* __restrict__ cutoff_out, int64_t n) {
+    float4* __restrict__ color_out, float* __restrict__ cutoff_out,
+    const int32_t* __restrict__ sprite, int32_t* __restrict__ sprite_out, int64_t n) {
   __shared__ float4 stage_all[kSegWarps][kStage];
   const int lane = threadIdx.x & 31;
   const int64_t tile = ((int64_t)blockIdx.x * kSegWarps + (threadIdx.x >> 5)) * kTileRows;
@@ -207,12 +214,14 @@ __global__ void __launch_bounds__(kSegThreads) ribbon_segments_kernel(
   Vec3 p[kRows], ay[kRows];
   float4 col[kRows];
   float cut[kRows];
+  int32_t spr[kRows];
 #pragma unroll
   for (int h = 0; h < kRows; ++h) {
     p[h] = gather3(position, s[h]);
     ay[h] = gather3(axis_y, s[h]);
     col[h] = __ldg(color + s[h]);
     cut[h] = cutoff ? __ldg(cutoff + s[h]) : 0.0f;
+    if (kSprite) spr[h] = __ldg(sprite + s[h]);
   }
   const Vec3 p_halo = gather3(position, s_halo);
 
@@ -262,6 +271,8 @@ __global__ void __launch_bounds__(kSegThreads) ribbon_segments_kernel(
     if (cutoff)
       __stcs(reinterpret_cast<float4*>(cutoff_out + r0),
              make_float4(cut[0], cut[1], cut[2], cut[3]));
+    if (kSprite)
+      __stcs(reinterpret_cast<int4*>(sprite_out + r0), make_int4(spr[0], spr[1], spr[2], spr[3]));
   } else {
 #pragma unroll
     for (int h = 0; h < kRows; ++h) {
@@ -273,6 +284,7 @@ __global__ void __launch_bounds__(kSegThreads) ribbon_segments_kernel(
       valid[r] = (uint8_t)(ok_bytes >> (8 * h));
       color_out[r] = col[h];
       if (cutoff) cutoff_out[r] = cut[h];
+      if (kSprite) sprite_out[r] = spr[h];
     }
   }
 }
@@ -301,26 +313,44 @@ extern "C" int hanabi_ribbon_keys(const void* alive, const void* counter, const 
   return (int)cudaGetLastError();
 }
 
-// position, axis_y f32 [n, 3], color f32 [n, 4], cutoff f32
-// [n] or NULL, perm1 int64 [n] or NULL, perm2 int64 [n], key int64 [n] (the
-// sorted stage-2 keys), camera f32 [3] on the host -> center, axis_x, side
-// f32 [n, 3], valid bool [n], color_out f32 [n, 4], cutoff_out f32 [n]
-// (where cutoff is given). color, perm2, key and every output 16-byte
-// aligned (16-byte loads and stores).
+// position, axis_y f32 [n, 3], color f32 [n, 4], cutoff f32 [n] or NULL,
+// sprite int32 [n] or NULL, perm1 int64 [n] or NULL, perm2 int64 [n], key
+// int64 [n] (the sorted stage-2 keys), camera f32 [3] on the host -> center,
+// axis_x, side f32 [n, 3], valid bool [n], color_out f32 [n, 4], cutoff_out
+// f32 [n] (where cutoff is given), sprite_out int32 [n] (where sprite is
+// given). color, perm2, key and every output 16-byte aligned (16-byte loads
+// and stores).
+extern "C" int hanabi_ribbon_segments_sprite(const void* position, const void* axis_y,
+                                             const void* color, const void* cutoff,
+                                             const void* sprite, const void* perm1,
+                                             const void* perm2, const void* key,
+                                             const float* camera, void* center, void* axis_x,
+                                             void* side, void* valid, void* color_out,
+                                             void* cutoff_out, void* sprite_out, long long n,
+                                             void* stream) {
+  if (n > 0) {
+    if ((cutoff && !cutoff_out) || (sprite && !sprite_out)) return (int)cudaErrorInvalidValue;
+    const Vec3 cam{camera[0], camera[1], camera[2]};
+    const int64_t cta_rows = kSegWarps * kTileRows;
+    const unsigned int grid = (unsigned int)((n + cta_rows - 1) / cta_rows);
+    auto kernel = sprite ? ribbon_segments_kernel<true> : ribbon_segments_kernel<false>;
+    kernel<<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)position, (const float*)axis_y, (const float4*)color, (const float*)cutoff,
+        (const int64_t*)perm1, (const int64_t*)perm2, (const int64_t*)key, cam, (float*)center,
+        (float*)axis_x, (float*)side, (uint8_t*)valid, (float4*)color_out, (float*)cutoff_out,
+        (const int32_t*)sprite, (int32_t*)sprite_out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The same without a sprite column: the entry point of the kernel's earlier
+// versions (experiments/ribbon_segments_variants/), whose callers it keeps.
 extern "C" int hanabi_ribbon_segments(const void* position, const void* axis_y, const void* color,
                                       const void* cutoff, const void* perm1, const void* perm2,
                                       const void* key, const float* camera, void* center,
                                       void* axis_x, void* side, void* valid, void* color_out,
                                       void* cutoff_out, long long n, void* stream) {
-  if (n > 0) {
-    if (cutoff && !cutoff_out) return (int)cudaErrorInvalidValue;
-    const Vec3 cam{camera[0], camera[1], camera[2]};
-    const int64_t cta_rows = kSegWarps * kTileRows;
-    const unsigned int grid = (unsigned int)((n + cta_rows - 1) / cta_rows);
-    ribbon_segments_kernel<<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)position, (const float*)axis_y, (const float4*)color, (const float*)cutoff,
-        (const int64_t*)perm1, (const int64_t*)perm2, (const int64_t*)key, cam, (float*)center,
-        (float*)axis_x, (float*)side, (uint8_t*)valid, (float4*)color_out, (float*)cutoff_out, n);
-  }
-  return (int)cudaGetLastError();
+  return hanabi_ribbon_segments_sprite(position, axis_y, color, cutoff, nullptr, perm1, perm2,
+                                       key, camera, center, axis_x, side, valid, color_out,
+                                       cutoff_out, nullptr, n, stream);
 }

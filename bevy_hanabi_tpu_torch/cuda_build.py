@@ -88,6 +88,9 @@ SIGNATURES = {
     #  color_out, cutoff_out, n, stream)
     "hanabi_ribbon_segments": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                ctypes.c_longlong, _P],
+    # (position, axis_y, color, cutoff, sprite, perm1, perm2, key, camera, center, axis_x, side,
+    #  valid, color_out, cutoff_out, sprite_out, n, stream)
+    "hanabi_ribbon_segments_sprite": [_P] * 16 + [ctypes.c_longlong, _P],
 }
 
 

@@ -2,8 +2,9 @@
 
 TPU-native re-design of bevy_hanabi ``src/gradient.rs``. The reference
 samples gradients on CPU or code-generates a WGSL if/else chain
-(lib.rs:1567-1688); here sampling is a vectorized ``where`` chain over the keys
-(port of ``bevy_hanabi_tpu/gradient.py``).
+(lib.rs:1567-1688); here sampling is a vectorized ``where`` chain over the keys,
+or a ``searchsorted`` and one lerp for more than 16 keys (port of
+``bevy_hanabi_tpu/gradient.py``).
 """
 
 from __future__ import annotations
@@ -131,14 +132,11 @@ class Gradient:
         The same fused ``where`` chain over the (static, few) segments as the
         JAX package's ``sample_jax``, with the same op order, so the two
         agree to the last bit on the CPU. Gradients of more than 16 keys
-        take the JAX package's searchsorted form, not ported yet.
+        take the JAX package's searchsorted form (gradient.py:177-193).
         """
         k = len(self._ratios)
         if k > 16:
-            raise NotImplementedError(
-                "Gradient.sample_torch: the searchsorted form for more than "
-                f"16 keys is not ported (gradient has {k})"
-            )
+            return self._sample_searchsorted(x)
         if k == 1:
             v0 = torch.as_tensor(self._values[0], device=x.device)
             return v0.expand(x.shape + v0.shape)
@@ -167,6 +165,32 @@ class Gradient:
             pred = x > float(r[i]) if strict else x >= float(r[i])
             out = torch.where(pred[..., None], seg, out)
         return out
+
+    def _sample_searchsorted(self, x: torch.Tensor) -> torch.Tensor:
+        """The JAX package's form for many keys, op for op: the segment
+        ``hi`` is ``searchsorted(ratios, x, side="left")`` clipped to ``[1,
+        k - 1]`` (an exact hit lands on the FIRST duplicate of a shared
+        ratio, gradient.rs:400-405), then one lerp and the two end clamps.
+        ``searchsorted`` is the count of ratios below ``x``, a NaN past
+        every ratio as in ``jnp.searchsorted``'s total order."""
+        x = x.to(torch.float32)
+        dev = x.device
+        ratios = torch.as_tensor(np.asarray(self._ratios, np.float32), device=dev)
+        values = torch.as_tensor(np.stack(self._values, axis=0), device=dev)
+        k = ratios.shape[0]
+        below = torch.sum(ratios < x[..., None], dim=-1)
+        hi = torch.clamp(torch.where(torch.isnan(x), k, below), 1, k - 1)
+        lo = hi - 1
+        r_lo = ratios[lo]
+        r_hi = ratios[hi]
+        span = r_hi - r_lo
+        t = torch.where(span > 0, (x - r_lo) / torch.where(span > 0, span, 1.0), 1.0)
+        t = torch.clamp(t, 0.0, 1.0)
+        v_lo = values[lo]
+        v_hi = values[hi]
+        out = v_lo + (v_hi - v_lo) * t[..., None]
+        out = torch.where((x <= ratios[0])[..., None], values[0], out)
+        return torch.where((x > ratios[-1])[..., None], values[-1], out)
 
     # ---- serde ------------------------------------------------------------
 

@@ -1,7 +1,5 @@
-"""Effect expression graph: Module/Expr arena and the fluent ExprWriter.
-
-The node-graph layer (``bevy_hanabi_tpu/graph/node.py``) is not part of the
-port yet."""
+"""Effect expression graph: Module/Expr arena, the fluent ExprWriter and
+the node-graph layer (``node.py``, a copy of the JAX package's)."""
 
 from .expr import (  # noqa: F401
     BinaryOp,
@@ -13,4 +11,19 @@ from .expr import (  # noqa: F401
     TernaryOp,
     UnaryOp,
     WriterExpr,
+)
+from .node import (  # noqa: F401  (graph/mod.rs:62 node re-exports)
+    AddNode,
+    AttributeNode,
+    ClampNode,
+    DivNode,
+    LiteralNode,
+    MixNode,
+    MulNode,
+    Node,
+    NodeGraph,
+    NormalizeNode,
+    PropertyNode,
+    SubNode,
+    TimeNode,
 )

@@ -5,8 +5,10 @@ Ported so far: ``gradient_effect`` (the benchmark headline's effect),
 ``force_field_effect`` (the attractor and kill box of BASELINE config 3),
 the firework event tree, ``firework_effect`` with its trail child
 ``firework_trail_effect``, the ribbon effects ``ribbon_bench_effect``
-and ``ribbon_order_check_effect``, and the textured-mesh gate's
-``textured_mesh_check_effect``. The definitions are the JAX package's, so both
+and ``ribbon_order_check_effect``, the textured-mesh gate's
+``textured_mesh_check_effect``, and ``instancing_effect``, the per-instance
+effect of the instanced benchmark (hundreds of instances through
+``InstancedEffect``). The definitions are the JAX package's, so both
 packages build equal assets (``to_json`` agrees).
 """
 
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 from .. import VEC3F
 from .. import attributes as A
-from ..asset import AlphaMode, EffectAsset
+from ..asset import AlphaMode, EffectAsset, SimulationCondition
 from ..gradient import Gradient
 from ..graph import ExprWriter
 from ..modifiers import (
@@ -47,6 +49,7 @@ __all__ = [
     "ribbon_bench_effect",
     "ribbon_order_check_effect",
     "textured_mesh_check_effect",
+    "instancing_effect",
 ]
 
 
@@ -326,4 +329,29 @@ def textured_mesh_check_effect(capacity: int = 2048) -> EffectAsset:
         )
         .render(ColorOverLifetimeModifier(color))
         .with_alpha_mode(AlphaMode.BLEND)
+    )
+
+
+def instancing_effect(capacity: int = 4096) -> EffectAsset:
+    """BASELINE config 5 (examples/instancing.rs): small per-instance effect,
+    stepped as hundreds of instances via InstancedEffect (1M+ total)."""
+    w = ExprWriter()
+    color = Gradient.linear((1.0, 1.0, 1.0, 1.0), (0.2, 0.2, 1.0, 0.0))
+    return (
+        EffectAsset("instancing", capacity, SpawnerSettings.rate(capacity / 3.0), w.finish())
+        .init(SetAttributeModifier(A.AGE, w.lit(0.0).expr()))
+        .init(SetAttributeModifier(A.LIFETIME, w.lit(3.0).expr()))
+        .init(
+            SetPositionSphereModifier(
+                w.lit((0.0, 0.0, 0.0)).expr(), w.lit(0.3).expr(), ShapeDimension.VOLUME
+            )
+        )
+        .init(
+            SetVelocitySphereModifier(
+                w.lit((0.0, 0.0, 0.0)).expr(), w.lit(0.5).uniform(w.lit(1.0)).expr()
+            )
+        )
+        .update(AccelModifier(w.lit((0.0, 1.0, 0.0)).expr()))
+        .render(ColorOverLifetimeModifier(color))
+        .with_simulation_condition(SimulationCondition.ALWAYS)
     )

@@ -14,20 +14,23 @@ __all__ = ["rotate3", "affine3", "mat4_mul", "mvp_w", "affine4_inv", "sqrt_f32"]
 
 
 def rotate3(v, rot):
-    """``v @ rot.T`` for ``v: [N, 3]``, ``rot: [3, 3]`` — exact f32."""
-    x, y, z = v[:, 0], v[:, 1], v[:, 2]
+    """``v @ rot.T`` for ``v: [..., 3]``, ``rot: [..., 3, 3]`` broadcast
+    against ``v``'s leading axes (one ``[3, 3]`` for all, or ``[I, 1, 3, 3]``
+    for ``[I, N, 3]`` instanced lanes) — exact f32."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
     return torch.stack(
         [
-            x * rot[0, 0] + y * rot[0, 1] + z * rot[0, 2],
-            x * rot[1, 0] + y * rot[1, 1] + z * rot[1, 2],
-            x * rot[2, 0] + y * rot[2, 1] + z * rot[2, 2],
+            x * rot[..., 0, 0] + y * rot[..., 0, 1] + z * rot[..., 0, 2],
+            x * rot[..., 1, 0] + y * rot[..., 1, 1] + z * rot[..., 1, 2],
+            x * rot[..., 2, 0] + y * rot[..., 2, 1] + z * rot[..., 2, 2],
         ],
-        dim=1,
+        dim=-1,
     )
 
 
 def affine3(v, rot, tr):
-    """``v @ rot.T + tr`` for ``v: [N, 3]``, ``rot: [3, 3]``, ``tr: [3]``."""
+    """``v @ rot.T + tr`` for ``v: [..., 3]``, ``rot: [..., 3, 3]``, ``tr:
+    [..., 3]``, broadcast as :func:`rotate3`."""
     return rotate3(v, rot) + tr
 
 

@@ -32,6 +32,7 @@ __all__ = [
     "ParticleDrawData",
     "extract_draw_data",
     "concat_draws",
+    "flatten_instance_axis",
     "PAINTER_MODE_IDS",
     "concat_painter_draws",
 ]
@@ -99,17 +100,27 @@ def extract_draw_data(
     properties=None,
     textures: Optional[List[Any]] = None,
     transform: Optional[Any] = None,
+    instances: int = 0,
 ) -> ParticleDrawData:
     """Run render modifiers over the pool and build draw data.
 
-    ``textures`` keeps the JAX package's signature: the rasterizer samples
-    them (no ported expression reads a texture), and a ``transform`` only
-    matters for local-space effects, which raise."""
+    ``textures`` ([H, W, 4] tensors by slot) are what ``texture_sample``
+    expressions read (the rasterizer samples the texture layers itself); a
+    ``transform`` only matters for local-space effects, which raise.
+    ``instances`` > 0 marks ``pool`` as the flat ``[I*N]`` view of an
+    instanced group (:meth:`~..runtime.pool.ParticlePool.flatten`) whose
+    ``properties`` are per lane, each lane its instance's value: one pass
+    computes what the JAX package's extraction vmapped over the instances
+    computes (instanced.py:236-258), ``PARTICLE_INDEX`` the lane's index in
+    its instance."""
     n = pool.alive.shape[-1]
     dev = pool.device
     particle = dict(pool.attrs)
     if asset.simulation_space is SimulationSpace.LOCAL and transform is not None:
         raise NotImplementedError("extract_draw_data: local-space effects are not ported")
+    particle_index = torch.arange(n, dtype=torch.int64, device=dev)
+    if instances:
+        particle_index = particle_index % (n // instances)
 
     ctx = RenderContext(
         asset.module,
@@ -117,10 +128,12 @@ def extract_draw_data(
         pool.seed,
         sim=sim if sim is not None else SimParams(),
         properties=properties or {},
-        particle_index=torch.arange(n, dtype=torch.int64, device=dev),
+        particle_index=particle_index,
         alive=pool.alive,
         camera=camera,
         alpha_cutoff=0.0,
+        textures=list(textures or []),
+        lane_properties=bool(instances),
     )
 
     # ---- defaults (lib.rs:867-951) ----
@@ -217,6 +230,24 @@ def extract_draw_data(
         counter=particle.get("particle_counter"),
         lighting=ctx.mesh_lighting,
     )
+
+
+def flatten_instance_axis(tree):
+    """Merge a leading instance axis: ``[I, N, ...]`` tensors -> ``[I*N,
+    ...]`` (extract.py:99-106). ``tree`` is a tensor, a dict of them, or a
+    dataclass such as :class:`ParticleDrawData`, whose tensor fields are
+    merged and whose other fields are kept."""
+    if isinstance(tree, torch.Tensor):
+        return tree.reshape((-1,) + tuple(tree.shape[2:]))
+    if isinstance(tree, dict):
+        return {k: flatten_instance_axis(v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: flatten_instance_axis(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)
+        })
+    return tree
 
 
 def _cat_or(draws, field: str, fill: float, width=None):

@@ -22,8 +22,8 @@ total order: ``-0.0``, ``+0.0`` and the subnormals compare equal (to zero),
 every NaN equals every other and sorts after ``+inf``.
 
 :func:`ribbon_segments` (CUDA kernel) then builds every segment from the
-sorted rows, and gathers the appearance columns (colour, the mask cutoff)
-into segment order. The JAX package leaves them in source order behind a
+sorted rows, and gathers the appearance columns (colour, the mask cutoff,
+a textured ribbon's flipbook sprite index) into segment order. The JAX package leaves them in source order behind a
 ``remap`` that its rasterizer composes at window size, because a full
 permutation gather cost milliseconds on the TPU; on the card it costs a
 fraction of one of the sorts, so the segment draw carries every column in
@@ -170,7 +170,7 @@ def _camera_params(camera_position) -> np.ndarray:
 
 
 def ribbon_segments_plain(position, axis_y, color, alpha_cutoff, perm1, perm2, key,
-                          camera_position):
+                          camera_position, sprite=None):
     """Plain version of :func:`ribbon_segments` (ribbon.py:61-121)."""
     dev = position.device
     order = perm2 if perm1 is None else perm1[perm2]
@@ -196,24 +196,27 @@ def ribbon_segments_plain(position, axis_y, color, alpha_cutoff, perm1, perm2, k
     norm = torch.sqrt(side[:, 0] * side[:, 0] + side[:, 1] * side[:, 1] + side[:, 2] * side[:, 2])
     side = side / torch.where(norm > 1e-8, norm, 1.0)[:, None]
     cutoff = None if alpha_cutoff is None else alpha_cutoff[order]
-    return center, d, side * width[:, None], valid, color[order], cutoff
+    sprite = None if sprite is None else sprite[order]
+    return center, d, side * width[:, None], valid, color[order], cutoff, sprite
 
 
-def ribbon_segments(position, axis_y, color, alpha_cutoff, perm1, perm2, key, camera_position):
+def ribbon_segments(position, axis_y, color, alpha_cutoff, perm1, perm2, key, camera_position,
+                    sprite=None):
     """Every segment quad from the sorted rows, in one launch.
 
     ``position``/``axis_y`` f32 [N, 3] and ``color`` f32 [N, 4] (and
-    ``alpha_cutoff`` f32 [N] or None) in source order; ``perm1`` (int64
+    ``alpha_cutoff`` f32 [N] or None, ``sprite`` int32 [N] or None, a
+    textured ribbon's flipbook frame) in source order; ``perm1`` (int64
     [N] or None), ``perm2`` (int64 [N]) and ``key`` (int64 [N], the sorted
     stage-2 keys) from :func:`ribbon_sort`; ``camera_position`` the world
     position (3 floats). Row i's source is ``perm1[perm2[i]]`` and its
     predecessor row i - 1's (row N - 1's for row 0, the roll of
     ribbon.py:82). Returns ``(center, axis_x, axis_y, valid, color,
-    alpha_cutoff)`` in segment order: ``valid`` bool [N] where rows i - 1
+    alpha_cutoff, sprite)`` in segment order: ``valid`` bool [N] where rows i - 1
     and i are alive rows of one ribbon and i > 0, ``axis_x`` the segment
     ``p - p_prev``, ``axis_y`` ``normalize(cross(center - camera, axis_x))``
-    times row i's width ``|axis_y|``, colour and cutoff gathered by the
-    order. On the card ``color``, ``perm2`` and ``key`` must be 16-byte
+    times row i's width ``|axis_y|``, colour, cutoff and sprite gathered
+    by the order (cutoff and sprite None where not given). On the card ``color``, ``perm2`` and ``key`` must be 16-byte
     aligned, as every tensor that does not start inside another's row is:
     the kernel reads them in 16-byte vectors."""
     n = position.shape[0]
@@ -223,13 +226,15 @@ def ribbon_segments(position, axis_y, color, alpha_cutoff, perm1, perm2, key, ca
     _check(color, "color", torch.float32, (n, 4), dev)
     if alpha_cutoff is not None:
         _check(alpha_cutoff, "alpha_cutoff", torch.float32, (n,), dev)
+    if sprite is not None:
+        _check(sprite, "sprite", torch.int32, (n,), dev)
     if perm1 is not None:
         _check(perm1, "perm1", torch.int64, (n,), dev)
     _check(perm2, "perm2", torch.int64, (n,), dev)
     _check(key, "key", torch.int64, (n,), dev)
     if not position.is_cuda:
         return ribbon_segments_plain(position, axis_y, color, alpha_cutoff, perm1, perm2, key,
-                                     camera_position)
+                                     camera_position, sprite)
     for name, t in (("color", color), ("perm2", perm2), ("key", key)):
         if t.data_ptr() % 16:
             raise ValueError(f"ribbon_segments: {name} must be 16-byte aligned on the card")
@@ -239,15 +244,17 @@ def ribbon_segments(position, axis_y, color, alpha_cutoff, perm1, perm2, key, ca
     valid = torch.empty((n,), dtype=torch.bool, device=dev)
     color_out = torch.empty((n, 4), dtype=torch.float32, device=dev)
     cutoff = None if alpha_cutoff is None else torch.empty((n,), dtype=torch.float32, device=dev)
+    sprite_out = None if sprite is None else torch.empty((n,), dtype=torch.int32, device=dev)
     cam = _camera_params(camera_position)
-    code = cuda_build.library().hanabi_ribbon_segments(
-        position.data_ptr(), axis_y.data_ptr(), color.data_ptr(), _ptr(alpha_cutoff), _ptr(perm1),
-        perm2.data_ptr(), key.data_ptr(), cam.ctypes.data, center.data_ptr(), axis_x.data_ptr(),
-        side.data_ptr(), valid.data_ptr(), color_out.data_ptr(), _ptr(cutoff), n, _stream(),
+    code = cuda_build.library().hanabi_ribbon_segments_sprite(
+        position.data_ptr(), axis_y.data_ptr(), color.data_ptr(), _ptr(alpha_cutoff), _ptr(sprite),
+        _ptr(perm1), perm2.data_ptr(), key.data_ptr(), cam.ctypes.data, center.data_ptr(),
+        axis_x.data_ptr(), side.data_ptr(), valid.data_ptr(), color_out.data_ptr(), _ptr(cutoff),
+        _ptr(sprite_out), n, _stream(),
     )
     cuda_build.check(code, "ribbon_segments")
     ribbon_segments.launches += 1
-    return center, axis_x, side, valid, color_out, cutoff
+    return center, axis_x, side, valid, color_out, cutoff, sprite_out
 
 
 ribbon_segments.launches = 0
@@ -276,25 +283,24 @@ def build_ribbon_segments(draw: ParticleDrawData, camera: CameraParams) -> Parti
     length, every column in segment order; invalid segments (ribbon heads,
     cross-ribbon pairs, dead lanes) have ``alive=False``. The valid set,
     its order and its geometry are the JAX package's; its ``remap`` is
-    resolved here (see the module docstring). ``ribbon_id``, ``age`` and
-    ``counter`` are None on the segment draw: after the segment build only
-    the JAX package's sharded renderer (``parallel/render.py``, not ported)
-    reads them."""
+    resolved here (see the module docstring). As in the JAX package
+    (ribbon.py:104-121), a segment quad drops roundness and keeps the
+    texture layers, the flipbook grid and ``needs_uv``; its sprite index
+    rides the kernel into segment order beside colour and cutoff.
+    ``ribbon_id``, ``age`` and ``counter`` are None on the segment draw:
+    after the segment build only the JAX package's sharded renderer
+    (``parallel/render.py``, not ported) reads them."""
     if draw.ribbon_id is None or draw.age is None:
         raise ValueError("ribbon rendering requires RIBBON_ID and AGE attributes")
-    if draw.roundness is not None or draw.texture_layers:
-        # ribbon_segments gathers only colour and cutoff into segment order
-        raise NotImplementedError(
-            "build_ribbon_segments: round or textured ribbons (their roundness and flipbook "
-            "frame in segment order) are not ported"
-        )
     order = ribbon_sort(draw)
-    center, axis_x, axis_y, valid, color, cutoff = ribbon_segments(
+    center, axis_x, axis_y, valid, color, cutoff, sprite = ribbon_segments(
         draw.position.contiguous(), draw.axis_y.contiguous(), draw.color.contiguous(),
         None if draw.alpha_cutoff is None else draw.alpha_cutoff.contiguous(),
         order.perm1, order.perm2, order.key, camera.position,
+        None if draw.sprite_index is None else draw.sprite_index.contiguous(),
     )
     return dataclasses.replace(
         draw, position=center, axis_x=axis_x, axis_y=axis_y, color=color, alive=valid,
-        alpha_cutoff=cutoff, ribbon_id=None, age=None, counter=None,
+        roundness=None, alpha_cutoff=cutoff, sprite_index=sprite, ribbon_id=None, age=None,
+        counter=None,
     )

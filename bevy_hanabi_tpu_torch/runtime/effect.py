@@ -334,15 +334,38 @@ class CompiledEffect:
         sim: SimParams,
         events_in: Optional[EventBuffer],
         parent_pool: Optional[ParticlePool],
+        instances: int = 0,
     ):
+        """One frame. ``instances`` > 0 steps an instanced group
+        (:class:`~.instanced.InstancedEffect`) in one pass: ``pool`` is the
+        flat ``[I*N]`` view of its ``[I, N]`` pools with ``counter`` [I],
+        and ``inputs`` hold [I] spawn counts and frame seeds, [I, 3, 4]
+        transforms and [I, ...] property values. Every lane carries its
+        instance's values (the reference Batcher's shape,
+        vfx_update.wgsl:51-72): the spawn ranks, counts and counters are
+        per instance, ``PARTICLE_INDEX`` is the lane's index in its
+        instance, so each instance steps as the JAX package's vmapped
+        ``_step`` steps it."""
         dev = pool.device
         n = pool.alive.shape[-1]
+        group = instances > 0
+        per = n // instances if group else n  # lanes an instance
         slot_ids = torch.arange(n, dtype=rng.U32, device=dev)
+        if group:
+            slot_ids = slot_ids % per
+
+        def lanes(x: torch.Tensor) -> torch.Tensor:
+            """A per-instance [I, ...] tensor repeated to the [I*N, ...] lanes."""
+            return x.repeat_interleave(per, dim=0)
 
         # ---- spawn ranking (replaces dead-list atomics) ----
         dead = ~pool.alive
-        free_rank = exclusive_rank(dead)  # 0-based among dead
-        num_free = torch.sum(dead, dtype=torch.int32)
+        if group:
+            free_rank = exclusive_rank(dead.view(instances, per)).view(n)
+            num_free = torch.sum(dead.view(instances, per), dim=-1, dtype=torch.int32)
+        else:
+            free_rank = exclusive_rank(dead)  # 0-based among dead
+            num_free = torch.sum(dead, dtype=torch.int32)
 
         parent_payload: Dict[str, torch.Tensor] = {}
         if self.consumes_events:
@@ -358,13 +381,23 @@ class CompiledEffect:
             )
             # the request is a device scalar: no readback
             spawn_total = torch.minimum(requested, num_free)
+        elif group:
+            # one request an instance, host data
+            requested = torch.as_tensor(
+                np.asarray(inputs.spawn_count, np.int32).reshape(instances), device=dev
+            )
+            spawn_total = torch.minimum(requested, num_free)
         else:
             # the root's request is host data
             spawn_total = torch.clamp(num_free, max=int(inputs.spawn_count))
-        spawn_mask = dead & (free_rank < spawn_total)
+        spawn_mask = dead & (free_rank < (lanes(spawn_total) if group else spawn_total))
 
         # ---- init pass ----
-        frame_hash = int(rng.pcg_hash(rng.as_u32(np.int64(np.uint32(inputs.frame_seed)))))
+        if group:
+            seeds = np.asarray(inputs.frame_seed, np.uint32).reshape(instances).astype(np.int64)
+            frame_hash = lanes(torch.as_tensor(rng.pcg_hash(seeds), device=dev))
+        else:
+            frame_hash = int(rng.pcg_hash(rng.as_u32(np.int64(np.uint32(inputs.frame_seed)))))
         spawn_seed = rng.initial_seed(free_rank.to(rng.U32), frame_hash)
 
         defaults: Dict[str, torch.Tensor] = {}
@@ -372,7 +405,14 @@ class CompiledEffect:
             shape = (n,) if a.lanes == 1 else (n, a.lanes)
             defaults[a.name] = to_device(a.default_numpy().astype(a.np_dtype), dev).expand(shape)
         if "particle_counter" in defaults:
-            defaults["particle_counter"] = (pool.counter + free_rank.to(rng.U32)) & 0xFFFFFFFF
+            base = lanes(pool.counter) if group else pool.counter
+            defaults["particle_counter"] = (base + free_rank.to(rng.U32)) & 0xFFFFFFFF
+        properties = inputs.properties
+        if group:
+            properties = {
+                k: lanes(v if isinstance(v, torch.Tensor) else to_device(np.asarray(v), dev))
+                for k, v in properties.items()
+            }
 
         # Inherited attributes come from the event payload (captured at
         # emission — immune to parent slot recycling); a parent_pool gather
@@ -393,22 +433,31 @@ class CompiledEffect:
             defaults,
             spawn_seed,
             sim=sim,
-            properties=inputs.properties,
+            properties=properties,
             parent_particle=parent_particle,
             particle_index=slot_ids,
+            lane_properties=group,
         )
         for m in self.asset.init_modifiers:
             m.apply(self.asset.module, ictx)
 
         # Emitter transform (global sim space): position w=1, velocity w=0.
         # Broadcast math, not `@` (no TF32; ops/linalg.py).
+        # An instanced group applies instance i's [3, 4] to its lanes through
+        # an [I, N, 3] view of the columns.
         if self._global_space:
-            tf = torch.as_tensor(np.asarray(inputs.transform, np.float32), device=dev)
-            rot, tr = tf[:, :3], tf[:, 3]
-            if "position" in ictx.particle:
-                ictx.particle["position"] = affine3(ictx.particle["position"], rot, tr)
-            if "velocity" in ictx.particle:
-                ictx.particle["velocity"] = rotate3(ictx.particle["velocity"], rot)
+            tf = torch.tensor(np.asarray(inputs.transform, np.float32), device=dev)
+            rot, tr = tf[..., :3], tf[..., 3]
+            if group:
+                rot, tr = rot[:, None], tr[:, None]
+            for name in ("position", "velocity"):
+                if name not in ictx.particle:
+                    continue
+                v = ictx.particle[name]
+                if group:
+                    v = v.expand(n, 3).reshape(instances, per, 3)
+                v = affine3(v, rot, tr) if name == "position" else rotate3(v, rot)
+                ictx.particle[name] = v.reshape(n, 3)
 
         # Merge spawned lanes into the pool.
         attrs = {}
@@ -425,9 +474,10 @@ class CompiledEffect:
             attrs,
             seed,
             sim=sim,
-            properties=inputs.properties,
+            properties=properties,
             particle_index=slot_ids,
             alive=alive,
+            lane_properties=group,
         )
         dt = float(np.float32(sim.delta_time))
         if self._has_age:

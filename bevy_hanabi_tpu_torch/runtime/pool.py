@@ -83,7 +83,9 @@ class ParticlePool:
     @staticmethod
     def from_numpy(attrs: Dict[str, np.ndarray], alive, seed, counter, device) -> "ParticlePool":
         """Build a pool from host arrays in the JAX package's dtypes (for
-        example ``{k: np.asarray(v) for k, v in jax_pool.attrs.items()}``)."""
+        example ``{k: np.asarray(v) for k, v in jax_pool.attrs.items()}``).
+        Stacked ``[I, N, ...]`` pools of an instanced group cross the same
+        way: every array keeps its shape, ``counter`` is then ``[I]``."""
         return ParticlePool(
             attrs={k: to_device(v, device) for k, v in attrs.items()},
             alive=to_device(np.asarray(alive, np.bool_), device),
@@ -107,6 +109,26 @@ class ParticlePool:
         )
 
     # -- inspection -----------------------------------------------------------
+
+    def flatten(self, composite_ribbon_ids: bool = False) -> "ParticlePool":
+        """View instanced ``[I, N, ...]`` pools as one flat ``[I*N]`` pool
+        (pool.py:103-128). The counter is summed (it only seeds
+        PARTICLE_COUNTER for future spawns, which a flat view never makes).
+
+        ``composite_ribbon_ids`` rewrites the flat ``ribbon_id`` to
+        ``rid * I + instance`` (modulo 2^32, as uint32) so same-rid trails
+        of different instances stay distinct ribbons after flattening."""
+        i, n = self.alive.shape
+        attrs = {k: v.reshape((i * n,) + tuple(v.shape[2:])) for k, v in self.attrs.items()}
+        if composite_ribbon_ids and "ribbon_id" in attrs:
+            inst = torch.arange(i * n, dtype=rng.U32, device=self.device) // n
+            attrs["ribbon_id"] = (rng.as_u32(attrs["ribbon_id"]) * i + inst) & 0xFFFFFFFF
+        return ParticlePool(
+            attrs=attrs,
+            alive=self.alive.reshape(i * n),
+            seed=self.seed.reshape(i * n),
+            counter=torch.sum(self.counter) & 0xFFFFFFFF,
+        )
 
     @property
     def capacity(self) -> int:

@@ -1,33 +1,40 @@
-"""Scene orchestration: many effects, parent/child event routing, rendering
-(port of ``bevy_hanabi_tpu/runtime/scene.py``, without groups).
+"""Scene orchestration: many effects, instanced groups, parent/child event
+routing, rendering (port of ``bevy_hanabi_tpu/runtime/scene.py``).
 
 A host-side registry of effect instances that each frame ticks spawners,
 routes last frame's GPU spawn events from parents to children (the same
 one-frame latency as the reference, vfx_init.wgsl:123-129), steps every
 instance, and renders. The random streams draw in the JAX package's order —
-the scene RNG once per :meth:`HanabiScene.add`, each instance's RNG once per
+the scene RNG once per :meth:`HanabiScene.add` and :meth:`add_group` and
+once a frame for every group's frame seeds, each instance's RNG once per
 step, each spawner its own — so frame seeds and spawner ticks are bit-equal
 to the JAX package's.
 
-Ported: ``add`` (with parents and textures), ``set_textures``, ``update``
-(with ``cameras=`` frustum culling of WhenVisible effects),
-``update_chunk`` (one family chunk per event tree), ``update_render_chunk``
-for one camera, and ``render`` through both pipelines of the JAX package's
-render plan: the phase split (opaque and mask passes threading a depth
-plane, then transparent passes tested against it, same-blend runs batched)
-and the painter pass (every effect in one back-to-front sort with per-entry
-blend equations, textured effects through a stacked texture atlas and mesh
-effects with their Lambert setups merged), ``scene_depth`` and
+Ported: ``add`` (with parents, textures and ``raster_override``),
+``add_group`` (instanced groups: many instances of one asset stepped as one
+:class:`~.instanced.InstancedEffect`), ``remove``, the controls
+(``set_property``, ``set_textures``, ``set_transform``, ``set_visible``,
+``reset_spawner``, ``set_spawner_active``, on effects and groups),
+``stats``, ``warmup``, ``update`` (with ``cameras=`` frustum culling of
+WhenVisible effects and groups), ``update_chunk`` (one family chunk per
+event tree, one chunk per group), ``update_render_chunk`` for one camera,
+and ``render`` through both pipelines of the JAX package's render plan: the
+phase split (opaque and mask passes threading a depth plane, then
+transparent passes tested against it, same-blend runs batched) and the
+painter pass (every effect and group in one back-to-front sort with
+per-entry blend equations, textured effects through a stacked texture atlas
+and mesh effects with their Lambert setups merged), ``scene_depth`` and
 ``return_depth`` included, ribbon effects as their segment quads and mesh
 effects as their expanded entries (neither batched, nor textured effects).
-Every other branch raises ``NotImplementedError`` naming itself: groups and
-sharding, ``cull_pad``, ``render_views`` and multi-view chunks, debug
-validation, and hot reload (an asset edited after ``add``).
+Every other branch raises ``NotImplementedError`` naming itself: sharding,
+``cull_pad``, ``render_views`` and multi-view chunks, debug validation, and
+hot reload (an asset edited after ``add``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -40,6 +47,7 @@ from ..spawn import EffectSpawner
 from ..time import EffectSimulationClock
 from .effect import CompiledEffect, StepInputs, identity_transform
 from .events import EventBuffer
+from .instanced import InstancedEffect
 from .pool import ParticlePool
 
 __all__ = ["HanabiScene", "EffectInstance", "DebugSettings"]
@@ -84,6 +92,9 @@ class EffectInstance:
     # layer between effects given the same object)
     textures: tuple = ()
     texture_sources: tuple = ()
+    # RasterConfig field overrides (dataclasses.replace kwargs) for THIS
+    # effect's passes; an overridden effect renders in its own pass
+    raster_override: Any = None
 
     def alive_count(self) -> int:
         return int(self.pool.alive_count())
@@ -98,6 +109,7 @@ class HanabiScene:
         self.device = torch.device(device)
         self._rng = np.random.default_rng(seed)
         self._effects: Dict[str, EffectInstance] = {}
+        self._groups: Dict[str, dict] = {}  # instanced groups
         self._order: List[str] = []  # parents before children
         self.clock = EffectSimulationClock()
         self._frame = 0
@@ -110,6 +122,7 @@ class HanabiScene:
         self._aabb_cache: Dict[str, tuple] = {}
         self._frustum_sim = False
         self.render_culling: Optional[bool] = None
+        self.last_frame_ms: Optional[float] = None  # the last update()'s host wall time
 
     # -- authoring-world API ------------------------------------------------
 
@@ -132,9 +145,11 @@ class HanabiScene:
         effect then consumes the lowest event channel no sibling uses.
         ``textures`` ([H, W, 4] RGBA images, by slot) are uploaded to the
         scene's device once. ``prng_seed`` overrides ``asset.prng_seed``
-        for this instance."""
-        if raster_override:
-            raise _unported("add(raster_override=...)")
+        for this instance. ``raster_override`` (RasterConfig field ->
+        value) customizes THIS effect's raster passes on top of the scene
+        config, e.g. ``{"tile_span": 4}`` for a large-splat effect; such an
+        effect renders in its own pass, never batched nor in the painter
+        pass."""
         if mesh is not None:
             raise _unported("add(mesh=...) sharding")
         if cull_pad is not None:
@@ -200,6 +215,7 @@ class HanabiScene:
             compiled_signature=asset.signature(),
             textures=self._upload(textures),
             texture_sources=tuple(textures),
+            raster_override=dict(raster_override) if raster_override else None,
         )
         self._effects[name] = inst
         if parent is not None:
@@ -232,11 +248,82 @@ class HanabiScene:
         p.last_events = {}
         self._family_fn = {k: v for k, v in self._family_fn.items() if parent not in k}
 
-    def add_group(self, *args, **kwargs):
-        raise _unported("add_group (instanced groups)")
+    def add_group(
+        self,
+        asset: EffectAsset,
+        count: int,
+        name: Optional[str] = None,
+        transforms: Optional[Any] = None,
+        capacity: Optional[int] = None,
+        textures: Sequence[Any] = (),
+        raster_override: Optional[Dict[str, Any]] = None,
+        cull_pad: Optional[float] = None,
+    ) -> str:
+        """Add ``count`` instances of one asset stepped as ONE pass
+        (scene.py:335-391): the Batcher analogue (reference
+        render/batch.rs), an :class:`InstancedEffect` whose spawners tick
+        in one vectorized bank. GLOBAL simulation space only (per-instance
+        transforms bake in at spawn); event-linked assets are not batchable
+        (route them through :meth:`add`)."""
+        from ..spawn import make_spawner_bank
+
+        if asset.emits_gpu_spawn_events():
+            raise ValueError("event-emitting assets cannot be grouped; use add()")
+        if asset.simulation_space is not SimulationSpace.GLOBAL:
+            raise ValueError("instanced groups require GLOBAL simulation space")
+        if cull_pad is not None:
+            raise _unported("add_group(cull_pad=...) frustum culling")
+        name = name or f"{asset.name}[group]#{len(self._groups)}"
+        if name in self._groups or name in self._effects:
+            raise ValueError(f"effect {name!r} already exists")
+        fx = InstancedEffect(asset, count, capacity, device=self.device)
+        if transforms is None:
+            tfs = np.broadcast_to(identity_transform(), (count, 3, 4))
+        else:
+            tfs = np.asarray(transforms, np.float32).reshape(count, 3, 4)
+        self._groups[name] = {
+            "name": name,
+            "asset": asset,
+            "fx": fx,
+            "pools": fx.create_pools(),
+            "bank": make_spawner_bank(asset.spawner, count, seed=int(self._rng.integers(0, 2**63))),
+            "transforms": tfs,
+            "properties": EffectProperties(
+                [Property(n, v) for n, v in asset.module.properties().items()]
+            ),
+            "visible": True,
+            "textures": self._upload(textures),
+            "texture_sources": tuple(textures),
+            "renderer": None,
+            "compiled_signature": asset.signature(),
+            "raster_override": dict(raster_override) if raster_override else None,
+        }
+        return name
 
     def add_sharded_group(self, *args, **kwargs):
         raise _unported("add_sharded_group (sharding)")
+
+    def group_alive(self, name: str) -> int:
+        g = self._groups[name]
+        return int(g["fx"].total_alive(g["pools"]))
+
+    def _group_flat_pool(self, g) -> ParticlePool:
+        """A group's [I, N, ...] pools as one flat pool for rendering, each
+        instance's ribbons kept apart (scene.py:464-474)."""
+        return g["pools"].flatten(composite_ribbon_ids=True)
+
+    def remove(self, name: str) -> None:
+        """Remove an effect or a group (an effect's children first)."""
+        if name in self._groups:
+            del self._groups[name]
+        else:
+            children = [e.name for e in self._effects.values() if e.parent == name]
+            if children:
+                raise ValueError(f"remove children first: {children}")
+            del self._effects[name]
+            self._order.remove(name)
+            self._family_fn = {k: v for k, v in self._family_fn.items() if name not in k}
+        self._aabb_frame = -1
 
     def __getitem__(self, name: str) -> EffectInstance:
         return self._effects[name]
@@ -248,7 +335,10 @@ class HanabiScene:
         return [self._effects[n] for n in self._order]
 
     def set_property(self, name: str, prop: str, value) -> None:
-        self._effects[name].properties.set(prop, value)
+        if name in self._groups:
+            self._groups[name]["properties"].set(prop, value)
+        else:
+            self._effects[name].properties.set(prop, value)
 
     def _upload(self, textures) -> tuple:
         from ..render.raster import texture_tensor
@@ -256,40 +346,126 @@ class HanabiScene:
         return tuple(texture_tensor(t, self.device) for t in textures)
 
     def set_textures(self, name: str, textures: Sequence[Any]) -> None:
-        """Swap an effect's texture images (the EffectMaterial image swap,
-        lib.rs:694-702); its renderer is rebuilt on next use."""
+        """Swap an effect's or group's texture images (the EffectMaterial
+        image swap, lib.rs:694-702); its renderer is rebuilt on next use."""
+        if name in self._groups:
+            g = self._groups[name]
+            g["textures"] = self._upload(textures)
+            g["texture_sources"] = tuple(textures)
+            g["renderer"] = None
+            return
         inst = self._effects[name]
         inst.textures = self._upload(textures)
         inst.texture_sources = tuple(textures)
         inst.renderer = None
 
     def set_transform(self, name: str, transform) -> None:
-        self._effects[name].transform = np.asarray(transform, np.float32)
+        """An effect's [3, 4] emitter transform, or a group's [I, 3, 4]."""
+        if name in self._groups:
+            g = self._groups[name]
+            n = g["fx"].num_instances
+            g["transforms"] = np.asarray(transform, np.float32).reshape(n, 3, 4)
+        else:
+            self._effects[name].transform = np.asarray(transform, np.float32)
 
     def set_visible(self, name: str, visible: bool) -> None:
-        self._effects[name].visible = visible
+        if name in self._groups:
+            self._groups[name]["visible"] = visible
+        else:
+            self._effects[name].visible = visible
+
+    def reset_spawner(self, name: str) -> None:
+        """Restart an effect's spawner cycle, or every spawner of a group."""
+        if name in self._groups:
+            self._groups[name]["bank"].reset()
+            return
+        sp = self._effects[name].spawner
+        if sp is not None:
+            sp.reset()
+
+    def set_spawner_active(self, name: str, active: bool) -> None:
+        if name in self._groups:
+            self._groups[name]["bank"].set_active(active)
+            return
+        sp = self._effects[name].spawner
+        if sp is not None:
+            sp.set_active(active)
 
     def total_alive(self) -> int:
-        return sum(e.alive_count() for e in self.effects())
+        return sum(e.alive_count() for e in self.effects()) + sum(
+            self.group_alive(n) for n in self._groups
+        )
+
+    def warmup(self) -> None:
+        """Run every instance's step once (the readiness protocol's
+        replacement, scene.py:2341): one update of zero time."""
+        self.update(0.0)
+
+    def stats(self) -> dict:
+        """Scene observability snapshot (scene.py:1241-1294; it reads back
+        from the device, so call it off the hot path): per-effect alive
+        counts and event-buffer fill levels, group totals, and the last
+        ``update()``'s host wall time. Warns once per child when spawn events
+        arrive while its pool is already full: those spawns are dropped."""
+        from ..utils.diag import warn_once
+
+        effects = {}
+        for name, inst in self._effects.items():
+            events = {}
+            for chan, ev in (inst.last_events or {}).items():
+                events[chan] = {
+                    "events": int(ev.num_events),
+                    "capacity": int(ev.parent_slot.shape[-1]),
+                }
+            effects[name] = {
+                "alive": inst.alive_count(),
+                "capacity": int(inst.pool.capacity),
+                "events": events,
+            }
+        for name, inst in self._effects.items():
+            if inst.parent is None:
+                continue
+            pev = (self._effects[inst.parent].last_events or {}).get(inst.child_channel)
+            if pev is None:
+                continue
+            requested = int(torch.sum(pev.count))
+            cap = int(inst.pool.capacity)
+            if requested > 0 and effects[name]["alive"] >= cap:
+                warn_once(
+                    f"child-saturation:{name}",
+                    f"child effect {name!r} has a full pool ({cap} alive) while "
+                    f"{requested} spawn(s) are requested by parent {inst.parent!r}: "
+                    "those spawns are dropped. Raise the child's capacity.",
+                )
+        return {
+            "frame": self._frame,
+            "time": self.clock.time,
+            "last_frame_ms": self.last_frame_ms,
+            "total_alive": self.total_alive(),
+            "effects": effects,
+            "groups": {name: {"alive": self.group_alive(name)} for name in self._groups},
+        }
 
     def _refuse_unported(self) -> None:
         """The JAX package re-checks every asset for edits (hot reload) and
         may run checked executables here; the port has neither."""
         if self.debug.validate:
             raise _unported("DebugSettings.validate (checked executables)")
-        for inst in self._effects.values():
-            if inst.asset.signature() != inst.compiled_signature:
+        entities = [(i.name, i.asset, i.compiled_signature) for i in self._effects.values()]
+        entities += [(n, g["asset"], g["compiled_signature"]) for n, g in self._groups.items()]
+        for name, asset, sig in entities:
+            if asset.signature() != sig:
                 raise _unported(
-                    f"hot reload: effect {inst.name!r} was edited after add(); "
+                    f"hot reload: effect {name!r} was edited after add(); "
                     "remove and re-add it"
                 )
 
     # -- visibility: frustum vs pool AABB ----------------------------------
-    # As in the JAX package (scene.py:549-744, without groups and cull_pad):
-    # a WhenVisible effect's AABB is computed on the device from its pool
-    # (one masked min/max per effect, ONE readback for all of them, at most
-    # once per frame), unioned with the emitter position so a fresh effect
-    # is visible at its emitter, and padded to cover splat extents.
+    # As in the JAX package (scene.py:549-744, without cull_pad): a
+    # WhenVisible effect's or group's AABB is computed on the device from its
+    # pool (one masked min/max per entity, ONE readback for all of them, at
+    # most once per frame), unioned with the emitter positions so a fresh
+    # effect is visible at its emitter, and padded to cover splat extents.
 
     DEFAULT_CULL_PAD = 0.5
 
@@ -302,32 +478,42 @@ class HanabiScene:
         the pools as of frame start; computed at most once per frame."""
         if self._aabb_frame == self._frame:
             return self._aabb_cache
-        entries = [inst for inst in self._effects.values() if self._cullable(inst.asset)]
+        # (name, pool, emitter transforms [K, 3, 4], local space)
+        entries = [
+            (inst.name, inst.pool, np.asarray(inst.transform, np.float32)[None],
+             inst.asset.simulation_space is SimulationSpace.LOCAL)
+            for inst in self._effects.values() if self._cullable(inst.asset)
+        ] + [
+            # groups are GLOBAL: the box of every lane is the union of the
+            # instances' boxes
+            (n, self._group_flat_pool(g), np.asarray(g["transforms"], np.float32), False)
+            for n, g in self._groups.items() if self._cullable(g["asset"])
+        ]
         cache: Dict[str, tuple] = {}
         if entries:
             big = 3.0e38
             boxes = []
-            for inst in entries:
-                m = inst.pool.alive[:, None]
-                pos = inst.pool.attrs["position"]
+            for _, pool, _, _ in entries:
+                m = pool.alive[:, None]
+                pos = pool.attrs["position"]
                 boxes.append(
                     torch.stack([torch.where(m, pos, big).amin(0), torch.where(m, pos, -big).amax(0)])
                 )
             res = torch.stack(boxes).cpu().numpy()  # the one readback
             pad = self.DEFAULT_CULL_PAD
-            for inst, (mn, mx) in zip(entries, res):
-                tf = np.asarray(inst.transform, np.float32)
-                em = tf[:, 3]  # emitter world position
-                if inst.asset.simulation_space is SimulationSpace.LOCAL:
+            for (name, _, tfs, local), (mn, mx) in zip(entries, res):
+                tf = tfs[0]
+                em = tfs[:, :, 3]  # emitter world positions
+                if local:
                     # the box through R|t: centre transformed, extents through |R|
                     if np.all(mn <= mx):
-                        c = tf[:, :3] @ ((mn + mx) * 0.5) + em
+                        c = tf[:, :3] @ ((mn + mx) * 0.5) + tf[:, 3]
                         e = np.abs(tf[:, :3]) @ ((mx - mn) * 0.5)
                         mn, mx = c - e, c + e
                     else:
                         mn = np.full(3, 3.0e38, np.float32)
                         mx = -mn
-                cache[inst.name] = (np.minimum(mn, em) - pad, np.maximum(mx, em) + pad)
+                cache[name] = (np.minimum(mn, em.min(0)) - pad, np.maximum(mx, em.max(0)) + pad)
         self._aabb_cache = cache
         self._aabb_frame = self._frame
         return cache
@@ -346,6 +532,7 @@ class HanabiScene:
         if for_render and not render_cull:
             return set()
         names = {n for n, inst in self._effects.items() if self._cullable(inst.asset)}
+        names |= {n for n, g in self._groups.items() if self._cullable(g["asset"])}
         if not names:
             return set()
         aabbs = self._refresh_aabbs()
@@ -359,12 +546,15 @@ class HanabiScene:
     # -- simulation ----------------------------------------------------------
 
     def update(self, dt: float, cameras=None) -> None:
-        """Advance one frame (scene.py:1042-1127, without groups).
+        """Advance one frame (scene.py:1042-1150): every effect in scene
+        order, then every group in one pass each.
 
-        ``cameras`` (a camera or a sequence): a WhenVisible effect whose
-        padded pool/emitter AABB is outside every given frustum ticks no
-        spawner and does not step. Without ``cameras`` the manual
-        ``set_visible`` flag alone gates."""
+        ``cameras`` (a camera or a sequence): a WhenVisible effect or group
+        whose padded pool/emitter AABB is outside every given frustum ticks
+        no spawner and does not step. Without ``cameras`` the manual
+        ``set_visible`` flag alone gates. ``last_frame_ms`` keeps the call's
+        host wall time (the device work it enqueued may still run)."""
+        t0 = time.perf_counter()
         self._refuse_unported()
         if cameras is not None and not isinstance(cameras, (list, tuple)):
             cameras = [cameras]
@@ -412,6 +602,22 @@ class HanabiScene:
             if pname not in stepped:
                 self._effects[pname].last_events.pop(chan, None)
 
+        # Instanced groups: one pass per group.
+        for gname, g in self._groups.items():
+            if self._group_paused(g, culled):
+                continue
+            counts = g["bank"].tick(self.clock.delta)
+            seeds = self._rng.integers(0, 2**32, size=g["fx"].num_instances, dtype=np.uint32)
+            inputs = g["fx"].make_inputs(counts, seeds, g["transforms"], g["properties"].as_dict())
+            g["pools"], _ = g["fx"].step(g["pools"], inputs, sim)
+        self.last_frame_ms = (time.perf_counter() - t0) * 1000.0
+
+    @staticmethod
+    def _group_paused(g, culled) -> bool:
+        return g["asset"].simulation_condition is SimulationCondition.WHEN_VISIBLE and (
+            not g["visible"] or g["name"] in culled
+        )
+
     def _root_of(self, name: str) -> str:
         inst = self._effects[name]
         while inst.parent is not None:
@@ -419,13 +625,15 @@ class HanabiScene:
         return inst.name
 
     def _collect_chunk_inputs(self, frames: int, dt: float, on_frame=None, culled=frozenset()):
-        """Host-side prep for a chunk (scene.py:1296-1391, without groups):
-        freeze visibility, resolve event trees, precompute every frame's
-        spawner ticks, seeds, transforms and property values.
+        """Host-side prep for a chunk (scene.py:1296-1391): freeze
+        visibility, resolve event trees, precompute every frame's spawner
+        ticks, seeds, transforms and property values, the groups' after the
+        effects' each frame. Returns ``(active_effects, active_groups,
+        families, per_effect_inputs, per_group_inputs, sims)``.
 
         ``on_frame(scene, i)`` runs on the host before frame ``i``'s inputs
         are captured. ``culled``: frustum-culled names, frozen for the chunk
-        like visibility; WhenVisible effects in it pause."""
+        like visibility; WhenVisible effects and groups in it pause."""
 
         def family_paused(name):
             rname = self._root_of(name)
@@ -435,6 +643,7 @@ class HanabiScene:
             )
 
         active_effects = [n for n in self._order if not family_paused(n)]
+        active_groups = [n for n, g in self._groups.items() if not self._group_paused(g, culled)]
         # event trees: root -> topologically ordered member names; childless
         # emitters run as single-member trees so their last_events stay fresh
         families: Dict[str, list] = {}
@@ -445,6 +654,7 @@ class HanabiScene:
 
         sims = []
         per_effect_inputs = {n: [] for n in active_effects}
+        per_group_inputs = {n: [] for n in active_groups}
         for i in range(frames):
             if on_frame is not None:
                 on_frame(self, i)
@@ -464,18 +674,28 @@ class HanabiScene:
                         inst.properties.as_dict(),
                     )
                 )
+            for gname in active_groups:
+                g = self._groups[gname]
+                per_group_inputs[gname].append(
+                    g["fx"].make_inputs(
+                        g["bank"].tick(self.clock.delta),
+                        self._rng.integers(0, 2**32, size=g["fx"].num_instances, dtype=np.uint32),
+                        g["transforms"],
+                        g["properties"].as_dict(),
+                    )
+                )
         self._frame += frames
-        return active_effects, families, per_effect_inputs, sims
+        return active_effects, active_groups, families, per_effect_inputs, per_group_inputs, sims
 
     def update_chunk(self, frames: int, dt: float, on_frame=None) -> None:
         """Advance ``frames`` frames: one ``step_chunk`` per effect outside
-        any event tree, one family chunk per tree (scene.py:1393-1469,
-        without groups). The pending event buffers ride between the frames
-        of a family on the device; nothing reads back per frame."""
+        any event tree, one family chunk per tree, one ``step_chunk`` per
+        group (scene.py:1393-1485). The pending event buffers ride between
+        the frames of a family on the device; nothing reads back per
+        frame."""
         self._refuse_unported()
-        active_effects, families, per_effect_inputs, sims = self._collect_chunk_inputs(
-            frames, dt, on_frame
-        )
+        (active_effects, active_groups, families, per_effect_inputs, per_group_inputs,
+         sims) = self._collect_chunk_inputs(frames, dt, on_frame)
         family_members = {n for mem in families.values() for n in mem}
         for name in active_effects:
             if name in family_members:
@@ -516,6 +736,10 @@ class HanabiScene:
             for inst, pool, pend in zip(insts, pools, pendings):
                 inst.pool = pool
                 inst.last_events = pend
+        for gname in active_groups:
+            g = self._groups[gname]
+            ii, ss = CompiledEffect.stack_frames(per_group_inputs[gname], sims)
+            g["pools"] = g["fx"].step_chunk(g["pools"], ii, ss)
 
     def update_render_chunk(
         self,
@@ -529,14 +753,16 @@ class HanabiScene:
         pipeline: str = "auto",
     ):
         """Advance AND render ``frames`` frames of the whole scene
-        (scene.py:1640-1858, one camera, without groups).
+        (scene.py:1640-1858, one camera).
 
         The JAX package's ``lax.scan`` is a K-frame Python loop here, which
         only enqueues device work: each frame steps every member in scene
         order (children consume their parent's PREVIOUS-frame events, as in
-        :meth:`update_chunk`), then renders the fresh pools through the render
-        plan frozen at call time (visibility, frustum culling, ordering,
-        batching and phases, like the JAX package). Returns ``(image,
+        :meth:`update_chunk`) and every group, then renders the fresh pools
+        through the render plan frozen at call time (visibility, frustum
+        culling, ordering, batching and phases, like the JAX package); a
+        group draws its flat pool with its first instance's property values
+        (scene.py:1952-1974). Returns ``(image,
         checksums)``: the last frame's [H, W, 4] framebuffer and a [K] device
         tensor of per-frame framebuffer sums; nothing reads back inside the
         loop."""
@@ -547,12 +773,13 @@ class HanabiScene:
         # the chunk is camera-driven by construction: WhenVisible gating on
         self._frustum_sim = True
         culled = self._culled_names([camera], for_render=True)
-        names, _, per_effect_inputs, sims = self._collect_chunk_inputs(
+        names, gnames, _, per_effect_inputs, per_group_inputs, sims = self._collect_chunk_inputs(
             frames, dt, on_frame, culled=culled
         )
         insts = [self._effects[n] for n in names]
+        groups = [self._groups[g] for g in gnames]
         index = {n: i for i, n in enumerate(names)}
-        plan = self._scene_render_plan(insts, camera, pipeline, culled=culled)
+        plan = self._scene_render_plan(insts, camera, pipeline, culled=culled, groups=groups)
         bg = torch.tensor(background, dtype=torch.float32, device=self.device).expand(
             config.height, config.width, 4
         )
@@ -578,12 +805,18 @@ class HanabiScene:
                 )
                 new_pendings.append(ev_out)
             pendings = new_pendings
+            for g in groups:
+                g["pools"], _ = g["fx"].step(g["pools"], per_group_inputs[g["name"]][j], sims[j])
             # the frame renderer of scene.py:1860-2097: the plan over the
             # fresh pools, each effect with this frame's transform and
-            # properties
+            # properties, each group with its first instance's properties
             inputs = [(per_effect_inputs[n][j].transform, per_effect_inputs[n][j].properties)
                       for n in names]
-            img = self._render_frame(insts, plan, inputs, sims[j], camera, config, bg, scene_depth)
+            group_props = [
+                {k: v[0] for k, v in per_group_inputs[g][j].properties.items()} for g in gnames
+            ]
+            img = self._render_frame(insts, plan, inputs, sims[j], camera, config, bg, scene_depth,
+                                     groups=groups, group_props=group_props)
             sums.append(img.sum())
         for inst, pend in zip(insts, pendings):
             inst.last_events = pend
@@ -594,16 +827,19 @@ class HanabiScene:
 
     # -- rendering -------------------------------------------------------------
 
-    def _scene_render_plan(self, insts, camera, pipeline="auto", culled=frozenset()):
-        """The render plan (scene.py:1499-1638, without groups): visible,
-        unculled effects back to front by emitter distance under ``camera``,
-        split into opaque/mask and transparent phases, each phase's
-        same-blend runs batched into ("batch", idxs, kind) and the rest as
-        ("eff", i, kind) (mask and ribbon effects never batch). Returns
-        ``(opaque_passes, transp_passes)``. "auto" takes the painter pass,
-        the single descriptor ("painter", idxs, ()) in ``transp_passes``,
-        when the split plan has two or more passes; "painter" always does;
-        "split" never."""
+    def _scene_render_plan(self, insts, camera, pipeline="auto", culled=frozenset(), groups=()):
+        """The render plan (scene.py:1499-1638): visible, unculled effects
+        back to front by emitter distance under ``camera``, split into
+        opaque/mask and transparent phases, each phase's same-blend runs
+        batched into ("batch", idxs, kind) and the rest as ("eff", i, kind)
+        (mask, ribbon, mesh, textured and raster-overridden effects never
+        batch), then each phase's visible ``groups`` as ("grp", gi, kind).
+        Returns ``(opaque_passes, transp_passes)``. "auto" takes the painter
+        pass, the single descriptor ("painter", idxs, group_idxs) in
+        ``transp_passes``, when every visible effect and group is eligible
+        (no raster override) and the split plan has two or more passes;
+        "painter" always does, and raises for an ineligible one; "split"
+        never."""
         if pipeline not in ("auto", "split", "painter"):
             raise ValueError(f"pipeline must be 'auto', 'split' or 'painter'; got {pipeline!r}")
         view_h = np.asarray(camera.view)
@@ -625,7 +861,7 @@ class HanabiScene:
             asset = inst.asset
             kind = asset.alpha_mode.kind
             if (kind == "mask" or asset.particle_layout().contains("ribbon_id")
-                    or asset.mesh is not None or inst.textures):
+                    or asset.mesh is not None or inst.textures or inst.raster_override):
                 return None
             return kind
 
@@ -646,11 +882,29 @@ class HanabiScene:
             return tuple(passes)
 
         opaque = [i for i in vis_idx if insts[i].asset.alpha_mode.is_opaque()]
-        opaque_passes = build_passes(opaque)
-        transp_passes = build_passes([i for i in vis_idx if i not in opaque])
+        vis_groups = [gi for gi, g in enumerate(groups) if g["visible"] and g["name"] not in culled]
+        opq_groups = [gi for gi in vis_groups if groups[gi]["asset"].alpha_mode.is_opaque()]
+        opaque_passes = build_passes(opaque) + tuple(
+            ("grp", gi, groups[gi]["asset"].alpha_mode.kind) for gi in opq_groups
+        )
+        transp_passes = build_passes([i for i in vis_idx if i not in opaque]) + tuple(
+            ("grp", gi, groups[gi]["asset"].alpha_mode.kind)
+            for gi in vis_groups if gi not in opq_groups
+        )
+        if pipeline == "split":
+            return opaque_passes, transp_passes
+        eligible = not any(insts[i].raster_override for i in vis_idx) and not any(
+            groups[gi]["raster_override"] for gi in vis_groups
+        )
+        if pipeline == "painter" and not eligible:
+            raise ValueError(
+                "pipeline='painter' requires every visible effect/group to be "
+                "painter-eligible (no per-effect raster overrides) — use 'auto' to fall "
+                "back to the split pipeline automatically"
+            )
         n_passes = len(opaque_passes) + len(transp_passes)
-        if vis_idx and (pipeline == "painter" or (pipeline == "auto" and n_passes >= 2)):
-            return (), (("painter", tuple(vis_idx), ()),)
+        if (vis_idx or vis_groups) and eligible and (pipeline == "painter" or n_passes >= 2):
+            return (), (("painter", tuple(vis_idx), tuple(vis_groups)),)
         return opaque_passes, transp_passes
 
     def _frame_config(self, camera, config, background):
@@ -690,68 +944,95 @@ class HanabiScene:
             config.height, config.width, 4
         )
         insts = [self._effects[n] for n in self._order]
+        groups = list(self._groups.values())
         plan = self._scene_render_plan(
-            insts, camera, pipeline, culled=self._culled_names([camera], for_render=True)
+            insts, camera, pipeline, culled=self._culled_names([camera], for_render=True),
+            groups=groups,
         )
         inputs = [(inst.transform, inst.properties.as_dict()) for inst in insts]
         return self._render_frame(
             insts, plan, inputs, self.clock.sim_params(), camera, config, fb, scene_depth,
-            return_depth,
+            return_depth, groups=groups,
+            group_props=[g["properties"].as_dict() for g in groups],
         )
 
     def _render_frame(self, insts, plan, inputs, sim, camera, config, fb, scene_depth=None,
-                      return_depth=False):
+                      return_depth=False, groups=(), group_props=()):
         """Run a render plan onto ``fb``. ``inputs[i]`` is effect i's
-        (transform, properties). Phase split as the reference's render
-        phases: opaque and mask passes draw first threading the depth plane,
-        then the transparent passes test against it."""
+        (transform, properties), ``group_props[gi]`` the properties group
+        ``gi`` draws with. Phase split as the reference's render phases:
+        opaque and mask passes draw first threading the depth plane, then
+        the transparent passes test against it."""
         opaque_passes, transp_passes = plan
         if scene_depth is not None:
             scene_depth = torch.as_tensor(scene_depth, dtype=torch.float32, device=self.device)
         if transp_passes and transp_passes[0][0] == "painter":
-            idxs = transp_passes[0][1]
+            _, idxs, gidxs = transp_passes[0]
             return self._render_painter(
                 [insts[i] for i in idxs], [inputs[i] for i in idxs], camera, config, sim, fb,
-                scene_depth, return_depth,
+                scene_depth, return_depth, groups=[groups[gi] for gi in gidxs],
+                group_props=[group_props[gi] for gi in gidxs],
             )
         depth_acc = scene_depth
+        passes = (groups, group_props)
         for desc in opaque_passes:
             fb, depth_acc = self._run_pass(desc, insts, inputs, camera, config, sim, fb,
-                                           depth_acc, True)
+                                           depth_acc, True, passes)
         if opaque_passes:
             scene_depth = depth_acc
         for desc in transp_passes:
             fb, _ = self._run_pass(desc, insts, inputs, camera, config, sim, fb, scene_depth,
-                                   False)
+                                   False, passes)
         if not return_depth:
             return fb
         if depth_acc is None:
             depth_acc = torch.full((config.height, config.width), torch.inf, device=self.device)
         return fb, depth_acc
 
-    def _run_pass(self, desc, insts, inputs, camera, config, sim, fb, depth, write_depth):
-        """One "eff" or "batch" pass: returns ``(fb, depth)``."""
+    def _run_pass(self, desc, insts, inputs, camera, config, sim, fb, depth, write_depth,
+                  groups=((), ())):
+        """One "eff", "batch" or "grp" pass: returns ``(fb, depth)``.
+        ``groups`` is ``(groups, group_props)``."""
         tag, which, kind = desc
         if tag == "batch":
             out = self._render_batch(
                 [insts[i] for i in which], [inputs[i] for i in which], kind, camera, config,
                 sim, fb, depth, write_depth,
             )
+        elif tag == "grp":
+            g = groups[0][which]
+            out = self._render_entity(g, self._group_flat_pool(g), None, groups[1][which], camera,
+                                      config, sim, fb, depth, write_depth)
         else:
-            out = self._render_effect(insts[which], inputs[which], camera, config, sim, fb,
+            transform, props = inputs[which]
+            inst = insts[which]
+            out = self._render_entity(inst, inst.pool, transform, props, camera, config, sim, fb,
                                       depth, write_depth)
         return out if write_depth else (out, depth)
 
-    def _render_effect(self, inst, inp, camera, config, sim, fb, scene_depth=None,
+    @staticmethod
+    def _render_entity(entity, pool, transform, props, camera, config, sim, fb, scene_depth=None,
                        return_depth=False):
-        """The ``"eff"`` pass: one effect through its EffectRenderer."""
+        """The ``"eff"`` and ``"grp"`` passes: one effect (an
+        :class:`EffectInstance`) or group (its dict and flat pool) through its
+        EffectRenderer, at the scene config with the entity's raster override."""
         from ..render.renderer import EffectRenderer
 
-        if inst.renderer is None or inst.renderer.config != config:
-            inst.renderer = EffectRenderer(inst.asset, config, textures=inst.textures)
-        transform, props = inp
-        return inst.renderer.render(
-            inst.pool,
+        group = isinstance(entity, dict)
+        override = entity["raster_override"] if group else entity.raster_override
+        if override:
+            config = dataclasses.replace(config, **override)
+        renderer = entity["renderer"] if group else entity.renderer
+        if renderer is None or renderer.config != config:
+            asset = entity["asset"] if group else entity.asset
+            textures = entity["textures"] if group else entity.textures
+            renderer = EffectRenderer(asset, config, textures=textures)
+            if group:
+                entity["renderer"] = renderer
+            else:
+                entity.renderer = renderer
+        return renderer.render(
+            pool,
             camera,
             sim=sim,
             properties=props,
@@ -783,35 +1064,43 @@ class HanabiScene:
         return composite_by_mode(out, fb, alpha_kind)
 
     def _render_painter(self, insts, inputs, camera, config, sim, fb, scene_depth=None,
-                        return_depth=False):
-        """Every visible effect in ONE painter pass (scene.py:2658-2769):
+                        return_depth=False, groups=(), group_props=()):
+        """Every visible effect and group in ONE painter pass (scene.py:2658-2769):
         one global (tile, depth) sort, one window gather, one blend loop
         whose per-entry mode ids select the equation; opaque and mask
         entries write depth mid-loop; a ribbon effect joins as its segment
         quads, a mesh effect as its expanded entries, and textured effects
         through one atlas, a layer for each distinct texture object
         (scene.py:47-75's shared conversion). ``insts`` are in
-        back-to-front emitter order, which breaks sort ties only."""
+        back-to-front emitter order, which breaks sort ties only; the
+        groups' entries follow the effects', each group's flat pool drawn
+        with ``group_props``."""
         from ..render.extract import concat_painter_draws, extract_draw_data
         from ..render.mesh import expand_mesh_draw
         from ..render.raster import rasterize
         from ..render.ribbon import build_ribbon_segments
 
         shared = {}  # id(source) -> the first upload of that object
-        textures = [
-            tuple(shared.setdefault(id(src), t) for src, t in zip(i.texture_sources, i.textures))
-            for i in insts
+        sources = [(i.texture_sources, i.textures) for i in insts] + [
+            (g["texture_sources"], g["textures"]) for g in groups
         ]
+        textures = [
+            tuple(shared.setdefault(id(src), t) for src, t in zip(srcs, texs))
+            for srcs, texs in sources
+        ]
+        entries = [(i.asset, i.fx.layout, i.pool, tr, pr) for i, (tr, pr) in zip(insts, inputs)]
+        entries += [(g["asset"], g["fx"].effect.layout, self._group_flat_pool(g), None, pr)
+                    for g, pr in zip(groups, group_props)]
         draws = []
-        for inst, (tr, pr), texs in zip(insts, inputs, textures):
-            draw = extract_draw_data(inst.asset, inst.pool, camera, sim=sim, properties=pr,
+        for (asset, layout, pool, tr, pr), texs in zip(entries, textures):
+            draw = extract_draw_data(asset, pool, camera, sim=sim, properties=pr,
                                      textures=list(texs), transform=tr)
-            if inst.fx.layout.contains("ribbon_id"):
+            if layout.contains("ribbon_id"):
                 draw = build_ribbon_segments(draw, camera)
-            elif inst.asset.mesh is not None:
-                draw = expand_mesh_draw(draw, inst.asset.mesh)
+            elif asset.mesh is not None:
+                draw = expand_mesh_draw(draw, asset.mesh)
             draws.append(draw)
-        flat = concat_painter_draws(draws, [i.asset.alpha_mode.kind for i in insts],
+        flat = concat_painter_draws(draws, [e[0].alpha_mode.kind for e in entries],
                                     textures_per_draw=textures)
         return rasterize(flat, camera, config, alpha_mode="scene", scene_depth=scene_depth,
                          framebuffer=fb, return_depth=return_depth)

@@ -26,17 +26,10 @@ __all__ = ["SpawnerSettings", "EffectSpawner", "SpawnerBank", "make_spawner_bank
 
 
 def make_spawner_bank(settings: "SpawnerSettings", num_instances: int, seed: int = 0):
-    """Best available bank for N same-settings spawners: the native (C++)
-    implementation when the toolchain is present, else the numpy one."""
-    try:
-        from .native import NativeSpawnerBank, native_available
-    except ImportError:
-        # toolchain absent: the numpy bank is the documented fallback
-        return SpawnerBank(settings, num_instances, seed=seed)
-    if native_available():
-        # construction errors propagate — a broken native bank is a bug
-        # to surface, not a reason to silently run the slow path
-        return NativeSpawnerBank(settings, num_instances, seed=seed)
+    """The bank for N same-settings spawners. The port has no native (C++)
+    bank, so this is the numpy one; the JAX package's native bank ticks the
+    same counts for constant settings, and draws its own random stream for
+    ``CpuValue.uniform`` ones."""
     return SpawnerBank(settings, num_instances, seed=seed)
 
 
@@ -293,6 +286,15 @@ class SpawnerBank:
         self.cycle_time[sl] = 0.0
         self.remainder[sl] = 0.0
         self.completed_cycles[sl] = 0
+
+    def set_active(self, active: bool, index: int = -1) -> None:
+        """Activate or pause every spawner (``index`` < 0) or one, as the
+        JAX package's native bank does (native/src: spawner_bank_set_active)."""
+        if not self._vector:
+            for sp in self._spawners if index < 0 else [self._spawners[index]]:
+                sp.set_active(active)
+            return
+        self.active[slice(None) if index < 0 else index] = active
 
     def tick(self, dt: float) -> np.ndarray:
         """Tick all spawners; returns int32[I] spawn counts."""

@@ -8,8 +8,8 @@ the port's main paths through its public entry points: the
 benchmark-headline frame and its three companion binnings, the firework
 event tree, the mixed scene (``HanabiScene.update_render_chunk``), the
 ribbon frame, the force field, the textured mesh frame, the painter pass
-with its texture atlas and mesh/Lambert merge, and antialiasing. It never
-imports JAX. Phases, each of which fails the run on any error:
+with its texture atlas and mesh/Lambert merge, antialiasing, instanced
+groups and the reference's examples. It never imports JAX. Phases, each of which fails the run on any error:
 
 1. a CUDA device must be present; print its name and power limit;
 2. build the kernel library (nvcc, one process per source, ctypes) and,
@@ -221,7 +221,32 @@ imports JAX. Phases, each of which fails the run on any error:
     (``tile_size=16``, ``tile_span=2``, ``max_entries_per_tile=128``,
     ``antialias=True``), 12 frames each, card against CPU, and the
     flipbook's and the squircle's windows antialiased against the plain
-    version.
+    version;
+19. instanced groups (bench.py::bench_instanced, bench.py:403-437):
+    a. the gate: ``InstancedEffect(instancing_effect(4096), 8)`` through 30
+       frames of ``step_render_chunk`` at 128x128 on the card and on the
+       CPU: every instance's alive mask, seeds and counter bit for bit,
+       positions within rtol 1e-2 / atol 1e-3, every checksum within 0.5%;
+    b. 256 instances x 4096 (1 048 576 lanes), ``make_spawner_bank(seed=1)``:
+       four warm-up ``step_chunk`` chunks of K = 120 past the 3 s lifetime,
+       then three timed chunks, each ending in a readback (steps/s,
+       particle-steps/s);
+    c. one warm-up and three timed ``step_render_chunk`` chunks at
+       ``RasterConfig(512, 512)`` (frames/s; ``project_bin``, ``bin_keys``,
+       ``gather_window`` and ``tile_blend`` BLEND must launch), the last
+       frame rendered again on the CPU (checksums within 0.5%);
+    d. on that frame the four kernels against their plain versions,
+       exactly, and timed;
+    e. ``torch.profiler`` over 30 rendered frames;
+20. the examples: every ``examples_registry`` entry (30 frames; ``worms``
+    60), the gallery's 5x5 ``add_group`` grid (examples/run_all.py:81-97)
+    and a textured flipbook ribbon through ``HanabiScene`` and a 512x512
+    ``render``, card against CPU (alive counts equal, checksums within
+    0.5%), and the ``set_spawner_active`` / ``reset_spawner`` scenarios of
+    the JAX package's tests/test_examples.py:71-125, card against CPU;
+21. ``ribbon_segments`` with the sprite column on the textured ribbon's
+    frame, exactly against its plain version, and timed (and, in phase 13,
+    on the ribbon frame's 1M rows with a sprite column).
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -242,8 +267,11 @@ and ``[mesh,lit,M=512]`` with 0 launches), the painter frame's
 (``mesh_expand``, ``project_bin``, ``bin_keys``, ``gather_window`` at
 ``[painter]``, ``tile_blend[scene,atlas]`` and ``[scene,atlas,aa]`` with 0
 launches) and the antialiased variants' (``tile_blend[blend,aa]``,
-``[mesh,aa]``, ``[mesh,lit,aa]``, ``[flipbook,aa]``, ``[round,aa]``). Each
-row holds the
+``[mesh,aa]``, ``[mesh,lit,aa]``, ``[flipbook,aa]``, ``[round,aa]``), the
+instanced frame's (``project_bin``, ``bin_keys``, ``gather_window`` and
+``tile_blend`` at ``[instanced]``) and the textured ribbon's
+(``ribbon_segments[sprite]``, and ``[sprite,1M]``, a timing row with 0
+launches). Each row holds the
 path's launches, the kernel's and its plain version's device ms, the
 library call's (``index_select`` for the gathers, of the window's rows
 for ``gather_window``, of the appearance rows by the segment order for
@@ -398,6 +426,9 @@ GATHER_WINDOW_VARIANTS = (
 )
 FIRST_WINDOW_FLOATS = 12288
 VARIANT_LIBS = {}  # phase 2's variant builds by label
+# bench.py::bench_instanced (bench.py:403-437): 256 instances x 4096 lanes
+INSTANCES, INSTANCE_CAPACITY = 256, 4096
+INSTANCED_GATE = (8, 4096)  # the instanced gate's instances x lanes (phase 19a)
 
 
 def fail(msg: str) -> None:
@@ -1646,7 +1677,27 @@ def compare_ribbon_kernels(draw, cam, variants) -> dict:
           f"ms, streaming copy {seg_row['floor_copy_ms']:.4f} ms; the appearance gather alone "
           f"({n} x 4 floats by the order): index_select {seg_row['library_ms']:.4f} ms, "
           f"gather_rows {seg_row['gather_rows_ms']:.4f} ms")
-    return {"ribbon_keys[ribbon]": keys_row, "ribbon_segments[ribbon]": seg_row}
+    # a textured ribbon's flipbook frame (phase 21's path) at the frame's
+    # 1M rows: one more 4-byte column read through the same chain
+    sprite = torch.randint(0, 8, (n,), dtype=torch.int32, device=perm2.device)
+    sargs = (*args, sprite)
+    got_s, want_s = ribbon.ribbon_segments(*sargs), ribbon.ribbon_segments_plain(*sargs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got_s, want_s) if a is not None) or (
+            got_s[6] is None):
+        fail("ribbon_segments with a sprite column: differs from the plain version")
+    sprite_row = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: ribbon.ribbon_segments(*sargs), 100),
+        "plain_ms": cuda_ms(lambda: ribbon.ribbon_segments_plain(*sargs), 20),
+        "library_ms": cuda_ms(lambda: sprite.index_select(0, order), 100),
+        **bound(nbytes(perm1, perm2, key_sorted, args[0], args[1], color, sprite, *got_s)),
+    }
+    print(f"ribbon_segments with a sprite column: {n} rows, exact; kernel {sprite_row['ms']:.4f} ms "
+          f"(without {seg_row['ms']:.4f}), the sprite gather alone by index_select "
+          f"{sprite_row['library_ms']:.4f} ms")
+    return {"ribbon_keys[ribbon]": keys_row, "ribbon_segments[ribbon]": seg_row,
+            "ribbon_segments[sprite,1M]": sprite_row}
 
 
 def warm_ribbons(config):
@@ -2775,6 +2826,364 @@ def extract_mesh_draw(scene, name, cam):
                              transform=inst.transform)
 
 
+# ---- phases 19-21: instanced groups, the examples, textured ribbons -----------
+
+
+def instanced_inputs(fx, bank, rng, frame: int, k: int = K):
+    """K frames of bench.py::bench_instanced's inputs (bench.py:409-421):
+    the bank's spawn counts, frame seeds from ``rng``, identity transforms."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch import SimParams
+
+    ins = [fx.make_inputs(bank.tick(DT), rng.integers(0, 2**32, fx.num_instances, dtype=np.uint32))
+           for _ in range(k)]
+    sims = [SimParams(time=(frame + j) * DT, delta_time=DT) for j in range(k)]
+    return fx.effect.stack_frames(ins, sims)
+
+
+def instanced_setup(device, instances: int, capacity: int):
+    """``InstancedEffect(instancing_effect(capacity), instances)`` on
+    ``device`` with bench.py::bench_instanced's bank (seed 1) and frame-seed
+    stream (seed 0): ``(fx, pools, bank, rng)``."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch import InstancedEffect
+    from bevy_hanabi_tpu_torch.models import instancing_effect
+    from bevy_hanabi_tpu_torch.spawn import make_spawner_bank
+
+    asset = instancing_effect(capacity)
+    fx = InstancedEffect(asset, instances, capacity, device=device)
+    return (fx, fx.create_pools(), make_spawner_bank(asset.spawner, instances, seed=1),
+            np.random.default_rng(0))
+
+
+def instanced_gate():
+    """Phase 19a: 8 x 4096 instances through 30 frames of
+    ``step_render_chunk`` at 128x128, card against CPU, to bench.py:121-130's
+    tolerances: every instance's alive mask, seeds and counter bit for bit,
+    positions within rtol 1e-2 / atol 1e-3, every frame's checksum within
+    0.5%."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch import RasterConfig
+
+    i, cap = INSTANCED_GATE
+    cam = gate_camera(eye_z=8.0)
+    out = []
+    for device in ("cuda", "cpu"):
+        fx, pools, bank, rng = instanced_setup(device, i, cap)
+        pools, img, sums = fx.step_render_chunk(pools, *instanced_inputs(fx, bank, rng, 0, 30), cam,
+                                                RasterConfig(128, 128))
+        out.append((pools, img, sums.cpu().tolist()))
+    (pg, img_g, sums_g), (pc, _, sums_c) = out
+    (ag, alive_g, seed_g, cnt_g), (ac, alive_c, seed_c, cnt_c) = pg.to_numpy(), pc.to_numpy()
+    if not (np.array_equal(alive_g, alive_c) and np.array_equal(seed_g, seed_c)
+            and np.array_equal(cnt_g, cnt_c)):
+        fail("instanced gate: alive masks, seeds or counters differ between the card and the CPU")
+    for name in ("position", "velocity"):
+        if not np.allclose(ag[name][alive_c], ac[name][alive_c], rtol=POS_RTOL, atol=POS_ATOL):
+            fail(f"instanced gate: {name} differs beyond rtol {POS_RTOL} / atol {POS_ATOL}")
+    for k, (a, b) in enumerate(zip(sums_g, sums_c)):
+        if not checksum_close(a, b) or not b > 0.0:
+            fail(f"instanced gate frame {k}: checksum {a} on the card vs {b} on the CPU")
+    if not bool(img_g.isfinite().all()):
+        fail("instanced gate: non-finite pixels on the card")
+    print(f"instanced gate {i} x {cap}: alive per instance {alive_c.sum(-1).tolist()}, counters "
+          f"{cnt_c.tolist()}, masks, seeds and counters bit-equal, positions within the gate, last "
+          f"checksum card {sums_g[-1]:.6e} cpu {sums_c[-1]:.6e}")
+
+
+def instanced_frame(kernels):
+    """Phase 19b-e: bench.py::bench_instanced at full width, 256 instances x
+    4096 lanes of ``instancing_effect`` (1 048 576 lanes). (b) Four warm-up
+    ``step_chunk`` chunks of K past the 3 s lifetime, then three timed
+    chunks, each ending in a readback (steps/s, particle-steps/s); (c) one
+    warm-up and three timed ``step_render_chunk`` chunks at
+    ``RasterConfig(512, 512)`` (the JAX package's default binning) with the
+    kernels' launches counted over the timed chunks (frames/s), the last
+    frame rendered again on the CPU through the plain versions; (d) on that
+    frame ``project_bin``, ``bin_keys``, ``gather_window`` and
+    ``tile_blend`` BLEND against their plain versions, exactly, and timed;
+    (e) ``torch.profiler`` over 30 rendered frames. Returns ``(results,
+    launches)``."""
+    import torch
+
+    from bevy_hanabi_tpu_torch import ParticlePool, RasterConfig
+    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+
+    i, cap = INSTANCES, INSTANCE_CAPACITY
+    fx, pools, bank, rng = instanced_setup("cuda", i, cap)
+    frame = 0
+    t0 = time.perf_counter()
+    for _ in range(4):  # > the 3 s lifetime: steady churn (bench.py:423-425)
+        pools = fx.step_chunk(pools, *instanced_inputs(fx, bank, rng, frame))
+        frame += K
+    alive_before = int(fx.total_alive(pools))
+    print(f"instanced warm-up: {frame} frames of {i} x {cap} in {time.perf_counter() - t0:.2f} s, "
+          f"alive {alive_before}")
+    times = []
+    for _ in range(3):
+        ii, ss = instanced_inputs(fx, bank, rng, frame)
+        frame += K
+        int(fx.total_alive(pools))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pools = fx.step_chunk(pools, ii, ss)
+        alive_after = int(fx.total_alive(pools))  # readback: waits for the chunk
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    alive_mean = 0.5 * (alive_before + alive_after)
+    print(f"instanced step_chunk times (s): {times}")
+    print(f"instanced {i} x {cap}: {K} steps in {best:.4f} s: {K / best:.2f} steps/s, "
+          f"{alive_mean * K / best:.4e} particle-steps/s, alive {alive_after}")
+
+    cam = headline_camera()
+    config = RasterConfig(512, 512)
+    pools, _, _ = fx.step_render_chunk(pools, *instanced_inputs(fx, bank, rng, frame), cam, config)
+    frame += K
+    alive_before = int(fx.total_alive(pools))
+    reset_launches(kernels)
+    times = []
+    for _ in range(3):
+        ii, ss = instanced_inputs(fx, bank, rng, frame)
+        frame += K
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pools, img, sums = fx.step_render_chunk(pools, ii, ss, cam, config)
+        alive_after = int(fx.total_alive(pools))
+        times.append(time.perf_counter() - t0)
+    launches = read_launches(kernels)
+    best = min(times)
+    alive_mean = 0.5 * (alive_before + alive_after)
+    print(f"instanced step_render_chunk times (s): {times}")
+    print(f"instanced frames at 512x512: {K} frames in {best:.4f} s: {K / best:.2f} frames/s, "
+          f"{alive_mean * K / best:.4e} particle-frames/s, alive {alive_after}, checksum "
+          f"{float(sums.sum()):.6e}")
+    print(f"launches in the instanced chunks: {launches}")
+    require_launches(launches, HEADLINE_KERNELS, "the instanced frame")
+    if not bool(img.isfinite().all()) or not float(sums.sum()) > 0.0 or tuple(img.shape) != (
+            512, 512, 4):
+        fail("instanced image is not finite, empty or of the wrong shape")
+    flat = pools.flatten()
+    rerender_headline(fx.asset, flat, cam, config, "instanced")
+
+    draw = extract_draw_data(fx.asset, flat, cam)
+    nt = config.num_tiles
+    results = {}
+    results["project_bin[instanced]"], projected = compare_project_bin(
+        project_args(draw, cam, config), nt, "project_bin (instanced)",
+        raster.row_width("blend", False), config=config)
+    results["bin_keys[instanced]"] = compare_bin_keys(projected, nt, None, "bin_keys (instanced)")
+    results["gather_window[instanced]"], win = compare_gather_window(
+        projected, nt, config.max_entries_per_tile, None, "instanced")
+    results["tile_blend[instanced]"], _ = compare_tile_blend(
+        "blend (instanced)", *win, config.tile_size, config.tiles_x, config.tiles_y,
+        config.background, "blend")
+    del draw, projected, win
+
+    def run(k):
+        nonlocal pools, frame
+        pools, _, _ = fx.step_render_chunk(pools, *instanced_inputs(fx, bank, rng, frame, k), cam,
+                                           config)
+        frame += k
+        int(fx.total_alive(pools))
+
+    profile_frames("instanced", run)
+    return results, launches
+
+
+def gallery_grid(scene) -> None:
+    """examples/run_all.py:81-97: a 5x5 grid of small emitters, one group."""
+    import numpy as np
+
+    from bevy_hanabi_tpu_torch import Gradient, SizeOverLifetimeModifier
+    from bevy_hanabi_tpu_torch.models import instancing_effect
+
+    grid = np.tile(np.eye(3, 4, dtype=np.float32), (25, 1, 1))
+    grid[:, 0, 3] = (np.arange(25) % 5 - 2) * 2.0
+    grid[:, 1, 3] = (np.arange(25) // 5 - 2) * 2.0
+    asset = instancing_effect(capacity=512).render(
+        SizeOverLifetimeModifier(Gradient.linear((0.15,), (0.05,))))
+    scene.add_group(asset, 25, "grid", transforms=grid)
+
+
+def textured_ribbon_asset():
+    """example_ribbon with a flipbook: ParticleTextureModifier(0),
+    FlipbookModifier((4, 1)) and a SPRITE_INDEX animated by age, a column
+    that varies along each trail."""
+    from bevy_hanabi_tpu_torch import INT, ExprWriter, FlipbookModifier, ParticleTextureModifier
+    from bevy_hanabi_tpu_torch import SetAttributeModifier, attributes
+    from bevy_hanabi_tpu_torch.models import example_ribbon
+
+    asset = example_ribbon()
+    w = ExprWriter()
+    w.module = asset.module
+    frame_expr = (w.attr(attributes.AGE) * 3.0).min(w.lit(3.0)).cast(INT)
+    return (asset.update(SetAttributeModifier(attributes.SPRITE_INDEX, frame_expr.expr()))
+            .render(ParticleTextureModifier(0)).render(FlipbookModifier((4, 1))))
+
+
+def example_scenes():
+    """Every ``examples_registry`` entry (``lifetime``'s trio, ``worms``'
+    parent and child), the gallery's 5x5 ``add_group`` grid and a textured
+    ribbon: ``(label, build(scene), camera eye, frames)``. ``worms`` runs 60
+    frames: its heads spawn at 2/s, the first after 0.5 s."""
+    from bevy_hanabi_tpu_torch.models import examples_registry, make_anim_sprite_sheet
+
+    def single(builder, textures=()):
+        return lambda s: s.add(builder(), "fx", textures=textures)
+
+    def multi(builder):
+        def build(s):
+            assets = builder()
+            if "bodies" in assets:
+                s.add(assets["heads"], "heads")
+                s.add(assets["bodies"], "bodies", parent="heads")
+            else:
+                for name, asset in assets.items():
+                    s.add(asset, name)
+        return build
+
+    out = []
+    for name, builder in examples_registry().items():
+        if name in ("lifetime", "worms"):
+            out.append((name, multi(builder), (0.0, 0.0, 8.0), 60 if name == "worms" else 30))
+        elif name == "circle":
+            out.append((name, single(builder, [make_anim_sprite_sheet(8, 32)]), (0.0, 1.0, 4.0),
+                        30))
+        else:
+            out.append((name, single(builder), (0.0, 0.0, 8.0), 30))
+    out.append(("gallery instancing", gallery_grid, (0.0, 0.0, 14.0), 30))
+    out.append(("textured ribbon", lambda s: s.add(textured_ribbon_asset(), "fx", textures=[
+        make_anim_sprite_sheet(4, 16)]), (0.0, 0.0, 8.0), 30))
+    return out
+
+
+def example_phase(kernels):
+    """Phase 20: every example scene of :func:`example_scenes` through
+    ``HanabiScene`` (seed 1) for its 30 (60) ``update(1/60)`` and one
+    ``render`` at 512x512 (``RasterConfig(512, 512)``), card against CPU:
+    every effect's and group's alive count equal, checksums within 0.5%;
+    then the ``set_spawner_active`` / ``reset_spawner`` scenarios of the JAX
+    package's tests/test_examples.py:71-125, card against CPU. Returns the
+    textured ribbon's launches (phase 21's path)."""
+    import torch
+
+    from bevy_hanabi_tpu_torch import HanabiScene, RasterConfig
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+
+    config = RasterConfig(512, 512)
+    ribbon_launches = None
+    for label, build, eye, frames in example_scenes():
+        cam = CameraParams(look_at(eye, (0.0, 0.0, 0.0)), perspective(0.9, 1.0, 0.1, 200.0),
+                           (512, 512))
+        res = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            if device == "cuda" and label == "textured ribbon":
+                reset_launches(kernels)
+            scene = HanabiScene(seed=1, device=device)
+            build(scene)
+            for _ in range(frames):
+                scene.update(DT)
+            img = scene.render(cam, config)
+            alive = {n: scene[n].alive_count() for n in scene._order}
+            alive.update({n: scene.group_alive(n) for n in scene._groups})
+            res[device] = (alive, float(img.sum()), bool(img.isfinite().all()),
+                           time.perf_counter() - t0)
+            if device == "cuda" and label == "textured ribbon":
+                ribbon_launches = read_launches(kernels)
+        (alive_g, sum_g, fin_g, t_g), (alive_c, sum_c, _, t_c) = res["cuda"], res["cpu"]
+        print(f"example {label}: alive {alive_c}, checksum card {sum_g:.6e} cpu {sum_c:.6e} "
+              f"(card {t_g:.1f} s, cpu {t_c:.1f} s)")
+        if alive_g != alive_c:
+            fail(f"example {label}: alive counts {alive_g} on the card vs {alive_c} on the CPU")
+        if not fin_g or not checksum_close(sum_g, sum_c):
+            fail(f"example {label}: checksum {sum_g} on the card vs {sum_c} on the CPU")
+
+    def activate(device):
+        from bevy_hanabi_tpu_torch.models import example_activate
+
+        s = HanabiScene(seed=3, device=device)
+        s.add(example_activate(), "fx")
+        seen = []
+        for active in (None, True, False):
+            if active is not None:
+                s.set_spawner_active("fx", active)
+            for _ in range(30 if active is not False else 10):
+                s.update(DT)
+            seen.append(s["fx"].alive_count())
+        return seen
+
+    def spawn_on_command(device):
+        from bevy_hanabi_tpu_torch.models import example_spawn_on_command
+
+        s = HanabiScene(seed=4, device=device)
+        s.add(example_spawn_on_command(), "fx")
+        s.set_property("fx", "spawn_color", 0xFF00FF00)
+        s.set_property("fx", "normal", (0.0, 1.0, 0.0))
+        for _ in range(5):
+            s.update(DT)
+        seen = [s["fx"].alive_count()]
+        s.set_spawner_active("fx", True)
+        s.reset_spawner("fx")
+        s.update(DT)
+        pool = s["fx"].pool
+        colors = pool.get("color")[pool.alive].cpu()
+        return seen + [s["fx"].alive_count(), bool((colors == 0xFF00FF00).all())]
+
+    for name, scenario, want in (("activate", activate, None),
+                                 ("spawn_on_command", spawn_on_command, [0, 100, True])):
+        got_g, got_c = scenario("cuda"), scenario("cpu")
+        print(f"scenario {name}: card {got_g}, cpu {got_c}")
+        if got_g != got_c or (want is not None and got_c != want) or (
+                name == "activate" and not (got_c[0] == 0 and got_c[1] > 0 and got_c[2] <= got_c[1])):
+            fail(f"scenario {name}: card {got_g} vs cpu {got_c}")
+    torch.cuda.synchronize()
+    return ribbon_launches
+
+
+def textured_ribbon_kernels(kernels) -> dict:
+    """Phase 21: ``ribbon_segments`` with the sprite column on the textured
+    ribbon's frame (30 frames of phase 20's scene on the card), exactly
+    against its plain version, and timed."""
+    import torch
+
+    from bevy_hanabi_tpu_torch import HanabiScene
+    from bevy_hanabi_tpu_torch.models import make_anim_sprite_sheet
+    from bevy_hanabi_tpu_torch.render import ribbon
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+
+    scene = HanabiScene(seed=1, device="cuda")
+    scene.add(textured_ribbon_asset(), "fx", textures=[make_anim_sprite_sheet(4, 16)])
+    for _ in range(30):
+        scene.update(DT)
+    cam = ribbon_camera()
+    draw = extract_draw_data(scene["fx"].asset, scene["fx"].pool, cam)
+    order = ribbon.ribbon_sort(draw)
+    args = (draw.position.contiguous(), draw.axis_y.contiguous(), draw.color.contiguous(), None,
+            order.perm1, order.perm2, order.key, cam.position, draw.sprite_index.contiguous())
+    got, want = ribbon.ribbon_segments(*args), ribbon.ribbon_segments_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want) if a is not None)
+    valid = int(got[3].sum())
+    sprites = got[6][got[3]].unique().tolist()
+    print(f"ribbon_segments[sprite]: {draw.alive.shape[0]} rows, {valid} valid segments, sprite "
+          f"frames {sprites}, max abs err {err:g}")
+    if err != 0.0 or valid == 0 or len(sprites) < 2:
+        fail(f"ribbon_segments[sprite]: max abs err {err:g}, {valid} valid, frames {sprites}")
+    return {"ribbon_segments[sprite]": {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: ribbon.ribbon_segments(*args), 100),
+        "plain_ms": cuda_ms(lambda: ribbon.ribbon_segments_plain(*args), 20),
+        "library_ms": cuda_ms(lambda: args[8].index_select(0, order.order), 100),
+        **bound(nbytes(order.perm1, order.perm2, order.key, *args[:3], args[8], *got)),
+    }}
+
+
+
 def main() -> int:
     import torch
 
@@ -2940,6 +3349,15 @@ def main() -> int:
     example_runs_aa = example_checks(kernels, RasterConfig(**EXAMPLES_AA), EXAMPLE_FRAMES_AA)
     exaa_results = example_kernels(example_runs_aa, config=RasterConfig(**EXAMPLES_AA))
 
+    # Phase 19: instanced groups: the gate, then bench_instanced at full width.
+    instanced_gate()
+    in_results, in_launches = instanced_frame(kernels)
+
+    # Phases 20-21: every example through HanabiScene, card against CPU, and
+    # the textured ribbon's ribbon_segments with its sprite column.
+    tr_launches = example_phase(kernels)
+    tr_results = textured_ribbon_kernels(kernels)
+
     results.update(fw_results)
     results.update(mx_results)
     results.update(rb_results)
@@ -2947,7 +3365,7 @@ def main() -> int:
     results.update(lit_results)
     results.update(ex_results)
     results.update(tq_results)
-    for r in (pt_results, msaa_results, litaa_results, exaa_results):
+    for r in (pt_results, msaa_results, litaa_results, exaa_results, in_results, tr_results):
         results.update(r)
     # name, kernel, launches: each row holds one path's launches and its
     # comparison at that path's shapes (the headline's, the firework's,
@@ -3031,6 +3449,14 @@ def main() -> int:
              example_runs_aa["example_circle"][4]["tile_blend[blend,antialias]"]),
             ("tile_blend[round,aa]", "tile_blend",
              example_runs_aa["example_2d"][4]["tile_blend[blend,antialias]"]),
+        ]
+        + [
+            (f"{name}[instanced]", name, in_launches[name]) for name in HEADLINE_KERNELS
+        ]
+        + [
+            ("ribbon_segments[sprite]", "ribbon_segments", tr_launches["ribbon_segments"]),
+            # a timing row: the ribbon frame's 1M rows with a sprite column
+            ("ribbon_segments[sprite,1M]", "ribbon_segments", 0),
         ]
     )
     kernel_rows = [

@@ -631,7 +631,7 @@ def _segments_on_card(t):
     cam = CameraParams(look_at((0.5, 1.0, 6.0), (0.0, 0.0, 0.0)), perspective(0.9, 1.0, 0.1, 100.0),
                        (128, 128))
     args = (t["position"], t["axis_y"], t["color"], t["alpha_cutoff"], order.perm1, order.perm2,
-            order.key, cam.position)
+            order.key, cam.position, t.get("sprite"))
     before = ribbon.ribbon_segments.launches
     got = ribbon.ribbon_segments(*args)
     assert ribbon.ribbon_segments.launches == before + 1
@@ -651,6 +651,56 @@ def test_ribbon_segments_are_bit_exact(cuda, n, counter, cutoff):
     got = _segments_on_card(_ribbon_inputs(n, cuda, counter=counter, cutoff=cutoff, seed=n + 1))
     if n > 64:  # more lanes than ribbons
         assert 0 < int(got[3].sum()) < n  # valid segments and ribbon heads
+
+
+# A textured ribbon's flipbook frame: one more int32 column gathered into
+# segment order through the same chain, at the warp tile's and a CTA's edges.
+@pytest.mark.parametrize("counter", [True, False])
+@pytest.mark.parametrize("n", [0, 1, 5, 127, 128, 129, 513, 4096, 1 << 20])
+def test_ribbon_segments_gather_the_sprite_column(cuda, n, counter):
+    t = _ribbon_inputs(n, cuda, counter=counter, cutoff=counter, seed=n + 3)
+    t["sprite"] = torch.from_numpy(
+        np.random.default_rng(n).integers(-5, 1 << 20, n).astype(np.int32)).to(cuda)
+    got = _segments_on_card(t)
+    assert got[6] is not None and got[6].dtype == torch.int32
+
+
+def test_instanced_groups_card_against_cpu(cuda):
+    """InstancedEffect and a HanabiScene group, card against CPU: 30
+    frames of 6 x 512 instances with per-instance transforms through
+    step_render_chunk (every instance's alive mask, seeds and counter bit
+    for bit, checksums within 0.5%), then a scene with a group rendered
+    under both pipelines."""
+    from bevy_hanabi_tpu_torch import InstancedEffect
+    from bevy_hanabi_tpu_torch.models import instancing_effect
+
+    def run(device):
+        fx = InstancedEffect(instancing_effect(512), 6, device=device)
+        tfs = np.tile(np.eye(3, 4, dtype=np.float32), (6, 1, 1))
+        tfs[:, 0, 3] = np.linspace(-2.0, 2.0, 6)
+        r = np.random.default_rng(0)
+        ins = [fx.make_inputs(r.integers(0, 12, 6), r.integers(0, 2**32, 6, dtype=np.uint32), tfs)
+               for _ in range(30)]
+        sims = [SimParams(time=j / 60.0, delta_time=1 / 60.0) for j in range(30)]
+        cam = CameraParams(look_at((0, 0, 8), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0),
+                           (128, 128))
+        pools, _, sums = fx.step_render_chunk(fx.create_pools(), *fx.effect.stack_frames(ins, sims),
+                                              cam, RasterConfig(128, 128))
+        scene = HanabiScene(seed=2, device=device)
+        scene.add(gradient_effect(1024), "g")
+        scene.add_group(instancing_effect(256), 4, "grp", transforms=tfs[:4])
+        for _ in range(20):
+            scene.update(1 / 60.0)
+        images = [float(scene.render(cam, RasterConfig(128, 128), pipeline=p).sum())
+                  for p in ("split", "painter")]
+        return pools.to_numpy(), sums.cpu().tolist(), images, scene.group_alive("grp")
+
+    (pg, sums_g, img_g, alive_g), (pc, sums_c, img_c, alive_c) = run(cuda), run("cpu")
+    for a, b in zip(pg[1:], pc[1:]):
+        assert np.array_equal(a, b)
+    assert alive_g == alive_c > 0
+    for a, b in zip(sums_g + img_g, sums_c + img_c):
+        assert abs(a - b) <= 0.005 * max(abs(b), 1.0)
 
 
 def _one_age_per_row(t, ribbon_of_rank):

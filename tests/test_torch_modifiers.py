@@ -82,9 +82,17 @@ def test_gradient_sampler_matches_jax(name):
 
 
 def test_gradient_sampler_refuses_more_than_16_keys():
-    g = bt.Gradient([(i / 20, (float(i),)) for i in range(21)])
-    with pytest.raises(NotImplementedError, match="16 keys"):
-        g.sample_torch(torch.zeros(4))
+    """Gradients of more than 16 keys once raised; they now take the JAX
+    package's searchsorted form (gradient.py:177-193), bit for bit: 21
+    keys with a duplicated ratio, on exact hits, both ends, NaN and -0.0."""
+    keys = [(i / 20, (float(i), float(i * i % 7))) for i in range(21)]
+    keys[5] = (keys[4][0], (9.0, -9.0))
+    x = np.random.default_rng(5).uniform(-0.2, 1.2, 4096).astype(np.float32)
+    x[:8] = [0.0, 0.5, 0.75, 1.0, np.nan, -0.0, keys[4][0], np.inf]
+    got = bt.Gradient(keys).sample_torch(torch.from_numpy(x)).numpy()
+    want = np.asarray(bj.Gradient(keys).sample_jax(jnp.asarray(x)))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 # ---- expression evaluator --------------------------------------------------
@@ -178,11 +186,26 @@ def test_out_of_range_cast_matches_jax_astype(target):
 
 
 def test_texture_sample_is_not_ported():
-    m = bt.Module()
-    h = m.texture_sample(m.add_texture_slot("t"), m.lit((0.5, 0.5)))
-    ctx = comp_t.InitContext(m, {}, torch.zeros(4, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="texture_sample"):
-        ctx.eval(h)
+    """``texture_sample`` once raised; it now samples as the JAX package's
+    compiler does (compiler.py:663-690: bilinear, repeat addressing) at
+    per-particle UVs far outside [0, 1), and an unbound slot raises its
+    IndexError."""
+    data = _inputs(3)
+    tex = np.random.default_rng(4).random((5, 7, 4), dtype=np.float32)
+    out = []
+    for pkg in (bj, bt):
+        w = pkg.ExprWriter()
+        slot = w.module.add_texture_slot("t")
+        uv = w.module.vec2((w.attr(pkg.attributes.POSITION).x() * 3.7).expr(),
+                           (w.attr(pkg.attributes.AGE) - w.lit(2.5)).expr())
+        out.append((w.finish(), w.module.texture_sample(slot, uv)))
+    (mj, hj), (mt, ht) = out
+    cj, ct = _ctx_pair("InitContext", mj, mt, data, j={"textures": [jnp.asarray(tex)]},
+                       t={"textures": [torch.from_numpy(tex)]})
+    _close(ct.eval(ht), cj.eval(hj))
+    _, unbound = _ctx_pair("InitContext", mj, mt, data)
+    with pytest.raises(IndexError, match="slot 0 not bound"):
+        unbound.eval(ht)
 
 
 # ---- the five modifiers of the slice ---------------------------------------

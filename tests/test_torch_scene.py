@@ -161,6 +161,8 @@ def _validating(s):
 @pytest.mark.parametrize(
     "call",
     [
+        # instanced groups are ported: an event-emitting asset is refused
+        # with the JAX package's ValueError (scene.py:356-357)
         lambda s: s.add_group(firework_effect(64), 4),
         lambda s: s.add(firework_effect(64), "x", cull_pad=1.0),
         # a camera list (multi-view) stays unported in the render chunk
@@ -175,7 +177,11 @@ def _validating(s):
     ids=["add_group", "cull_pad", "cameras", "update_render_chunk", "render_views",
          "return_depth", "painter", "validate", "hot_reload"],
 )
-def test_unported_scene_branches_raise(call):
+def test_unported_scene_branches_raise(call, request):
+    if request.node.callspec.id == "add_group":
+        with pytest.raises(ValueError, match="event-emitting assets cannot be grouped"):
+            call(_scene_t())
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         call(_scene_t())
 

@@ -9,6 +9,7 @@ atol 1e-3 (transcendental ULPs); per-frame checksums 0.5% (f32 blend
 arithmetic; any dropped or duplicated splat moves the sum by far more).
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -185,6 +186,8 @@ def test_port_imports_without_jax():
         "import bevy_hanabi_tpu_torch.runtime.scene, bevy_hanabi_tpu_torch.render.renderer\n"
         "import bevy_hanabi_tpu_torch.render.ribbon, bevy_hanabi_tpu_torch.render.mesh\n"
         "import bevy_hanabi_tpu_torch.models.examples, bevy_hanabi_tpu_torch.models.texutils\n"
+        "import bevy_hanabi_tpu_torch.runtime.instanced, bevy_hanabi_tpu_torch.ron\n"
+        "import bevy_hanabi_tpu_torch.graph.node, bevy_hanabi_tpu_torch.utils.diag\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
@@ -193,3 +196,17 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# The port's copies of the JAX package's jax-free modules, equal to them but
+# for the reference's source paths, which the JAX copies cite by their
+# absolute location and the port as ``bevy_hanabi/src/``.
+COPIES = ["ron.py", "graph/node.py", "utils/diag.py", "properties.py", "cpu_value.py",
+          "modifiers/attr.py", "modifiers/event.py"]
+
+
+@pytest.mark.parametrize("path", COPIES)
+def test_copied_module_equals_jax(path):
+    want = (REPO / "bevy_hanabi_tpu" / path).read_text()
+    want = re.sub(r"/\S*?reference/src/", "bevy_hanabi/src/", want)
+    assert (REPO / "bevy_hanabi_tpu_torch" / path).read_text() == want
