@@ -22,6 +22,7 @@ __all__ = [
     "look_at",
     "perspective",
     "orthographic",
+    "camera_2d",
     "frustum_planes",
     "aabb_in_frustum",
 ]
@@ -131,6 +132,19 @@ def orthographic(
     m[2, 3] = near / (near - far)
     m[3, 3] = 1.0
     return m
+
+
+def camera_2d(viewport, scale: float = 1.0, z: float = 5.0) -> CameraParams:
+    """A Bevy-style 2D camera: orthographic, looking down -Z at the origin.
+
+    ``scale`` is world units per half viewport height (zoom)."""
+    width, height = viewport
+    aspect = width / height
+    return CameraParams(
+        view=look_at((0.0, 0.0, z), (0.0, 0.0, 0.0)),
+        proj=orthographic(-scale * aspect, scale * aspect, -scale, scale, 0.1, z * 2.0),
+        viewport=viewport,
+    )
 
 
 def frustum_planes(camera: CameraParams) -> np.ndarray:

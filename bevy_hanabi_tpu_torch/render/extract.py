@@ -10,8 +10,8 @@ segment quads; :func:`~.mesh.expand_mesh_draw` expands a mesh effect's draw
 into its quad and triangle entries. :func:`concat_painter_draws` merges
 draw sets into one painter draw set: plain, round and mask quads, ribbon
 segments, mesh triangles with their Lambert lighting, and textured draws
-through a stacked texture atlas. Local-space effects raise
-``NotImplementedError``.
+through a stacked texture atlas. LOCAL-space effects extract in emitter
+space and their frame goes to world through the emitter transform.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 
 from ..asset import EffectAsset, SimulationSpace
 from ..compiler import RenderContext, SimParams
-from ..ops.linalg import mat4_mul, mvp_w
+from ..ops.linalg import affine3, mat4_mul, mvp_w, rotate3
 from ..runtime.pool import ParticlePool
 from .camera import CameraParams
 
@@ -105,8 +105,9 @@ def extract_draw_data(
     """Run render modifiers over the pool and build draw data.
 
     ``textures`` ([H, W, 4] tensors by slot) are what ``texture_sample``
-    expressions read (the rasterizer samples the texture layers itself); a
-    ``transform`` only matters for local-space effects, which raise.
+    expressions read (the rasterizer samples the texture layers itself).
+    ``transform`` (the [3, 4] emitter transform) places a LOCAL-space
+    effect in the world each frame; GLOBAL pools are already there.
     ``instances`` > 0 marks ``pool`` as the flat ``[I*N]`` view of an
     instanced group (:meth:`~..runtime.pool.ParticlePool.flatten`) whose
     ``properties`` are per lane, each lane its instance's value: one pass
@@ -116,8 +117,23 @@ def extract_draw_data(
     n = pool.alive.shape[-1]
     dev = pool.device
     particle = dict(pool.attrs)
-    if asset.simulation_space is SimulationSpace.LOCAL and transform is not None:
-        raise NotImplementedError("extract_draw_data: local-space effects are not ported")
+    # LOCAL-space effects run the whole vertex stage in emitter space, like
+    # the reference (vfx_render.wgsl:60-90, 117-124): the camera goes INTO
+    # effect space for the orient modes, the modifiers compute axes there,
+    # and the expanded frame goes back to world at the end (extract.py:213-240).
+    is_local = asset.simulation_space is SimulationSpace.LOCAL and transform is not None
+    ctx_camera = camera
+    if is_local:
+        tf = torch.as_tensor(transform, dtype=torch.float32)
+        m4 = torch.cat([tf.cpu(), torch.tensor([[0.0, 0.0, 0.0, 1.0]])], dim=0)
+        # view_local = world->view . local->world: every derived camera
+        # quantity (rotation, position, up) lands in effect space
+        ctx_camera = CameraParams(
+            view=mat4_mul(torch.as_tensor(camera.view, dtype=torch.float32), m4),
+            proj=camera.proj,
+            viewport=camera.viewport,
+        )
+        tf = tf.to(dev)
     particle_index = torch.arange(n, dtype=torch.int64, device=dev)
     if instances:
         particle_index = particle_index % (n // instances)
@@ -130,7 +146,7 @@ def extract_draw_data(
         properties=properties or {},
         particle_index=particle_index,
         alive=pool.alive,
-        camera=camera,
+        camera=ctx_camera,
         alpha_cutoff=0.0,
         textures=list(textures or []),
         lane_properties=bool(instances),
@@ -169,7 +185,7 @@ def extract_draw_data(
             size = particle["size3"].expand(n, 3)
     ctx.size = size
 
-    rot = camera.rotation.to(dev)
+    rot = ctx_camera.rotation.to(dev)
     ctx.axis_x = rot[:, 0].expand(n, 3)
     ctx.axis_y = rot[:, 1].expand(n, 3)
     ctx.axis_z = rot[:, 2].expand(n, 3)
@@ -193,6 +209,14 @@ def extract_draw_data(
     position = ctx.particle.get("position")
     if position is None:
         position = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    if is_local:
+        # the whole particle frame to world: position affine, axes through
+        # the 3x3 (scale included, vfx_render.wgsl:293-295), broadcast math
+        rot3 = tf[:, :3]
+        position = affine3(position, rot3, tf[:, 3])
+        ctx.axis_x = rotate3(ctx.axis_x, rot3)
+        ctx.axis_y = rotate3(ctx.axis_y, rot3)
+        ctx.axis_z = rotate3(ctx.axis_z, rot3)
 
     # ---- screen-space size (output.rs:838-862) ----
     sz = ctx.size

@@ -21,6 +21,7 @@ frames. The ``mesh=`` sharded build is not ported.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -36,7 +37,7 @@ from ..ops.linalg import affine3, rotate3
 from .events import EventBuffer, build_event_buffer, channel_emissions, consume_events
 from .pool import ParticlePool, to_device
 
-__all__ = ["CompiledEffect", "StepInputs", "identity_transform"]
+__all__ = ["CompiledEffect", "StepInputs", "StepChecks", "identity_transform"]
 
 
 def identity_transform() -> np.ndarray:
@@ -63,6 +64,52 @@ class StepInputs(NamedTuple):
             transform if transform is not None else identity_transform(),
             dict(properties or {}),
         )
+
+
+class StepChecks:
+    """The failure flags of one checked step or chunk (the JAX package's
+    checkify instrumentation, effect.py:280-346, as explicit checks).
+
+    :meth:`index` tests a gather's data-derived indices BEFORE the gather
+    and hands back clamped ones, so the gather reads in bounds on every
+    device (an out-of-range CUDA index is a device-side assert that poisons
+    the context). :meth:`finite` flags non-finite floats in what a step
+    produced. The flags stay on the device until :meth:`raise_if_failed`,
+    the one readback of the step or chunk, raises for the first failure:
+    ``FloatingPointError`` (its message says "nan") or ``IndexError``.
+    ``readbacks`` counts those readbacks, and stays 0 while
+    ``DebugSettings.validate`` is off."""
+
+    readbacks = 0
+
+    def __init__(self) -> None:
+        self._flags: list = []
+        self._failures: list = []
+
+    def index(self, idx: torch.Tensor, size: int, what: str) -> torch.Tensor:
+        """Flag ``idx`` outside ``[0, size)``; returns it clamped there."""
+        self._flags.append(((idx < 0) | (idx >= size)).any())
+        self._failures.append((IndexError, f"index out of bounds gathering from {what} (size {size})"))
+        return idx.clamp(0, size - 1)
+
+    def finite(self, tensors: Dict[str, torch.Tensor], what: str) -> None:
+        """Flag a non-finite value in any float tensor of ``tensors``."""
+        for name, t in tensors.items():
+            if t.is_floating_point():
+                self._flags.append(~torch.isfinite(t).all())
+                self._failures.append(
+                    (FloatingPointError, f"nan or inf generated by {what} in {name!r}")
+                )
+
+    def raise_if_failed(self) -> None:
+        if not self._flags:
+            return
+        StepChecks.readbacks += 1
+        failed = torch.stack(self._flags).cpu().tolist()  # the one readback
+        failures, self._flags, self._failures = self._failures, [], []
+        for bad, (kind, message) in zip(failed, failures):
+            if bad:
+                raise kind(f"debug validation: {message}")
 
 
 class CompiledEffect:
@@ -116,7 +163,11 @@ class CompiledEffect:
         payload_attrs: Optional[tuple] = None,
         mesh=None,
     ) -> None:
-        self.asset = asset
+        # a snapshot: the step reads its modifiers on every call, so a later
+        # edit of the caller's asset (hot reload) must not leak into an
+        # effect compiled from the old definition (the JAX package's traced
+        # executables keep theirs), nor into the cache entry of its old key
+        self.asset = asset = copy.deepcopy(asset)
         self.device = torch.device(device)
         self.layout = asset.particle_layout()
         if not self.layout.contains("position"):
@@ -200,6 +251,24 @@ class CompiledEffect:
         (empty for an effect that emits nothing)."""
         return self._step(pool, inputs, sim, events_in, parent_pool)
 
+    def step_checked(
+        self,
+        pool: ParticlePool,
+        inputs: StepInputs,
+        sim: SimParams,
+        events_in: Optional[EventBuffer] = None,
+        parent_pool: Optional[ParticlePool] = None,
+    ):
+        """:meth:`step` under debug validation (effect.py:280-309): the
+        data-derived gathers bound-checked before they are made, the
+        produced pool checked for non-finite floats, one readback; raises
+        at the offending frame (a poison read, 0xFFFFFFFF == f32 NaN,
+        effect_cache.rs:270-296). Use only under ``DebugSettings.validate``."""
+        checks = StepChecks()
+        out = self._step(pool, inputs, sim, events_in, parent_pool, checks=checks)
+        checks.raise_if_failed()
+        return out
+
     def _refuse_events(self, method: str) -> None:
         if self.num_event_channels or self.consumes_events:
             raise ValueError(f"{method} does not support event-linked effects")
@@ -211,6 +280,17 @@ class CompiledEffect:
         self._refuse_events("step_chunk")
         for inputs, sim in _unstack(inputs_stacked, sims_stacked):
             pool, _ = self._step(pool, inputs, sim, None, None)
+        return pool
+
+    def step_chunk_checked(self, pool: ParticlePool, inputs_stacked: StepInputs, sims_stacked):
+        """:meth:`step_chunk` with every frame checked as in
+        :meth:`step_checked` and ONE readback for the chunk
+        (effect.py:325-346)."""
+        self._refuse_events("step_chunk")
+        checks = StepChecks()
+        for inputs, sim in _unstack(inputs_stacked, sims_stacked):
+            pool, _ = self._step(pool, inputs, sim, None, None, checks=checks)
+        checks.raise_if_failed()
         return pool
 
     def step_render_chunk(
@@ -265,7 +345,7 @@ class CompiledEffect:
         return pool, img, torch.stack(sums)
 
     @staticmethod
-    def make_family_chunk_step(members):
+    def make_family_chunk_step(members, checked: bool = False):
         """A K-frame step over an event-linked effect tree (effect.py:436-497).
 
         ``members``: topologically ordered (parents first) sequence of
@@ -281,6 +361,10 @@ class CompiledEffect:
         and contributes its own emissions for the next frame. The JAX
         package's ``lax.scan`` is a Python loop over the frames here; no
         frame reads back from the device.
+
+        ``checked=True`` checks every member's every frame as
+        :meth:`step_checked` does, with one readback after the chunk, for
+        ``DebugSettings.validate``.
         """
         fxs = tuple(m[0] for m in members)
         parent_idx = tuple(m[1] for m in members)
@@ -289,14 +373,17 @@ class CompiledEffect:
         def fam_chunk(carry, member_inputs, sims):
             pools, pendings = list(carry[0]), tuple(carry[1])
             frames = [list(_unstack(ins, sims)) for ins in member_inputs]
+            checks = StepChecks() if checked else None
             for j in range(len(frames[0]) if frames else 0):
                 new_pendings = []
                 for i, fx in enumerate(fxs):
                     ev_in = None if parent_idx[i] is None else pendings[parent_idx[i]][chans[i]]
                     inputs, sim = frames[i][j]
-                    pools[i], ev_out = fx._step(pools[i], inputs, sim, ev_in, None)
+                    pools[i], ev_out = fx._step(pools[i], inputs, sim, ev_in, None, checks=checks)
                     new_pendings.append(ev_out)
                 pendings = tuple(new_pendings)
+            if checks is not None:
+                checks.raise_if_failed()
             return tuple(pools), pendings
 
         return fam_chunk
@@ -335,6 +422,7 @@ class CompiledEffect:
         events_in: Optional[EventBuffer],
         parent_pool: Optional[ParticlePool],
         instances: int = 0,
+        checks: Optional[StepChecks] = None,
     ):
         """One frame. ``instances`` > 0 steps an instanced group
         (:class:`~.instanced.InstancedEffect`) in one pass: ``pool`` is the
@@ -345,7 +433,8 @@ class CompiledEffect:
         vfx_update.wgsl:51-72): the spawn ranks, counts and counters are
         per instance, ``PARTICLE_INDEX`` is the lane's index in its
         instance, so each instance steps as the JAX package's vmapped
-        ``_step`` steps it."""
+        ``_step`` steps it. ``checks`` (a :class:`StepChecks`) turns on the
+        checked step's bound and non-finite checks."""
         dev = pool.device
         n = pool.alive.shape[-1]
         group = instances > 0
@@ -378,6 +467,7 @@ class CompiledEffect:
                 free_rank,
                 attrs=self._inherited_attrs,
                 const_count=self.parent_const_count,
+                checks=checks,
             )
             # the request is a device scalar: no readback
             spawn_total = torch.minimum(requested, num_free)
@@ -422,6 +512,8 @@ class CompiledEffect:
             if parent_payload:
                 parent_particle = parent_payload
             elif parent_pool is not None:
+                if checks is not None:
+                    parent_slot = checks.index(parent_slot, parent_pool.capacity, "the parent pool")
                 parent_particle = {
                     k: parent_pool.attrs[k][parent_slot]
                     for k in self._inherited_attrs
@@ -506,6 +598,8 @@ class CompiledEffect:
                     mask, counts = per_channel[channel]
                     events_out[channel] = build_event_buffer(mask, counts, parent_attrs=captured)
 
+        if checks is not None:
+            checks.finite(uctx.particle, f"the step of effect {self.asset.name!r}")
         pool.attrs = uctx.particle
         pool.alive = uctx.alive
         pool.seed = uctx.seed

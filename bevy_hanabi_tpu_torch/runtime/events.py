@@ -280,6 +280,7 @@ def consume_events(
     spawn_rank: torch.Tensor,
     attrs=None,
     const_count=None,
+    checks=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Map each child spawn rank to its source event.
 
@@ -290,8 +291,12 @@ def consume_events(
     ``attrs`` limits the payload gathers to the attributes the child
     inherits, and several f32 attributes pack into ONE row matrix first
     (events.py:224-247). Nothing here reads back from the device.
+    ``checks`` (a checked step's :class:`~.effect.StepChecks`) bound-checks
+    the event index before the gathers read with it.
     """
     event_idx = event_index(events, spawn_rank, const_count)
+    if checks is not None:
+        event_idx = checks.index(event_idx, events.capacity, "the event buffer")
     parent_slot = events.parent_slot[event_idx]
     names = list(
         events.payload.keys() if attrs is None else [a for a in attrs if a in events.payload]

@@ -22,7 +22,7 @@ import torch
 
 from ..asset import EffectAsset, SimulationSpace
 from ..compiler import SimParams
-from .effect import CompiledEffect, StepInputs, _unstack, identity_transform
+from .effect import CompiledEffect, StepChecks, StepInputs, _unstack, identity_transform
 from .pool import ParticlePool, to_device
 
 __all__ = ["InstancedEffect"]
@@ -112,9 +112,11 @@ class InstancedEffect:
                 "event buffers) are not ported; add them with HanabiScene.add"
             )
 
-    def _step(self, pools: ParticlePool, inputs: StepInputs, sim: SimParams) -> ParticlePool:
+    def _step(self, pools: ParticlePool, inputs: StepInputs, sim: SimParams,
+              checks=None) -> ParticlePool:
         """One frame of every instance: the flat step over the pools' view,
-        its results written back in the [I, N, ...] shape."""
+        its results written back in the [I, N, ...] shape. ``checks``: a
+        checked step's :class:`~.effect.StepChecks`."""
         i, n = pools.alive.shape
         flat = ParticlePool(
             {k: v.reshape((i * n,) + tuple(v.shape[2:])) for k, v in pools.attrs.items()},
@@ -122,7 +124,7 @@ class InstancedEffect:
             pools.seed.reshape(i * n),
             pools.counter,
         )
-        flat, _ = self.effect._step(flat, inputs, sim, None, None, instances=i)
+        flat, _ = self.effect._step(flat, inputs, sim, None, None, instances=i, checks=checks)
         pools.attrs = {k: v.reshape((i, n) + tuple(v.shape[1:])) for k, v in flat.attrs.items()}
         pools.alive = flat.alive.reshape(i, n)
         pools.seed = flat.seed.reshape(i, n)
@@ -135,17 +137,25 @@ class InstancedEffect:
         self._refuse_events("step")
         return self._step(pools, inputs, sim), {}
 
-    def step_checked(self, *args, **kwargs):
-        raise NotImplementedError(
-            "InstancedEffect.step_checked: checked executables (DebugSettings.validate) "
-            "are not ported"
-        )
+    def step_checked(self, pools: ParticlePool, inputs: StepInputs, sim: SimParams):
+        """:meth:`step` under debug validation (instanced.py:122-136): every
+        instance's produced state checked for non-finite floats, one
+        readback (:meth:`CompiledEffect.step_checked`)."""
+        self._refuse_events("step_checked")
+        checks = StepChecks()
+        pools = self._step(pools, inputs, sim, checks)
+        checks.raise_if_failed()
+        return pools, {}
 
-    def step_chunk_checked(self, *args, **kwargs):
-        raise NotImplementedError(
-            "InstancedEffect.step_chunk_checked: checked executables "
-            "(DebugSettings.validate) are not ported"
-        )
+    def step_chunk_checked(self, pools: ParticlePool, inputs_stacked: StepInputs, sims_stacked):
+        """:meth:`step_chunk` with every frame checked and one readback for
+        the chunk (instanced.py:138-150)."""
+        self._refuse_events("step_chunk_checked")
+        checks = StepChecks()
+        for inputs, sim in _unstack(inputs_stacked, sims_stacked):
+            pools = self._step(pools, inputs, sim, checks)
+        checks.raise_if_failed()
+        return pools
 
     def step_chunk(self, pools: ParticlePool, inputs_stacked: StepInputs, sims_stacked):
         """K frames x I instances. Leaves of ``inputs_stacked`` are [K, I,

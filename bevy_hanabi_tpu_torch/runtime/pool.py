@@ -145,3 +145,18 @@ class ParticlePool:
     def get(self, attr) -> torch.Tensor:
         name = attr.name if isinstance(attr, Attribute) else attr
         return self.attrs[name]
+
+    # -- checkpoint (pool.py:145-165): the JAX package's npz layout, arrays
+    #    in its dtypes, so a pool saved by either package loads in the other
+
+    def save(self, path: str) -> None:
+        attrs, alive, seed, counter = self.to_numpy()
+        arrays = {f"attr:{k}": v for k, v in attrs.items()}
+        np.savez(path, alive=alive, seed=seed, counter=counter, **arrays)
+
+    @staticmethod
+    def load(path: str, device) -> "ParticlePool":
+        """A pool saved by :meth:`save` (or the JAX package's), on ``device``."""
+        data = np.load(path if path.endswith(".npz") else path + ".npz")
+        attrs = {k[len("attr:"):]: data[k] for k in data.files if k.startswith("attr:")}
+        return ParticlePool.from_numpy(attrs, data["alive"], data["seed"], data["counter"], device)

@@ -10,30 +10,32 @@ once a frame for every group's frame seeds, each instance's RNG once per
 step, each spawner its own — so frame seeds and spawner ticks are bit-equal
 to the JAX package's.
 
-Ported: ``add`` (with parents, textures and ``raster_override``),
-``add_group`` (instanced groups: many instances of one asset stepped as one
-:class:`~.instanced.InstancedEffect`), ``remove``, the controls
-(``set_property``, ``set_textures``, ``set_transform``, ``set_visible``,
-``reset_spawner``, ``set_spawner_active``, on effects and groups),
-``stats``, ``warmup``, ``update`` (with ``cameras=`` frustum culling of
-WhenVisible effects and groups), ``update_chunk`` (one family chunk per
-event tree, one chunk per group), ``update_render_chunk`` for one camera,
-and ``render`` through both pipelines of the JAX package's render plan: the
-phase split (opaque and mask passes threading a depth plane, then
-transparent passes tested against it, same-blend runs batched) and the
-painter pass (every effect and group in one back-to-front sort with
+Ported: ``add`` (with parents, textures, ``raster_override`` and
+``cull_pad``), ``add_group`` (instanced groups: many instances of one asset
+stepped as one :class:`~.instanced.InstancedEffect`), ``remove``, the
+controls (``set_property``, ``set_textures``, ``set_transform``,
+``set_visible``, ``reset_spawner``, ``set_spawner_active``, on effects and
+groups), ``stats``, ``warmup``, ``update`` (with ``cameras=`` frustum
+culling), ``update_chunk`` (one family chunk per event tree, one chunk per
+group), ``update_render_chunk`` for one camera or a list of cameras,
+``render`` and ``render_views`` through both pipelines of the JAX package's
+render plan: the phase split (opaque and mask passes threading a depth
+plane, then transparent passes tested against it, same-blend runs batched)
+and the painter pass (every effect and group in one back-to-front sort with
 per-entry blend equations, textured effects through a stacked texture atlas
 and mesh effects with their Lambert setups merged), ``scene_depth`` and
 ``return_depth`` included, ribbon effects as their segment quads and mesh
 effects as their expanded entries (neither batched, nor textured effects).
-Every other branch raises ``NotImplementedError`` naming itself: sharding,
-``cull_pad``, ``render_views`` and multi-view chunks, debug validation, and
-hot reload (an asset edited after ``add``).
+Hot reload (``hot_reload``, :meth:`HanabiScene.apply_asset_changes`),
+``DebugSettings`` captures and validation (checked steps) and LOCAL-space
+effects are ported. Sharding (``add(mesh=)``, ``add_sharded_group``)
+raises ``NotImplementedError`` naming itself.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
@@ -45,7 +47,8 @@ from ..asset import EffectAsset, SimulationCondition, SimulationSpace
 from ..properties import EffectProperties, Property
 from ..spawn import EffectSpawner
 from ..time import EffectSimulationClock
-from .effect import CompiledEffect, StepInputs, identity_transform
+from ..utils.profiling import DebugSettings, profile_span
+from .effect import CompiledEffect, StepChecks, StepInputs, identity_transform
 from .events import EventBuffer
 from .instanced import InstancedEffect
 from .pool import ParticlePool
@@ -55,14 +58,6 @@ __all__ = ["HanabiScene", "EffectInstance", "DebugSettings"]
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"HanabiScene: {what} is not ported")
-
-
-@dataclass
-class DebugSettings:
-    """The JAX package's debug switch; ``validate=True`` (checked
-    executables) is not ported and raises when the scene runs."""
-
-    validate: bool = False
 
 
 @dataclass
@@ -85,7 +80,8 @@ class EffectInstance:
     # events emitted by this instance's LAST step, per channel
     last_events: Dict[int, EventBuffer] = field(default_factory=dict)
     renderer: Any = None
-    # asset signature captured at add() time: an edit after add() raises
+    # asset signature captured at the last (re)compile: hot-reload drift
+    # detection (lib.rs:1796)
     compiled_signature: Any = None
     # texture images by slot, f32 [H, W, 4] tensors on the scene's device,
     # and the objects they were uploaded from (the painter's atlas shares a
@@ -95,6 +91,13 @@ class EffectInstance:
     # RasterConfig field overrides (dataclasses.replace kwargs) for THIS
     # effect's passes; an overridden effect renders in its own pass
     raster_override: Any = None
+    # frustum-culling pad (world units) around the pool AABB; None = this
+    # effect opts out of per-camera raster culling (a WhenVisible asset
+    # still gets simulation gating with the default pad)
+    cull_pad: Optional[float] = None
+    # explicit capacity passed to add() (None = asset.capacity); a hot
+    # reload that leaves asset.capacity alone keeps it
+    capacity_override: Optional[int] = None
 
     def alive_count(self) -> int:
         return int(self.pool.alive_count())
@@ -116,6 +119,13 @@ class HanabiScene:
         # family chunk steps for update_chunk, keyed by member names
         self._family_fn: Dict = {}
         self.debug = DebugSettings()
+        self._new_effect_added = False
+        # hot-reload policy for live EffectAsset edits (scene.py:159-169):
+        # "eager" checks every asset at each update/chunk/render entry point
+        # and recompiles drifted ones; "periodic" rides the rotating drift
+        # batch of _check_footguns (every asset within ~120 frames); "off"
+        # never recompiles, drift only warns
+        self.hot_reload = "eager"
         # frustum culling: pool AABBs cached per frame, and the latch that
         # turns on render culling once the scene is camera-driven
         self._aabb_frame = -1
@@ -149,11 +159,10 @@ class HanabiScene:
         value) customizes THIS effect's raster passes on top of the scene
         config, e.g. ``{"tile_span": 4}`` for a large-splat effect; such an
         effect renders in its own pass, never batched nor in the painter
-        pass."""
+        pass. ``cull_pad`` (world units) opts the effect into per-camera
+        raster culling with its pool AABB padded by that much."""
         if mesh is not None:
             raise _unported("add(mesh=...) sharding")
-        if cull_pad is not None:
-            raise _unported("add(cull_pad=...) frustum culling")
         name = name or f"{asset.name}#{len(self._effects)}"
         if name in self._effects:
             raise ValueError(f"effect instance {name!r} already exists")
@@ -216,8 +225,11 @@ class HanabiScene:
             textures=self._upload(textures),
             texture_sources=tuple(textures),
             raster_override=dict(raster_override) if raster_override else None,
+            cull_pad=cull_pad,
+            capacity_override=capacity,
         )
         self._effects[name] = inst
+        self._new_effect_added = True
         if parent is not None:
             self._order.insert(self._order.index(parent) + 1, name)
             self._restrict_parent_payload(parent)
@@ -271,8 +283,6 @@ class HanabiScene:
             raise ValueError("event-emitting assets cannot be grouped; use add()")
         if asset.simulation_space is not SimulationSpace.GLOBAL:
             raise ValueError("instanced groups require GLOBAL simulation space")
-        if cull_pad is not None:
-            raise _unported("add_group(cull_pad=...) frustum culling")
         name = name or f"{asset.name}[group]#{len(self._groups)}"
         if name in self._groups or name in self._effects:
             raise ValueError(f"effect {name!r} already exists")
@@ -297,7 +307,10 @@ class HanabiScene:
             "renderer": None,
             "compiled_signature": asset.signature(),
             "raster_override": dict(raster_override) if raster_override else None,
+            "cull_pad": cull_pad,
+            "capacity_override": capacity,
         }
+        self._new_effect_added = True
         return name
 
     def add_sharded_group(self, *args, **kwargs):
@@ -446,62 +459,51 @@ class HanabiScene:
             "groups": {name: {"alive": self.group_alive(name)} for name in self._groups},
         }
 
-    def _refuse_unported(self) -> None:
-        """The JAX package re-checks every asset for edits (hot reload) and
-        may run checked executables here; the port has neither."""
-        if self.debug.validate:
-            raise _unported("DebugSettings.validate (checked executables)")
-        entities = [(i.name, i.asset, i.compiled_signature) for i in self._effects.values()]
-        entities += [(n, g["asset"], g["compiled_signature"]) for n, g in self._groups.items()]
-        for name, asset, sig in entities:
-            if asset.signature() != sig:
-                raise _unported(
-                    f"hot reload: effect {name!r} was edited after add(); "
-                    "remove and re-add it"
-                )
-
     # -- visibility: frustum vs pool AABB ----------------------------------
-    # As in the JAX package (scene.py:549-744, without cull_pad): a
-    # WhenVisible effect's or group's AABB is computed on the device from its
-    # pool (one masked min/max per entity, ONE readback for all of them, at
-    # most once per frame), unioned with the emitter positions so a fresh
-    # effect is visible at its emitter, and padded to cover splat extents.
+    # As in the JAX package (scene.py:549-789): the AABB of every entity
+    # that takes part in culling is computed on the device from its pool
+    # (one masked min/max per entity, ONE readback for all of them, at most
+    # once per frame), unioned with the emitter positions so a fresh effect
+    # is visible at its emitter, and padded by ``cull_pad`` (or the default
+    # pad) to cover splat extents. An entity takes part when it sets
+    # ``cull_pad`` or its asset simulates WhenVisible.
 
     DEFAULT_CULL_PAD = 0.5
 
     @staticmethod
-    def _cullable(asset) -> bool:
-        return asset.simulation_condition is SimulationCondition.WHEN_VISIBLE
+    def _cullable(asset, cull_pad) -> bool:
+        return cull_pad is not None or asset.simulation_condition is SimulationCondition.WHEN_VISIBLE
 
     def _refresh_aabbs(self) -> Dict[str, tuple]:
-        """The world AABB ``(min, max)`` of every cullable effect, describing
+        """The world AABB ``(min, max)`` of every cullable entity, describing
         the pools as of frame start; computed at most once per frame."""
         if self._aabb_frame == self._frame:
             return self._aabb_cache
-        # (name, pool, emitter transforms [K, 3, 4], local space)
+        # (name, pool, emitter transforms [K, 3, 4], pad, local space)
         entries = [
             (inst.name, inst.pool, np.asarray(inst.transform, np.float32)[None],
+             self.DEFAULT_CULL_PAD if inst.cull_pad is None else inst.cull_pad,
              inst.asset.simulation_space is SimulationSpace.LOCAL)
-            for inst in self._effects.values() if self._cullable(inst.asset)
+            for inst in self._effects.values() if self._cullable(inst.asset, inst.cull_pad)
         ] + [
             # groups are GLOBAL: the box of every lane is the union of the
             # instances' boxes
-            (n, self._group_flat_pool(g), np.asarray(g["transforms"], np.float32), False)
-            for n, g in self._groups.items() if self._cullable(g["asset"])
+            (n, self._group_flat_pool(g), np.asarray(g["transforms"], np.float32),
+             self.DEFAULT_CULL_PAD if g["cull_pad"] is None else g["cull_pad"], False)
+            for n, g in self._groups.items() if self._cullable(g["asset"], g["cull_pad"])
         ]
         cache: Dict[str, tuple] = {}
         if entries:
             big = 3.0e38
             boxes = []
-            for _, pool, _, _ in entries:
+            for _, pool, _, _, _ in entries:
                 m = pool.alive[:, None]
                 pos = pool.attrs["position"]
                 boxes.append(
                     torch.stack([torch.where(m, pos, big).amin(0), torch.where(m, pos, -big).amax(0)])
                 )
             res = torch.stack(boxes).cpu().numpy()  # the one readback
-            pad = self.DEFAULT_CULL_PAD
-            for (name, _, tfs, local), (mn, mx) in zip(entries, res):
+            for (name, _, tfs, pad, local), (mn, mx) in zip(entries, res):
                 tf = tfs[0]
                 em = tfs[:, :, 3]  # emitter world positions
                 if local:
@@ -513,26 +515,47 @@ class HanabiScene:
                     else:
                         mn = np.full(3, 3.0e38, np.float32)
                         mx = -mn
-                cache[name] = (np.minimum(mn, em.min(0)) - pad, np.maximum(mx, em.max(0)) + pad)
+                mn = np.minimum(mn, em.min(0)) - pad
+                mx = np.maximum(mx, em.max(0)) + pad
+                if self.debug.validate and (np.isnan(mn).any() or np.isnan(mx).any()):
+                    raise FloatingPointError(
+                        f"debug validation: effect {name!r} has a nan pool AABB — an alive "
+                        "lane carries a non-finite position; without validation this "
+                        "would silently frustum-cull the effect"
+                    )
+                cache[name] = (mn, mx)
         self._aabb_cache = cache
         self._aabb_frame = self._frame
         return cache
 
+    def _culling_names(self, for_render: bool) -> set:
+        """The entities that take part in culling: those with a ``cull_pad``
+        always; WhenVisible ones for simulation, and for render culling
+        only once the scene is camera-driven (``update(dt, cameras=...)`` or
+        a render chunk has run), unless ``render_culling`` overrides that
+        latch (scene.py:691-744)."""
+        render_cull = self._frustum_sim if self.render_culling is None else self.render_culling
+
+        def participates(asset, pad):
+            if pad is not None:
+                return True
+            return asset.simulation_condition is SimulationCondition.WHEN_VISIBLE and (
+                not for_render or render_cull
+            )
+
+        return {n for n, i in self._effects.items() if participates(i.asset, i.cull_pad)} | {
+            n for n, g in self._groups.items() if participates(g["asset"], g["cull_pad"])
+        }
+
     def _culled_names(self, cameras, for_render: bool = False) -> set:
-        """Names of WhenVisible effects whose padded AABB is outside EVERY
-        given camera frustum. For render culling only once the scene is
-        camera-driven (``update(dt, cameras=...)`` or a render chunk has run),
-        unless ``render_culling`` overrides that latch."""
+        """Names of the entities taking part in culling whose padded AABB is
+        outside EVERY given camera frustum."""
         from ..render.camera import aabb_in_frustum, frustum_planes
 
         cameras = list(cameras)
         if not cameras:
             return set()
-        render_cull = self._frustum_sim if self.render_culling is None else self.render_culling
-        if for_render and not render_cull:
-            return set()
-        names = {n for n, inst in self._effects.items() if self._cullable(inst.asset)}
-        names |= {n for n, g in self._groups.items() if self._cullable(g["asset"])}
+        names = self._culling_names(for_render)
         if not names:
             return set()
         aabbs = self._refresh_aabbs()
@@ -543,6 +566,232 @@ class HanabiScene:
             if n in aabbs and not any(aabb_in_frustum(p, aabbs[n][0], aabbs[n][1]) for p in planes)
         }
 
+    def _per_view_visibility(self, cameras, insts, groups):
+        """Per-camera visibility for multi-view rendering (scene.py:746-789,
+        the reference's per-view RenderVisibleEntities,
+        render/mod.rs:5580-5600): bool ``[V, n_effects]`` and ``[V,
+        n_groups]``, True where the entity's padded AABB meets THAT camera's
+        frustum. Entities not taking part in culling are visible in every
+        view. A view masks the alive lanes of what it does not see."""
+        from ..render.camera import aabb_in_frustum, frustum_planes
+
+        planes = [frustum_planes(c) for c in cameras]
+        aabbs = self._refresh_aabbs()
+        names = self._culling_names(for_render=True)
+
+        def row(name):
+            if name not in names or name not in aabbs:
+                return [True] * len(planes)
+            mn, mx = aabbs[name]
+            return [bool(aabb_in_frustum(p, mn, mx)) for p in planes]
+
+        vis_eff = np.asarray([row(i.name) for i in insts], np.bool_).reshape(len(insts), len(planes)).T
+        vis_grp = np.asarray([row(g["name"]) for g in groups], np.bool_).reshape(
+            len(groups), len(planes)).T
+        return vis_eff, vis_grp
+
+    # -- hot reload (≈ compile_effects change detection, lib.rs:1703-1838) ---
+
+    def apply_asset_changes(self, name: Optional[str] = None) -> List[str]:
+        """Detect live ``EffectAsset`` edits and recompile the affected
+        effects and groups (scene.py:793-872; the reference's
+        ``compile_effects`` rebuild, lib.rs:1703-1838, and
+        ``update_properties_from_asset``, lib.rs:1853).
+
+        Per drifted entity: a spawner-only edit retargets the live spawner
+        without a recompile (a group's spawner bank is rebuilt, its cycle
+        state reset); the pool is KEPT when the particle layout and capacity
+        are unchanged; a layout-only change migrates it (shared attributes
+        carry over, new ones take their defaults, alive particles survive);
+        a capacity change resets it; properties re-sync (values an instance
+        set persist where the property still exists with its type);
+        renderers and family steps are dropped, and a recompile cascades to
+        the descendants of a recompiled parent (unaffected ones no-op through
+        the compiled-effect cache). Runs at every update, chunk and render
+        entry point under ``hot_reload == "eager"``. Returns the names
+        recompiled (or spawner-retargeted)."""
+        sig_memo: Dict[int, Any] = {}
+
+        def sig_of(asset):
+            s = sig_memo.get(id(asset))
+            if s is None:
+                s = sig_memo[id(asset)] = asset.signature()
+            return s
+
+        if name is not None:
+            if name in self._effects:
+                eff_names, grp_names = [name], []
+            elif name in self._groups:
+                eff_names, grp_names = [], [name]
+            else:
+                raise KeyError(f"unknown effect {name!r}")
+        else:
+            eff_names, grp_names = list(self._order), list(self._groups)
+
+        drifted = {
+            n for n in eff_names
+            if sig_of(self._effects[n].asset) != self._effects[n].compiled_signature
+        }
+        changed: List[str] = []
+        if drifted:
+            # scene order keeps parents first; a recompiled parent cascades
+            # to its subtree (layout, channel constants, payload)
+            cascade = set(drifted)
+            for n in self._order:
+                if self._effects[n].parent in cascade:
+                    cascade.add(n)
+            for n in self._order:
+                if n in cascade and self._recompile_effect(n, sig_of(self._effects[n].asset)):
+                    changed.append(n)
+        for gname in grp_names:
+            g = self._groups[gname]
+            sig = sig_of(g["asset"])
+            if sig != g["compiled_signature"]:
+                self._recompile_group(gname, sig)
+                changed.append(gname)
+        return changed
+
+    @staticmethod
+    def _spawner_edit(old_sig, new_sig):
+        """``(spawner changed, nothing but the spawner changed)`` between two
+        asset signatures."""
+        old_js, new_js = json.loads(old_sig[3]), json.loads(new_sig[3])
+        changed = {k for k in set(old_js) | set(new_js) if old_js.get(k) != new_js.get(k)}
+        return "spawner" in changed, changed <= {"spawner"} and new_sig[:3] == old_sig[:3]
+
+    def _recompile_effect(self, name: str, new_sig) -> bool:
+        """scene.py:873-949."""
+        inst = self._effects[name]
+        asset = inst.asset
+        old_sig = inst.compiled_signature
+        if new_sig != old_sig:
+            spawner_changed, spawner_only = self._spawner_edit(old_sig, new_sig)
+            if inst.spawner is not None and spawner_changed:
+                inst.spawner.retarget(asset.spawner)
+            if spawner_only:
+                # the compiled step is untouched
+                inst.compiled_signature = new_sig
+                return True
+        parent_layout = parent_const = None
+        if inst.parent is not None:
+            p = self._effects[inst.parent]
+            parent_layout = p.asset.particle_layout()
+            parent_const = p.asset.channel_const_count(inst.child_channel)
+        new_fx = CompiledEffect.get(
+            asset,
+            self.device,
+            parent_layout=parent_layout,
+            parent_const_count=parent_const,
+            payload_attrs=inst.fx.payload_attrs,
+        )
+        layout_changed = new_sig[2] != old_sig[2]
+        if asset.capacity != old_sig[1]:
+            # an asset capacity edit wins, and RETIRES the add()-time
+            # override, which would otherwise resurrect on the next edit
+            new_cap = asset.capacity
+            inst.capacity_override = None
+        else:
+            new_cap = inst.capacity_override or inst.pool.capacity
+        pool_changed = layout_changed or new_cap != inst.pool.capacity
+        if new_fx is inst.fx and not pool_changed and new_sig == old_sig:
+            return False  # a cascade no-op
+        events_compatible = (
+            not pool_changed and new_fx.payload_attrs == inst.fx.payload_attrs
+        )
+        if pool_changed:
+            inst.pool = self._migrate_pool(inst.pool, new_fx.create_pool(new_cap))
+        inst.fx = new_fx
+        if not events_compatible:
+            inst.last_events = {}
+        inst.renderer = None
+        inst.compiled_signature = new_sig
+        inst.properties.resync([Property(n, v) for n, v in asset.module.properties().items()])
+        self._family_fn = {k: v for k, v in self._family_fn.items() if name not in k}
+        if inst.parent is not None:
+            # the child's inherited attributes may have changed
+            self._restrict_parent_payload(inst.parent)
+        return True
+
+    @staticmethod
+    def _migrate_pool(old: ParticlePool, new: ParticlePool) -> ParticlePool:
+        """``new`` (a fresh pool of the new layout, or a group's fresh
+        pools) carrying ``old``'s state: at the same capacity the alive mask,
+        seeds, counter and every shared attribute (new attributes keep their
+        defaults); a capacity change resets the pool (scene.py:951-966)."""
+        if old.alive.shape != new.alive.shape:
+            return new
+        for k, v in new.attrs.items():
+            ov = old.attrs.get(k)
+            if ov is not None and ov.shape == v.shape and ov.dtype == v.dtype:
+                new.attrs[k] = ov
+        return ParticlePool(attrs=new.attrs, alive=old.alive, seed=old.seed, counter=old.counter)
+
+    def _recompile_group(self, gname: str, new_sig) -> None:
+        """scene.py:967-1038."""
+        from ..spawn import make_spawner_bank
+
+        g = self._groups[gname]
+        asset = g["asset"]
+        old_sig = g["compiled_signature"]
+        count = g["fx"].num_instances
+        spawner_changed, spawner_only = self._spawner_edit(old_sig, new_sig)
+        if spawner_changed:
+            # a group's spawners are one vectorized bank: rebuilt with the
+            # new settings, their cycle state reset
+            g["bank"] = make_spawner_bank(asset.spawner, count, seed=int(self._rng.integers(0, 2**63)))
+        if spawner_only:
+            g["compiled_signature"] = new_sig
+            return
+        layout_changed = new_sig[2] != old_sig[2]
+        old_cap = int(g["pools"].alive.shape[-1])
+        if asset.capacity != old_sig[1]:
+            new_cap = asset.capacity
+            g["capacity_override"] = None
+        else:
+            new_cap = g["capacity_override"] or old_cap
+        fx = InstancedEffect(asset, count, new_cap, device=self.device)
+        g["fx"] = fx
+        if layout_changed or new_cap != old_cap:
+            g["pools"] = self._migrate_pool(g["pools"], fx.create_pools())
+        g["renderer"] = None
+        g["properties"].resync([Property(n, v) for n, v in asset.module.properties().items()])
+        g["compiled_signature"] = new_sig
+
+    def _begin(self) -> None:
+        """Every update, chunk and render entry point starts here: an eager
+        hot reload of drifted assets (scene.py:1055, 1408, 1695, 2235, 2393)."""
+        if self.hot_reload == "eager":
+            self.apply_asset_changes()
+
+    def _check_footguns(self) -> None:
+        """Every 30 frames, a quarter of all entities is checked for asset
+        drift, so every live asset is within 120 frames (scene.py:1152-1195):
+        under ``hot_reload == "periodic"`` a drifted one recompiles, under
+        ``"off"`` it only warns (eager mode applied changes already)."""
+        from ..utils.diag import warn_once
+
+        if self._frame % 30 != 0 or not (self._effects or self._groups):
+            return
+        entities = [(n, i.asset, i.compiled_signature) for n, i in self._effects.items()] + [
+            (n, g["asset"], g["compiled_signature"]) for n, g in self._groups.items()
+        ]
+        batch = -(-len(entities) // 4)
+        tick = self._frame // 30
+        for k in range(batch):
+            name, asset, sig = entities[(tick * batch + k) % len(entities)]
+            if asset.signature() == sig:
+                continue
+            if self.hot_reload == "off":
+                warn_once(
+                    f"asset-drift:{name}",
+                    f"effect {name!r}: EffectAsset was modified after add(); the compiled "
+                    "effect still runs the OLD definition (hot_reload='off'). Call "
+                    "apply_asset_changes() or remove and re-add the instance (reference "
+                    "recompiles here, lib.rs:1796).",
+                )
+            else:
+                self.apply_asset_changes(name)
+
     # -- simulation ----------------------------------------------------------
 
     def update(self, dt: float, cameras=None) -> None:
@@ -552,10 +801,13 @@ class HanabiScene:
         ``cameras`` (a camera or a sequence): a WhenVisible effect or group
         whose padded pool/emitter AABB is outside every given frustum ticks
         no spawner and does not step. Without ``cameras`` the manual
-        ``set_visible`` flag alone gates. ``last_frame_ms`` keeps the call's
-        host wall time (the device work it enqueued may still run)."""
+        ``set_visible`` flag alone gates. Under ``debug.validate`` every
+        step is a checked step. ``last_frame_ms`` keeps the call's host wall
+        time (the device work it enqueued may still run)."""
         t0 = time.perf_counter()
-        self._refuse_unported()
+        self._begin()
+        self.debug.on_frame_start(self._new_effect_added)
+        self._new_effect_added = False
         if cameras is not None and not isinstance(cameras, (list, tuple)):
             cameras = [cameras]
         if cameras:
@@ -563,6 +815,8 @@ class HanabiScene:
         culled = self._culled_names(cameras) if cameras else set()
         sim = self.clock.advance(dt)
         self._frame += 1
+        self._check_footguns()
+        validate = self.debug.validate
         # Children consume events emitted by their parent's PREVIOUS step.
         prev_events = {n: dict(e.last_events) for n, e in self._effects.items()}
         # (parent, channel) pairs consumed this frame: a paused parent's
@@ -577,23 +831,26 @@ class HanabiScene:
                 continue
             frame_seed = np.uint32(inst.rng.integers(0, 2**32))
             props = inst.properties.as_dict()
-            if inst.parent is not None:
-                parent = self._effects[inst.parent]
-                consumed.append((inst.parent, inst.child_channel))
-                events_in = prev_events[inst.parent].get(inst.child_channel)
-                if events_in is None:
-                    events_in = parent.fx.make_empty_events(parent.pool.capacity)
-                inst.pool, events_out = inst.fx.step(
-                    inst.pool,
-                    StepInputs.make(0, frame_seed, inst.transform, props),
-                    sim,
-                    events_in=events_in,
-                )
-            else:
-                n_spawn = inst.spawner.tick(self.clock.delta) if inst.spawner else 0
-                inst.pool, events_out = inst.fx.step(
-                    inst.pool, StepInputs.make(n_spawn, frame_seed, inst.transform, props), sim
-                )
+            step = inst.fx.step_checked if validate else inst.fx.step
+            with profile_span(f"hanabi:step:{name}", self.device):
+                if inst.parent is not None:
+                    parent = self._effects[inst.parent]
+                    consumed.append((inst.parent, inst.child_channel))
+                    events_in = prev_events[inst.parent].get(inst.child_channel)
+                    if events_in is None:
+                        events_in = parent.fx.make_empty_events(parent.pool.capacity)
+                    inst.pool, events_out = step(
+                        inst.pool,
+                        StepInputs.make(0, frame_seed, inst.transform, props),
+                        sim,
+                        events_in=events_in,
+                        parent_pool=parent.pool,
+                    )
+                else:
+                    n_spawn = inst.spawner.tick(self.clock.delta) if inst.spawner else 0
+                    inst.pool, events_out = step(
+                        inst.pool, StepInputs.make(n_spawn, frame_seed, inst.transform, props), sim
+                    )
             inst.last_events = events_out
             stepped.add(name)
         # A parent that did not step (paused WhenVisible) keeps stale
@@ -609,7 +866,9 @@ class HanabiScene:
             counts = g["bank"].tick(self.clock.delta)
             seeds = self._rng.integers(0, 2**32, size=g["fx"].num_instances, dtype=np.uint32)
             inputs = g["fx"].make_inputs(counts, seeds, g["transforms"], g["properties"].as_dict())
-            g["pools"], _ = g["fx"].step(g["pools"], inputs, sim)
+            step = g["fx"].step_checked if validate else g["fx"].step
+            g["pools"], _ = step(g["pools"], inputs, sim)
+        self.debug.on_frame_end()
         self.last_frame_ms = (time.perf_counter() - t0) * 1000.0
 
     @staticmethod
@@ -692,22 +951,27 @@ class HanabiScene:
         any event tree, one family chunk per tree, one ``step_chunk`` per
         group (scene.py:1393-1485). The pending event buffers ride between
         the frames of a family on the device; nothing reads back per
-        frame."""
-        self._refuse_unported()
+        frame. Under ``debug.validate`` every chunk is checked, with one
+        readback each."""
+        self._begin()
         (active_effects, active_groups, families, per_effect_inputs, per_group_inputs,
          sims) = self._collect_chunk_inputs(frames, dt, on_frame)
+        validate = self.debug.validate
         family_members = {n for mem in families.values() for n in mem}
         for name in active_effects:
             if name in family_members:
                 continue
             inst = self._effects[name]
             ii, ss = CompiledEffect.stack_frames(per_effect_inputs[name], sims)
-            inst.pool = inst.fx.step_chunk(inst.pool, ii, ss)
+            chunk = inst.fx.step_chunk_checked if validate else inst.fx.step_chunk
+            inst.pool = chunk(inst.pool, ii, ss)
 
         for names in families.values():
             insts = [self._effects[n] for n in names]
             index = {n: i for i, n in enumerate(names)}
-            key = tuple(names)
+            # the "##checked" sentinel never collides with an effect name in
+            # the cache invalidation's membership tests
+            key = tuple(names) + (("##checked",) if validate else ())
             fam_fn = self._family_fn.get(key)
             if fam_fn is None:
                 fam_fn = CompiledEffect.make_family_chunk_step(
@@ -718,7 +982,8 @@ class HanabiScene:
                             inst.child_channel,
                         )
                         for inst in insts
-                    ]
+                    ],
+                    checked=validate,
                 )
                 self._family_fn[key] = fam_fn
             stacked = [CompiledEffect.stack_frames(per_effect_inputs[n], sims) for n in names]
@@ -739,7 +1004,8 @@ class HanabiScene:
         for gname in active_groups:
             g = self._groups[gname]
             ii, ss = CompiledEffect.stack_frames(per_group_inputs[gname], sims)
-            g["pools"] = g["fx"].step_chunk(g["pools"], ii, ss)
+            chunk = g["fx"].step_chunk_checked if validate else g["fx"].step_chunk
+            g["pools"] = chunk(g["pools"], ii, ss)
 
     def update_render_chunk(
         self,
@@ -753,7 +1019,7 @@ class HanabiScene:
         pipeline: str = "auto",
     ):
         """Advance AND render ``frames`` frames of the whole scene
-        (scene.py:1640-1858, one camera).
+        (scene.py:1640-1858).
 
         The JAX package's ``lax.scan`` is a K-frame Python loop here, which
         only enqueues device work: each frame steps every member in scene
@@ -762,24 +1028,36 @@ class HanabiScene:
         through the render plan frozen at call time (visibility, frustum
         culling, ordering, batching and phases, like the JAX package); a
         group draws its flat pool with its first instance's property values
-        (scene.py:1952-1974). Returns ``(image,
-        checksums)``: the last frame's [H, W, 4] framebuffer and a [K] device
-        tensor of per-frame framebuffer sums; nothing reads back inside the
-        loop."""
-        if isinstance(camera, (list, tuple)):
-            raise _unported("update_render_chunk with a camera list (multi-view)")
-        self._refuse_unported()
-        config, background = self._frame_config(camera, config, background)
+        (scene.py:1952-1974).
+
+        ``camera`` may be a SEQUENCE of cameras sharing one viewport: every
+        frame then renders every view, as :meth:`render_views` does (the
+        plan under ``cameras[0]``, each view's culling masking the alive
+        lanes of what it does not see). Under ``debug.validate`` every step
+        and frame is checked, with one readback after the chunk.
+
+        Returns ``(image, checksums)``: the last frame's [H, W, 4]
+        framebuffer ([V, H, W, 4] for a camera list) and a [K] device tensor
+        of per-frame framebuffer sums (over every view); nothing reads back
+        inside the loop."""
+        self._begin()
+        cams = list(camera) if isinstance(camera, (list, tuple)) else None
+        if cams is not None:
+            self._check_views(cams)
+        camera0 = cams[0] if cams is not None else camera
+        config, background = self._frame_config(camera0, config, background)
         # the chunk is camera-driven by construction: WhenVisible gating on
         self._frustum_sim = True
-        culled = self._culled_names([camera], for_render=True)
+        culled = self._culled_names(cams if cams is not None else [camera], for_render=True)
         names, gnames, _, per_effect_inputs, per_group_inputs, sims = self._collect_chunk_inputs(
             frames, dt, on_frame, culled=culled
         )
         insts = [self._effects[n] for n in names]
         groups = [self._groups[g] for g in gnames]
         index = {n: i for i, n in enumerate(names)}
-        plan = self._scene_render_plan(insts, camera, pipeline, culled=culled, groups=groups)
+        plan = self._scene_render_plan(insts, camera0, pipeline, culled=culled, groups=groups)
+        if cams is not None:
+            hidden = self._hidden_per_view(cams, insts, groups)
         bg = torch.tensor(background, dtype=torch.float32, device=self.device).expand(
             config.height, config.width, 4
         )
@@ -790,7 +1068,8 @@ class HanabiScene:
             }
             for inst in insts
         ]
-        img = bg
+        checks = StepChecks() if self.debug.validate else None
+        img = bg if cams is None else bg.expand(len(cams), *bg.shape)
         sums = []
         for j in range(frames):
             new_pendings = []
@@ -801,12 +1080,13 @@ class HanabiScene:
                     else pendings[index[inst.parent]][inst.child_channel]
                 )
                 inst.pool, ev_out = inst.fx._step(
-                    inst.pool, per_effect_inputs[inst.name][j], sims[j], ev_in, None
+                    inst.pool, per_effect_inputs[inst.name][j], sims[j], ev_in, None, checks=checks
                 )
                 new_pendings.append(ev_out)
             pendings = new_pendings
             for g in groups:
-                g["pools"], _ = g["fx"].step(g["pools"], per_group_inputs[g["name"]][j], sims[j])
+                g["pools"] = g["fx"]._step(g["pools"], per_group_inputs[g["name"]][j], sims[j],
+                                           checks)
             # the frame renderer of scene.py:1860-2097: the plan over the
             # fresh pools, each effect with this frame's transform and
             # properties, each group with its first instance's properties
@@ -815,15 +1095,82 @@ class HanabiScene:
             group_props = [
                 {k: v[0] for k, v in per_group_inputs[g][j].properties.items()} for g in gnames
             ]
-            img = self._render_frame(insts, plan, inputs, sims[j], camera, config, bg, scene_depth,
-                                     groups=groups, group_props=group_props)
+
+            def frame(cam, hid=frozenset()):
+                return self._render_frame(insts, plan, inputs, sims[j], cam, config, bg,
+                                          scene_depth, groups=groups, group_props=group_props,
+                                          hidden=hid)
+
+            if cams is None:
+                img = frame(camera)
+            else:
+                img = torch.stack([frame(c, h) for c, h in zip(cams, hidden)])
+            if checks is not None:
+                checks.finite({"framebuffer": img}, f"the render of frame {j} of the chunk")
             sums.append(img.sum())
         for inst, pend in zip(insts, pendings):
             inst.last_events = pend
+        if checks is not None:
+            checks.raise_if_failed()
         return img, (torch.stack(sums) if sums else torch.zeros(0, device=self.device))
 
-    def render_views(self, *args, **kwargs):
-        raise _unported("render_views")
+    @staticmethod
+    def _check_views(cameras) -> None:
+        if not cameras:
+            raise ValueError("a camera list must not be empty")
+        if any(c.viewport != cameras[0].viewport for c in cameras):
+            raise ValueError("all views must share one viewport")
+
+    def _hidden_per_view(self, cameras, insts, groups) -> List[set]:
+        """For each camera, the names of the effects and groups of the plan
+        that its frustum culls (:meth:`_per_view_visibility`)."""
+        vis_eff, vis_grp = self._per_view_visibility(cameras, insts, groups)
+        return [
+            {i.name for i, ok in zip(insts, ve) if not ok}
+            | {g["name"] for g, ok in zip(groups, vg) if not ok}
+            for ve, vg in zip(vis_eff, vis_grp)
+        ]
+
+    def render_views(self, cameras, config=None, background=None, scene_depth=None,
+                     pipeline: str = "auto") -> torch.Tensor:
+        """Render the CURRENT scene state from V cameras sharing one
+        viewport (scene.py:2196-2339); returns a [V, H, W, 4] image stack.
+
+        A loop over the views through :meth:`render`'s passes, the plan
+        (ordering, batching, phases) frozen under ``cameras[0]`` as in the
+        JAX package: same-kind transparent PASSES composite in camera-0
+        order in every view (within a pass, and across opaque and mask
+        content, per-pixel depth is exact per view). Culling is per view: an
+        entity outside EVERY frustum leaves the plan; one outside only SOME
+        keeps its pass with its alive lanes masked in those views, so it
+        contributes nothing there. ``scene_depth`` is shared by all views."""
+        self._begin()
+        cameras = list(cameras)
+        self._check_views(cameras)
+        config, background = self._frame_config(cameras[0], config, background)
+        insts = [self._effects[n] for n in self._order]
+        groups = list(self._groups.values())
+        plan = self._scene_render_plan(
+            insts, cameras[0], pipeline, culled=self._culled_names(cameras, for_render=True),
+            groups=groups,
+        )
+        hidden = self._hidden_per_view(cameras, insts, groups)
+        fb = torch.tensor(background, dtype=torch.float32, device=self.device).expand(
+            config.height, config.width, 4
+        )
+        inputs = [(inst.transform, inst.properties.as_dict()) for inst in insts]
+        group_props = []
+        for g in groups:
+            n = g["fx"].num_instances
+            ins = g["fx"].make_inputs(np.zeros(n, np.int32), np.zeros(n, np.uint32),
+                                      g["transforms"], g["properties"].as_dict())
+            group_props.append({k: v[0] for k, v in ins.properties.items()})
+        sim = self.clock.sim_params()
+        return torch.stack([
+            self._render_frame(insts, plan, inputs, sim, cam, config, fb, scene_depth,
+                               groups=groups, group_props=group_props, hidden=hid)
+            for cam, hid in zip(cameras, hidden)
+        ])
 
     # -- rendering -------------------------------------------------------------
 
@@ -937,8 +1284,10 @@ class HanabiScene:
         aligned to the viewport. ``scene_depth`` ([H, W] view distances,
         +inf where empty) occludes particles behind it in every pass;
         ``return_depth=True`` returns ``(image, depth)``, the scene depth
-        merged with everything the opaque and mask entries wrote."""
-        self._refuse_unported()
+        merged with everything the opaque and mask entries wrote. Under
+        ``debug.validate`` a phase-split frame must be finite
+        (``FloatingPointError`` otherwise, scene.py:2515-2520)."""
+        self._begin()
         config, background = self._frame_config(camera, config, background)
         fb = torch.tensor(background, dtype=torch.float32, device=self.device).expand(
             config.height, config.width, 4
@@ -950,64 +1299,84 @@ class HanabiScene:
             groups=groups,
         )
         inputs = [(inst.transform, inst.properties.as_dict()) for inst in insts]
-        return self._render_frame(
+        out = self._render_frame(
             insts, plan, inputs, self.clock.sim_params(), camera, config, fb, scene_depth,
             return_depth, groups=groups,
             group_props=[g["properties"].as_dict() for g in groups],
         )
+        painter = bool(plan[1]) and plan[1][0][0] == "painter"
+        if self.debug.validate and not painter:
+            img = out[0] if return_depth else out
+            if not bool(torch.isfinite(img).all()):
+                raise FloatingPointError(
+                    "debug validation: rendered framebuffer contains non-finite pixels — a "
+                    "nan or inf reached the raster output (poison read, bad color "
+                    "expression, or degenerate projection)"
+                )
+        return out
+
+    @staticmethod
+    def _view_pool(pool: ParticlePool, hidden: bool) -> ParticlePool:
+        """``pool``, or for a view that culls it the same pool with every
+        lane dead (the JAX package's per-view alive mask, scene.py:1919-1928)."""
+        if not hidden:
+            return pool
+        return ParticlePool(pool.attrs, torch.zeros_like(pool.alive), pool.seed, pool.counter)
 
     def _render_frame(self, insts, plan, inputs, sim, camera, config, fb, scene_depth=None,
-                      return_depth=False, groups=(), group_props=()):
+                      return_depth=False, groups=(), group_props=(), hidden=frozenset()):
         """Run a render plan onto ``fb``. ``inputs[i]`` is effect i's
         (transform, properties), ``group_props[gi]`` the properties group
-        ``gi`` draws with. Phase split as the reference's render phases:
-        opaque and mask passes draw first threading the depth plane, then
-        the transparent passes test against it."""
+        ``gi`` draws with; the effects and groups named in ``hidden`` draw
+        with every lane masked (a view that culls them). Phase split as the
+        reference's render phases: opaque and mask passes draw first
+        threading the depth plane, then the transparent passes test against
+        it."""
         opaque_passes, transp_passes = plan
+        pools = [self._view_pool(i.pool, i.name in hidden) for i in insts]
+        gpools = [self._view_pool(self._group_flat_pool(g), g["name"] in hidden) for g in groups]
         if scene_depth is not None:
             scene_depth = torch.as_tensor(scene_depth, dtype=torch.float32, device=self.device)
         if transp_passes and transp_passes[0][0] == "painter":
             _, idxs, gidxs = transp_passes[0]
             return self._render_painter(
-                [insts[i] for i in idxs], [inputs[i] for i in idxs], camera, config, sim, fb,
-                scene_depth, return_depth, groups=[groups[gi] for gi in gidxs],
+                [insts[i] for i in idxs], [pools[i] for i in idxs], [inputs[i] for i in idxs],
+                camera, config, sim, fb, scene_depth, return_depth,
+                groups=[groups[gi] for gi in gidxs], gpools=[gpools[gi] for gi in gidxs],
                 group_props=[group_props[gi] for gi in gidxs],
             )
         depth_acc = scene_depth
-        passes = (groups, group_props)
+        entities = (insts, pools, inputs, groups, gpools, group_props)
         for desc in opaque_passes:
-            fb, depth_acc = self._run_pass(desc, insts, inputs, camera, config, sim, fb,
-                                           depth_acc, True, passes)
+            fb, depth_acc = self._run_pass(desc, entities, camera, config, sim, fb, depth_acc, True)
         if opaque_passes:
             scene_depth = depth_acc
         for desc in transp_passes:
-            fb, _ = self._run_pass(desc, insts, inputs, camera, config, sim, fb, scene_depth,
-                                   False, passes)
+            fb, _ = self._run_pass(desc, entities, camera, config, sim, fb, scene_depth, False)
         if not return_depth:
             return fb
         if depth_acc is None:
             depth_acc = torch.full((config.height, config.width), torch.inf, device=self.device)
         return fb, depth_acc
 
-    def _run_pass(self, desc, insts, inputs, camera, config, sim, fb, depth, write_depth,
-                  groups=((), ())):
+    def _run_pass(self, desc, entities, camera, config, sim, fb, depth, write_depth):
         """One "eff", "batch" or "grp" pass: returns ``(fb, depth)``.
-        ``groups`` is ``(groups, group_props)``."""
+        ``entities`` is ``(insts, pools, inputs, groups, gpools,
+        group_props)``."""
+        insts, pools, inputs, groups, gpools, group_props = entities
         tag, which, kind = desc
         if tag == "batch":
             out = self._render_batch(
-                [insts[i] for i in which], [inputs[i] for i in which], kind, camera, config,
-                sim, fb, depth, write_depth,
+                [insts[i] for i in which], [pools[i] for i in which], [inputs[i] for i in which],
+                kind, camera, config, sim, fb, depth, write_depth,
             )
         elif tag == "grp":
-            g = groups[0][which]
-            out = self._render_entity(g, self._group_flat_pool(g), None, groups[1][which], camera,
-                                      config, sim, fb, depth, write_depth)
+            out = self._render_entity(groups[which], gpools[which], None, group_props[which],
+                                      camera, config, sim, fb, depth, write_depth)
         else:
             transform, props = inputs[which]
-            inst = insts[which]
-            out = self._render_entity(inst, inst.pool, transform, props, camera, config, sim, fb,
-                                      depth, write_depth)
+            out = self._render_entity(insts[which], pools[which], transform, props, camera,
+                                      config, sim, fb, depth, write_depth)
         return out if write_depth else (out, depth)
 
     @staticmethod
@@ -1042,8 +1411,8 @@ class HanabiScene:
             return_depth=return_depth,
         )
 
-    def _render_batch(self, insts, inputs, alpha_kind, camera, config, sim, fb, scene_depth=None,
-                      return_depth=False):
+    def _render_batch(self, insts, pools, inputs, alpha_kind, camera, config, sim, fb,
+                      scene_depth=None, return_depth=False):
         """Rasterize several same-blend-state effects in one pass: one
         (tile, depth) sort for the whole batch (scene.py:2565-2656) over the
         concatenated required draw columns (mask effects never batch)."""
@@ -1053,8 +1422,8 @@ class HanabiScene:
 
         cfg0 = dataclasses.replace(config, background=neutral_background(alpha_kind))
         flat = concat_draws([
-            extract_draw_data(i.asset, i.pool, camera, sim=sim, properties=pr, transform=tr)
-            for i, (tr, pr) in zip(insts, inputs)
+            extract_draw_data(i.asset, pool, camera, sim=sim, properties=pr, transform=tr)
+            for i, pool, (tr, pr) in zip(insts, pools, inputs)
         ])
         out = rasterize(flat, camera, cfg0, alpha_mode=alpha_kind, scene_depth=scene_depth,
                         return_depth=return_depth)
@@ -1063,8 +1432,8 @@ class HanabiScene:
             return composite_by_mode(img, fb, alpha_kind), depth
         return composite_by_mode(out, fb, alpha_kind)
 
-    def _render_painter(self, insts, inputs, camera, config, sim, fb, scene_depth=None,
-                        return_depth=False, groups=(), group_props=()):
+    def _render_painter(self, insts, pools, inputs, camera, config, sim, fb, scene_depth=None,
+                        return_depth=False, groups=(), gpools=(), group_props=()):
         """Every visible effect and group in ONE painter pass (scene.py:2658-2769):
         one global (tile, depth) sort, one window gather, one blend loop
         whose per-entry mode ids select the equation; opaque and mask
@@ -1074,7 +1443,8 @@ class HanabiScene:
         (scene.py:47-75's shared conversion). ``insts`` are in
         back-to-front emitter order, which breaks sort ties only; the
         groups' entries follow the effects', each group's flat pool drawn
-        with ``group_props``."""
+        with ``group_props``; ``pools`` and ``gpools`` are the pools each
+        effect and group draws."""
         from ..render.extract import concat_painter_draws, extract_draw_data
         from ..render.mesh import expand_mesh_draw
         from ..render.raster import rasterize
@@ -1088,9 +1458,10 @@ class HanabiScene:
             tuple(shared.setdefault(id(src), t) for src, t in zip(srcs, texs))
             for srcs, texs in sources
         ]
-        entries = [(i.asset, i.fx.layout, i.pool, tr, pr) for i, (tr, pr) in zip(insts, inputs)]
-        entries += [(g["asset"], g["fx"].effect.layout, self._group_flat_pool(g), None, pr)
-                    for g, pr in zip(groups, group_props)]
+        entries = [(i.asset, i.fx.layout, pool, tr, pr)
+                   for i, pool, (tr, pr) in zip(insts, pools, inputs)]
+        entries += [(g["asset"], g["fx"].effect.layout, gpool, None, pr)
+                    for g, gpool, pr in zip(groups, gpools, group_props)]
         draws = []
         for (asset, layout, pool, tr, pr), texs in zip(entries, textures):
             draw = extract_draw_data(asset, pool, camera, sim=sim, properties=pr,

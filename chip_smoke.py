@@ -9,7 +9,8 @@ benchmark-headline frame and its three companion binnings, the firework
 event tree, the mixed scene (``HanabiScene.update_render_chunk``), the
 ribbon frame, the force field, the textured mesh frame, the painter pass
 with its texture atlas and mesh/Lambert merge, antialiasing, instanced
-groups and the reference's examples. It never imports JAX. Phases, each of which fails the run on any error:
+groups, the reference's examples, and the rest of ``HanabiScene`` and the
+renderer (multi-view, hot reload, checkpoints, validation, bloom). It never imports JAX. Phases, each of which fails the run on any error:
 
 1. a CUDA device must be present; print its name and power limit;
 2. build the kernel library (nvcc, one process per source, ctypes) and,
@@ -246,7 +247,34 @@ groups and the reference's examples. It never imports JAX. Phases, each of which
     the JAX package's tests/test_examples.py:71-125, card against CPU;
 21. ``ribbon_segments`` with the sprite column on the textured ribbon's
     frame, exactly against its plain version, and timed (and, in phase 13,
-    on the ribbon frame's 1M rows with a sprite column).
+    on the ribbon frame's 1M rows with a sprite column);
+22. the rest of ``HanabiScene`` and the renderer:
+    a. phase 11's mixed scene (917 504 lanes, 512x512) warmed to 75 frames
+       into a burst, then ``render_views`` from three cameras (phase 11's,
+       a raised three-quarter one, and one whose frustum culls the rocket
+       and the trail): each view equal to ``render`` of its camera (max abs
+       err at most 1e-5), the third view equal to the frame without the
+       culled members; ``render_views`` timed against three ``render``
+       calls; three ``update_render_chunk(40, 1/60, cameras)`` chunks
+       (frames/s; every kernel of the painter path launched); on the
+       second view's frame ``project_bin``, ``bin_keys``, ``gather_window``
+       and ``tile_blend`` SCENE exactly against their plain versions;
+    b. hot reload on ``gradient_effect(1 << 20)``: a constant edit
+       recompiles and keeps the pool, a layout edit migrates the 1M lanes
+       (alive mask, seeds and every shared attribute exact), both timed;
+    c. the 64k -> 256k firework tree saved and loaded mid-burst (events in
+       flight) into a scene of another seed: 120 frames later the pools
+       equal the uninterrupted run's bit for bit; save and load ms and bytes;
+    d. ``DebugSettings.validate`` on the tree: ``update()`` steps/s with
+       validation off and on, the validated frames clean; a poisoned live
+       rocket lane raises at its frame;
+    e. the bloom of examples/run_all.py:289-295 and the ACES of
+       examples/animate.py:65 on the tree's 512x512 HDR frame, card
+       against CPU (within 1e-5 of the values' scale), timed;
+    f. ``example_multicam`` at examples/run_all.py:251-287's config
+       (256x256, antialiased, two cameras through ``render_views``) and a
+       LOCAL-space effect under ``camera_2d``, card against CPU (alive
+       counts equal, checksums within 0.5%).
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -271,7 +299,9 @@ launches) and the antialiased variants' (``tile_blend[blend,aa]``,
 instanced frame's (``project_bin``, ``bin_keys``, ``gather_window`` and
 ``tile_blend`` at ``[instanced]``) and the textured ribbon's
 (``ribbon_segments[sprite]``, and ``[sprite,1M]``, a timing row with 0
-launches). Each row holds the
+launches) and the multi-view chunk's (``project_bin``, ``bin_keys``,
+``gather_window`` at ``[views]`` and ``tile_blend[scene,views]``, compared
+on its second view's frame). Each row holds the
 path's launches, the kernel's and its plain version's device ms, the
 library call's (``index_select`` for the gathers, of the window's rows
 for ``gather_window``, of the appearance rows by the segment order for
@@ -3184,6 +3214,287 @@ def textured_ribbon_kernels(kernels) -> dict:
 
 
 
+VIEWS_K = 40  # frames per multi-view chunk (phase 22a)
+
+
+def views_cameras(size: int = 512) -> list:
+    """Phase 22a's three views sharing one viewport: phase 11's camera, a
+    raised three-quarter camera, and one standing at x = 5.5 looking away
+    from the origin, whose frustum holds the gradient's and the debris'
+    boxes (out to x ~ 11 and ~ 7) and culls the rocket's and the trail's
+    (within x ~ 3)."""
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+
+    proj = perspective(math.radians(60.0), 1.0, 0.1, 200.0)
+    return [
+        mixed_camera(size),
+        CameraParams(look_at([14.0, 12.0, 18.0], [0.0, 1.0, 0.0]), proj, (size, size)),
+        CameraParams(look_at([5.5, 0.0, 0.0], [20.0, 0.0, 0.0]), proj, (size, size)),
+    ]
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Best host wall time of ``fn()`` (ms), each run ending synchronised."""
+    import torch
+
+    best = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def views_phase(kernels):
+    """Phase 22a: the full mixed scene (phase 11's, 917 504 lanes at
+    512x512) rendered from three cameras by ``render_views``: each view
+    equal to ``render`` of its camera, the plan (the painter pass) frozen
+    under the first; the third camera culls the rocket and the trail, which
+    contribute nothing to its view. Then ``update_render_chunk`` over the
+    three cameras (frames/s, every kernel of the painter path launched), and
+    the four raster kernels against their plain versions on the second
+    view's frame."""
+    import torch
+
+    from bevy_hanabi_tpu_torch import RasterConfig
+    from bevy_hanabi_tpu_torch.render import raster
+
+    cams = views_cameras()
+    size = cams[0].viewport[0]
+    cfg = RasterConfig(width=size, height=size, tile_slots=1)
+    scene = mixed_scene("cuda", 65536, 1 << 19, 65536, 262144)
+    t0 = time.perf_counter()
+    frames = warm_mixed(scene, cams[0], cfg)
+    # end 75 frames into a burst: rockets and trails on screen
+    scene.update_render_chunk(FW_RENDER_AT, DT, cams[0], cfg)
+    print(f"views: mixed scene warm-up {frames + FW_RENDER_AT} frames in "
+          f"{time.perf_counter() - t0:.2f} s, alive {[scene[n].alive_count() for n in MIXED_NAMES]}")
+    insts = scene.effects()
+    vis_eff, _ = scene._per_view_visibility(cams, insts, [])
+    print(f"views: visibility by view (rows) and effect {MIXED_NAMES}: {vis_eff.tolist()}")
+    if not vis_eff[0].all() or not vis_eff[1].all() or vis_eff[2].tolist() != [True, True, False,
+                                                                               False]:
+        fail(f"views: the third camera must cull the rocket and the trail alone: {vis_eff.tolist()}")
+    views = scene.render_views(cams, cfg)
+    if tuple(views.shape) != (3, size, size, 4) or not bool(views.isfinite().all()):
+        fail(f"views: render_views gave {tuple(views.shape)} or non-finite pixels")
+    for v, cam in enumerate(cams):
+        single = scene.render(cam, cfg)
+        err = float((views[v] - single).abs().max())
+        print(f"views: view {v} against render(camera {v}): max abs err {err:g}, checksums "
+              f"{float(views[v].sum()):.6e} {float(single.sum()):.6e}")
+        if err > 1e-5:
+            fail(f"views: view {v} differs from render(camera {v}) by {err:g}")
+    # the culled members contribute nothing to the third view: it equals the
+    # frame of the scene without them
+    for name in ("rocket", "trail"):
+        scene.set_visible(name, False)
+    without = scene.render(cams[2], cfg)
+    for name in ("rocket", "trail"):
+        scene.set_visible(name, True)
+    if not torch.equal(without, views[2]):
+        fail("views: the culled rocket and trail changed the third view")
+    views_ms = host_ms(lambda: scene.render_views(cams, cfg))
+    renders_ms = host_ms(lambda: [scene.render(c, cfg) for c in cams])
+    print(f"render_views V=3 at {size}x{size}: {views_ms:.3f} ms, three render calls {renders_ms:.3f} ms")
+
+    reset_launches(kernels)
+    scene.update_render_chunk(VIEWS_K, DT, cams, cfg)  # untimed
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, sums = scene.update_render_chunk(VIEWS_K, DT, cams, cfg)
+        checksum = float(sums[-1])  # readback: waits for the chunk
+        times.append(time.perf_counter() - t0)
+    launches = read_launches(kernels)
+    best = min(times)
+    print(f"multi-view chunk (3 views, {size}x{size}): {VIEWS_K} frames in {best:.4f} s: "
+          f"{VIEWS_K / best:.2f} frames/s ({3 * VIEWS_K / best:.2f} views/s), chunk times (s) "
+          f"{times}, checksum {checksum:.6e}")
+    print(f"launches in the multi-view chunks (3 x {VIEWS_K} frames x 3 views): {launches}")
+    require_launches(launches, MIXED_KERNELS["auto"], "the multi-view chunk")
+    if tuple(img.shape) != (3, size, size, 4) or not bool(img.isfinite().all()) or not checksum > 0:
+        fail(f"multi-view chunk: the last frame is not [3, {size}, {size}, 4], finite and positive")
+
+    # the painter pass's kernels on the second view's frame
+    cam = cams[1]
+    T, nt, M = cfg.tile_size, cfg.num_tiles, cfg.max_entries_per_tile
+    painter, extra = painter_draw(scene, scene_draws(scene, cam))
+    results = {}
+    results["project_bin[views]"], projected = compare_project_bin(
+        project_args(painter, cam, cfg), nt, f"project_bin (view 1, {painter.alive.shape[0]} "
+        "entries)", raster.row_width("scene", True), extra)
+    results["bin_keys[views]"] = compare_bin_keys(projected, nt, None, "bin_keys (view 1)")
+    results["gather_window[views]"], win = compare_gather_window(projected, nt, M, None,
+                                                                 "view 1")
+    results["tile_blend[scene,views]"], _ = compare_tile_blend(
+        "scene (view 1)", *win, T, cfg.tiles_x, cfg.tiles_y, cfg.background, "scene",
+        framebuffer=painter_target(cfg, extra.device), depth_test=True, write_depth=True)
+    return results, launches
+
+
+def scene_tools_phase() -> None:
+    """Phase 22b-f: hot reload of 1M lanes, a checkpoint of the firework
+    tree, validation, bloom and ACES, ``example_multicam`` and a LOCAL-space
+    2D frame, card against CPU."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import HanabiScene, RasterConfig, SimulationSpace
+    from bevy_hanabi_tpu_torch import attributes as A
+    from bevy_hanabi_tpu_torch.models import gradient_effect
+    from bevy_hanabi_tpu_torch.modifiers import SetAttributeModifier, SetVelocitySphereModifier
+    from bevy_hanabi_tpu_torch.render import bloom, tonemap_aces
+    from bevy_hanabi_tpu_torch.utils import load_scene_state, save_scene_state
+
+    # b. hot reload on 1M lanes: a constant edit, then a layout edit
+    asset = gradient_effect(CAPACITY)
+    scene = HanabiScene(seed=2, device="cuda")
+    scene.add(asset, "grad")
+    scene.update_chunk(3 * K, DT)  # past the 5 s lifetime
+    old_fx, old_pool = scene["grad"].fx, scene["grad"].pool.alive
+    m = asset.module
+    asset.init_modifiers[3] = SetVelocitySphereModifier(m.lit((0.0, 0.0, 0.0)), m.lit(3.0))
+    const_ms = host_ms(lambda: scene.apply_asset_changes(), 1)
+    if scene["grad"].fx is old_fx or scene["grad"].pool.alive is not old_pool:
+        fail("hot reload: a constant edit must recompile and keep the pool")
+    scene.update_chunk(30, DT)
+    before = {k: v.clone() for k, v in scene["grad"].pool.attrs.items()}
+    alive, seed = scene["grad"].pool.alive.clone(), scene["grad"].pool.seed.clone()
+    asset.init(SetAttributeModifier(A.F32_0, m.lit(7.0)))
+    t0 = time.perf_counter()
+    changed = scene.apply_asset_changes()
+    torch.cuda.synchronize()
+    migrate_ms = 1e3 * (time.perf_counter() - t0)
+    pool = scene["grad"].pool
+    kept = all(torch.equal(pool.attrs[k], v) for k, v in before.items())
+    if changed != ["grad"] or not kept or not torch.equal(pool.alive, alive) or not torch.equal(
+            pool.seed, seed) or not bool((pool.attrs["f32_0"][alive] == 0.0).all()):
+        fail(f"hot reload: the layout edit ({changed}) did not migrate the pool exactly")
+    scene.update_chunk(30, DT)
+    print(f"hot reload (gradient_effect({CAPACITY}), {int(alive.sum())} alive): constant edit "
+          f"apply_asset_changes {const_ms:.3f} ms; layout edit migrating {pool.capacity} lanes "
+          f"{migrate_ms:.3f} ms, alive mask, seeds and {len(before)} shared attributes exact, "
+          f"alive after 30 more frames {scene['grad'].alive_count()}")
+    del scene, pool, before
+
+    # c. the firework tree checkpointed mid-burst, resumed on the card
+    path = Path(__file__).resolve().parent / "build" / "phase22_checkpoint.npz"
+    path.parent.mkdir(exist_ok=True)
+    run = firework_scene("cuda", 5, 65536, 262144)
+    run.update_chunk(FW_K + FW_RENDER_AT, DT)
+    in_flight = int(run["rocket"].last_events[0].num_events)
+    save_ms = host_ms(lambda: save_scene_state(run, str(path)), 1)
+    size = os.path.getsize(path)
+    resumed = firework_scene("cuda", 99, 65536, 262144)
+    load_ms = host_ms(lambda: load_scene_state(resumed, str(path)), 1)
+    os.remove(path)
+    for s in (run, resumed):
+        s.update_chunk(K, DT)
+    for name in ("rocket", "trail"):
+        a, b = run[name].pool.to_numpy(), resumed[name].pool.to_numpy()
+        if not all(np.array_equal(x, y) for x, y in zip(a[1:], b[1:])):
+            fail(f"checkpoint: the resumed {name} pool's integer state differs")
+        if not all(np.array_equal(a[0][k], b[0][k]) for k in a[0]):
+            fail(f"checkpoint: the resumed {name} pool's attributes differ")
+    print(f"checkpoint of the 64k -> 256k tree ({in_flight} events in flight): save "
+          f"{save_ms:.1f} ms, load {load_ms:.1f} ms, {size} bytes; {K} frames after the resume "
+          f"bit-equal to the uninterrupted run (alive {run['trail'].alive_count()} trails)")
+
+    # d. validation on the firework tree: clean frames pass, a poisoned live
+    # lane raises at its frame
+    fw = firework_scene("cuda", 5, 65536, 262144)
+    fw.update_chunk(FW_K + FW_INTO_BURST, DT)
+    rates = {}
+    for validate in (False, True, False, True):
+        fw.debug.validate = validate
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(30):
+            fw.update(DT)
+        torch.cuda.synchronize()
+        rate = 30 / (time.perf_counter() - t0)
+        rates[validate] = max(rates.get(validate, 0.0), rate)
+    rocket = fw["rocket"].pool
+    lane = int(torch.nonzero(rocket.alive)[0])
+    rocket.attrs["position"][lane] = float("nan")
+    try:
+        fw.update(DT)
+    except FloatingPointError as e:
+        print(f"validate: 60 validated clean frames passed; the poisoned rocket lane {lane} raised at its "
+              f"frame: {e}")
+    else:
+        fail("validate: a poisoned live lane did not raise")
+    print(f"firework 64k->256k update(): {rates[False]:.2f} steps/s with validate off, "
+          f"{rates[True]:.2f} with validate on")
+    del fw
+
+    # e. bloom and ACES on the tree's 512x512 HDR frame, card against CPU
+    cam, cfg = headline_camera(), RasterConfig(512, 512, tile_slots=1)
+    hdr = run.render(cam, cfg)
+    # examples/run_all.py:289-295's firework look, and examples/animate.py:65's
+    posts = {"bloom(1.0, 3.0, 0.8)": lambda img: bloom(img, threshold=1.0, sigma=3.0, intensity=0.8),
+             "tonemap_aces(bloom(0.8, 2.5, 0.9))": lambda img: tonemap_aces(bloom(img, 0.8, 2.5, 0.9))}
+    for label, post in posts.items():
+        card, cpu = post(hdr).cpu(), post(hdr.cpu())
+        err = float((card - cpu).abs().max())
+        print(f"{label} 512x512 (HDR max {float(hdr.max()):.3f}): card against CPU max abs err "
+              f"{err:g}")
+        if err > 1e-5 * max(1.0, float(cpu.abs().max())):
+            fail(f"{label}: card against CPU max abs err {err:g}")
+    print(f"bloom 512x512 (sigma 3): {cuda_ms(lambda: bloom(hdr, 1.0, 3.0, 0.8), 20):.4f} ms, "
+          f"with ACES (sigma 2.5): {cuda_ms(lambda: tonemap_aces(bloom(hdr, 0.8, 2.5, 0.9)), 20):.4f}"
+          f" ms")
+    del run, resumed
+
+    # f. example_multicam at examples/run_all.py:251-287's config, and a
+    # LOCAL-space frame under camera_2d, card against CPU
+    from bevy_hanabi_tpu_torch.models import examples_registry, spawn_gravity_effect
+    from bevy_hanabi_tpu_torch.modifiers import OrientModifier
+    from bevy_hanabi_tpu_torch.modifiers.output import OrientMode
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, camera_2d, look_at, perspective
+
+    cfg = RasterConfig(width=256, height=256, tile_size=16, tile_span=2, max_entries_per_tile=128,
+                       antialias=True)
+    proj = perspective(0.9, 1.0, 0.1, 200.0)
+    mc = [CameraParams(look_at((0, 0, 10), (0, 0, 0)), proj, (256, 256)),
+          CameraParams(look_at((4.0, 3.0, 8.0), (0, 0, 0)), proj, (256, 256))]
+    tf = np.asarray([[1.3, -0.75, 0.0, 0.5], [0.75, 1.3, 0.0, -0.5], [0.0, 0.0, 1.5, 1.0]],
+                    np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        s = HanabiScene(seed=1, device=device)
+        s.add(examples_registry()["multicam"](), "fx")
+        for _ in range(200):
+            s.update(DT)
+        both = s.render_views(mc, cfg)
+        local = HanabiScene(seed=1, device=device)
+        local.add(spawn_gravity_effect(4096, 600.0).with_simulation_space(SimulationSpace.LOCAL)
+                  .render(OrientModifier(OrientMode.FACE_CAMERA_POSITION)), "fx", transform=tf)
+        for _ in range(30):
+            local.update(DT)
+        frame = local.render(camera_2d((512, 512), scale=3.0), RasterConfig(512, 512))
+        out[device] = ([float(both[v].sum()) for v in range(2)], s["fx"].alive_count(),
+                       float(frame.sum()), local["fx"].alive_count())
+    (views_g, alive_g, local_g, lalive_g), (views_c, alive_c, local_c, lalive_c) = (
+        out["cuda"], out["cpu"])
+    print(f"example_multicam (256x256, antialiased, 2 views): alive {alive_g} / {alive_c}, view "
+          f"checksums card {views_g} cpu {views_c}; LOCAL camera_2d frame: alive {lalive_g} / "
+          f"{lalive_c}, checksum card {local_g:.6e} cpu {local_c:.6e}")
+    if alive_g != alive_c or lalive_g != lalive_c or not all(
+            checksum_close(a, b) for a, b in zip(views_g + [local_g], views_c + [local_c])):
+        fail("example_multicam / LOCAL camera_2d: card and CPU disagree")
+    if not min(views_g) > 0 or not local_g > 0:
+        fail("example_multicam / LOCAL camera_2d: an empty frame")
+
+
+
 def main() -> int:
     import torch
 
@@ -3358,6 +3669,11 @@ def main() -> int:
     tr_launches = example_phase(kernels)
     tr_results = textured_ribbon_kernels(kernels)
 
+    # Phase 22: the rest of HanabiScene and the renderer: multi-view, hot
+    # reload, checkpoints, validation, bloom, multicam and LOCAL 2D.
+    vw_results, vw_launches = views_phase(kernels)
+    scene_tools_phase()
+
     results.update(fw_results)
     results.update(mx_results)
     results.update(rb_results)
@@ -3365,7 +3681,8 @@ def main() -> int:
     results.update(lit_results)
     results.update(ex_results)
     results.update(tq_results)
-    for r in (pt_results, msaa_results, litaa_results, exaa_results, in_results, tr_results):
+    for r in (pt_results, msaa_results, litaa_results, exaa_results, in_results, tr_results,
+              vw_results):
         results.update(r)
     # name, kernel, launches: each row holds one path's launches and its
     # comparison at that path's shapes (the headline's, the firework's,
@@ -3458,6 +3775,11 @@ def main() -> int:
             # a timing row: the ribbon frame's 1M rows with a sprite column
             ("ribbon_segments[sprite,1M]", "ribbon_segments", 0),
         ]
+        + [
+            (f"{name}[views]", name, vw_launches[name])
+            for name in ("project_bin", "bin_keys", "gather_window")
+        ]
+        + [("tile_blend[scene,views]", "tile_blend", vw_launches["tile_blend[scene]"])]
     )
     kernel_rows = [
         {

@@ -281,7 +281,9 @@ def test_instanced_render_chunk_per_instance_properties():
 
 def test_instanced_render_chunk_refusals_and_checked_steps():
     """LOCAL, ribbon and event-linked assets are refused as in the JAX
-    package; the checked steps keep their raise (DebugSettings.validate)."""
+    package; the checked steps (DebugSettings.validate) step as the JAX
+    package's do, and raise where they raise: on poisoned pools (NaN in the
+    dead lanes, create_pools(poison=True))."""
     local = instancing_effect(64).with_simulation_space(bt.SimulationSpace.LOCAL)
     fx = InstancedEffect(local, 2, device="cpu")
     ii, ss = fx.effect.stack_frames(*_stack(fx, [dict(spawn_counts=[1, 1], frame_seeds=[1, 2])],
@@ -297,9 +299,22 @@ def test_instanced_render_chunk_refusals_and_checked_steps():
         ev.step_render_chunk(ev.create_pools(), ii, ss, cam, cfg)
     with pytest.raises(NotImplementedError, match="event-linked"):
         ev.step(ev.create_pools(), ev.make_inputs([1, 1], [1, 2]), bt.SimParams())
-    for method in (fx.step_checked, fx.step_chunk_checked):
-        with pytest.raises(NotImplementedError, match="checked executables"):
-            method(fx.create_pools(), ii, ss)
+    fx_j = InstJ(instancing_j(64).with_simulation_space(bj.SimulationSpace.LOCAL), 2)
+    ii_j, ss_j = fx_j.effect.stack_frames(*_stack(fx_j, [dict(spawn_counts=[1, 1],
+                                                              frame_seeds=[1, 2])], bj.SimParams))
+    one_t = (fx.make_inputs([3, 1], [1, 2]), bt.SimParams(delta_time=DT))
+    one_j = (fx_j.make_inputs([3, 1], [1, 2]), bj.SimParams(delta_time=DT))
+    pools_t, _ = fx.step_checked(fx.create_pools(), *one_t)
+    pools_j, _ = fx_j.step_checked(fx_j.create_pools(), *one_j)
+    np.testing.assert_array_equal(pools_t.alive.numpy(), np.asarray(pools_j.alive))
+    chunk_t = fx.step_chunk_checked(fx.create_pools(), ii, ss)
+    chunk_j = fx_j.step_chunk_checked(fx_j.create_pools(), ii_j, ss_j)
+    np.testing.assert_array_equal(chunk_t.seed.numpy(), np.asarray(chunk_j.seed))
+    for fx_, one, chunk in ((fx, one_t, (ii, ss)), (fx_j, one_j, (ii_j, ss_j))):
+        with pytest.raises(Exception, match="nan"):
+            fx_.step_checked(fx_.create_pools(poison=True), *one)
+        with pytest.raises(Exception, match="nan"):
+            fx_.step_chunk_checked(fx_.create_pools(poison=True), *chunk)
 
 
 def test_flatten_and_stacked_pools_cross_from_jax():
@@ -381,8 +396,14 @@ def test_group_rejects_event_assets_and_local_space():
         s.add_group(firework_effect(512), 4)
     with pytest.raises(ValueError, match="GLOBAL"):
         s.add_group(instancing_effect(128).with_simulation_space(bt.SimulationSpace.LOCAL), 4)
-    with pytest.raises(NotImplementedError, match="cull_pad"):
-        s.add_group(instancing_effect(128), 4, cull_pad=1.0)
+    # cull_pad is ported: the group takes part in culling as in the JAX package
+    sj = SceneJ(seed=0)
+    for scene, asset in ((s, instancing_effect(128)), (sj, instancing_j(128))):
+        scene.add_group(asset, 4, "padded", cull_pad=1.0)
+        scene.update(DT)
+    cam_t, cam_j = _camera(bt.render.camera), _camera(bj.render)
+    assert s._groups["padded"]["cull_pad"] == sj._groups["padded"]["cull_pad"] == 1.0
+    assert s._culled_names([cam_t], True) == sj._culled_names([cam_j], True) == set()
 
 
 def _mixed(Scene, grav, inst, **kw):

@@ -700,9 +700,18 @@ def test_mixed_plan_is_the_painter_under_auto():
 
 
 def test_multi_view_chunk_raises():
-    _, st = _mixed_pair()
-    with pytest.raises(NotImplementedError, match="camera list"):
-        st.update_render_chunk(2, DT, [_persp(camera_t)] * 2)
+    """A camera list through the mixed scene's render chunk (once refused):
+    every frame renders both views, as in the JAX package."""
+    sj, st = _mixed_pair()
+    eye = (18.0, 6.0, 18.0)
+    img_j, sums_j = sj.update_render_chunk(
+        2, 0.1, [_persp(camera_j, 64), _persp(camera_j, 64, eye)], CfgJ(64, 64, tile_slots=1))
+    img_t, sums_t = st.update_render_chunk(
+        2, 0.1, [_persp(camera_t, 64), _persp(camera_t, 64, eye)], RasterConfig(64, 64, tile_slots=1))
+    assert img_t.shape == (2, 64, 64, 4)
+    for v in range(2):
+        _close_sum(img_t[v].numpy(), np.asarray(img_j[v]))
+    np.testing.assert_allclose(sums_t.numpy(), np.asarray(sums_j), rtol=REL)
 
 
 def test_spawn_gravity_effect_json_is_equal_in_both_packages():

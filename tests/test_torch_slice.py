@@ -188,6 +188,8 @@ def test_port_imports_without_jax():
         "import bevy_hanabi_tpu_torch.models.examples, bevy_hanabi_tpu_torch.models.texutils\n"
         "import bevy_hanabi_tpu_torch.runtime.instanced, bevy_hanabi_tpu_torch.ron\n"
         "import bevy_hanabi_tpu_torch.graph.node, bevy_hanabi_tpu_torch.utils.diag\n"
+        "import bevy_hanabi_tpu_torch.utils.profiling, bevy_hanabi_tpu_torch.utils.checkpoint\n"
+        "import bevy_hanabi_tpu_torch.render.post, bevy_hanabi_tpu_torch.utils\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
