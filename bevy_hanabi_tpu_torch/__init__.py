@@ -16,8 +16,11 @@ event tree (``firework_effect`` →
 blending), the mixed scene (opaque and mask particles, the depth test, the
 painter and phase-split pipelines, ``update_render_chunk``), ribbons
 (``render/ribbon.py``: sorted segment quads, round and textured), instanced
-groups (:class:`InstancedEffect`, ``HanabiScene.add_group``) and every
-reference example (``models/examples.py``). The hot regions are hand-written CUDA kernels for Hopper
+groups (:class:`InstancedEffect`, ``HanabiScene.add_group``), every
+reference example (``models/examples.py``) and sharding over a mesh of
+devices driven by one process (``parallel/``: :class:`ShardedEffect`,
+:class:`ShardedRenderer`, ``CompiledEffect(mesh=)``,
+``HanabiScene.add(mesh=)`` and ``add_sharded_group``). The hot regions are hand-written CUDA kernels for Hopper
 (``csrc/``, built on first use). Every device tensor lives where
 ``CompiledEffect(asset, device=...)`` or ``HanabiScene(device=...)`` puts
 it.
@@ -58,3 +61,5 @@ from .runtime.scene import EffectInstance, HanabiScene  # noqa: F401
 from .render.camera import CameraParams, look_at, perspective  # noqa: F401
 from .render.raster import RasterConfig, rasterize  # noqa: F401
 from .render.renderer import EffectRenderer  # noqa: F401
+from .parallel.mesh import Mesh, ShardedEffect, make_mesh  # noqa: F401
+from .parallel.render import ShardedRenderer  # noqa: F401

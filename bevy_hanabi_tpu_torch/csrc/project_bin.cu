@@ -116,6 +116,7 @@ struct ProjectParams {
   float vp_w, vp_h;  // camera viewport, pixels
   float width, height;  // raster size, pixels
   float tile;        // tile size T, pixels
+  float y_offset;    // first viewport row of the raster (a slice), pixels
   int ntx, nty, nt;
 };
 
@@ -286,6 +287,9 @@ __global__ void __launch_bounds__(kBlock) project_bin_kernel(
                         pz + 0.5f * s_ay[3 * t + 2]);
     float h1x = e1.x - c.x, h1y = e1.y - c.y;
     float h2x = e2.x - c.x, h2y = e2.y - c.y;
+    // a slice's raster starts at viewport row y_offset: the centre moves,
+    // the half-extents (differences) do not (raster.py:247-252)
+    c.y = c.y - p.y_offset;
     float rx = fabsf(h1x) + fabsf(h2x);
     float ry = fabsf(h1y) + fabsf(h2y);
     if (kAppear && ap.tri) {  // raster.py:259-263: a triangle spans half the quad
@@ -420,7 +424,8 @@ bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15u) == 0
 
 }  // namespace
 
-// params: mvp[16], view row 2 [4], vp_w, vp_h, width, height, tile (25 floats)
+// params: mvp[16], view row 2 [4], vp_w, vp_h, width, height, tile, y_offset
+// (26 floats)
 // extra: [n, 2] f32 (cutoff, mode) or NULL; base_row: 10 or 13; row: floats
 // per row, base_row plus the widths of the appearance inputs given
 // (roundness [n] f32, tri [n] f32, sprite [n] int32, tex [n, tex_width]
@@ -458,6 +463,7 @@ extern "C" int hanabi_project_bin(const void* position, const void* axis_x, cons
   p.width = params[22];
   p.height = params[23];
   p.tile = params[24];
+  p.y_offset = params[25];
   p.ntx = ntx;
   p.nty = nty;
   p.nt = ntx * nty;

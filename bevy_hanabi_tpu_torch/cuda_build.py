@@ -124,6 +124,25 @@ def current_stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def on_tensor_device(fn):
+    """Run a kernel wrapper with the device of its first tensor argument made
+    current. The C entry points launch on the CUDA runtime's current device,
+    into :func:`current_stream` of it, so a tensor on another card (a shard
+    of a mesh over several cards) makes that card current for the call."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        import torch
+
+        t = next((a for a in args if isinstance(a, torch.Tensor)), None)
+        if t is None or not t.is_cuda:
+            return fn(*args, **kwargs)
+        with torch.cuda.device(t.device):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
 def find_nvcc() -> str:
     """The ``nvcc`` of ``CUDA_HOME`` / ``CUDA_PATH``, else on ``PATH``, else PyTorch's CUDA home."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")

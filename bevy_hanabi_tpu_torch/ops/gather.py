@@ -32,6 +32,7 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, idx)
 
 
+@cuda_build.on_tensor_device
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[j] = table[idx[j]]`` for an f32 ``[N, F]`` table and int32 ``[M]``
     indices in ``[0, N)``. Port of the TPU kernel ``pallas_gather``."""
@@ -86,6 +87,7 @@ def gather_window_plain(rows, pidx_sorted, starts, ends, M: int, from_start: boo
     return torch.where(has[..., None], window, 0.0), has
 
 
+@cuda_build.on_tensor_device
 def gather_window(rows, pidx_sorted, starts, ends, M: int, from_start: bool = False):
     """Each tile's window of ``M`` rows in blend order, in one launch.
 

@@ -390,6 +390,7 @@ def mesh_expand_plain(position, axis_x, axis_y, color, alive, tables: MeshTables
     return out
 
 
+@cuda_build.on_tensor_device
 def mesh_expand(position, axis_x, axis_y, color, alive, tables: MeshTables,
                 want_uv: bool = False, want_nrm: bool = False, want_vcol: bool = False):
     """Expand ``N`` particles into the mesh's ``K`` elements, entry

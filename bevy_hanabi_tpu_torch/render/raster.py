@@ -39,8 +39,9 @@ Lambert setups), with analytic antialiasing (``RasterConfig.antialias``):
 Every kernel wrapper has a plain PyTorch version beside it, used only for
 tensors on the CPU; for CUDA tensors the wrapper launches its kernel (or
 raises) and adds one to its ``launches`` counter. Slice rendering
-(``y_offset``), which the JAX package reaches only from its sharded
-renderer, raises ``NotImplementedError``.
+(``rasterize(y_offset=)``, the sharded renderer's slice mode) shifts the
+projected centres in :func:`project_bin`; nothing after it reads
+full-viewport coordinates.
 """
 
 from __future__ import annotations
@@ -155,8 +156,8 @@ class RasterConfig:
 # ---------------------------------------------------------------------------
 
 
-def _project_params(view, proj, viewport, raster_size, T):
-    """(mvp, view) as f32 CPU tensors and the 25 f32 kernel parameters."""
+def _project_params(view, proj, viewport, raster_size, T, y_offset=0.0):
+    """(mvp, view) as f32 CPU tensors and the 26 f32 kernel parameters."""
     view_t = torch.as_tensor(np.asarray(view, np.float32))
     mvp = mat4_mul(torch.as_tensor(np.asarray(proj, np.float32)), view_t)
     w, h = raster_size
@@ -164,7 +165,7 @@ def _project_params(view, proj, viewport, raster_size, T):
         [
             mvp.numpy().reshape(16),
             view_t.numpy()[2],
-            np.asarray([viewport[0], viewport[1], w, h, T], np.float32),
+            np.asarray([viewport[0], viewport[1], w, h, T, y_offset], np.float32),
         ]
     ).astype(np.float32)
     return mvp, view_t, params
@@ -273,11 +274,12 @@ def _tex_layers(width: int) -> int:
 
 def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewport,
                       T, ntx, nty, raster_size=None, extra=None, row=ROW, tile_slots=1,
-                      tile_span=2, appearance=None):
+                      tile_span=2, appearance=None, y_offset=0.0):
     """Plain version of :func:`project_bin`: raster.py:241-333 + 516-586."""
     _check_row(row, extra)
     entry_slots(tile_slots, tile_span)
-    mvp, view_t, params = _project_params(view, proj, viewport, raster_size or viewport, T)
+    mvp, view_t, params = _project_params(view, proj, viewport, raster_size or viewport, T,
+                                          y_offset)
     mvp, view_t = mvp.to(position.device), view_t.to(position.device)
     width, height = (float(v) for v in params[22:24])
     vp_w, vp_h = (float(v) for v in params[20:22])
@@ -302,6 +304,9 @@ def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewpo
     x2, y2, _ = project(position + 0.5 * axis_y)
     h1x, h1y = x1 - cx, y1 - cy
     h2x, h2y = x2 - cx, y2 - cy
+    # a slice's raster starts at viewport row y_offset: the centre moves,
+    # the half-extents (differences) do not (raster.py:247-252)
+    cy = cy - float(params[25])
     valid = alive & (dist > 1e-4)
     rx = torch.abs(h1x) + torch.abs(h2x)
     ry = torch.abs(h1y) + torch.abs(h2y)
@@ -325,9 +330,10 @@ def project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewpo
     return tile, depth, rows, depth_range_plain(depth)
 
 
+@cuda_build.on_tensor_device
 def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
                 T, ntx, nty, raster_size=None, extra=None, row=ROW, tile_slots=1, tile_span=2,
-                appearance=None):
+                appearance=None, y_offset=0.0):
     """Project, screen-test and bin N particle quads into ``S`` entries each.
 
     ``position``/``axis_x``/``axis_y`` f32 [N, 3], ``alive`` bool [N],
@@ -343,7 +349,10 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
     (:func:`draw_appearance`: roundness, tri, sprite, tex, uv, nrm, light,
     vcol, each None where absent), appended to each row after its ``row``
     floats; a triangle entry (tri > 0.5) takes half its quad's screen radii
-    (raster.py:259-263). Returns ``tile`` int32 [S * N] (``ntx * nty``
+    (raster.py:259-263). ``y_offset`` (pixels) makes the raster a
+    horizontal slice of the viewport starting at that row: the projected
+    centres move up by it, their half-extents do not. Returns ``tile``
+    int32 [S * N] (``ntx * nty``
     where a slot bins nothing), ``depth`` f32 [S * N] (view distance,
     ``-inf`` there), both slot-major (entry ``s * N + p``), ``rows`` f32
     [N, row + A], one a particle, and the binned entries' depth (min, max)
@@ -372,8 +381,8 @@ def project_bin(position, axis_x, axis_y, alive, color, view, proj, viewport,
     if not position.is_cuda:
         return project_bin_plain(position, axis_x, axis_y, alive, color, view, proj, viewport,
                                  T, ntx, nty, raster_size, extra, row, tile_slots, tile_span,
-                                 appearance)
-    _, _, params = _project_params(view, proj, viewport, raster_size or viewport, T)
+                                 appearance, y_offset)
+    _, _, params = _project_params(view, proj, viewport, raster_size or viewport, T, y_offset)
     width = row + _appearance_width(appearance)
     tile = torch.empty((slots * n,), dtype=torch.int32, device=dev)
     depth = torch.empty((slots * n,), dtype=torch.float32, device=dev)
@@ -439,6 +448,7 @@ def bin_keys_plain(tile, depth, depth_range, nt: int, mode=None):
     return (key - (1 << 31)).to(torch.int32)
 
 
+@cuda_build.on_tensor_device
 def bin_keys(tile, depth, depth_range, nt: int, mode=None):
     """The sort key of every entry: the JAX package's uint32 key for
     :func:`fast_mode`'s ``mode`` (``None`` the ordered path, far first;
@@ -1045,6 +1055,7 @@ def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=N
     return out
 
 
+@cuda_build.on_tensor_device
 def tile_blend_launch(lib, window, has, T, ntx, background, mode="blend", framebuffer=None,
                       scene_depth=None, depth_test=False, write_depth=False, appearance=None,
                       textures=(), antialias=False):
@@ -1210,10 +1221,6 @@ def to_tiles(img, config: RasterConfig, pad: float) -> torch.Tensor:
     return img.reshape((nty, T, ntx, T) + c).transpose(1, 2).reshape((ntx * nty, T, T) + c).contiguous()
 
 
-def _unported(branch: str):
-    return NotImplementedError(f"rasterize: {branch} is not ported")
-
-
 def rasterize(
     draw: ParticleDrawData,
     camera: CameraParams,
@@ -1242,13 +1249,15 @@ def rasterize(
     depth of the nearest written fragment, seeded from ``scene_depth``;
     ``framebuffer`` ([height, width, 4]) seeds the target instead of
     ``config.background``. The mask cutoff is ``draw.alpha_cutoff`` per
-    particle, else ``alpha_cutoff``. Slice rendering (``y_offset``) raises
-    ``NotImplementedError``.
+    particle, else ``alpha_cutoff``. ``y_offset`` (pixels) renders a
+    horizontal SLICE of a taller viewport: the raster grid covers viewport
+    rows ``[y_offset, y_offset + height)`` (``camera.viewport`` stays the
+    full one; ``scene_depth`` and ``framebuffer`` are then the slice's),
+    as the sharded renderer's slice mode draws one slice a shard
+    (raster.py:188-201).
     """
     if alpha_mode not in BLEND_MODES:
         raise ValueError(f"unknown alpha mode {alpha_mode!r}")
-    if y_offset is not None:
-        raise _unported("slice rendering (y_offset)")
     painter = alpha_mode == "scene"
     if painter and draw.mode_id is None:
         raise ValueError(
@@ -1298,6 +1307,7 @@ def rasterize(
         camera.view, camera.proj, camera.viewport, T, ntx, nty,
         raster_size=(config.width, config.height), extra=extra, row=row,
         tile_slots=config.tile_slots, tile_span=config.tile_span, appearance=columns,
+        y_offset=0.0 if y_offset is None else float(y_offset),
     )
     mode = fast_mode(config, alpha_mode, tile_ids.shape[0])
     pidx_sorted, starts, ends = sort_tiles(tile_ids, depth, nt, mode, depth_range)

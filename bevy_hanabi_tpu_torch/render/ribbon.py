@@ -95,6 +95,7 @@ def ribbon_keys_plain(alive, counter=None, ribbon_id=None, age=None, perm=None):
     return (rid - _SIGN) * (1 << 32) + q
 
 
+@cuda_build.on_tensor_device
 def ribbon_keys(alive, counter=None, ribbon_id=None, age=None, perm=None):
     """The sort keys of the two stable sorts of :func:`ribbon_sort`.
 
@@ -200,6 +201,7 @@ def ribbon_segments_plain(position, axis_y, color, alpha_cutoff, perm1, perm2, k
     return center, d, side * width[:, None], valid, color[order], cutoff, sprite
 
 
+@cuda_build.on_tensor_device
 def ribbon_segments(position, axis_y, color, alpha_cutoff, perm1, perm2, key, camera_position,
                     sprite=None):
     """Every segment quad from the sorted rows, in one launch.

@@ -16,7 +16,17 @@ consumes its parent's previous-frame buffer (``events_in``): its spawn
 request is the buffer's device-side total, so no step reads back from the
 device. :meth:`CompiledEffect.make_family_chunk_step` runs a whole
 parent→child tree for K frames with the pending buffers carried between
-frames. The ``mesh=`` sharded build is not ported.
+frames.
+
+``CompiledEffect(mesh=)`` splits the pool's particle axis over every device
+of a :class:`~..parallel.mesh.Mesh` (a :class:`~.pool.ShardedPool`). A
+frame then runs in two phases: each shard counts its dead lanes, the counts
+cross to every shard's device, and each shard steps its own lanes with the
+spawn ranks, the spawn total and the lane indices of the whole pool, so the
+trajectories are the unsharded ones bit for bit. Each shard compacts its
+own emitted events; the buffer keeps each shard's prefix in place, with
+zero-count gaps between them, and every shard of a child reads the whole
+buffer (effect.py:155-179, 697-750).
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ from ..ops import rng
 from ..ops.compaction import exclusive_rank
 from ..ops.linalg import affine3, rotate3
 from .events import EventBuffer, build_event_buffer, channel_emissions, consume_events
-from .pool import ParticlePool, to_device
+from .pool import ParticlePool, ShardedPool, gathered, to_device
 
 __all__ = ["CompiledEffect", "StepInputs", "StepChecks", "identity_transform"]
 
@@ -105,11 +115,25 @@ class StepChecks:
         if not self._flags:
             return
         StepChecks.readbacks += 1
-        failed = torch.stack(self._flags).cpu().tolist()  # the one readback
+        home = self._flags[0].device  # a sharded step's flags lie on its shards' devices
+        failed = torch.stack([f.to(home) for f in self._flags]).cpu().tolist()  # the one readback
         failures, self._flags, self._failures = self._failures, [], []
         for bad, (kind, message) in zip(failed, failures):
             if bad:
                 raise kind(f"debug validation: {message}")
+
+
+class Shard(NamedTuple):
+    """Where one shard's lanes sit in the pool a sharded step steps (in each
+    instance's pool, for a group): ``rank_base`` counts the dead lanes of
+    the shards before it and ``num_free`` those of the whole pool ([] or
+    [I] int32, on the shard's device), ``lane_base`` is the index of its
+    first lane and ``lanes`` the whole pool's lane count."""
+
+    rank_base: torch.Tensor
+    num_free: torch.Tensor
+    lane_base: int
+    lanes: int
 
 
 class CompiledEffect:
@@ -124,6 +148,10 @@ class CompiledEffect:
     capture. Pools passed to the step methods are updated in place (their
     tensors are replaced, the JAX package donates them): do not keep using
     the input pool's old tensors after a step.
+
+    ``mesh`` (a :class:`~..parallel.mesh.Mesh`) shards the pool's particle
+    axis over all of its devices (the module's docstring); ``device`` is
+    then where the effect's event buffers are assembled.
     """
 
     _CACHE: "dict" = {}
@@ -138,13 +166,15 @@ class CompiledEffect:
         mesh=None,
     ) -> "CompiledEffect":
         """The shared instance for this asset signature, parent layout,
-        constant count, payload restriction and device (effect.py:96-102)."""
+        constant count, payload restriction, device and mesh
+        (effect.py:96-102)."""
         key = (
             asset.signature(),
             parent_layout.signature() if parent_layout else None,
             parent_const_count,
             payload_attrs,
             torch.device(device),
+            mesh,
         )
         fx = CompiledEffect._CACHE.get(key)
         if fx is None:
@@ -182,9 +212,12 @@ class CompiledEffect:
                 f"effect {asset.name!r} uses RIBBON_ID, which requires the "
                 "AGE attribute for segment ordering"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "CompiledEffect(mesh=...): the sharded event build is not ported"
+        self.mesh = mesh
+        self.event_shards = 1 if mesh is None else mesh.size
+        if asset.capacity % self.event_shards:
+            raise ValueError(
+                f"effect capacity {asset.capacity} not divisible by the "
+                f"mesh device count {self.event_shards}"
             )
         self.parent_layout = parent_layout
         self.consumes_events = parent_layout is not None
@@ -221,14 +254,40 @@ class CompiledEffect:
 
     # -- pool ------------------------------------------------------------
 
-    def create_pool(self, capacity: Optional[int] = None, poison: bool = False) -> ParticlePool:
-        return ParticlePool.create(
-            self.layout, capacity or self.asset.capacity, self.device, poison=poison
+    def create_pool(self, capacity: Optional[int] = None, poison: bool = False):
+        """A pool with every slot dead: a :class:`~.pool.ParticlePool` on the
+        effect's device, or with a mesh a :class:`~.pool.ShardedPool` of
+        ``capacity / D`` lanes on each of its D devices."""
+        capacity = capacity or self.asset.capacity
+        if self.mesh is None:
+            return ParticlePool.create(self.layout, capacity, self.device, poison=poison)
+        if capacity % self.event_shards:
+            raise ValueError(
+                f"pool capacity {capacity} not divisible by the mesh device "
+                f"count {self.event_shards}"
+            )
+        size = capacity // self.event_shards
+        return ShardedPool(
+            [[ParticlePool.create(self.layout, size, dev, poison=poison)
+              for dev in self.mesh.flat_devices()]],
+            instanced=False,
         )
+
+    def place_pool(self, pool: ParticlePool):
+        """``pool`` (a whole pool, on any device) as this effect keeps it:
+        on its device, or split over its mesh."""
+        if self.mesh is None:
+            return ParticlePool(
+                {k: v.to(self.device) for k, v in pool.attrs.items()},
+                pool.alive.to(self.device), pool.seed.to(self.device),
+                pool.counter.to(self.device),
+            )
+        return ShardedPool.split(pool, self.mesh.devices, instanced=False)
 
     def make_empty_events(self, capacity: Optional[int] = None) -> EventBuffer:
         """Empty event buffer shaped for THIS effect's emissions (payload
-        restricted to ``payload_attrs``), on this effect's device."""
+        restricted to ``payload_attrs``), on this effect's device (where a
+        sharded effect assembles its buffers)."""
         return EventBuffer.empty(
             capacity or self.asset.capacity,
             self.layout,
@@ -329,7 +388,7 @@ class CompiledEffect:
             pool, _ = self._step(pool, inputs, sim, None, None)
             draw = extract_draw_data(
                 self.asset,
-                pool,
+                gathered(pool, self.device),
                 camera,
                 sim=sim,
                 properties=inputs.properties,
@@ -423,6 +482,7 @@ class CompiledEffect:
         parent_pool: Optional[ParticlePool],
         instances: int = 0,
         checks: Optional[StepChecks] = None,
+        shard: Optional[Shard] = None,
     ):
         """One frame. ``instances`` > 0 steps an instanced group
         (:class:`~.instanced.InstancedEffect`) in one pass: ``pool`` is the
@@ -434,7 +494,11 @@ class CompiledEffect:
         per instance, ``PARTICLE_INDEX`` is the lane's index in its
         instance, so each instance steps as the JAX package's vmapped
         ``_step`` steps it. ``checks`` (a :class:`StepChecks`) turns on the
-        checked step's bound and non-finite checks."""
+        checked step's bound and non-finite checks. ``shard`` steps ``pool``
+        as one shard of a sharded pool (:class:`Shard`); a sharded effect's
+        :class:`~.pool.ShardedPool` goes through :meth:`_step_sharded`."""
+        if self.mesh is not None and shard is None:
+            return self._step_sharded(pool, inputs, sim, events_in, parent_pool, checks)
         dev = pool.device
         n = pool.alive.shape[-1]
         group = instances > 0
@@ -442,6 +506,9 @@ class CompiledEffect:
         slot_ids = torch.arange(n, dtype=rng.U32, device=dev)
         if group:
             slot_ids = slot_ids % per
+        if shard is not None:
+            # PARTICLE_INDEX is the lane's index in the whole pool
+            slot_ids = slot_ids + shard.lane_base
 
         def lanes(x: torch.Tensor) -> torch.Tensor:
             """A per-instance [I, ...] tensor repeated to the [I*N, ...] lanes."""
@@ -455,6 +522,11 @@ class CompiledEffect:
         else:
             free_rank = exclusive_rank(dead)  # 0-based among dead
             num_free = torch.sum(dead, dtype=torch.int32)
+        if shard is not None:
+            # ranked among the whole pool's dead lanes, as one cumsum over
+            # it ranks them (GSPMD's cross-shard scan in the JAX package)
+            free_rank = free_rank + (lanes(shard.rank_base) if group else shard.rank_base)
+            num_free = shard.num_free
 
         parent_payload: Dict[str, torch.Tensor] = {}
         if self.consumes_events:
@@ -468,6 +540,7 @@ class CompiledEffect:
                 attrs=self._inherited_attrs,
                 const_count=self.parent_const_count,
                 checks=checks,
+                lanes=None if shard is None else shard.lanes,
             )
             # the request is a device scalar: no readback
             spawn_total = torch.minimum(requested, num_free)
@@ -512,6 +585,7 @@ class CompiledEffect:
             if parent_payload:
                 parent_particle = parent_payload
             elif parent_pool is not None:
+                parent_pool = gathered(parent_pool, dev)
                 if checks is not None:
                     parent_slot = checks.index(parent_slot, parent_pool.capacity, "the parent pool")
                 parent_particle = {
@@ -596,7 +670,11 @@ class CompiledEffect:
                     events_out[channel] = self.make_empty_events(n)
                 else:
                     mask, counts = per_channel[channel]
-                    events_out[channel] = build_event_buffer(mask, counts, parent_attrs=captured)
+                    buf = build_event_buffer(mask, counts, parent_attrs=captured)
+                    if shard is not None:
+                        # the global slot of the emitting lane, gap rows too
+                        buf.parent_slot = buf.parent_slot + shard.lane_base
+                    events_out[channel] = buf
 
         if checks is not None:
             checks.finite(uctx.particle, f"the step of effect {self.asset.name!r}")
@@ -605,6 +683,32 @@ class CompiledEffect:
         pool.seed = uctx.seed
         pool.counter = counter
         return pool, events_out
+
+    def _step_sharded(self, pool: ShardedPool, inputs, sim, events_in, parent_pool, checks):
+        """One frame of a pool split over the mesh (the module's docstring).
+        Phase 1 counts each shard's dead lanes; phase 2 steps each shard on
+        its device with its :class:`Shard` from those counts, reading the
+        whole parent buffer there; the shards' event buffers are assembled
+        on the effect's device (effect.py:697-750)."""
+        shards = pool.flat
+        size = shards[0].capacity
+        dead = [torch.sum(~p.alive, dtype=torch.int32) for p in shards]
+        outs = []
+        for d, p in enumerate(shards):
+            dev = p.device
+            counts = [c.to(dev) for c in dead]
+            shard = Shard(
+                rank_base=torch.stack(counts[:d]).sum(dtype=torch.int32) if d else
+                torch.zeros((), dtype=torch.int32, device=dev),
+                num_free=torch.stack(counts).sum(dtype=torch.int32),
+                lane_base=d * size,
+                lanes=size * len(shards),
+            )
+            ev_in = None if events_in is None else events_in.to(dev)
+            _, ev_out = self._step(p, inputs, sim, ev_in, parent_pool, checks=checks, shard=shard)
+            outs.append(ev_out)
+        events = {ch: EventBuffer.concat([o[ch] for o in outs], self.device) for ch in outs[0]}
+        return pool, events
 
 
 def _unstack(inputs_stacked: StepInputs, sims_stacked: SimParams):

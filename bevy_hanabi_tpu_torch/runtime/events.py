@@ -74,6 +74,28 @@ class EventBuffer:
     def capacity(self) -> int:
         return int(self.parent_slot.shape[-1])
 
+    def to(self, device) -> "EventBuffer":
+        """The buffer on ``device`` (itself where it already lies there)."""
+        return EventBuffer(
+            self.parent_slot.to(device),
+            self.count.to(device),
+            self.num_events.to(device),
+            {k: v.to(device) for k, v in self.payload.items()},
+        )
+
+    @staticmethod
+    def concat(parts, device) -> "EventBuffer":
+        """The buffers of a sharded pool's shards as one buffer on ``device``
+        (effect.py:697-750): each shard's compacted prefix stays in place,
+        so zero-count gaps separate the prefixes; ``parent_slot`` must
+        already be global and ``num_events`` is the total."""
+        return EventBuffer(
+            torch.cat([b.parent_slot.to(device) for b in parts]),
+            torch.cat([b.count.to(device) for b in parts]),
+            torch.stack([b.num_events.to(device) for b in parts]).sum(dtype=torch.int32),
+            {k: torch.cat([b.payload[k].to(device) for b in parts]) for k in parts[0].payload},
+        )
+
     def total_spawn_count(self) -> torch.Tensor:
         """Device scalar: total child particles requested (int32)."""
         return torch.sum(self.count, dtype=torch.int32)
@@ -122,6 +144,7 @@ def _chunk_lanes() -> int:
     return cuda_build.library().hanabi_event_compact_chunk()
 
 
+@cuda_build.on_tensor_device
 def event_compact(mask, count, payload):
     """Stable partition of the event lanes of one channel.
 
@@ -254,14 +277,19 @@ def channel_emissions(emitted) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
     return out
 
 
-def event_index(events: EventBuffer, spawn_rank: torch.Tensor, const_count=None) -> torch.Tensor:
+def event_index(events: EventBuffer, spawn_rank: torch.Tensor, const_count=None,
+                lanes=None) -> torch.Tensor:
     """The source event of each child spawn rank, int64 [N] in ``[0, cap)``.
 
     ``const_count`` K: every event carries ``count == K``, so the rank→event
     map is ``rank // K`` (events.py:196-198). Otherwise each event's
     boundary is marked at its inclusive count sum and a prefix sum of the
-    marks gives ``#{e: cum[e] <= rank}`` (events.py:199-214)."""
-    n = spawn_rank.shape[-1]
+    marks gives ``#{e: cum[e] <= rank}`` (events.py:199-214): a zero-count
+    row (a sharded parent's gap between two shards' prefixes) shares the
+    boundary of the event before it, so rank k lands on the k-th
+    positive-count event. ``lanes``: the child pool's lane count where
+    ``spawn_rank`` holds one shard's lanes of it (default: its length)."""
+    n = spawn_rank.shape[-1] if lanes is None else int(lanes)
     cap = events.capacity
     if const_count:
         event_idx = spawn_rank.to(torch.int64) // int(const_count)
@@ -281,6 +309,7 @@ def consume_events(
     attrs=None,
     const_count=None,
     checks=None,
+    lanes=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Map each child spawn rank to its source event.
 
@@ -292,9 +321,10 @@ def consume_events(
     inherits, and several f32 attributes pack into ONE row matrix first
     (events.py:224-247). Nothing here reads back from the device.
     ``checks`` (a checked step's :class:`~.effect.StepChecks`) bound-checks
-    the event index before the gathers read with it.
+    the event index before the gathers read with it. ``lanes``: as
+    :func:`event_index`'s, for a shard of a sharded child.
     """
-    event_idx = event_index(events, spawn_rank, const_count)
+    event_idx = event_index(events, spawn_rank, const_count, lanes)
     if checks is not None:
         event_idx = checks.index(event_idx, events.capacity, "the event buffer")
     parent_slot = events.parent_slot[event_idx]

@@ -23,9 +23,25 @@ import torch
 from ..asset import EffectAsset, SimulationSpace
 from ..compiler import SimParams
 from .effect import CompiledEffect, StepChecks, StepInputs, _unstack, identity_transform
-from .pool import ParticlePool, to_device
+from .pool import ParticlePool, gathered, to_device
 
 __all__ = ["InstancedEffect"]
+
+
+def stacked_pools(layout, instances: int, capacity: int, device, poison: bool = False):
+    """``instances`` empty pools of ``capacity`` lanes stacked on a leading
+    [I] axis, on ``device``."""
+    one = ParticlePool.create(layout, capacity, device, poison=poison)
+
+    def stack(t):
+        return t.expand((instances,) + tuple(t.shape)).contiguous()
+
+    return ParticlePool(
+        {k: stack(v) for k, v in one.attrs.items()},
+        stack(one.alive),
+        stack(one.seed),
+        stack(one.counter),
+    )
 
 
 class InstancedEffect:
@@ -56,17 +72,8 @@ class InstancedEffect:
 
     def create_pools(self, poison: bool = False) -> ParticlePool:
         """Stacked pools: every tensor gains a leading [I] instance axis."""
-        one = ParticlePool.create(self.effect.layout, self.capacity, self.device, poison=poison)
-
-        def stack(t):
-            return t.expand((self.num_instances,) + tuple(t.shape)).contiguous()
-
-        return ParticlePool(
-            {k: stack(v) for k, v in one.attrs.items()},
-            stack(one.alive),
-            stack(one.seed),
-            stack(one.counter),
-        )
+        return stacked_pools(self.effect.layout, self.num_instances, self.capacity, self.device,
+                             poison)
 
     def make_inputs(self, spawn_counts, frame_seeds, transforms=None,
                     properties: Optional[Dict[str, Any]] = None) -> StepInputs:
@@ -113,10 +120,11 @@ class InstancedEffect:
             )
 
     def _step(self, pools: ParticlePool, inputs: StepInputs, sim: SimParams,
-              checks=None) -> ParticlePool:
+              checks=None, shard=None) -> ParticlePool:
         """One frame of every instance: the flat step over the pools' view,
         its results written back in the [I, N, ...] shape. ``checks``: a
-        checked step's :class:`~.effect.StepChecks`."""
+        checked step's :class:`~.effect.StepChecks`; ``shard``: the
+        :class:`~.effect.Shard` of a sharded group's shard."""
         i, n = pools.alive.shape
         flat = ParticlePool(
             {k: v.reshape((i * n,) + tuple(v.shape[2:])) for k, v in pools.attrs.items()},
@@ -124,7 +132,8 @@ class InstancedEffect:
             pools.seed.reshape(i * n),
             pools.counter,
         )
-        flat, _ = self.effect._step(flat, inputs, sim, None, None, instances=i, checks=checks)
+        flat, _ = self.effect._step(flat, inputs, sim, None, None, instances=i, checks=checks,
+                                    shard=shard)
         pools.attrs = {k: v.reshape((i, n) + tuple(v.shape[1:])) for k, v in flat.attrs.items()}
         pools.alive = flat.alive.reshape(i, n)
         pools.seed = flat.seed.reshape(i, n)
@@ -205,7 +214,8 @@ class InstancedEffect:
                 k: to_device(np.asarray(v), self.device).repeat_interleave(self.capacity, dim=0)
                 for k, v in inputs.properties.items()
             }
-            draw = extract_draw_data(self.asset, pools.flatten(), camera, sim=sim,
+            draw = extract_draw_data(self.asset, gathered(pools, self.device).flatten(), camera,
+                                     sim=sim,
                                      properties=per_lane, textures=list(textures), instances=i)
             img = rasterize(draw, camera, config, alpha_mode=alpha_mode, textures=textures)
             sums.append(img.sum())

@@ -18,7 +18,7 @@ import torch
 from ..attributes import Attribute, ParticleLayout
 from ..ops import rng
 
-__all__ = ["ParticlePool"]
+__all__ = ["ParticlePool", "ShardedPool", "gathered"]
 
 # Debug poison: reference fills fresh slabs with 0xFFFFFFFF in debug builds
 # (effect_cache.rs:270-296) so stale reads are obvious. Same trick here.
@@ -160,3 +160,115 @@ class ParticlePool:
         data = np.load(path if path.endswith(".npz") else path + ".npz")
         attrs = {k[len("attr:"):]: data[k] for k in data.files if k.startswith("attr:")}
         return ParticlePool.from_numpy(attrs, data["alive"], data["seed"], data["counter"], device)
+
+
+class ShardedPool:
+    """A pool split over the devices of a mesh (:mod:`..parallel.mesh`): a
+    ``[rows][cols]`` grid of :class:`ParticlePool` shards, each on its own
+    device, driven by one process.
+
+    An instanced group's pools (``instanced=True``, :class:`~..parallel.mesh.
+    ShardedEffect`) split the instance axis over the rows (``dp``) and the
+    particle axis over the columns (``sp``): shard ``[d][s]`` holds
+    instances ``[d*I/dp, (d+1)*I/dp)`` and lanes ``[s*N/sp, (s+1)*N/sp)`` of
+    each, and its counter ``[I/dp]`` is its instances' own (the same in every
+    column). A single effect's pool (``instanced=False``,
+    ``CompiledEffect(mesh=)``) splits the particle axis over every device of
+    the mesh: one row of D shards, each holding the pool's counter."""
+
+    def __init__(self, shards, instanced: bool):
+        self.shards = [list(row) for row in shards]
+        self.instanced = bool(instanced)
+
+    @property
+    def flat(self) -> list:
+        """The shards, row by row."""
+        return [p for row in self.shards for p in row]
+
+    @property
+    def capacity(self) -> int:
+        """Lanes of the whole pool (of each instance for a group)."""
+        return sum(p.capacity for p in self.shards[0])
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device."""
+        return self.shards[0][0].device
+
+    def alive_count(self) -> torch.Tensor:
+        """Device scalar count of alive particles, on the first shard's device."""
+        counts = [p.alive_count().to(self.device) for p in self.flat]
+        return torch.stack(counts).sum(dtype=torch.int32)
+
+    def assemble(self, device=None) -> ParticlePool:
+        """The whole pool on ``device`` (default: the first shard's), in the
+        natural lane order: ``[N]`` for an effect, ``[I, N, ...]`` for a group."""
+        device = torch.device(device) if device is not None else self.device
+
+        def cat(get, dim):
+            if not self.instanced:
+                return torch.cat([get(p).to(device) for p in self.shards[0]], dim=0)
+            return torch.cat(
+                [torch.cat([get(p).to(device) for p in row], dim=1) for row in self.shards],
+                dim=0,
+            )
+
+        first = self.shards[0][0]
+        counter = (
+            torch.cat([row[0].counter.to(device) for row in self.shards])
+            if self.instanced
+            else first.counter.to(device)
+        )
+        return ParticlePool(
+            attrs={k: cat(lambda p, k=k: p.attrs[k], 1) for k in first.attrs},
+            alive=cat(lambda p: p.alive, 1),
+            seed=cat(lambda p: p.seed, 1),
+            counter=counter,
+        )
+
+    def to_numpy(self):
+        """The assembled pool's :meth:`ParticlePool.to_numpy`."""
+        return self.assemble().to_numpy()
+
+    @staticmethod
+    def split(pool: ParticlePool, devices, instanced: bool) -> "ShardedPool":
+        """``pool`` (``[N]``, or ``[I, N, ...]`` for a group) split over a
+        ``[rows][cols]`` grid of devices as the class describes; every shard
+        is a copy on its device."""
+        def piece(t, dev):
+            return t.to(dev, copy=True, memory_format=torch.contiguous_format)
+
+        if not instanced:
+            devs = [d for row in devices for d in row]
+            size = pool.capacity // len(devs)
+            row = []
+            for j, dev in enumerate(devs):
+                lo, hi = j * size, (j + 1) * size
+                row.append(ParticlePool(
+                    {k: piece(v[lo:hi], dev) for k, v in pool.attrs.items()},
+                    piece(pool.alive[lo:hi], dev),
+                    piece(pool.seed[lo:hi], dev),
+                    piece(pool.counter, dev),
+                ))
+            return ShardedPool([row], instanced=False)
+        i, n = pool.alive.shape
+        il, nl = i // len(devices), n // len(devices[0])
+        grid = []
+        for d, row_devs in enumerate(devices):
+            ri = slice(d * il, (d + 1) * il)
+            row = []
+            for s, dev in enumerate(row_devs):
+                rn = slice(s * nl, (s + 1) * nl)
+                row.append(ParticlePool(
+                    {k: piece(v[ri, rn], dev) for k, v in pool.attrs.items()},
+                    piece(pool.alive[ri, rn], dev),
+                    piece(pool.seed[ri, rn], dev),
+                    piece(pool.counter[ri], dev),
+                ))
+            grid.append(row)
+        return ShardedPool(grid, instanced=True)
+
+
+def gathered(pool, device) -> ParticlePool:
+    """``pool`` itself, or a :class:`ShardedPool` assembled on ``device``."""
+    return pool.assemble(device) if isinstance(pool, ShardedPool) else pool

@@ -28,8 +28,14 @@ and mesh effects with their Lambert setups merged), ``scene_depth`` and
 effects as their expanded entries (neither batched, nor textured effects).
 Hot reload (``hot_reload``, :meth:`HanabiScene.apply_asset_changes`),
 ``DebugSettings`` captures and validation (checked steps) and LOCAL-space
-effects are ported. Sharding (``add(mesh=)``, ``add_sharded_group``)
-raises ``NotImplementedError`` naming itself.
+effects are ported, and so is sharding over a
+:class:`~..parallel.mesh.Mesh` driven by this one process: ``add(mesh=)``
+splits an effect's pool (event-linked ones included; a child inherits its
+parent's mesh) and ``add_sharded_group`` a group's pools over the mesh's
+devices. Sharded pools render with gather semantics (assembled on the
+scene's device, so the single-device algorithm runs unchanged) everywhere
+but a sharded group's own pass in :meth:`HanabiScene.render`'s split
+pipeline, which goes through :class:`~..parallel.render.ShardedRenderer`.
 """
 
 from __future__ import annotations
@@ -51,13 +57,9 @@ from ..utils.profiling import DebugSettings, profile_span
 from .effect import CompiledEffect, StepChecks, StepInputs, identity_transform
 from .events import EventBuffer
 from .instanced import InstancedEffect
-from .pool import ParticlePool
+from .pool import ParticlePool, ShardedPool, gathered
 
 __all__ = ["HanabiScene", "EffectInstance", "DebugSettings"]
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"HanabiScene: {what} is not ported")
 
 
 @dataclass
@@ -160,9 +162,14 @@ class HanabiScene:
         config, e.g. ``{"tile_span": 4}`` for a large-splat effect; such an
         effect renders in its own pass, never batched nor in the painter
         pass. ``cull_pad`` (world units) opts the effect into per-camera
-        raster culling with its pool AABB padded by that much."""
-        if mesh is not None:
-            raise _unported("add(mesh=...) sharding")
+        raster culling with its pool AABB padded by that much.
+
+        ``mesh`` (a :class:`~..parallel.mesh.Mesh`) shards THIS instance's
+        pool over every device of the mesh, event-emitting and consuming
+        effects included: emission compacts per shard, the child consumes
+        the gap-separated buffer with the unsharded trajectories. A child
+        of a sharded parent inherits the parent's mesh unless given its own,
+        which must be the same mesh (scene.py:183-255)."""
         name = name or f"{asset.name}#{len(self._effects)}"
         if name in self._effects:
             raise ValueError(f"effect instance {name!r} already exists")
@@ -175,6 +182,15 @@ class HanabiScene:
             p = self._effects[parent]
             if not p.asset.emits_gpu_spawn_events():
                 raise ValueError(f"parent {parent!r} has no EmitSpawnEventModifier")
+            if p.fx.mesh is not None:
+                if mesh is None:
+                    mesh = p.fx.mesh
+                elif mesh is not p.fx.mesh:
+                    raise ValueError(
+                        f"child of sharded parent {parent!r} must shard on "
+                        "the parent's mesh (pass the same Mesh object or "
+                        "omit mesh to inherit it)"
+                    )
             parent_layout = p.asset.particle_layout()
             # Children read distinct event channels (modifier/mod.rs:664):
             # the lowest channel unused by surviving siblings.
@@ -186,12 +202,16 @@ class HanabiScene:
                     f"{p.asset.num_event_channels()} event channel(s); "
                     f"cannot attach a child on channel {child_channel}"
                 )
-            parent_const = p.asset.channel_const_count(child_channel)
+            # a sharded parent's buffer keeps per-shard prefixes separated by
+            # zero-count gaps: the rank // K shortcut assumes a dense prefix
+            if p.fx.mesh is None:
+                parent_const = p.asset.channel_const_count(child_channel)
         fx = CompiledEffect.get(
             asset,
             self.device,
             parent_layout=parent_layout,
             parent_const_count=parent_const,
+            mesh=mesh,
         )
         pool = fx.create_pool(capacity)
         # asset.prng_seed pins the instance's random streams; otherwise they
@@ -254,6 +274,7 @@ class HanabiScene:
             parent_layout=p.fx.parent_layout,
             parent_const_count=p.fx.parent_const_count,
             payload_attrs=union_t,
+            mesh=p.fx.mesh,
         )
         # the buffer layout changed: drop in-flight events and the family
         # steps that captured the old parent binding
@@ -313,8 +334,68 @@ class HanabiScene:
         self._new_effect_added = True
         return name
 
-    def add_sharded_group(self, *args, **kwargs):
-        raise _unported("add_sharded_group (sharding)")
+    def add_sharded_group(
+        self,
+        asset: EffectAsset,
+        count: int,
+        name: Optional[str] = None,
+        mesh=None,
+        dp: Optional[int] = None,
+        sp: Optional[int] = None,
+        transforms: Optional[Any] = None,
+        capacity: Optional[int] = None,
+        textures: Sequence[Any] = (),
+        render_mode: str = "auto",
+        cull_pad: Optional[float] = None,
+    ) -> str:
+        """Add a group whose pools shard across a mesh (scene.py:393-455): a
+        :class:`~..parallel.mesh.ShardedEffect`, instances over the mesh's
+        ``dp`` axis and each pool's particles over ``sp``, beside effects
+        that stay on the scene's device. Pass ``mesh`` or ``dp``/``sp``
+        factors of the CUDA device count (:func:`~..parallel.mesh.make_mesh`).
+        :meth:`render`'s split pipeline draws it through a
+        :class:`~..parallel.render.ShardedRenderer` of ``render_mode``
+        (psum for additive blending, slice otherwise, under "auto")."""
+        from ..parallel.mesh import ShardedEffect, make_mesh
+        from ..spawn import make_spawner_bank
+
+        if asset.emits_gpu_spawn_events():
+            raise ValueError("event-emitting assets cannot be grouped; use add()")
+        if asset.simulation_space is not SimulationSpace.GLOBAL:
+            raise ValueError("instanced groups require GLOBAL simulation space")
+        if mesh is None:
+            mesh = make_mesh(dp=dp, sp=sp)
+        name = name or f"{asset.name}[sharded]#{len(self._groups)}"
+        if name in self._groups or name in self._effects:
+            raise ValueError(f"effect {name!r} already exists")
+        fx = ShardedEffect(asset, count, mesh, capacity, device=self.device)
+        if transforms is None:
+            tfs = np.broadcast_to(identity_transform(), (count, 3, 4))
+        else:
+            tfs = np.asarray(transforms, np.float32).reshape(count, 3, 4)
+        self._groups[name] = {
+            "name": name,
+            "asset": asset,
+            "fx": fx,
+            "pools": fx.create_pools(),
+            "bank": make_spawner_bank(asset.spawner, count, seed=int(self._rng.integers(0, 2**63))),
+            "transforms": tfs,
+            "properties": EffectProperties(
+                [Property(n, v) for n, v in asset.module.properties().items()]
+            ),
+            "visible": True,
+            "textures": self._upload(textures),
+            "texture_sources": tuple(textures),
+            "renderer": None,
+            "sharded": True,
+            "render_mode": render_mode,
+            "compiled_signature": asset.signature(),
+            "raster_override": None,
+            "cull_pad": cull_pad,
+            "capacity_override": capacity,
+        }
+        self._new_effect_added = True
+        return name
 
     def group_alive(self, name: str) -> int:
         g = self._groups[name]
@@ -322,8 +403,14 @@ class HanabiScene:
 
     def _group_flat_pool(self, g) -> ParticlePool:
         """A group's [I, N, ...] pools as one flat pool for rendering, each
-        instance's ribbons kept apart (scene.py:464-474)."""
-        return g["pools"].flatten(composite_ribbon_ids=True)
+        instance's ribbons kept apart (scene.py:464-474). A sharded group's
+        pools are assembled on the scene's device first (scene.py:34-44:
+        the single-device algorithm then runs on them unchanged)."""
+        return gathered(g["pools"], self.device).flatten(composite_ribbon_ids=True)
+
+    def _flat_pool(self, inst: EffectInstance) -> ParticlePool:
+        """An effect's pool, a sharded one assembled on the scene's device."""
+        return gathered(inst.pool, self.device)
 
     def remove(self, name: str) -> None:
         """Remove an effect or a group (an effect's children first)."""
@@ -481,7 +568,7 @@ class HanabiScene:
             return self._aabb_cache
         # (name, pool, emitter transforms [K, 3, 4], pad, local space)
         entries = [
-            (inst.name, inst.pool, np.asarray(inst.transform, np.float32)[None],
+            (inst.name, self._flat_pool(inst), np.asarray(inst.transform, np.float32)[None],
              self.DEFAULT_CULL_PAD if inst.cull_pad is None else inst.cull_pad,
              inst.asset.simulation_space is SimulationSpace.LOCAL)
             for inst in self._effects.values() if self._cullable(inst.asset, inst.cull_pad)
@@ -676,13 +763,15 @@ class HanabiScene:
         if inst.parent is not None:
             p = self._effects[inst.parent]
             parent_layout = p.asset.particle_layout()
-            parent_const = p.asset.channel_const_count(inst.child_channel)
+            if p.fx.mesh is None:  # a sharded parent's buffer has gaps
+                parent_const = p.asset.channel_const_count(inst.child_channel)
         new_fx = CompiledEffect.get(
             asset,
             self.device,
             parent_layout=parent_layout,
             parent_const_count=parent_const,
             payload_attrs=inst.fx.payload_attrs,
+            mesh=inst.fx.mesh,
         )
         layout_changed = new_sig[2] != old_sig[2]
         if asset.capacity != old_sig[1]:
@@ -699,7 +788,9 @@ class HanabiScene:
             not pool_changed and new_fx.payload_attrs == inst.fx.payload_attrs
         )
         if pool_changed:
-            inst.pool = self._migrate_pool(inst.pool, new_fx.create_pool(new_cap))
+            # a sharded pool migrates assembled, then splits over the mesh again
+            inst.pool = new_fx.place_pool(self._migrate_pool(
+                self._flat_pool(inst), gathered(new_fx.create_pool(new_cap), self.device)))
         inst.fx = new_fx
         if not events_compatible:
             inst.last_events = {}
@@ -743,16 +834,23 @@ class HanabiScene:
             g["compiled_signature"] = new_sig
             return
         layout_changed = new_sig[2] != old_sig[2]
-        old_cap = int(g["pools"].alive.shape[-1])
+        old_cap = g["fx"].capacity
         if asset.capacity != old_sig[1]:
             new_cap = asset.capacity
             g["capacity_override"] = None
         else:
             new_cap = g["capacity_override"] or old_cap
-        fx = InstancedEffect(asset, count, new_cap, device=self.device)
+        if g.get("sharded"):
+            from ..parallel.mesh import ShardedEffect
+
+            fx = ShardedEffect(asset, count, g["fx"].mesh, new_cap, device=self.device)
+        else:
+            fx = InstancedEffect(asset, count, new_cap, device=self.device)
         g["fx"] = fx
         if layout_changed or new_cap != old_cap:
-            g["pools"] = self._migrate_pool(g["pools"], fx.create_pools())
+            pools = self._migrate_pool(gathered(g["pools"], self.device),
+                                       gathered(fx.create_pools(), self.device))
+            g["pools"] = fx.place_pools(pools) if g.get("sharded") else pools
         g["renderer"] = None
         g["properties"].resync([Property(n, v) for n, v in asset.module.properties().items()])
         g["compiled_signature"] = new_sig
@@ -866,6 +964,8 @@ class HanabiScene:
             counts = g["bank"].tick(self.clock.delta)
             seeds = self._rng.integers(0, 2**32, size=g["fx"].num_instances, dtype=np.uint32)
             inputs = g["fx"].make_inputs(counts, seeds, g["transforms"], g["properties"].as_dict())
+            if g.get("sharded"):
+                inputs = g["fx"].shard_inputs(inputs)
             step = g["fx"].step_checked if validate else g["fx"].step
             g["pools"], _ = step(g["pools"], inputs, sim)
         self.debug.on_frame_end()
@@ -1004,6 +1104,8 @@ class HanabiScene:
         for gname in active_groups:
             g = self._groups[gname]
             ii, ss = CompiledEffect.stack_frames(per_group_inputs[gname], sims)
+            if g.get("sharded"):
+                ii = g["fx"].shard_inputs_stacked(ii)
             chunk = g["fx"].step_chunk_checked if validate else g["fx"].step_chunk
             g["pools"] = chunk(g["pools"], ii, ss)
 
@@ -1208,7 +1310,8 @@ class HanabiScene:
             asset = inst.asset
             kind = asset.alpha_mode.kind
             if (kind == "mask" or asset.particle_layout().contains("ribbon_id")
-                    or asset.mesh is not None or inst.textures or inst.raster_override):
+                    or asset.mesh is not None or inst.textures or inst.raster_override
+                    or inst.fx.mesh is not None):
                 return None
             return kind
 
@@ -1302,7 +1405,7 @@ class HanabiScene:
         out = self._render_frame(
             insts, plan, inputs, self.clock.sim_params(), camera, config, fb, scene_depth,
             return_depth, groups=groups,
-            group_props=[g["properties"].as_dict() for g in groups],
+            group_props=[g["properties"].as_dict() for g in groups], sharded_passes=True,
         )
         painter = bool(plan[1]) and plan[1][0][0] == "painter"
         if self.debug.validate and not painter:
@@ -1324,16 +1427,20 @@ class HanabiScene:
         return ParticlePool(pool.attrs, torch.zeros_like(pool.alive), pool.seed, pool.counter)
 
     def _render_frame(self, insts, plan, inputs, sim, camera, config, fb, scene_depth=None,
-                      return_depth=False, groups=(), group_props=(), hidden=frozenset()):
+                      return_depth=False, groups=(), group_props=(), hidden=frozenset(),
+                      sharded_passes=False):
         """Run a render plan onto ``fb``. ``inputs[i]`` is effect i's
         (transform, properties), ``group_props[gi]`` the properties group
         ``gi`` draws with; the effects and groups named in ``hidden`` draw
         with every lane masked (a view that culls them). Phase split as the
         reference's render phases: opaque and mask passes draw first
         threading the depth plane, then the transparent passes test against
-        it."""
+        it. Sharded pools draw assembled on the scene's device, but with
+        ``sharded_passes`` (:meth:`render`) a sharded group's own pass goes
+        through its :class:`~..parallel.render.ShardedRenderer`
+        (scene.py:2485-2491)."""
         opaque_passes, transp_passes = plan
-        pools = [self._view_pool(i.pool, i.name in hidden) for i in insts]
+        pools = [self._view_pool(self._flat_pool(i), i.name in hidden) for i in insts]
         gpools = [self._view_pool(self._group_flat_pool(g), g["name"] in hidden) for g in groups]
         if scene_depth is not None:
             scene_depth = torch.as_tensor(scene_depth, dtype=torch.float32, device=self.device)
@@ -1348,24 +1455,30 @@ class HanabiScene:
         depth_acc = scene_depth
         entities = (insts, pools, inputs, groups, gpools, group_props)
         for desc in opaque_passes:
-            fb, depth_acc = self._run_pass(desc, entities, camera, config, sim, fb, depth_acc, True)
+            fb, depth_acc = self._run_pass(desc, entities, camera, config, sim, fb, depth_acc, True,
+                                           sharded_passes)
         if opaque_passes:
             scene_depth = depth_acc
         for desc in transp_passes:
-            fb, _ = self._run_pass(desc, entities, camera, config, sim, fb, scene_depth, False)
+            fb, _ = self._run_pass(desc, entities, camera, config, sim, fb, scene_depth, False,
+                                   sharded_passes)
         if not return_depth:
             return fb
         if depth_acc is None:
             depth_acc = torch.full((config.height, config.width), torch.inf, device=self.device)
         return fb, depth_acc
 
-    def _run_pass(self, desc, entities, camera, config, sim, fb, depth, write_depth):
+    def _run_pass(self, desc, entities, camera, config, sim, fb, depth, write_depth,
+                  sharded_passes=False):
         """One "eff", "batch" or "grp" pass: returns ``(fb, depth)``.
         ``entities`` is ``(insts, pools, inputs, groups, gpools,
         group_props)``."""
         insts, pools, inputs, groups, gpools, group_props = entities
         tag, which, kind = desc
-        if tag == "batch":
+        if tag == "grp" and sharded_passes and groups[which].get("sharded"):
+            out = self._render_sharded_group(groups[which], group_props[which], camera, config,
+                                             sim, fb, depth, write_depth)
+        elif tag == "batch":
             out = self._render_batch(
                 [insts[i] for i in which], [pools[i] for i in which], [inputs[i] for i in which],
                 kind, camera, config, sim, fb, depth, write_depth,
@@ -1392,7 +1505,7 @@ class HanabiScene:
         if override:
             config = dataclasses.replace(config, **override)
         renderer = entity["renderer"] if group else entity.renderer
-        if renderer is None or renderer.config != config:
+        if not isinstance(renderer, EffectRenderer) or renderer.config != config:
             asset = entity["asset"] if group else entity.asset
             textures = entity["textures"] if group else entity.textures
             renderer = EffectRenderer(asset, config, textures=textures)
@@ -1410,6 +1523,27 @@ class HanabiScene:
             scene_depth=scene_depth,
             return_depth=return_depth,
         )
+
+    def _render_sharded_group(self, g, props, camera, config, sim, fb, scene_depth=None,
+                              return_depth=False):
+        """Rasterize a sharded group from its mesh, then composite the image
+        onto the scene framebuffer with the effect's blend equation
+        (scene.py:2529-2563)."""
+        from ..parallel.render import ShardedRenderer
+        from ..render.renderer import composite_by_mode, neutral_background
+
+        alpha_kind = g["asset"].alpha_mode.kind
+        cfg = dataclasses.replace(config, background=neutral_background(alpha_kind))
+        r = g["renderer"]
+        if not isinstance(r, ShardedRenderer) or r.config != cfg:
+            r = ShardedRenderer(g["fx"], cfg, textures=g["textures"], mode=g["render_mode"])
+            g["renderer"] = r
+        out = r.render(g["pools"], camera, sim=sim, properties=props, scene_depth=scene_depth,
+                       return_depth=return_depth)
+        if return_depth:
+            img, depth = out
+            return composite_by_mode(img, fb, alpha_kind), depth
+        return composite_by_mode(out, fb, alpha_kind)
 
     def _render_batch(self, insts, pools, inputs, alpha_kind, camera, config, sim, fb,
                       scene_depth=None, return_depth=False):

@@ -7,7 +7,8 @@ in-flight spawn events, the numpy RNG streams, and the simulation clock.
 Arrays are written in the JAX package's dtypes (the port's int64 carriers
 of uint32 values as uint32), so a checkpoint either package wrote loads in
 the other; tensors go to numpy on save and back to the scene's device on
-load.
+load. A sharded effect's pool is saved assembled and split over its mesh
+again on load.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 
 from ..ops import rng as _rng
 from ..runtime.events import EventBuffer
-from ..runtime.pool import to_device
+from ..runtime.pool import ParticlePool, to_device
 
 if TYPE_CHECKING:
     from ..runtime.scene import HanabiScene
@@ -94,11 +95,11 @@ def load_scene_state(scene: "HanabiScene", path: str) -> None:
 
     for key in meta["effects"]:
         inst = scene[key]
-        for aname in list(inst.pool.attrs):
-            inst.pool.attrs[aname] = tensor(f"{key}/attr:{aname}")
-        inst.pool.alive = tensor(f"{key}/alive")
-        inst.pool.seed = tensor(f"{key}/seed")
-        inst.pool.counter = tensor(f"{key}/counter")
+        # the whole pool, then split over the effect's mesh where it has one
+        inst.pool = inst.fx.place_pool(ParticlePool(
+            {a.name: tensor(f"{key}/attr:{a.name}") for a in inst.fx.layout.storage_attributes()},
+            tensor(f"{key}/alive"), tensor(f"{key}/seed"), tensor(f"{key}/counter"),
+        ))
         events: dict = {}
         prefix = f"{key}/event:"
         for k in data.files:

@@ -10,7 +10,9 @@ event tree, the mixed scene (``HanabiScene.update_render_chunk``), the
 ribbon frame, the force field, the textured mesh frame, the painter pass
 with its texture atlas and mesh/Lambert merge, antialiasing, instanced
 groups, the reference's examples, and the rest of ``HanabiScene`` and the
-renderer (multi-view, hot reload, checkpoints, validation, bloom). It never imports JAX. Phases, each of which fails the run on any error:
+renderer (multi-view, hot reload, checkpoints, validation, bloom), and
+sharding over a mesh whose shards all lie on the one card. It never
+imports JAX. Phases, each of which fails the run on any error:
 
 1. a CUDA device must be present; print its name and power limit;
 2. build the kernel library (nvcc, one process per source, ctypes) and,
@@ -274,7 +276,39 @@ renderer (multi-view, hot reload, checkpoints, validation, bloom). It never impo
     f. ``example_multicam`` at examples/run_all.py:251-287's config
        (256x256, antialiased, two cameras through ``render_views``) and a
        LOCAL-space effect under ``camera_2d``, card against CPU (alive
-       counts equal, checksums within 0.5%).
+       counts equal, checksums within 0.5%);
+23. the sharded paths on a (dp=4, sp=2) mesh whose eight shards all lie on
+    ``cuda:0`` (``make_mesh([cuda:0] * 8)``), one process driving them:
+    a. ``ShardedEffect(spawn_gravity_effect(131072), 4)`` (524 288 lanes,
+       65 536 a shard; __graft_entry__.py:127-157's sizes): two steps of
+       65 536 spawns an instance and a 6-frame ``step_chunk``, the pools
+       bit-equal to an ``InstancedEffect`` stepped on the same inputs;
+       steps/s of both over three chunks of 60 frames;
+    b. 8 x ``gradient_effect(131072)`` (1 048 576 lanes) on a ring, warmed
+       past its lifetime, rendered at 512x512 (``tile_slots=1``) in slice
+       mode (BLEND) and psum (its ADD twin): ms a frame, every raster
+       kernel launched; each frame against the unsharded render of the
+       assembled pools on the card, equal on the tiles that do not overflow
+       M (slice: and border no slice, where the centre tile of a quad
+       straddling a slice edge is clamped into each slice) with the
+       overflowing tiles counted, the slice frame's checksum within 0.5%;
+       each frame against the same sharded render on a mesh of the CPU
+       (checksums within 0.5%; the psum frame at 128x128 there); the
+       route's sort, window and copies timed; ribbons and a tetrahedron
+       mesh at the dryrun's sizes (__graft_entry__.py:214-266, 8-pixel
+       tiles) card against CPU and exactly against the unsharded render;
+    c. the 64k -> 256k firework tree with ``add(..., mesh=mesh)`` and an
+       inherited trail, ``update_chunk(240)`` (steps/s, sharded and
+       unsharded), then 75 frames into the next burst: rocket and trail
+       pools bit-equal to the unsharded tree on the card;
+    d. __graft_entry__.py:289-331's scene (a plain effect beside a sharded
+       ADD group): ``update``, ``render`` (the psum pass),
+       ``update_render_chunk(2)`` and ``render(pipeline="painter")`` against
+       the same scene with a plain group;
+    e. on b's slice frame ``project_bin`` at ``y_offset`` != 0,
+       ``gather_window`` at the route's width and cap, ``tile_blend`` BLEND
+       on a slice's window, and on c ``event_compact`` on one shard's lanes,
+       each exactly against its plain version, and timed.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -301,7 +335,11 @@ instanced frame's (``project_bin``, ``bin_keys``, ``gather_window`` and
 (``ribbon_segments[sprite]``, and ``[sprite,1M]``, a timing row with 0
 launches) and the multi-view chunk's (``project_bin``, ``bin_keys``,
 ``gather_window`` at ``[views]`` and ``tile_blend[scene,views]``, compared
-on its second view's frame). Each row holds the
+on its second view's frame) and the sharded frames' (``project_bin[slice]``,
+``gather_window[route]``, ``tile_blend[blend,slice]`` with the slice
+frame's launches, ``gather_window`` counting its route windows and its
+slices' windows together, and ``event_compact[sharded]`` with the sharded
+tree's). Each row holds the
 path's launches, the kernel's and its plain version's device ms, the
 library call's (``index_select`` for the gathers, of the window's rows
 for ``gather_window``, of the appearance rows by the segment order for
@@ -537,18 +575,18 @@ def torch_equal_nan(a, b) -> bool:
 
 
 def compare_project_bin(pb_args, nt: int, label: str, row: int, extra=None, config=None,
-                        appearance=None):
+                        appearance=None, **slice_kw):
     """``project_bin`` against its plain version on ``pb_args``, with
     ``row``-float rows (then the ``appearance`` columns, if any) and
     ``config``'s binning (``tile_slots`` and ``tile_span``; the centre tile
-    without one): tiles, depths and the depth range equal, rows at max abs
-    err 0. Returns the result row and the plain outputs (tile, depth, rows,
-    range)."""
+    without one), ``slice_kw`` a slice's ``raster_size`` and ``y_offset``:
+    tiles, depths and the depth range equal, rows at max abs err 0. Returns
+    the result row and the plain outputs (tile, depth, rows, range)."""
     import torch
 
     from bevy_hanabi_tpu_torch.render import raster
 
-    kw = dict(extra=extra, row=row)
+    kw = dict(extra=extra, row=row, **slice_kw)
     if appearance is not None:
         kw["appearance"] = appearance
     if config is not None:
@@ -3495,8 +3533,535 @@ def scene_tools_phase() -> None:
 
 
 
+SHARD_DEVICES = 8  # phase 23's mesh: (dp=4, sp=2), every shard on cuda:0
+SHARD_STEP = (4, 131072)  # __graft_entry__.py:127-157: dp instances of 65 536 x sp lanes
+SHARD_RENDER = (8, 131072)  # the render group: 8 x 131 072 = 1 048 576 lanes
+SHARD_STEP_K = 60  # frames per timed chunk of the sharded and plain steps
+SHARD_WARM = 330  # frames past the gradient's 5 s lifetime before the render
+SHARD_TREE = (65536, 262144)  # the firework tree's rockets and trails (phase 7's)
+SHARD_TREE_K = 240  # the firework tree's update_chunk
+SHARD_KERNELS = ("project_bin", "bin_keys", "gather_window", "tile_blend")
+
+
+def shard_mesh(dev):
+    from bevy_hanabi_tpu_torch.parallel import make_mesh
+
+    return make_mesh([dev] * SHARD_DEVICES, dp=4, sp=2)
+
+
+def same_pools(a, b) -> bool:
+    """Two whole pools equal bit for bit (NaN bits included)."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    return (all(torch.equal(bits(a.attrs[k]), bits(b.attrs[k])) for k in a.attrs)
+            and torch.equal(a.alive, b.alive) and torch.equal(a.seed, b.seed)
+            and torch.equal(a.counter, b.counter))
+
+
+def sharded_step(dev) -> None:
+    """Phase 23a: ``ShardedEffect`` against ``InstancedEffect`` on the card."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import InstancedEffect, SimParams
+    from bevy_hanabi_tpu_torch.models import spawn_gravity_effect
+    from bevy_hanabi_tpu_torch.parallel import ShardedEffect
+
+    n_inst, cap = SHARD_STEP
+    asset = spawn_gravity_effect(capacity=cap, rate=0.0)
+    fx = ShardedEffect(asset, n_inst, shard_mesh(dev), device=dev)
+    plain = InstancedEffect(asset, n_inst, device=dev)
+    grav = {"gravity": np.tile(np.asarray([0.0, -3.0, 0.0], np.float32), (n_inst, 1))}
+    pools, ref = fx.create_pools(), plain.create_pools()
+    for f in range(2):
+        args = (np.full(n_inst, cap // 2, np.int32), np.arange(n_inst, dtype=np.uint32) + f)
+        sim = SimParams(time=f * DT, delta_time=DT)
+        pools, _ = fx.step(pools, fx.shard_inputs(fx.make_inputs(*args, properties=grav)), sim)
+        ref, _ = plain.step(ref, plain.make_inputs(*args, properties=grav), sim)
+
+    def frames(start, k):
+        ins = [fx.make_inputs(np.zeros(n_inst, np.int32), np.full(n_inst, start + j, np.uint32),
+                              properties=grav) for j in range(k)]
+        sims = [SimParams(time=(start + j) * DT, delta_time=DT) for j in range(k)]
+        return fx.effect.stack_frames(ins, sims)
+
+    pools = fx.step_chunk(pools, *frames(2, 6))
+    ref = plain.step_chunk(ref, *frames(2, 6))
+    alive = int(fx.total_alive(pools))
+    if alive != n_inst * cap:
+        fail(f"sharded step: {alive} alive lanes, expected {n_inst * cap}")
+    if not same_pools(fx.assemble(pools), ref):
+        fail("sharded step: the pools differ from the unsharded group's")
+    print(f"sharded step: {n_inst} x {cap} lanes over (dp=4, sp=2) on one card "
+          f"({cap // 2} lanes a shard), two steps and a 6-frame chunk bit-equal to "
+          f"InstancedEffect, alive {alive}")
+    rates = {}
+    for name, eff, p in (("sharded", fx, pools), ("plain", plain, ref)):
+        times = []
+        for c in range(3):
+            ii, ss = frames(8 + c * SHARD_STEP_K, SHARD_STEP_K)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = eff.step_chunk(p, ii, ss)
+            int(eff.total_alive(p))  # readback: waits for the chunk
+            times.append(time.perf_counter() - t0)
+        rates[name] = SHARD_STEP_K / min(times)
+        print(f"sharded step ({name}): chunk times (s) {times}, {rates[name]:.2f} steps/s, "
+              f"{rates[name] * n_inst * cap:.4e} particle-steps/s")
+
+
+def shard_render_setup(dev):
+    """Phase 23b's group: 8 ``gradient_effect(131072)`` instances on a ring
+    of radius 6 facing the headline camera, stepped past their 5 s
+    lifetime over the (dp=4, sp=2) mesh; ``(fx, pools, asset)``."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import SimParams
+    from bevy_hanabi_tpu_torch.models import gradient_effect
+    from bevy_hanabi_tpu_torch.parallel import ShardedEffect
+    from bevy_hanabi_tpu_torch.spawn import make_spawner_bank
+
+    n_inst, cap = SHARD_RENDER
+    asset = gradient_effect(cap)
+    fx = ShardedEffect(asset, n_inst, shard_mesh(dev), device=dev)
+    ang = np.arange(n_inst) * (2.0 * np.pi / n_inst)
+    tfs = np.tile(np.eye(3, 4, dtype=np.float32), (n_inst, 1, 1))
+    tfs[:, 0, 3], tfs[:, 1, 3] = 6.0 * np.cos(ang), 6.0 * np.sin(ang)
+    bank, rng = make_spawner_bank(asset.spawner, n_inst, seed=1), np.random.default_rng(0)
+    pools = fx.create_pools()
+    t0 = time.perf_counter()
+    for c in range(SHARD_WARM // 110):
+        ins = [fx.make_inputs(bank.tick(DT), rng.integers(0, 2**32, n_inst, dtype=np.uint32), tfs)
+               for _ in range(110)]
+        sims = [SimParams(time=(c * 110 + j) * DT, delta_time=DT) for j in range(110)]
+        pools = fx.step_chunk(pools, *fx.effect.stack_frames(ins, sims))
+    alive = int(fx.total_alive(pools))
+    torch.cuda.synchronize()
+    print(f"sharded render group: {n_inst} x {cap} lanes warmed {SHARD_WARM} frames in "
+          f"{time.perf_counter() - t0:.2f} s, alive {alive}")
+    return fx, pools, asset
+
+
+def small_camera(cam, size: int):
+    """``cam`` at a ``size`` x ``size`` viewport."""
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams
+
+    return CameraParams(cam.view, cam.proj, (size, size))
+
+
+def tile_counts(draw, cam, config):
+    """Entries binned into each tile of a single-device frame ([nt])."""
+    import torch
+
+    from bevy_hanabi_tpu_torch.render import raster
+
+    tile, _, _, _ = raster.project_bin(*project_args(draw, cam, config),
+                                       row=raster.row_width("blend", False),
+                                       tile_slots=config.tile_slots, tile_span=config.tile_span)
+    return torch.bincount(tile.long(), minlength=config.num_tiles + 1)[:-1]
+
+
+def per_tile(img, config):
+    """[nt, T*T*4] view of an image's tiles (tile-major)."""
+    T = config.tile_size
+    return (img.reshape(config.tiles_y, T, config.tiles_x, T, 4).permute(0, 2, 1, 3, 4)
+            .reshape(config.num_tiles, -1))
+
+
+def hold_sharded_image(label, img, ref, counts, config, exact_tiles, atol=0.0):
+    """A sharded frame against the single-device frame of the same pools:
+    equal (within ``atol``) on ``exact_tiles``, the whole checksum within
+    0.5%. Returns the count of tiles outside ``exact_tiles``."""
+    import torch
+
+    a, b = per_tile(img, config), per_tile(ref, config)
+    if not bool(exact_tiles.any()):
+        fail(f"{label}: no tile to hold exactly")
+    err = float((a[exact_tiles] - b[exact_tiles]).abs().max())
+    s_a, s_b = float(img.sum()), float(ref.sum())
+    over = int((counts > config.max_entries_per_tile).sum())
+    print(f"{label}: {over} of {config.num_tiles} tiles overflow M = {config.max_entries_per_tile}; "
+          f"{int(exact_tiles.sum())} tiles held exactly: max abs err {err:g}; checksum "
+          f"{s_a:.6e} against the unsharded {s_b:.6e} ({100.0 * (s_a - s_b) / s_b:+.3f}%)")
+    if not torch.isfinite(img).all() or err > atol:
+        fail(f"{label}: max abs err {err:g} on the tiles held exactly (allowed {atol:g})")
+    return s_a, s_b
+
+
+def sharded_render(kernels, dev):
+    """Phase 23b: 1 048 576 lanes rendered at 512x512 in slice mode (BLEND)
+    and psum (the ADD twin); the route's sort, window and copies timed; the
+    ribbon and mesh slices at the dryrun's sizes."""
+    import torch
+
+    from bevy_hanabi_tpu_torch import AlphaMode, EffectRenderer, RasterConfig, SimParams
+    from bevy_hanabi_tpu_torch.parallel import ShardedEffect, ShardedRenderer, make_mesh
+    from bevy_hanabi_tpu_torch.parallel import render as prender
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+    from bevy_hanabi_tpu_torch.runtime.pool import ShardedPool
+
+    import copy
+
+    fx, pools, asset = shard_render_setup(dev)
+    cam = headline_camera()
+    config = RasterConfig(512, 512, tile_slots=1)
+    n_dev = SHARD_DEVICES
+    flat = fx.assemble(pools).flatten()
+    counts = tile_counts(extract_draw_data(asset, flat, cam), cam, config)
+    fits = counts <= config.max_entries_per_tile
+    # tile_slots=1 bins a quad at its centre tile; a slice clamps the centre
+    # of a quad straddling its edge into its own edge row (render.py's bbox
+    # route), so the rows beside each slice edge are held by the checksum
+    rows_per_slice = config.tiles_y // n_dev
+    ty = torch.arange(config.num_tiles, device=dev) // config.tiles_x
+    edge = ((ty % rows_per_slice == 0) & (ty > 0)) | ((ty % rows_per_slice == rows_per_slice - 1)
+                                                      & (ty < config.tiles_y - 1))
+    cpu_mesh = make_mesh(["cpu"] * n_dev, dp=4, sp=2)
+    cpu_pools = ShardedPool.split(fx.assemble(pools, "cpu"), cpu_mesh.devices, instanced=True)
+    out = {}
+    for mode, alpha in (("slice", "blend"), ("psum", "add")):
+        # with_alpha_mode edits its asset: the ADD twin is a copy
+        a = asset if alpha == "blend" else copy.deepcopy(asset).with_alpha_mode(AlphaMode.ADD)
+        fxm = fx if alpha == "blend" else ShardedEffect(a, fx.num_instances, fx.mesh, device=dev)
+        r = ShardedRenderer(fxm, config)
+        if r.mode != mode:
+            fail(f"sharded render: auto picked {r.mode!r} for {alpha}, expected {mode!r}")
+        r.render(pools, cam)  # warm
+        reset_launches(kernels)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = r.render(pools, cam)
+            float(img.sum())  # readback: waits for the frame
+            times.append(1e3 * (time.perf_counter() - t0))
+        launches = read_launches(kernels)
+        require_launches(launches, ("project_bin", "bin_keys", "gather_window",
+                                    "tile_blend" if alpha == "blend" else "tile_blend[add]"),
+                         f"the sharded {mode} frame")
+        ref = EffectRenderer(a, config).render(flat, cam)
+        single_ms = host_ms(lambda: float(EffectRenderer(a, config).render(flat, cam).sum()))
+        print(f"sharded {mode} frame ({alpha}, 1 048 576 lanes, 512x512, tile_slots=1): "
+              f"{min(times):.3f} ms a frame (runs {times}), unsharded render {single_ms:.3f} ms; "
+              f"launches {launches}")
+        if mode == "slice":
+            # a slice's tile keeps the nearest M entries that touch the slice:
+            # exact where the tile does not overflow and is no slice's edge
+            # row; an edge row also bins the quads straddling the edge (their
+            # centre tile clamped into the slice), so under overflow their
+            # slots hold entries that barely cover the tile (render.py:44-53;
+            # the checksum against the unsharded frame is printed, and held
+            # at the exact binning below)
+            hold_sharded_image(f"sharded slice ({alpha})", img, ref, counts, config, fits & ~edge)
+        else:
+            # the partial images summed: exact up to the order of the f32 adds
+            # where no shard's tile overflows M (a tile of the whole frame that
+            # fits fits in every shard); an overflowing tile keeps M entries a
+            # shard, so its sum holds more of them (render.py:44-53)
+            hold_sharded_image(f"sharded psum ({alpha})", img, ref, counts, config, fits,
+                               atol=1e-4 * max(1.0, float(ref.abs().max())))
+        # the same pools on a mesh of the CPU, through the plain versions: the
+        # slice frame at 512x512, the psum frame (eight full-frame partial
+        # images) at 128x128, the card's psum rendered there too
+        cam_c = cam if mode == "slice" else small_camera(cam, 128)
+        if mode == "psum":
+            img = r.render(pools, cam_c)
+        fx_c = ShardedEffect(a, fx.num_instances, cpu_mesh, device="cpu")
+        t0 = time.perf_counter()
+        img_c = ShardedRenderer(fx_c, config).render(cpu_pools, cam_c)
+        s_g, s_c = float(img.sum()), float(img_c.sum())
+        print(f"sharded {mode} frame on the CPU at {cam_c.viewport} ({time.perf_counter() - t0:.1f}"
+              f" s): checksum {s_c:.6e}, card {s_g:.6e}")
+        if not checksum_close(s_g, s_c):
+            fail(f"sharded {mode}: checksum {s_g} on the card against {s_c} on the CPU")
+        out[mode] = {"ms": min(times), "launches": launches}
+
+    # the JAX package's contract for slice mode (render.py:50-53) under its
+    # default, exact binning (tile_slots=0): each slice bins a quad into the
+    # tiles it touches as the whole frame does, so the slice frame equals
+    # the unsharded one on every tile that does not overflow M, and keeps
+    # the same candidates in every tile
+    exact = RasterConfig(512, 512, tile_slots=0)
+    counts0 = tile_counts(extract_draw_data(asset, flat, cam), cam, exact)
+    img0 = ShardedRenderer(fx, exact).render(pools, cam)
+    ref0 = EffectRenderer(asset, exact).render(flat, cam)
+    s_a, s_b = hold_sharded_image("sharded slice (blend, tile_slots=0)", img0, ref0, counts0, exact,
+                                  counts0 <= exact.max_entries_per_tile)
+    if not checksum_close(s_a, s_b):
+        fail(f"sharded slice (tile_slots=0): checksum {s_a} against the unsharded {s_b}")
+
+    # the route of the slice frame, source shard 0: its sort, window, copies
+    r = ShardedRenderer(fx, config)
+    draws = [r._extract(p, cam, SimParams(), {}) for p in pools.flat]
+    dests = [prender.slice_destinations(d, cam, config, n_dev) for d in draws]
+    rows, _ = prender._pack_draw(draws[0], prender._SLICE_FIELDS)
+    cap = r._route_cap(rows.shape[0], n_dev)
+    entries, starts, ends = prender.route_keys(*dests[0], n_dev)
+    sends = [prender.route_window(prender._pack_draw(d, prender._SLICE_FIELDS)[0],
+                                  *prender.route_keys(*dd, n_dev), cap)
+             for d, dd in zip(draws, dests)]
+    route = {
+        "sort_ms": cuda_ms(lambda: prender.route_keys(*dests[0], n_dev), 20),
+        "window_ms": cuda_ms(lambda: prender.route_window(rows, entries, starts, ends, cap), 20),
+        "copy_ms": cuda_ms(lambda: prender.deliver(sends, fx.mesh.flat_devices()), 5),
+    }
+    routed = int(sum(int((d0 < n_dev).sum() + (d1 < n_dev).sum()) for d0, d1 in dests))
+    print(f"slice route: {rows.shape[0]} rows of {rows.shape[1]} floats a source, cap {cap}, "
+          f"{routed} entries routed over {n_dev} sources; source 0's sort {route['sort_ms']:.4f} ms, "
+          f"window {route['window_ms']:.4f} ms; the copies of all {n_dev} sources "
+          f"{route['copy_ms']:.4f} ms")
+    kernel_rows = shard_kernel_rows(r, pools, cam, config, rows, entries, starts, ends, cap)
+    sharded_small_slices(dev)
+    return out, route, kernel_rows
+
+
+def shard_kernel_rows(r, pools, cam, config, rows, entries, starts, ends, cap):
+    """Phase 23e on the slice frame: ``project_bin`` of a slice at its
+    ``y_offset``, ``gather_window`` at the route's width and cap, and
+    ``tile_blend`` BLEND on that slice's window, each against its plain
+    version and timed."""
+    import dataclasses
+
+    import torch
+
+    from bevy_hanabi_tpu_torch import SimParams
+    from bevy_hanabi_tpu_torch.ops import gather
+    from bevy_hanabi_tpu_torch.render import raster
+
+    n_dev = SHARD_DEVICES
+    received = r.slice_draws(pools, cam, SimParams(), {}, config)
+    t = n_dev // 2 + 1  # a slice below the frame's middle
+    slice_h = config.height // n_dev
+    cfg = dataclasses.replace(config, height=slice_h)
+    sdraw = received[t]
+    results = {}
+    results["project_bin[slice]"], projected = compare_project_bin(
+        project_args(sdraw, cam, cfg), cfg.num_tiles, f"project_bin (slice {t}, y_offset "
+        f"{t * slice_h})", raster.row_width("blend", False), config=cfg,
+        y_offset=float(t * slice_h), raster_size=(cfg.width, cfg.height))
+    _, win = compare_gather_window(projected, cfg.num_tiles, cfg.max_entries_per_tile, None,
+                                   f"slice {t}")
+    results["tile_blend[blend,slice]"], _ = compare_tile_blend(
+        f"blend (slice {t})", *win, cfg.tile_size, cfg.tiles_x, cfg.tiles_y, cfg.background,
+        "blend")
+    # the route's window: destinations in place of tiles, entry e reading
+    # row e mod N, the first cap entries of each run
+    args = (rows, entries, starts, ends, cap, True)
+    got = gather.gather_window(*args)
+    want = gather.gather_window_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[1], want[1]) and torch.equal(got[0].view(torch.int32),
+                                                         want[0].view(torch.int32))):
+        fail("gather_window (route): differs from its plain version")
+    filled = int(got[1].sum())
+    idx = raster.window_index(entries, starts, ends, cap, True, rows.shape[0])[0].reshape(-1)
+    results["gather_window[route]"] = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: gather.gather_window(*args), 50),
+        "plain_ms": cuda_ms(lambda: gather.gather_window_plain(*args), 10),
+        "library_ms": cuda_ms(lambda: rows.index_select(0, idx), 50),
+        **bound(nbytes(starts, ends, *got) + filled * (entries.element_size()
+                                                      + rows.shape[1] * rows.element_size())),
+        "filled_entries": filled,
+    }
+    print(f"gather_window (route): {n_dev} destinations x {cap} slots x {rows.shape[1]} floats, "
+          f"{filled} filled, bit-exact; kernel {results['gather_window[route]']['ms']:.4f} ms")
+    return results
+
+
+def sharded_small_slices(dev) -> None:
+    """Phase 23b's ribbons and tetrahedron mesh through slice mode at the
+    dryrun's sizes (__graft_entry__.py:214-266): card against the CPU and
+    against the card's unsharded render of the same pools."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import AlphaMode, EffectRenderer, RasterConfig, SimParams
+    from bevy_hanabi_tpu_torch.models import ribbon_bench_effect, spawn_gravity_effect
+    from bevy_hanabi_tpu_torch.parallel import ShardedEffect, ShardedRenderer, make_mesh
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+    from bevy_hanabi_tpu_torch.render.mesh import ParticleMesh
+
+    dp, sp = 4, 2
+    cam = CameraParams(look_at((0.0, 0.0, 6.0), (0.0, 0.0, 0.0)), perspective(1.05, 1.0, 0.1, 100.0),
+                       (64, 64))
+    grav = {"gravity": np.tile(np.asarray([0.0, -3.0, 0.0], np.float32), (dp, 1))}
+    cases = {
+        "ribbons": (ribbon_bench_effect(capacity=512 * sp, num_ribbons=16)
+                    .with_alpha_mode(AlphaMode.ADD),
+                    [(np.full(dp, 80, np.int32), np.full(dp, f * 7 + 1, np.uint32), {})
+                     for f in range(6)], True),
+        "mesh": (spawn_gravity_effect(capacity=256 * sp, rate=0.0)
+                 .with_mesh(ParticleMesh.tetrahedron()),
+                 [(np.full(dp, 64, np.int32), np.full(dp, 3, np.uint32), grav)], False),
+    }
+    # 8-pixel tiles: each 8-row slice holds a whole row of tiles, so a slice
+    # bins an entry's span square as the whole frame does
+    config = RasterConfig(64, 64, tile_size=8, max_entries_per_tile=512)
+    for name, (asset, frames, composite) in cases.items():
+        sums = {}
+        for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            fx = ShardedEffect(asset, dp, make_mesh([d] * SHARD_DEVICES, dp=dp, sp=sp), device=d)
+            pools = fx.create_pools()
+            for f, (spawn, seeds, props) in enumerate(frames):
+                pools, _ = fx.step(pools, fx.shard_inputs(fx.make_inputs(spawn, seeds, properties=props)),
+                                   SimParams(time=f * DT, delta_time=DT))
+            img = ShardedRenderer(fx, config, mode="slice", slice_capacity_factor=8.0).render(pools, cam)
+            sums[key] = float(img.sum())
+            if key == "card":
+                flat = fx.assemble(pools).flatten(composite_ribbon_ids=composite)
+                ref = EffectRenderer(asset, config).render(flat, cam)
+                err, s_ref = float((img - ref).abs().max()), float(ref.sum())
+                alive = int(fx.total_alive(pools))
+        print(f"sharded slice {name} (64x64, {alive} alive): card {sums['card']:.6e}, cpu "
+              f"{sums['cpu']:.6e}, the card's unsharded render {s_ref:.6e} (max abs err {err:g})")
+        if not sums["card"] > 0.0 or not checksum_close(sums["card"], sums["cpu"]) or err != 0.0:
+            fail(f"sharded slice {name}: card {sums['card']} against cpu {sums['cpu']}, max abs "
+                 f"err {err:g} against the unsharded render")
+
+
+def sharded_trees(dev, kernels=None):
+    """The 64k -> 256k firework tree sharded over the mesh (``add(mesh=)``,
+    the trail inheriting it) and unsharded on ``dev``: ``update_chunk(240)``
+    timed for each, then 75 frames into the next burst, where both trees'
+    pools must be bit-equal. With ``kernels`` the sharded chunk's launches
+    are counted and returned (else None); also returns the sharded scene."""
+    import torch
+
+    from bevy_hanabi_tpu_torch import HanabiScene
+    from bevy_hanabi_tpu_torch.models import firework_effect, firework_trail_effect
+
+    mesh = shard_mesh(dev)
+    scenes = {}
+    for name, m in (("sharded", mesh), ("plain", None)):
+        s = HanabiScene(seed=5, device=dev)
+        s.add(firework_effect(SHARD_TREE[0]), "rocket", mesh=m)
+        s.add(firework_trail_effect(SHARD_TREE[1]), "trail", parent="rocket")
+        scenes[name] = s
+    sh, pl = scenes["sharded"], scenes["plain"]
+    if sh["trail"].fx.mesh is not mesh or sh["trail"].fx.parent_const_count is not None:
+        fail("sharded tree: the trail did not inherit the mesh with the general rank map")
+    launches = None
+    for name, s in (("plain", pl), ("sharded", sh)):
+        if name == "sharded" and kernels:
+            reset_launches(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.update_chunk(SHARD_TREE_K, DT)
+        trails = s["trail"].alive_count()  # readback: waits for the chunk
+        secs = time.perf_counter() - t0
+        if name == "sharded" and kernels:
+            launches = read_launches(kernels)
+        print(f"sharded tree ({name}): update_chunk({SHARD_TREE_K}) in {secs:.3f} s, "
+              f"{SHARD_TREE_K / secs:.2f} steps/s, rockets {s['rocket'].alive_count()} "
+              f"trails {trails}")
+    # 240 frames end a burst period with every rocket and trail dead: go on
+    # to 75 frames into the next burst, rockets dying and trails spawning
+    for s in (pl, sh):
+        s.update_chunk(FW_RENDER_AT, DT)
+    for n in ("rocket", "trail"):
+        if not same_pools(sh[n].pool.assemble(dev), pl[n].pool):
+            fail(f"sharded tree: the {n} pools differ from the unsharded tree's")
+    if sh["trail"].alive_count() == 0:
+        fail("sharded tree: no trail spawned")
+    print(f"sharded tree: {FW_RENDER_AT} frames into the next burst, rockets "
+          f"{sh['rocket'].alive_count()} trails {sh['trail'].alive_count()}, both pools bit-equal "
+          "to the unsharded tree's")
+    return launches, sh
+
+
+def sharded_tree(kernels, dev):
+    """Phase 23c: :func:`sharded_trees` on the card, and ``event_compact`` on
+    one shard's lanes against its plain version."""
+    import torch
+
+    from bevy_hanabi_tpu_torch.runtime import events
+
+    launches, sh = sharded_trees(dev, kernels)
+    require_launches(launches, ("event_compact", "gather_rows"), "the sharded tree")
+    # event_compact on the shard holding the most alive rockets
+    shard = max(sh["rocket"].pool.flat, key=lambda p: int(p.alive.sum()))
+    mask = shard.alive.contiguous()
+    count = torch.full((mask.shape[0],), 4, dtype=torch.int64, device=dev)
+    payload = shard.attrs["position"].contiguous().view(torch.int32)
+    got = events.event_compact(mask, count, payload)
+    want = events.event_compact_plain(mask, count, payload)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)) or int(got[2]) == 0:
+        fail("event_compact (sharded): differs from its plain version or has no active lane")
+    print(f"event_compact (sharded): a shard's n={mask.shape[0]}, {int(got[2])} active, bit-exact")
+    row = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: events.event_compact(mask, count, payload), 100),
+        "plain_ms": cuda_ms(lambda: events.event_compact_plain(mask, count, payload), 20),
+        "library_ms": None,
+        **bound(nbytes(mask, count, payload, *got)),
+    }
+    return launches, row
+
+
+def sharded_scene(dev) -> None:
+    """Phase 23d: __graft_entry__.py:289-331's scene (a plain effect beside
+    a sharded ADD group) through ``update``, ``render``,
+    ``update_render_chunk(2)`` and ``render(pipeline="painter")``, against
+    the same scene with a plain group."""
+    from bevy_hanabi_tpu_torch import AlphaMode, HanabiScene, RasterConfig
+    from bevy_hanabi_tpu_torch.models import gradient_effect, spawn_gravity_effect
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+
+    sp = 2
+    asset = spawn_gravity_effect(capacity=256 * sp, rate=64.0).with_alpha_mode(AlphaMode.ADD)
+    cam = CameraParams(look_at((0.0, 0.0, 6.0), (0.0, 0.0, 0.0)), perspective(1.05, 1.0, 0.1, 100.0),
+                       (64, 64))
+    config = RasterConfig(64, 64)
+    got = {}
+    for name in ("sharded", "plain"):
+        s = HanabiScene(seed=3, device=dev)
+        s.add(gradient_effect(capacity=256), "plain")
+        if name == "sharded":
+            s.add_sharded_group(asset, count=8, mesh=shard_mesh(dev), name="big")
+        else:
+            s.add_group(asset, count=8, name="big")
+        for _ in range(3):
+            s.update(DT)
+        img = s.render(cam, config, pipeline="split")
+        chunk, sums = s.update_render_chunk(2, DT, cam, config)
+        painter = s.render(cam, config, pipeline="painter")
+        got[name] = (img, chunk, sums, painter, s.group_alive("big"))
+    (a, b, c, d, n), (a2, b2, c2, d2, n2) = got["sharded"], got["plain"]
+    errs = [float((x - y).abs().max()) for x, y in ((a, a2), (b, b2), (c, c2), (d, d2))]
+    print(f"sharded scene: group alive {n} (plain {n2}); max abs err against the plain group: "
+          f"split {errs[0]:g} (psum), chunk {errs[1]:g}, chunk sums {errs[2]:g}, painter "
+          f"{errs[3]:g}; checksums {float(a.sum()):.6e} {float(d.sum()):.6e}")
+    if n != n2 or n == 0 or errs[0] > 1e-4 or max(errs[1:]) != 0.0 or not float(a.sum()) > 0:
+        fail(f"sharded scene: alive {n} against {n2}, errors {errs}")
+
+
+def sharded_phase(kernels):
+    """Phase 23: the sharded paths on one card, a (dp=4, sp=2) mesh whose
+    eight shards all lie on cuda:0."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    sharded_step(dev)
+    frames, route, results = sharded_render(kernels, dev)
+    tree_launches, results["event_compact[sharded]"] = sharded_tree(kernels, dev)
+    sharded_scene(dev)
+    print(f"phase 23 took {time.perf_counter() - t0:.1f} s")
+    launches = dict(frames["slice"]["launches"])
+    launches["event_compact"] = tree_launches["event_compact"]
+    return results, launches
+
+
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     # Phase 1: the card.
     if not torch.cuda.is_available():
@@ -3674,6 +4239,9 @@ def main() -> int:
     vw_results, vw_launches = views_phase(kernels)
     scene_tools_phase()
 
+    # Phase 23: the sharded paths, a (dp=4, sp=2) mesh on cuda:0.
+    sh_results, sh_launches = sharded_phase(kernels)
+
     results.update(fw_results)
     results.update(mx_results)
     results.update(rb_results)
@@ -3682,7 +4250,7 @@ def main() -> int:
     results.update(ex_results)
     results.update(tq_results)
     for r in (pt_results, msaa_results, litaa_results, exaa_results, in_results, tr_results,
-              vw_results):
+              vw_results, sh_results):
         results.update(r)
     # name, kernel, launches: each row holds one path's launches and its
     # comparison at that path's shapes (the headline's, the firework's,
@@ -3780,6 +4348,14 @@ def main() -> int:
             for name in ("project_bin", "bin_keys", "gather_window")
         ]
         + [("tile_blend[scene,views]", "tile_blend", vw_launches["tile_blend[scene]"])]
+        # the slice frame's three renders (gather_window: its route windows
+        # and its slices' windows together), the sharded tree's chunk
+        + [
+            ("project_bin[slice]", "project_bin", sh_launches["project_bin"]),
+            ("gather_window[route]", "gather_window", sh_launches["gather_window"]),
+            ("tile_blend[blend,slice]", "tile_blend", sh_launches["tile_blend"]),
+            ("event_compact[sharded]", "event_compact", sh_launches["event_compact"]),
+        ]
     )
     kernel_rows = [
         {
@@ -3800,6 +4376,7 @@ def main() -> int:
               f"({r['bound_by']}) {100.0 * r['share']:.1f}% {r['plain_ms']:.4f} {r['library_ms']}"
               + (f" {r['first_ms']}" if "first_ms" in r else ""))
     print(json.dumps({"kernels": kernel_rows}))
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({
         "ok": True,

@@ -27,6 +27,7 @@ from bevy_hanabi_tpu_torch import CompiledEffect, EffectAsset, HanabiScene, Rast
 from bevy_hanabi_tpu_torch import SimParams, StepInputs
 from bevy_hanabi_tpu_torch.render import camera as camera_t
 from bevy_hanabi_tpu_torch.render.raster import fast_mode as raster_mode
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 REL = 0.005  # checksum tolerance (bench.py:155-161)
 # the headline's three companions (bench.py:470-472, 550), cut to 128x128

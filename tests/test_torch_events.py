@@ -15,6 +15,7 @@ import torch
 from bevy_hanabi_tpu.runtime import events as ej
 from bevy_hanabi_tpu_torch.ops import rng
 from bevy_hanabi_tpu_torch.runtime import events as et
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 
 def _emitters(n, seed, active_share=0.05, max_count=4):

@@ -33,6 +33,7 @@ from bevy_hanabi_tpu_torch import EffectAsset, HanabiScene, RasterConfig
 from bevy_hanabi_tpu_torch.models import make_anim_sprite_sheet
 from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
 from bevy_hanabi_tpu_torch.render.ribbon import build_ribbon_segments
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 DT = 1.0 / 60.0
 FRAMES = 10

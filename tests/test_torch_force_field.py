@@ -16,6 +16,7 @@ import bevy_hanabi_tpu_torch as bt
 from bevy_hanabi_tpu.models import force_field_effect as force_field_j
 from bevy_hanabi_tpu_torch import EffectAsset
 from bevy_hanabi_tpu_torch.models import force_field_effect
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 POS_RTOL, POS_ATOL = 1e-2, 1e-3
 FF_DT = 1.0 / 60.0

@@ -37,6 +37,7 @@ from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, orthograp
 from bevy_hanabi_tpu_torch.render.extract import flatten_instance_axis
 from bevy_hanabi_tpu_torch.render.renderer import EffectRenderer
 from bevy_hanabi_tpu_torch.runtime.pool import ParticlePool
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 DT = 1.0 / 60.0
 CHECKSUM_REL = 0.005

@@ -45,6 +45,7 @@ from bevy_hanabi_tpu_torch.render import mesh as mesh_t
 from bevy_hanabi_tpu_torch.render import raster
 from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData as DrawT
 from bevy_hanabi_tpu_torch.render.extract import concat_painter_draws
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 ATOL = 1e-5  # XLA's fused multiply-adds (module docstring)
 REL = 0.005  # checksum tolerance (bench.py:155-161)

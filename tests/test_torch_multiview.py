@@ -30,6 +30,7 @@ from bevy_hanabi_tpu_torch.graph import ExprWriter as WriterT
 from bevy_hanabi_tpu_torch.render import camera as camera_t
 from bevy_hanabi_tpu_torch.render.raster import RasterConfig as CfgT
 from bevy_hanabi_tpu_torch.spawn import SpawnerSettings as SpawnT
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 DT = 1.0 / 60.0
 REL = 0.005

@@ -41,6 +41,7 @@ from bevy_hanabi_tpu_torch.render import camera as camera_t
 from bevy_hanabi_tpu_torch.render import raster
 from bevy_hanabi_tpu_torch.render.extract import PAINTER_MODE_IDS, concat_painter_draws
 from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData as DrawT
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 DT = 1.0 / 60.0
 REL = 0.005  # checksum tolerance (bench.py:155-161)

@@ -39,6 +39,7 @@ from bevy_hanabi_tpu_torch.render.extract import concat_painter_draws as concat_
 from bevy_hanabi_tpu_torch.render.extract import extract_draw_data as extract_t
 from bevy_hanabi_tpu_torch.render.mesh import ParticleMesh as MeshT
 from bevy_hanabi_tpu_torch.render.mesh import expand_mesh_draw as expand_t
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 DT = 1.0 / 60.0
 

@@ -299,9 +299,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     ],
 )
 def test_unported_raster_branches_raise(kwargs, config):
-    """Slice rendering (``y_offset``, reached only by the JAX package's
-    sharded renderer) raises; antialiasing, ported, renders the same draw as
-    the JAX package's ``rasterize`` (within 1e-5, as the other images)."""
+    """The two branches this test once held to ``NotImplementedError`` now
+    render the same draw as the JAX package's ``rasterize`` (within 1e-5,
+    as the other images): antialiasing, and slice rendering (``y_offset``,
+    the sharded renderer's slice mode: a half-height raster starting at
+    viewport row ``y_offset``)."""
     if "y_offset" not in kwargs:
         img_t, img_j = _images(0, **config)
         np.testing.assert_allclose(img_t, img_j, atol=1e-5)
@@ -310,9 +312,19 @@ def test_unported_raster_branches_raise(kwargs, config):
     view, proj, d = _scene()
     t = _torch_draw(d)
     draw = DrawT(t["position"], t["axis_x"], t["axis_y"], t["color"], t["alive"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        raster.rasterize(draw, CamT(view, proj, (SIZE, SIZE)),
-                         raster.RasterConfig(SIZE, SIZE, **config), **kwargs)
+    img_t = raster.rasterize(draw, CamT(view, proj, (SIZE, SIZE)),
+                             raster.RasterConfig(SIZE, SIZE // 2, **config), **kwargs).numpy()
+    draw_j = DrawJ(
+        position=jnp.asarray(d["position"]), axis_x=jnp.asarray(d["axis_x"]),
+        axis_y=jnp.asarray(d["axis_y"]), color=jnp.asarray(d["color"]),
+        alive=jnp.asarray(d["alive"]), roundness=None,
+        sprite_index=jnp.zeros((N,), jnp.int32), sprite_grid_size=(1, 1),
+        texture_layers=(), needs_uv=False,
+    )
+    img_j = np.asarray(rasterize_j(draw_j, CamJ(view, proj, (SIZE, SIZE)),
+                                   CfgJ(SIZE, SIZE // 2, **config), **kwargs))
+    assert img_t.shape == (SIZE // 2, SIZE, 4) and np.abs(img_j).max() > 0.05
+    np.testing.assert_allclose(img_t, img_j, atol=1e-5)
 
 
 # ---- (e) tile_blend's triangle bounds against JAX's triangle test -----------

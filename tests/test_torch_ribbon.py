@@ -54,6 +54,7 @@ from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData
 from bevy_hanabi_tpu_torch.render.extract import extract_draw_data as extract_t
 from bevy_hanabi_tpu_torch.render.raster import rasterize as rasterize_t
 from bevy_hanabi_tpu_torch.render.ribbon import build_ribbon_segments, ribbon_sort
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 DT = 1.0 / 60.0

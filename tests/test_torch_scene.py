@@ -23,12 +23,24 @@ from bevy_hanabi_tpu.models import gradient_effect as gradient_j
 from bevy_hanabi_tpu.render.camera import CameraParams as CamJ
 from bevy_hanabi_tpu.render.raster import RasterConfig as CfgJ
 from bevy_hanabi_tpu.runtime import HanabiScene as SceneJ
+from bevy_hanabi_tpu.runtime.effect import CompiledEffect as CompiledEffectJ
 from bevy_hanabi_tpu_torch import HanabiScene, RasterConfig
 from bevy_hanabi_tpu_torch.models import firework_effect, firework_trail_effect, gradient_effect
 from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 FRAMES = 30
 DT = 1.0 / 20.0
+
+
+@pytest.fixture(autouse=True)
+def _fresh_jax_cache(monkeypatch):
+    """Each test steps its JAX scenes on an empty ``CompiledEffect._CACHE``
+    of the JAX package, and the old dict is put back after it: a validated
+    JAX scene here would otherwise leave checked executables in the cache
+    for the JAX package's own tests in the same process
+    (tests/test_utils.py:277 expects none)."""
+    monkeypatch.setattr(CompiledEffectJ, "_CACHE", {})
 
 
 def _scene_j():

@@ -29,6 +29,7 @@ from bevy_hanabi_tpu_torch.asset import EffectAsset
 from bevy_hanabi_tpu_torch.models import gradient_effect
 from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
 from bevy_hanabi_tpu_torch.render.raster import RasterConfig
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SPAWNS = [4096, 1024, 2048]

@@ -41,6 +41,7 @@ from bevy_hanabi_tpu_torch.render import camera as camera_t
 from bevy_hanabi_tpu_torch.render import raster
 from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData as DrawT
 from bevy_hanabi_tpu_torch.render.extract import extract_draw_data as extract_t
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 SIZE = 64
 ATOL = 1e-5  # XLA's fused multiply-adds (module docstring)

@@ -26,6 +26,7 @@ from bevy_hanabi_tpu.models import spawn_gravity_effect as gravity_j
 from bevy_hanabi_tpu.render import camera as camera_j
 from bevy_hanabi_tpu.render import post as post_j
 from bevy_hanabi_tpu.runtime import HanabiScene as SceneJ
+from bevy_hanabi_tpu.runtime.effect import CompiledEffect as CompiledEffectJ
 from bevy_hanabi_tpu.runtime.pool import ParticlePool as PoolJ
 from bevy_hanabi_tpu.utils import load_scene_state as load_j
 from bevy_hanabi_tpu.utils import save_scene_state as save_j
@@ -42,6 +43,7 @@ from bevy_hanabi_tpu_torch.utils import (
     profile_span,
     save_scene_state,
 )
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 DT = 1.0 / 60.0
 
@@ -52,6 +54,16 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_jax_cache(monkeypatch):
+    """Each test steps its JAX scenes on an empty ``CompiledEffect._CACHE``
+    of the JAX package, and the old dict is put back after it. The
+    validated JAX scenes here build checked executables on the cached
+    effects, which the JAX package's own tests in the same process would
+    otherwise get back (tests/test_utils.py:277 expects none)."""
+    monkeypatch.setattr(CompiledEffectJ, "_CACHE", {})
 
 
 def host(t):
@@ -488,6 +500,22 @@ def test_validate_raises_where_jax_raises(case):
         assert got[0] and want[0], (got, want)  # both messages say "nan"
     if case == "clean":
         assert StepChecks.readbacks > readbacks
+
+
+def test_validated_jax_case_leaves_the_jax_cache_clean():
+    """The fixture above at work: a validated JAX case stepped on its own
+    cache builds checked executables, and once that cache is put back a
+    fresh JAX scene on the same asset gets an effect without one, as
+    tests/test_utils.py:277 needs."""
+    outer = CompiledEffectJ._CACHE
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(CompiledEffectJ, "_CACHE", {})
+        assert _outcome(_cases("jax")["update"]()) is not None
+        assert any(fx._jit_step_checked is not None for fx in CompiledEffectJ._CACHE.values())
+    assert CompiledEffectJ._CACHE is outer
+    fresh = SceneJ(seed=0)
+    fresh.add(gravity_j(capacity=256, rate=60.0), "fx")
+    assert fresh["fx"].fx._jit_step_checked is None
 
 
 def test_validate_traps_poison_in_update_render_chunk():

@@ -31,6 +31,7 @@ from bevy_hanabi_tpu_torch.modifiers import OrientModifier as OrientT
 from bevy_hanabi_tpu_torch.modifiers.output import OrientMode as ModeT
 from bevy_hanabi_tpu_torch.render import camera as camera_t
 from bevy_hanabi_tpu_torch.render.raster import RasterConfig as CfgT
+from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 DT = 1.0 / 60.0
 REL = 0.005
