@@ -1175,8 +1175,8 @@ int launch(int nt, int M, int T, cudaStream_t stream, const void* window, const 
 }  // namespace
 
 // eq: 0 blend, 1 add, 2 opaque, 3 mask, 4 scene, 5 premultiply, 6 multiply,
-// plus 8 for the antialiased variant (every quad variant; the appearance
-// variants of kAppearAA).
+// plus 8 for the antialiased variant (every variant, with or without
+// appearance).
 // depth_test / write_depth as the wrapper validates them: write_depth needs
 // depth_test and an opaque, mask or scene equation; scene needs both. fb_in
 // and depth_in may be NULL. ap_i NULL: no appearance, the window's rows
@@ -1280,16 +1280,7 @@ extern "C" int hanabi_tile_blend_appearance(const void* window, const void* has,
   } else if (!aa) {
     HANABI_TB_ALL(true, false)
   } else {
-    // kAppearAA: the antialiased appearance variants a path reaches (meshes
-    // in BLEND and OPAQUE, alone or after the opaque phase; the painter)
-    switch (key) {
-      case kBlend * 4 + 0: HANABI_TB(kBlend, false, false, true, true); break;
-      case kBlend * 4 + 2: HANABI_TB(kBlend, true, false, true, true); break;
-      case kOpaque * 4 + 0: HANABI_TB(kOpaque, false, false, true, true); break;
-      case kOpaque * 4 + 3: HANABI_TB(kOpaque, true, true, true, true); break;
-      case kScene * 4 + 3: HANABI_TB(kScene, true, true, true, true); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+    HANABI_TB_ALL(true, true)
   }
 #undef HANABI_TB_ALL
 #undef HANABI_TB

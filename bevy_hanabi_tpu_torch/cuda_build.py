@@ -12,6 +12,8 @@ Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
 The kernel wrappers share :func:`check_tensor`, :func:`current_stream` and
 the :class:`Kernel` record that lists each kernel for ``chip_smoke.py``.
+Run as a module, it times ``nvcc`` on the sources it is given
+(:func:`time_sources`).
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Callable, NamedTuple
 
 __all__ = [
     "build",
     "build_variants",
+    "time_sources",
     "library",
     "bind",
     "find_nvcc",
@@ -77,6 +81,8 @@ SIGNATURES = {
                                      _P, _P, _P, _P],
     # (mask, count, payload, out_slot, out_count, out_payload, num_events, scratch, n, W, stream)
     "hanabi_event_compact": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
+    # (mask, count, payload, out_slot, out_count, out_payload, num_events, I, n, W, stream)
+    "hanabi_event_compact_segmented": [_P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _P],
     # () -> lanes a CTA of event_compact scans at once
     "hanabi_event_compact_chunk": [],
     # (position, axis_x, axis_y, color, alive, geom, uv_t, nrm_t, vcol_t, pos_o, ax_o, ay_o,
@@ -215,6 +221,24 @@ def build() -> Path:
     return out
 
 
+def time_sources(sources, repeat: int = 2) -> list:
+    """Wall seconds of one ``nvcc -c`` of each source with :data:`NVCC_FLAGS`,
+    alone and one after another, ``repeat`` rounds of all of them in turn:
+    ``[(source, seconds), ...]``. For comparing a source's build time across
+    versions on one machine; the objects go to a temporary directory."""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        for _ in range(repeat):
+            for src in sources:
+                t0 = time.perf_counter()
+                subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", str(Path(tmpdir) / "t.o"), str(src)],
+                               check=True, capture_output=True, text=True)
+                out.append((str(src), time.perf_counter() - t0))
+    return out
+
+
 def build_variants(builds, name: str) -> dict:
     """Compile variant sources beside the library, for scripts that time a
     kernel against other versions of it.
@@ -266,3 +290,16 @@ def check(code: int, kernel: str) -> None:
     if code != 0:
         msg = library().hanabi_error_string(code).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed ({code}): {msg}")
+
+
+if __name__ == "__main__":
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Time nvcc on CUDA sources, each alone with the library's flags, in turns "
+                    "(python3 -m bevy_hanabi_tpu_torch.cuda_build --time a.cu b.cu).")
+    parser.add_argument("--time", nargs="+", required=True, metavar="SOURCE")
+    parser.add_argument("--repeat", type=int, default=2)
+    args = parser.parse_args()
+    for src, seconds in time_sources(args.time, args.repeat):
+        print(f"nvcc {src}: {seconds:.1f} s")

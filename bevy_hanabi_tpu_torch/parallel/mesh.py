@@ -28,6 +28,7 @@ import torch
 from ..asset import EffectAsset
 from ..compiler import SimParams
 from ..runtime.effect import StepInputs, Shard
+from ..runtime.events import build_event_buffer
 from ..runtime.instanced import InstancedEffect, stacked_pools
 from ..runtime.pool import ParticlePool, ShardedPool
 
@@ -143,15 +144,18 @@ class ShardedEffect(InstancedEffect):
         """K-frame stacked inputs: leaves are [K, I, ...] (mesh.py:109-119)."""
         return self._check_inputs(inputs_stacked, 1)
 
-    def _step(self, pools: ShardedPool, inputs: StepInputs, sim: SimParams,
-              checks=None) -> ShardedPool:
+    def _step(self, pools: ShardedPool, inputs: StepInputs, sim: SimParams, checks=None):
         """One frame of every shard, in two phases: each shard counts the
         dead lanes of its instances, the counts cross to every shard of
         their row, then each shard steps its lanes ranked among its
-        instances' whole pools (:class:`~..runtime.effect.Shard`)."""
+        instances' whole pools (:class:`~..runtime.effect.Shard`). Returns
+        ``(pools, events_out)``: an emitting asset's buffers, each field
+        with a leading [I] axis, on the effect's device, each instance's
+        events compacted over its whole lanes (:meth:`_events`)."""
         il, nl = self._local_instances, self._local_capacity
         dead = [[torch.sum(~p.alive, dim=-1, dtype=torch.int32) for p in row]
                 for row in pools.shards]
+        emitted = [[None] * len(row) for row in pools.shards]
         for d, row in enumerate(pools.shards):
             lo, hi = d * il, (d + 1) * il
             ins = StepInputs(
@@ -166,9 +170,41 @@ class ShardedEffect(InstancedEffect):
                 base = (torch.stack(counts[:s]).sum(dim=0, dtype=torch.int32) if s
                         else torch.zeros((il,), dtype=torch.int32, device=dev))
                 total = torch.stack(counts).sum(dim=0, dtype=torch.int32)
-                row[s] = InstancedEffect._step(self, p, ins, sim, checks,
-                                               shard=Shard(base, total, s * nl, self.capacity))
-        return pools
+                row[s], emitted[d][s] = InstancedEffect._step(
+                    self, p, ins, sim, checks, shard=Shard(base, total, s * nl, self.capacity),
+                    emissions=True)
+        return pools, self._events(emitted)
+
+    def _events(self, emitted) -> dict:
+        """Each channel's buffer from the shards' emissions: shard [d][s]'s
+        ``[il*nl]`` lanes are lanes ``[s*nl, (s+1)*nl)`` of instances ``[d*il,
+        (d+1)*il)``, so the shards' lanes join into ``[I, N]`` on the
+        effect's device and one :func:`~..runtime.events.build_event_buffer`
+        compacts each instance over its whole lanes, as JAX's vmapped step
+        over the sharded pools does (one ``event_compact_segmented``
+        launch)."""
+        il, nl = self._local_instances, self._local_capacity
+        i, n = self.num_instances, self.capacity
+
+        def joined(parts):
+            """The shards' [il*nl, ...] tensors as the [I*N, ...] lanes."""
+            rows = [torch.cat([t.to(self.device).reshape((il, nl) + tuple(t.shape[1:]))
+                               for t in row], dim=1) for row in parts]
+            out = torch.cat(rows)
+            return out.reshape((i * n,) + tuple(out.shape[2:]))
+
+        events = {}
+        for ch in range(self.effect.num_event_channels):
+            if not isinstance(emitted[0][0][ch], tuple):  # no modifier emits on it
+                events[ch] = self.effect.make_empty_events(n).stacked(i)
+                continue
+            part = [[shard[ch] for shard in row] for row in emitted]
+            captured = {k: joined([[e[2][k] for e in row] for row in part])
+                        for k in part[0][0][2]}
+            events[ch] = build_event_buffer(joined([[e[0] for e in row] for row in part]),
+                                            joined([[e[1] for e in row] for row in part]),
+                                            captured, instances=i)
+        return events
 
     def alive_counts(self, pools: ShardedPool) -> torch.Tensor:
         """Alive lanes of each instance, [I] int32 on the effect's device."""

@@ -977,12 +977,6 @@ def _check_textures(appearance, textures, dev):
         _check(tex, f"textures[{slot}]", torch.float32, tex.shape, dev)
 
 
-# the antialiased appearance variants the kernel holds: (equation,
-# depth_test, write_depth); every equation's quad variant has one
-ANTIALIAS_APPEARANCE = {("blend", False, False), ("blend", True, False),
-                        ("opaque", False, False), ("opaque", True, True), ("scene", True, True)}
-
-
 def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=None,
                scene_depth=None, depth_test=False, write_depth=False, appearance=None,
                textures=(), antialias=False):
@@ -1003,8 +997,7 @@ def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=N
     draw's textures by slot, f32 [th, tw, 4] each, which the appearance's
     layers sample, or the painter's one atlas [L, H, W, 4] for an
     appearance with ``atlas_layers``. ``antialias``: JAX's fractional
-    coverage (``RasterConfig.antialias``); on the card an appearance draw
-    takes it in the variants of :data:`ANTIALIAS_APPEARANCE`."""
+    coverage (``RasterConfig.antialias``), in every variant."""
     _blend_flags(mode, depth_test, write_depth)
     dev = window.device
     nt = ntx * nty
@@ -1033,11 +1026,6 @@ def tile_blend(window, has, T, ntx, nty, background, mode="blend", framebuffer=N
             appearance.atlas_layers or appearance.offset("light") >= 0):
         raise NotImplementedError("tile_blend: the painter's atlas and per-entry Lambert "
                                   "setups are in the scene equation's variants only")
-    if antialias and appearance is not None and (
-            (mode, depth_test, write_depth) not in ANTIALIAS_APPEARANCE):
-        raise NotImplementedError(
-            f"tile_blend: no antialiased appearance variant for {mode!r} with depth_test="
-            f"{depth_test}, write_depth={write_depth} (the kernel holds {ANTIALIAS_APPEARANCE})")
     if not 1 <= T * T <= 1024:
         raise ValueError(f"tile_blend runs one thread per pixel: T*T must be <= 1024, got T={T}")
     if appearance is not None and len(appearance.layers) > MAX_LAYERS:

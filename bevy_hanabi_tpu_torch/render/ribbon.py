@@ -290,8 +290,8 @@ def build_ribbon_segments(draw: ParticleDrawData, camera: CameraParams) -> Parti
     texture layers, the flipbook grid and ``needs_uv``; its sprite index
     rides the kernel into segment order beside colour and cutoff.
     ``ribbon_id``, ``age`` and ``counter`` are None on the segment draw:
-    after the segment build only the JAX package's sharded renderer
-    (``parallel/render.py``, not ported) reads them."""
+    nothing reads them after the segment build (the sharded renderer,
+    ``parallel/render.py``, routes a draw's particles by them before it)."""
     if draw.ribbon_id is None or draw.age is None:
         raise ValueError("ribbon rendering requires RIBBON_ID and AGE attributes")
     order = ribbon_sort(draw)

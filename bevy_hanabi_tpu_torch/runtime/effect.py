@@ -483,6 +483,7 @@ class CompiledEffect:
         instances: int = 0,
         checks: Optional[StepChecks] = None,
         shard: Optional[Shard] = None,
+        emissions: bool = False,
     ):
         """One frame. ``instances`` > 0 steps an instanced group
         (:class:`~.instanced.InstancedEffect`) in one pass: ``pool`` is the
@@ -493,10 +494,15 @@ class CompiledEffect:
         vfx_update.wgsl:51-72): the spawn ranks, counts and counters are
         per instance, ``PARTICLE_INDEX`` is the lane's index in its
         instance, so each instance steps as the JAX package's vmapped
-        ``_step`` steps it. ``checks`` (a :class:`StepChecks`) turns on the
-        checked step's bound and non-finite checks. ``shard`` steps ``pool``
-        as one shard of a sharded pool (:class:`Shard`); a sharded effect's
-        :class:`~.pool.ShardedPool` goes through :meth:`_step_sharded`."""
+        ``_step`` steps it, and an emitting asset's buffers carry a leading
+        [I] axis, each instance compacted on its own. ``checks`` (a
+        :class:`StepChecks`) turns on the checked step's bound and
+        non-finite checks. ``shard`` steps ``pool`` as one shard of a
+        sharded pool (:class:`Shard`); a sharded effect's
+        :class:`~.pool.ShardedPool` goes through :meth:`_step_sharded`.
+        ``emissions``: each emitted channel's ``(mask, count, captured)``
+        in place of its buffer (a sharded group's shard, whose instances'
+        lanes are compacted with those of the other shards)."""
         if self.mesh is not None and shard is None:
             return self._step_sharded(pool, inputs, sim, events_in, parent_pool, checks)
         dev = pool.device
@@ -667,10 +673,14 @@ class CompiledEffect:
                 captured = {k: uctx.particle[k] for k in self.payload_attrs if k in uctx.particle}
             for channel in range(self.num_event_channels):
                 if channel not in per_channel:
-                    events_out[channel] = self.make_empty_events(n)
+                    buf = self.make_empty_events(per)
+                    events_out[channel] = buf.stacked(instances) if group else buf
+                elif emissions:
+                    events_out[channel] = (*per_channel[channel], captured)
                 else:
                     mask, counts = per_channel[channel]
-                    buf = build_event_buffer(mask, counts, parent_attrs=captured)
+                    buf = build_event_buffer(mask, counts, parent_attrs=captured,
+                                             instances=instances)
                     if shard is not None:
                         # the global slot of the emitting lane, gap rows too
                         buf.parent_slot = buf.parent_slot + shard.lane_base

@@ -44,6 +44,8 @@ __all__ = [
     "event_index",
     "event_compact",
     "event_compact_plain",
+    "event_compact_segmented",
+    "event_compact_segmented_plain",
     "KERNELS",
 ]
 
@@ -95,6 +97,17 @@ class EventBuffer:
             torch.stack([b.num_events.to(device) for b in parts]).sum(dtype=torch.int32),
             {k: torch.cat([b.payload[k].to(device) for b in parts]) for k in parts[0].payload},
         )
+
+    def stacked(self, instances: int) -> "EventBuffer":
+        """The buffer repeated on a leading [I] instance axis (an instanced
+        group's channel that no modifier emits on, as JAX's vmap broadcasts
+        it)."""
+
+        def stack(t):
+            return t.expand((instances,) + tuple(t.shape)).contiguous()
+
+        return EventBuffer(stack(self.parent_slot), stack(self.count), stack(self.num_events),
+                           {k: stack(v) for k, v in self.payload.items()})
 
     def total_spawn_count(self) -> torch.Tensor:
         """Device scalar: total child particles requested (int32)."""
@@ -180,10 +193,65 @@ def event_compact(mask, count, payload):
 
 event_compact.launches = 0
 
+
+def event_compact_segmented_plain(mask, count, payload):
+    """Plain version of :func:`event_compact_segmented`: each row of
+    ``[I, N]`` stably sorted on its inactive flag, as ``jax.vmap`` of
+    events.py:142 sorts it."""
+    active = mask & (count > 0)
+    order = torch.sort((~active).to(torch.int32), dim=-1, stable=True).indices
+    counts = torch.gather(torch.where(active, count, 0), 1, order)
+    words = torch.gather(payload, 1, order[:, :, None].expand(payload.shape))
+    return order, counts, torch.sum(active, dim=-1, dtype=torch.int32), words
+
+
+@cuda_build.on_tensor_device
+def event_compact_segmented(mask, count, payload):
+    """I independent stable partitions of N event lanes, one launch.
+
+    ``mask`` bool [I, N], ``count`` int64 [I, N] (uint32 values),
+    ``payload`` int32 [I, N, W] words. Returns ``(slot int64 [I, N], count
+    int64 [I, N], num_events int32 [I], payload int32 [I, N, W])``: each
+    row as :func:`event_compact` compacts one array, slots the lane's index
+    in its row."""
+    dev = mask.device
+    if mask.dim() != 2:
+        raise ValueError(f"mask must be [I, N], got shape {tuple(mask.shape)}")
+    i, n = mask.shape
+    _check(mask, "mask", torch.bool, (i, n), dev)
+    _check(count, "count", rng.U32, (i, n), dev)
+    if payload.dim() != 3:
+        raise ValueError(f"payload must be [I, N, W], got shape {tuple(payload.shape)}")
+    _check(payload, "payload", torch.int32, (i, n, payload.shape[2]), dev)
+    if not mask.is_cuda:
+        return event_compact_segmented_plain(mask, count, payload)
+    W = payload.shape[2]
+    slot = torch.empty((i, n), dtype=torch.int64, device=dev)
+    counts = torch.empty((i, n), dtype=torch.int64, device=dev)
+    num_events = torch.empty((i,), dtype=torch.int32, device=dev)
+    words = torch.empty((i, n, W), dtype=torch.int32, device=dev)
+    code = cuda_build.library().hanabi_event_compact_segmented(
+        mask.data_ptr(), count.data_ptr(), payload.data_ptr(), slot.data_ptr(),
+        counts.data_ptr(), words.data_ptr(), num_events.data_ptr(), i, n, W, _stream(),
+    )
+    cuda_build.check(code, "event_compact_segmented")
+    event_compact_segmented.launches += 1
+    return slot, counts, num_events, words
+
+
+event_compact_segmented.launches = 0
+
 KERNELS = {
     "event_compact": Kernel(
         event_compact,
         event_compact_plain,
+        "bevy_hanabi_tpu_torch/csrc/event_compact.cu",
+        "bevy_hanabi_tpu/runtime/events.py:124",
+    ),
+    # the same sort under the instance axis's jax.vmap (runtime/instanced.py:53)
+    "event_compact_segmented": Kernel(
+        event_compact_segmented,
+        event_compact_segmented_plain,
         "bevy_hanabi_tpu_torch/csrc/event_compact.cu",
         "bevy_hanabi_tpu/runtime/events.py:124",
     ),
@@ -221,6 +289,7 @@ def build_event_buffer(
     mask: torch.Tensor,
     count: torch.Tensor,
     parent_attrs: Dict[str, torch.Tensor] = None,
+    instances: int = 0,
 ) -> EventBuffer:
     """Compact per-particle (mask, count) into a dense event list.
 
@@ -228,7 +297,10 @@ def build_event_buffer(
     ``append_spawn_events_N``, lib.rs:977-994). ``parent_attrs`` (the
     emitting particles' current attribute arrays) are packed into one
     int32 word matrix and compacted alongside as the event payload by the
-    same :func:`event_compact` launch."""
+    same :func:`event_compact` launch. ``instances`` I > 0: the lanes are
+    an instanced group's flat ``[I*N]`` lanes, each instance compacted on
+    its own by one :func:`event_compact_segmented` launch, and every field
+    of the buffer gains a leading [I] axis (JAX's vmapped build)."""
     n = mask.shape[-1]
     schema = []
     cols = []
@@ -240,13 +312,20 @@ def build_event_buffer(
         payload = torch.cat(cols, dim=1)
     else:
         payload = torch.empty((n, 0), dtype=torch.int32, device=mask.device)
-    slot, counts, num_events, words = event_compact(
-        mask.contiguous(), rng.as_u32(count).contiguous(), payload.contiguous()
-    )
+    mask, count = mask.contiguous(), rng.as_u32(count).contiguous()
+    if instances:
+        per = n // instances
+        slot, counts, num_events, words = event_compact_segmented(
+            mask.view(instances, per), count.view(instances, per),
+            payload.reshape(instances, per, payload.shape[1]).contiguous())
+        words = words.view(n, words.shape[2])
+    else:
+        slot, counts, num_events, words = event_compact(mask, count, payload.contiguous())
     out = {}
     off = 0
     for name, nd, w, dtype in schema:
-        out[name] = _from_words(words[:, off : off + w], nd, dtype)
+        col = _from_words(words[:, off : off + w], nd, dtype)
+        out[name] = col.reshape((instances, -1) + tuple(col.shape[1:])) if instances else col
         off += w
     return EventBuffer(slot, counts, num_events, out)
 

@@ -111,20 +111,17 @@ class InstancedEffect:
             props,
         )
 
-    def _refuse_events(self, method: str) -> None:
-        fx = self.effect
-        if fx.num_event_channels or fx.consumes_events:
-            raise NotImplementedError(
-                f"InstancedEffect.{method}: event-linked assets (per-instance "
-                "event buffers) are not ported; add them with HanabiScene.add"
-            )
-
     def _step(self, pools: ParticlePool, inputs: StepInputs, sim: SimParams,
-              checks=None, shard=None) -> ParticlePool:
+              checks=None, shard=None, emissions=False):
         """One frame of every instance: the flat step over the pools' view,
-        its results written back in the [I, N, ...] shape. ``checks``: a
-        checked step's :class:`~.effect.StepChecks`; ``shard``: the
-        :class:`~.effect.Shard` of a sharded group's shard."""
+        its results written back in the [I, N, ...] shape. Returns
+        ``(pools, events_out)``: an emitting asset's buffers, one a channel,
+        every field with a leading [I] axis, each instance's events
+        compacted on their own (:func:`~.events.build_event_buffer` with
+        ``instances``), as JAX's vmapped step returns them. ``checks``: a
+        checked step's :class:`~.effect.StepChecks`; ``shard`` and
+        ``emissions``: a sharded group's shard (:class:`~.effect.Shard`),
+        whose emissions its group compacts (:meth:`CompiledEffect._step`)."""
         i, n = pools.alive.shape
         flat = ParticlePool(
             {k: v.reshape((i * n,) + tuple(v.shape[2:])) for k, v in pools.attrs.items()},
@@ -132,47 +129,47 @@ class InstancedEffect:
             pools.seed.reshape(i * n),
             pools.counter,
         )
-        flat, _ = self.effect._step(flat, inputs, sim, None, None, instances=i, checks=checks,
-                                    shard=shard)
+        flat, events = self.effect._step(flat, inputs, sim, None, None, instances=i,
+                                         checks=checks, shard=shard, emissions=emissions)
         pools.attrs = {k: v.reshape((i, n) + tuple(v.shape[1:])) for k, v in flat.attrs.items()}
         pools.alive = flat.alive.reshape(i, n)
         pools.seed = flat.seed.reshape(i, n)
         pools.counter = flat.counter
-        return pools
+        return pools, events
 
     def step(self, pools: ParticlePool, inputs: StepInputs, sim: SimParams):
-        """Advance all instances one frame; returns ``(pools, events_out)``
-        (no events: event-linked assets raise)."""
-        self._refuse_events("step")
-        return self._step(pools, inputs, sim), {}
+        """Advance all instances one frame; returns ``(pools, events_out)``,
+        an emitting asset's per-instance event buffers (instanced.py:111-121).
+        An asset that consumes events raises as in the JAX package: an
+        instance has no parent."""
+        return self._step(pools, inputs, sim)
 
     def step_checked(self, pools: ParticlePool, inputs: StepInputs, sim: SimParams):
         """:meth:`step` under debug validation (instanced.py:122-136): every
         instance's produced state checked for non-finite floats, one
         readback (:meth:`CompiledEffect.step_checked`)."""
-        self._refuse_events("step_checked")
         checks = StepChecks()
-        pools = self._step(pools, inputs, sim, checks)
+        pools, events = self._step(pools, inputs, sim, checks)
         checks.raise_if_failed()
-        return pools, {}
+        return pools, events
 
     def step_chunk_checked(self, pools: ParticlePool, inputs_stacked: StepInputs, sims_stacked):
         """:meth:`step_chunk` with every frame checked and one readback for
         the chunk (instanced.py:138-150)."""
-        self._refuse_events("step_chunk_checked")
         checks = StepChecks()
         for inputs, sim in _unstack(inputs_stacked, sims_stacked):
-            pools = self._step(pools, inputs, sim, checks)
+            pools, _ = self._step(pools, inputs, sim, checks)
         checks.raise_if_failed()
         return pools
 
     def step_chunk(self, pools: ParticlePool, inputs_stacked: StepInputs, sims_stacked):
         """K frames x I instances. Leaves of ``inputs_stacked`` are [K, I,
         ...]; of ``sims_stacked`` [K]. The JAX package's ``lax.scan`` is a
-        K-frame loop here that only enqueues device work."""
-        self._refuse_events("step_chunk")
+        K-frame loop here that only enqueues device work; an emitting
+        asset's events are built each frame and dropped, as the scan drops
+        them."""
         for inputs, sim in _unstack(inputs_stacked, sims_stacked):
-            pools = self._step(pools, inputs, sim)
+            pools, _ = self._step(pools, inputs, sim)
         return pools
 
     def step_render_chunk(self, pools: ParticlePool, inputs_stacked, sims_stacked, camera,
@@ -209,7 +206,7 @@ class InstancedEffect:
                           device=self.device)
         sums = []
         for inputs, sim in _unstack(inputs_stacked, sims_stacked):
-            pools = self._step(pools, inputs, sim)
+            pools, _ = self._step(pools, inputs, sim)
             per_lane = {
                 k: to_device(np.asarray(v), self.device).repeat_interleave(self.capacity, dim=0)
                 for k, v in inputs.properties.items()

@@ -1187,8 +1187,8 @@ class HanabiScene:
                 new_pendings.append(ev_out)
             pendings = new_pendings
             for g in groups:
-                g["pools"] = g["fx"]._step(g["pools"], per_group_inputs[g["name"]][j], sims[j],
-                                           checks)
+                g["pools"], _ = g["fx"]._step(g["pools"], per_group_inputs[g["name"]][j],
+                                              sims[j], checks)
             # the frame renderer of scene.py:1860-2097: the plan over the
             # fresh pools, each effect with this frame's transform and
             # properties, each group with its first instance's properties

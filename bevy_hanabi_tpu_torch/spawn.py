@@ -26,10 +26,18 @@ __all__ = ["SpawnerSettings", "EffectSpawner", "SpawnerBank", "make_spawner_bank
 
 
 def make_spawner_bank(settings: "SpawnerSettings", num_instances: int, seed: int = 0):
-    """The bank for N same-settings spawners. The port has no native (C++)
-    bank, so this is the numpy one; the JAX package's native bank ticks the
-    same counts for constant settings, and draws its own random stream for
-    ``CpuValue.uniform`` ones."""
+    """Best available bank for N same-settings spawners, chosen as the JAX
+    package chooses it (spawn.py:28-40): the native (C++) bank of
+    :mod:`.native` where ``g++`` is on ``PATH``, else the numpy one. Both
+    tick the same counts for constant settings; for ``CpuValue.uniform``
+    ones each draws its own random stream, and the native bank's streams
+    are the JAX package's bit for bit."""
+    from .native import NativeSpawnerBank, native_available
+
+    if native_available():
+        # a g++ that fails to build raises: a broken native bank is a bug
+        # to surface, not a reason to run another bank's streams
+        return NativeSpawnerBank(settings, num_instances, seed=seed)
     return SpawnerBank(settings, num_instances, seed=seed)
 
 
@@ -289,7 +297,8 @@ class SpawnerBank:
 
     def set_active(self, active: bool, index: int = -1) -> None:
         """Activate or pause every spawner (``index`` < 0) or one, as the
-        JAX package's native bank does (native/src: spawner_bank_set_active)."""
+        native bank does (native/src/hanabi_native.cpp:
+        hanabi_spawner_bank_set_active)."""
         if not self._vector:
             for sp in self._spawners if index < 0 else [self._spawners[index]]:
                 sp.set_active(active)

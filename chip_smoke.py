@@ -308,7 +308,34 @@ imports JAX. Phases, each of which fails the run on any error:
     e. on b's slice frame ``project_bin`` at ``y_offset`` != 0,
        ``gather_window`` at the route's width and cap, ``tile_blend`` BLEND
        on a slice's window, and on c ``event_compact`` on one shard's lanes,
-       each exactly against its plain version, and timed.
+       each exactly against its plain version, and timed;
+24. the native host runtime, the antialiased appearance variants and the
+    instanced event path:
+    a. ``make_spawner_bank`` returns the port's ``NativeSpawnerBank``
+       (built with g++ into ``build/``); ``burst(uniform(1, 10), 0.05)``
+       over 6 instances, seed 123, 10 ticks of 1/60 s sums to the JAX
+       package's ``[16 22 17 19 13 27]``; a ``HanabiScene.add_group`` of
+       256 ``instancing_effect(1024)`` instances with uniform burst counts,
+       20 frames on cuda:0 and on the CPU: alive counts, masks, seeds and
+       counters equal;
+    b. the textured mesh frame's effect stepped three chunks (phase 18b's
+       pool); on its antialiased 512x512 window (M = 64; 10- and 13-float
+       rows, random cutoffs and mode ids) each of the fifteen antialiased
+       appearance variants of ``tile_blend`` exactly against its plain
+       version, over a random framebuffer and depth plane; the ten this
+       slice adds also timed; then an additive textured flipbook
+       (``example_circle`` in ADD) 6 frames at 256x256 antialiased, card
+       against CPU (masks and seeds equal, checksums within 0.5%), its ADD
+       appearance variant launched, and on its window against its plain
+       version, timed;
+    c. ``InstancedEffect(firework_effect(1024), 64)`` stepped 60 frames on
+       the card and on the CPU (0-39 spawns an instance a frame): alive
+       masks, seeds, counters and every frame's event slots, counts and
+       num_events bit-equal, positions and the event payloads within rtol
+       1e-2 / atol 1e-3; ``event_compact_segmented`` launched once a frame;
+       then against its plain version, exactly, on the last frame's
+       emissions (64 x 1024, the firework's payload words) and at 256 x
+       4096 (random lanes at the same active share), both timed.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -339,7 +366,11 @@ on its second view's frame) and the sharded frames' (``project_bin[slice]``,
 ``gather_window[route]``, ``tile_blend[blend,slice]`` with the slice
 frame's launches, ``gather_window`` counting its route windows and its
 slices' windows together, and ``event_compact[sharded]`` with the sharded
-tree's). Each row holds the
+tree's) and phase 24's (``tile_blend[<mode>[,depth][,write],mesh,aa]`` for
+the ten new antialiased appearance variants with 0 launches,
+``tile_blend[add,flipbook,aa]`` with the additive flipbook's launches,
+``event_compact[segmented]`` with the instanced firework's and
+``[segmented,256x4096]`` with 0). Each row holds the
 path's launches, the kernel's and its plain version's device ms, the
 library call's (``index_select`` for the gathers, of the window's rows
 for ``gather_window``, of the appearance rows by the segment order for
@@ -497,6 +528,24 @@ VARIANT_LIBS = {}  # phase 2's variant builds by label
 # bench.py::bench_instanced (bench.py:403-437): 256 instances x 4096 lanes
 INSTANCES, INSTANCE_CAPACITY = 256, 4096
 INSTANCED_GATE = (8, 4096)  # the instanced gate's instances x lanes (phase 19a)
+# phase 24a: the JAX package's native bank's sums for burst(uniform(1, 10),
+# 0.05), 6 instances, seed 123, 10 ticks of 1/60 s (computed on the CPU)
+UNIFORM_BURST_SUMS = [16, 22, 17, 19, 13, 27]
+NATIVE_GROUP = (256, 1024, 20)  # phase 24a's group: instances, lanes, frames
+# phase 24b: tile_blend's antialiased appearance variants (mode, depth_test,
+# write_depth): the five of PR 12, then the ten this slice adds
+AA_APPEARANCE_FIRST = (("blend", False, False), ("blend", True, False), ("opaque", False, False),
+                       ("opaque", True, True), ("scene", True, True))
+AA_APPEARANCE_NEW = (("add", False, False), ("add", True, False), ("opaque", True, False),
+                     ("mask", False, False), ("mask", True, False), ("mask", True, True),
+                     ("premultiply", False, False), ("premultiply", True, False),
+                     ("multiply", False, False), ("multiply", True, False))
+# phase 24b's additive flipbook: 6 frames at 256², where the CPU's plain
+# antialiased blend takes well under a second a frame
+FLIPBOOK_AA = dict(width=256, height=256, tile_span=2, max_entries_per_tile=64, antialias=True)
+FLIPBOOK_FRAMES = 6
+INSTANCED_FIREWORK = (64, 1024, 60)  # phase 24c: instances, rockets, frames
+SEGMENTED_WIDE = (256, 4096)  # phase 24c's second event_compact_segmented shape
 
 
 def fail(msg: str) -> None:
@@ -819,7 +868,7 @@ def compare_gather_window(projected, nt: int, m: int, mode, label: str):
 
 
 def compare_tile_blend(label: str, window, has, T: int, ntx: int, nty: int, background, mode: str,
-                       first=None, **kw):
+                       first=None, plain_reps: int = 3, timed: bool = True, **kw):
     """``tile_blend`` against its plain version on a pass's window: the
     framebuffer at max abs err 0 and, where written, the depth plane equal
     (a round draw's squircle: at most :data:`SQUIRCLE_PIXELS` of the pixels
@@ -827,7 +876,9 @@ def compare_tile_blend(label: str, window, has, T: int, ntx: int, nty: int, back
     PyTorch's pow may differ in the last ulp); both timed. ``first``: a
     library holding another build of the kernel (the first appearance
     kernel), held to the same standard and timed beside it as
-    ``first_ms``. Returns the row and the kernel's depth plane (or None)."""
+    ``first_ms``. ``timed=False``: the comparison alone (the row holds
+    ``max_abs_err``). Returns the row and the kernel's depth plane (or
+    None)."""
     import torch
 
     from bevy_hanabi_tpu_torch.render import raster
@@ -860,10 +911,12 @@ def compare_tile_blend(label: str, window, has, T: int, ntx: int, nty: int, back
         return err, fb_k, d_k
 
     err, fb_k, d_k = check(raster.tile_blend(*args, **kw), "")
+    if not timed:
+        return {"max_abs_err": err}, d_k
     row = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: raster.tile_blend(*args, **kw), 50),
-        "plain_ms": cuda_ms(lambda: raster.tile_blend_plain(*args, **kw), 3),
+        "plain_ms": cuda_ms(lambda: raster.tile_blend_plain(*args, **kw), plain_reps),
         "library_ms": None,
         **blend_bound(mode, window, has, T, ntx, fb_k, d_k, kw.get("framebuffer"),
                       kw.get("scene_depth"), ap, kw.get("textures", ()), kw.get("antialias", False)),
@@ -4058,6 +4111,251 @@ def sharded_phase(kernels):
     return results, launches
 
 
+def native_phase() -> None:
+    """Phase 24a: the native spawner bank and a uniform group, card against CPU."""
+    import numpy as np
+
+    t_start = time.perf_counter()
+    from bevy_hanabi_tpu_torch import HanabiScene
+    from bevy_hanabi_tpu_torch.cpu_value import CpuValue
+    from bevy_hanabi_tpu_torch.models import instancing_effect
+    from bevy_hanabi_tpu_torch.native import NativeSpawnerBank
+    from bevy_hanabi_tpu_torch.spawn import SpawnerSettings, make_spawner_bank
+
+    bank = make_spawner_bank(SpawnerSettings.burst(CpuValue.uniform(1.0, 10.0), 0.05), 6, seed=123)
+    if type(bank) is not NativeSpawnerBank:
+        fail(f"make_spawner_bank returned {type(bank).__name__}, not the native bank")
+    sums = sum(bank.tick(DT).astype(np.int64) for _ in range(10)).tolist()
+    print(f"native bank: burst(uniform(1, 10), 0.05) x 6, seed 123, 10 ticks: {sums} "
+          f"(the JAX package's {UNIFORM_BURST_SUMS})")
+    if sums != UNIFORM_BURST_SUMS:
+        fail(f"native bank sums {sums}, expected {UNIFORM_BURST_SUMS}")
+    i, cap, frames = NATIVE_GROUP
+    asset = instancing_effect(cap).with_spawner(
+        SpawnerSettings.burst(CpuValue.uniform(5.0, 40.0), 0.05))
+    out = []
+    for device in ("cuda:0", "cpu"):
+        t0 = time.perf_counter()
+        scene = HanabiScene(seed=24, device=device)
+        scene.add_group(asset, i, "g")
+        g = scene._groups["g"]
+        if type(g["bank"]) is not NativeSpawnerBank:
+            fail(f"add_group took a {type(g['bank']).__name__}, not the native bank")
+        for _ in range(frames):
+            scene.update(DT)
+        out.append((g["fx"].alive_counts(g["pools"]).cpu().numpy(), g["pools"].to_numpy()[1:],
+                    time.perf_counter() - t0))
+    (alive_g, state_g, t_g), (alive_c, state_c, t_c) = out
+    print(f"uniform group {i} x {cap}, {frames} frames: alive {int(alive_c.sum())} (per instance "
+          f"{int(alive_c.min())}-{int(alive_c.max())}), card {t_g:.1f} s, cpu {t_c:.1f} s")
+    if not np.array_equal(alive_g, alive_c) or not alive_c.min() > 0:
+        fail("uniform group: alive counts differ between the card and the CPU, or an instance "
+             "spawned nothing")
+    if not all(np.array_equal(a, b) for a, b in zip(state_g, state_c)):
+        fail("uniform group: alive masks, seeds or counters differ between the card and the CPU")
+    print(f"phase 24a in {time.perf_counter() - t_start:.1f} s")
+
+
+def aa_appearance_phase(kernels):
+    """Phase 24b: the fifteen antialiased appearance variants on the mesh
+    frame's window, the ten new ones timed; the additive flipbook."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import (AlphaMode, CompiledEffect, EffectSpawner, RasterConfig,
+                                       SimParams, StepInputs)
+    from bevy_hanabi_tpu_torch.models import examples, make_anim_sprite_sheet, make_circle_texture
+    from bevy_hanabi_tpu_torch.ops import gather
+    from bevy_hanabi_tpu_torch.render import raster
+    from bevy_hanabi_tpu_torch.render.camera import CameraParams, look_at, perspective
+    from bevy_hanabi_tpu_torch.render.extract import extract_draw_data
+    from bevy_hanabi_tpu_torch.render.mesh import expand_mesh_draw
+
+    t0 = time.perf_counter()
+    cam, config = mesh_camera(512), RasterConfig(width=512, height=512, antialias=True)
+    fx = CompiledEffect(mesh_asset(MESH_CAPACITY), device="cuda")
+    textures = [torch.from_numpy(make_circle_texture(32)).cuda()]
+    spawner = EffectSpawner(fx.asset.spawner, rng=np.random.default_rng(0))
+    pool = fx.step_chunk(fx.create_pool(), *chunk_inputs(fx, spawner, 0, 3 * K))
+    draw = expand_mesh_draw(extract_draw_data(fx.asset, pool, cam, textures=textures),
+                            fx.asset.mesh)
+    n = draw.position.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    extra = torch.stack([torch.rand(n, device="cuda", generator=gen),
+                         torch.randint(0, 6, (n,), device="cuda", generator=gen).to(torch.float32)],
+                        dim=1)
+    T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
+    windows = {}
+    for row in (raster.ROW_QUAD, raster.ROW):
+        ap, columns = raster.draw_appearance(draw, row)
+        tile, depth, rows, rng = raster.project_bin(
+            *project_args(draw, cam, config), row=row, extra=extra if row == raster.ROW else None,
+            tile_slots=config.tile_slots, tile_span=config.tile_span, appearance=columns)
+        sorted_ = raster.sort_tiles(tile, depth, nt, None, rng)
+        windows[row] = (*gather.gather_window(rows, *sorted_, config.max_entries_per_tile, False), ap)
+    fb0 = torch.rand((nt, T, T, 4), device="cuda", generator=gen)
+    depth0 = torch.rand((nt, T, T), device="cuda", generator=gen) * 8.0
+    results = {}
+    for mode, dt, wd in AA_APPEARANCE_FIRST + AA_APPEARANCE_NEW:
+        window, has, ap = windows[raster.row_width(mode, dt)]
+        kw = dict(framebuffer=fb0, depth_test=dt, write_depth=wd, appearance=ap,
+                  textures=textures, antialias=True)
+        if dt:
+            kw["scene_depth"] = depth0
+        tag = f"{mode}{',depth' if dt else ''}{',write' if wd else ''}"
+        new = (mode, dt, wd) in AA_APPEARANCE_NEW
+        row, _ = compare_tile_blend(f"{tag} (mesh,aa, {ap.row}-float rows)", window, has, T, ntx,
+                                    nty, config.background, mode, plain_reps=1, timed=new, **kw)
+        if new:
+            results[f"tile_blend[{tag},mesh,aa]"] = row
+    del fx, pool, draw, windows
+    print(f"phase 24b: the fifteen variants in {time.perf_counter() - t0:.1f} s")
+
+    # an additive textured flipbook, antialiased, through step_render_chunk
+    t0 = time.perf_counter()
+    size = (FLIPBOOK_AA["width"], FLIPBOOK_AA["height"])
+    cam = CameraParams(look_at((0, 0, 3), (0, 0, 0)), perspective(0.9, 1.0, 0.1, 100.0), size)
+    cfg = RasterConfig(**FLIPBOOK_AA)
+    out = []
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            reset_launches(kernels)
+        add = CompiledEffect(examples.example_circle().with_alpha_mode(AlphaMode.ADD), device=device)
+        texs = [torch.from_numpy(make_anim_sprite_sheet(8, 32)).to(device)]
+        ins = [StepInputs.make(EXAMPLE_SPAWN, 7 * j + 1) for j in range(FLIPBOOK_FRAMES)]
+        sims = [SimParams(time=j * DT, delta_time=DT) for j in range(FLIPBOOK_FRAMES)]
+        p, img, sums = add.step_render_chunk(add.create_pool(), *add.stack_frames(ins, sims), cam,
+                                             cfg, texs)
+        if device == "cuda":
+            launches = read_launches(kernels)
+            card = (add.asset, p, texs)
+        out.append((p.to_numpy(), sums.cpu().tolist(), img))
+    (st_g, sums_g, img_g), (st_c, sums_c, _) = out
+    print(f"additive flipbook, antialiased, {FLIPBOOK_FRAMES} frames: last checksum card "
+          f"{sums_g[-1]:.6e} cpu {sums_c[-1]:.6e}; launches {launches}")
+    if not (np.array_equal(st_g[1], st_c[1]) and np.array_equal(st_g[2], st_c[2])):
+        fail("additive flipbook: alive masks or seeds differ between the card and the CPU")
+    if not bool(img_g.isfinite().all()) or not sums_c[-1] > 0.0 or not all(
+            checksum_close(a, b) for a, b in zip(sums_g, sums_c)):
+        fail(f"additive flipbook: checksums card {sums_g} vs cpu {sums_c}")
+    if launches["tile_blend[add,antialias]"] == 0 or launches["tile_blend[add,appearance]"] == 0:
+        fail("additive flipbook: the antialiased ADD appearance variant never launched")
+    asset, p, texs = card
+    window, has, ap = appearance_window(asset, p, cam, cfg, texs)
+    results["tile_blend[add,flipbook,aa]"], _ = compare_tile_blend(
+        f"add (flipbook,aa, {ap.row}-float rows)", window, has, cfg.tile_size, cfg.tiles_x,
+        cfg.tiles_y, cfg.background, "add", appearance=ap, textures=texs, antialias=True)
+    print(f"phase 24b: the additive flipbook in {time.perf_counter() - t0:.1f} s")
+    return results, launches
+
+
+def instanced_events_phase(kernels):
+    """Phase 24c: an emitting asset's instanced steps, card against CPU,
+    and ``event_compact_segmented`` against its plain version."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import InstancedEffect, SimParams
+    from bevy_hanabi_tpu_torch.models import firework_effect
+    from bevy_hanabi_tpu_torch.runtime import events
+
+    i, cap, frames = INSTANCED_FIREWORK
+    r = np.random.default_rng(24)
+    inputs = [(r.integers(0, 40, i), r.integers(0, 2**32, i, dtype=np.uint32))
+              for _ in range(frames)]
+    runs = []
+    for device in ("cuda", "cpu"):
+        fx = InstancedEffect(firework_effect(cap), i, device=device)
+        pools, bufs = fx.create_pools(), []
+        if device == "cuda":
+            reset_launches(kernels)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j, (counts, seeds) in enumerate(inputs):
+            pools, ev = fx.step(pools, fx.make_inputs(counts, seeds),
+                                SimParams(time=j * DT, delta_time=DT))
+            bufs.append(ev[0])
+        int(fx.total_alive(pools))  # readback: waits for the frames
+        seconds = time.perf_counter() - t0
+        if device == "cuda":
+            launches = read_launches(kernels)
+        runs.append((pools.to_numpy(), [b.to("cpu") for b in bufs], seconds))
+    (card, bufs_g, t_g), (cpu, bufs_c, t_c) = runs
+    emitted = [int(b.num_events.sum()) for b in bufs_c]
+    print(f"instanced firework {i} x {cap}, {frames} frames: card {t_g:.2f} s, cpu {t_c:.2f} s, "
+          f"alive {int(cpu[1].sum())}, events a frame {emitted[-5:]} (last five); launches "
+          f"{launches}")
+    if launches["event_compact_segmented"] != frames or launches["event_compact"] != 0:
+        fail(f"instanced firework: {launches['event_compact_segmented']} segmented compactions "
+             f"in {frames} frames")
+    if not all(np.array_equal(a, b) for a, b in zip(card[1:], cpu[1:])):
+        fail("instanced firework: alive masks, seeds or counters differ between the card and CPU")
+    alive = cpu[1]
+    for name in ("position", "velocity"):
+        if not np.allclose(card[0][name][alive], cpu[0][name][alive], rtol=POS_RTOL, atol=POS_ATOL):
+            fail(f"instanced firework: {name} beyond rtol {POS_RTOL} / atol {POS_ATOL}")
+    for j, (g, c) in enumerate(zip(bufs_g, bufs_c)):
+        if not (torch.equal(g.num_events, c.num_events) and torch.equal(g.parent_slot, c.parent_slot)
+                and torch.equal(g.count, c.count)):
+            fail(f"instanced firework frame {j}: event slots, counts or num_events differ")
+        for k in c.payload:
+            for inst, ne in enumerate(c.num_events.tolist()):
+                if not torch.allclose(g.payload[k][inst, :ne], c.payload[k][inst, :ne], rtol=POS_RTOL,
+                                      atol=POS_ATOL):
+                    fail(f"instanced firework frame {j}: payload {k} of instance {inst} differs")
+    if not emitted[-1] > 0:
+        fail("instanced firework: no event in the last frame")
+
+    # the kernel on the last frame's emissions, and at the wider shape
+    last = bufs_g[-1].to("cuda")
+    lanes = torch.arange(cap, device="cuda")[None, :]
+    active = lanes < last.num_events[:, None].long()
+    mask = torch.zeros((i, cap), dtype=torch.bool, device="cuda")
+    mask.scatter_(1, last.parent_slot, active)
+    count = torch.zeros((i, cap), dtype=torch.int64, device="cuda")
+    count.scatter_(1, last.parent_slot, torch.where(active, last.count, 0))
+    payload = torch.cat([events._to_words(v.reshape((i * cap,) + tuple(v.shape[2:])))
+                         for v in last.payload.values()], dim=1)
+    W = payload.shape[1]
+    payload = payload.reshape(i, cap, W).contiguous()
+    share = float(active.float().mean())
+    wi, wn = SEGMENTED_WIDE
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    wide = (torch.rand((wi, wn), device="cuda", generator=gen) < share,
+            torch.randint(1, 5, (wi, wn), device="cuda", generator=gen),
+            torch.randint(-2**31, 2**31, (wi, wn, W), device="cuda", generator=gen,
+                          dtype=torch.int64).to(torch.int32))
+    results = {}
+    for name, args in (("event_compact[segmented]", (mask, count, payload)),
+                       (f"event_compact[segmented,{wi}x{wn}]", wide)):
+        got = events.event_compact_segmented(*args)
+        want = events.event_compact_segmented_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"{name}: differs from the plain version")
+        shape = tuple(args[2].shape)
+        print(f"{name}: [I, N, W] = {list(shape)}, {int(got[2].sum())} active lanes, bit-exact")
+        results[name] = {
+            "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: events.event_compact_segmented(*args), 100),
+            "plain_ms": cuda_ms(lambda: events.event_compact_segmented_plain(*args), 20),
+            "library_ms": None,
+            **bound(nbytes(*args, *got)),
+        }
+    return results, launches
+
+
+def phase24(kernels):
+    """Phase 24: the native runtime, the antialiased appearance variants and
+    the instanced event path."""
+    t0 = time.perf_counter()
+    native_phase()
+    aa_results, aa_launches = aa_appearance_phase(kernels)
+    ev_results, ev_launches = instanced_events_phase(kernels)
+    print(f"phase 24 took {time.perf_counter() - t0:.1f} s")
+    return {**aa_results, **ev_results}, {"aa": aa_launches, "events": ev_launches}
+
+
 def main() -> int:
     import torch
 
@@ -4242,6 +4540,10 @@ def main() -> int:
     # Phase 23: the sharded paths, a (dp=4, sp=2) mesh on cuda:0.
     sh_results, sh_launches = sharded_phase(kernels)
 
+    # Phase 24: the native runtime, the antialiased appearance variants, the
+    # instanced event path.
+    p24_results, p24_launches = phase24(kernels)
+
     results.update(fw_results)
     results.update(mx_results)
     results.update(rb_results)
@@ -4250,7 +4552,7 @@ def main() -> int:
     results.update(ex_results)
     results.update(tq_results)
     for r in (pt_results, msaa_results, litaa_results, exaa_results, in_results, tr_results,
-              vw_results, sh_results):
+              vw_results, sh_results, p24_results):
         results.update(r)
     # name, kernel, launches: each row holds one path's launches and its
     # comparison at that path's shapes (the headline's, the firework's,
@@ -4355,6 +4657,18 @@ def main() -> int:
             ("gather_window[route]", "gather_window", sh_launches["gather_window"]),
             ("tile_blend[blend,slice]", "tile_blend", sh_launches["tile_blend"]),
             ("event_compact[sharded]", "event_compact", sh_launches["event_compact"]),
+        ]
+        # phase 24: no main path runs the ten new antialiased appearance
+        # variants on the mesh window (timing rows); the additive flipbook's
+        # own launches; the instanced firework's segmented compactions
+        + [(name, "tile_blend", 0) for name in p24_results if name.endswith(",mesh,aa]")]
+        + [
+            ("tile_blend[add,flipbook,aa]", "tile_blend",
+             p24_launches["aa"]["tile_blend[add,antialias]"]),
+            ("event_compact[segmented]", "event_compact_segmented",
+             p24_launches["events"]["event_compact_segmented"]),
+            ("event_compact[segmented,{}x{}]".format(*SEGMENTED_WIDE), "event_compact_segmented",
+             0),
         ]
     )
     kernel_rows = [

@@ -547,6 +547,30 @@ def test_event_compact_one_launch_is_bit_exact(cuda, n, W):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+# (I, N, W): one and many segments, N below, at and past a 512-lane chunk and
+# not a multiple of 4 (a segment's mask and count off the wide-load
+# alignment), W staged (<= 20 words) and read from memory (21-24)
+@pytest.mark.parametrize("i,n,W", [(1, 0, 3), (2, 1, 0), (3, 1023, 13), (64, 1024, 3),
+                                   (256, 4096, 13), (4096, 1024, 24), (1, 65536, 21),
+                                   (5, 513, 22)])
+def test_event_compact_segmented_is_bit_exact(cuda, i, n, W):
+    """One launch for all I segments, equal to the plain version's rows
+    (segment 0 all inactive, segment 1 all active)."""
+    r = np.random.default_rng(i * 7 + n + W)
+    mask = r.random((i, n)) < r.uniform(0.02, 0.6, (i, 1))
+    count = r.integers(0, 5, (i, n)).astype(np.int64)
+    mask[0] = False
+    if i > 1:
+        mask[1], count[1] = True, r.integers(1, 5, n)
+    payload = r.integers(-(2**31), 2**31, (i, n, W)).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (mask, count, payload)]
+    before = events.event_compact_segmented.launches
+    got = events.event_compact_segmented(*args)
+    assert events.event_compact_segmented.launches == before + 1
+    for a, b in zip(got, events.event_compact_segmented_plain(*args)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 @pytest.mark.parametrize("offset", [0, 1])  # 1: mask and count off their wide-load alignment
 @pytest.mark.parametrize("active", ["all", "none"])
 @pytest.mark.parametrize("n", [1025, 65536])
@@ -663,6 +687,74 @@ def test_ribbon_segments_gather_the_sprite_column(cuda, n, counter):
         np.random.default_rng(n).integers(-5, 1 << 20, n).astype(np.int32)).to(cuda)
     got = _segments_on_card(t)
     assert got[6] is not None and got[6].dtype == torch.int32
+
+
+def test_instanced_firework_events_card_against_cpu(cuda):
+    """An emitting asset's instanced step, card against CPU: 8 instances
+    of firework_effect(1024), 60 frames; every frame's per-instance event
+    buffers (slots, counts, num_events bit for bit, the payload of each
+    instance's events within rtol 1e-2 / atol 1e-3), the pools' alive
+    masks, seeds and counters bit for bit, and one segmented compaction a
+    frame on the card."""
+    from bevy_hanabi_tpu_torch import InstancedEffect
+
+    r = np.random.default_rng(4)
+    frames = [(r.integers(0, 4, 8), r.integers(0, 2**32, 8, dtype=np.uint32)) for _ in range(60)]
+    runs = []
+    for device in (cuda, "cpu"):
+        fx = InstancedEffect(firework_effect(1024), 8, device=device)
+        pools, bufs = fx.create_pools(), []
+        before = events.event_compact_segmented.launches
+        for j, (counts, seeds) in enumerate(frames):
+            pools, ev = fx.step(pools, fx.make_inputs(counts, seeds),
+                                SimParams(time=j / 60.0, delta_time=1 / 60.0))
+            bufs.append(ev[0].to("cpu"))
+        launched = events.event_compact_segmented.launches - before
+        runs.append((pools.to_numpy(), bufs, launched))
+    (card, bufs_g, n_g), (cpu, bufs_c, n_c) = runs
+    assert n_g == 60 and n_c == 0
+    for a, b in zip(card[1:], cpu[1:]):
+        np.testing.assert_array_equal(a, b)
+    emitted = 0
+    for g, c in zip(bufs_g, bufs_c):
+        assert torch.equal(g.num_events, c.num_events) and torch.equal(g.parent_slot, c.parent_slot)
+        assert torch.equal(g.count, c.count)
+        for k in c.payload:
+            for i, ne in enumerate(c.num_events.tolist()):
+                torch.testing.assert_close(g.payload[k][i, :ne], c.payload[k][i, :ne], rtol=1e-2,
+                                           atol=1e-3)
+        emitted += int(c.num_events.sum())
+    assert emitted > 0
+
+
+def test_instanced_firework_sharded_on_the_card(cuda):
+    """An emitting ShardedEffect on a (dp=4, sp=2) mesh of cuda:0: each
+    frame's per-instance buffers (the shards' lanes joined, one segmented
+    compaction) and the pools equal InstancedEffect's on the card bit for
+    bit, 60 frames of 8 x 1024 firework lanes."""
+    from bevy_hanabi_tpu_torch import InstancedEffect
+    from bevy_hanabi_tpu_torch.parallel import ShardedEffect, make_mesh
+
+    sharded = ShardedEffect(firework_effect(1024), 8, make_mesh([cuda] * 8, dp=4, sp=2))
+    plain = InstancedEffect(firework_effect(1024), 8, device=cuda)
+    ps, pp = sharded.create_pools(), plain.create_pools()
+    r = np.random.default_rng(5)
+    emitted = 0
+    for j in range(60):
+        counts, seeds = r.integers(0, 4, 8), r.integers(0, 2**32, 8, dtype=np.uint32)
+        sim = SimParams(time=j / 60.0, delta_time=1 / 60.0)
+        before = events.event_compact_segmented.launches
+        ps, es = sharded.step(ps, sharded.shard_inputs(sharded.make_inputs(counts, seeds)), sim)
+        assert events.event_compact_segmented.launches == before + 1
+        pp, ep = plain.step(pp, plain.make_inputs(counts, seeds), sim)
+        a, b = es[0], ep[0]
+        for x, y in ((a.parent_slot, b.parent_slot), (a.count, b.count),
+                     (a.num_events, b.num_events), *((a.payload[k], b.payload[k]) for k in b.payload)):
+            assert torch.equal(x, y)
+        emitted += int(b.num_events.sum())
+    assert emitted > 0
+    for x, y in zip(sharded.assemble(ps).to_numpy()[1:], pp.to_numpy()[1:]):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_instanced_groups_card_against_cpu(cuda):
@@ -1569,8 +1661,8 @@ def test_tile_blend_atlas_variant_matches_plain(cuda, layers, antialias):
     assert raster.tile_blend.launches_antialias["scene"] == before["scene"] + int(antialias)
 
 
-# every quad variant, antialiased: (mode, depth_test, write_depth)
-QUAD_VARIANTS = [("blend", False, False), ("blend", True, False), ("add", False, False),
+# every variant of tile_blend, each also antialiased: (mode, depth_test, write_depth)
+BLEND_VARIANTS = [("blend", False, False), ("blend", True, False), ("add", False, False),
                  ("add", True, False), ("opaque", False, False), ("opaque", True, False),
                  ("opaque", True, True), ("mask", False, False), ("mask", True, False),
                  ("mask", True, True), ("scene", True, True), ("premultiply", False, False),
@@ -1578,7 +1670,7 @@ QUAD_VARIANTS = [("blend", False, False), ("blend", True, False), ("add", False,
                  ("multiply", True, False)]
 
 
-@pytest.mark.parametrize("mode,depth_test,write_depth", QUAD_VARIANTS)
+@pytest.mark.parametrize("mode,depth_test,write_depth", BLEND_VARIANTS)
 def test_tile_blend_antialias_quad_variants_match_plain(cuda, mode, depth_test, write_depth):
     """Each antialiased quad variant on a real window (quads from sub-pixel
     to tens of pixels, random cutoffs and mode ids), exactly."""
@@ -1597,14 +1689,14 @@ def test_tile_blend_antialias_quad_variants_match_plain(cuda, mode, depth_test, 
     _check_blend(cfg, window, has, mode, depth_test, write_depth, antialias=True)
 
 
-@pytest.mark.parametrize("mode,depth_test,write_depth", sorted(raster.ANTIALIAS_APPEARANCE))
+@pytest.mark.parametrize("mode,depth_test,write_depth", BLEND_VARIANTS)
 @pytest.mark.parametrize("case", ["textured triangles", "lit triangles", "everything"])
 def test_tile_blend_antialias_appearance_variants_match_plain(cuda, case, mode, depth_test,
                                                               write_depth):
-    """Each antialiased appearance variant (meshes in BLEND and OPAQUE, the
-    painter's SCENE) on a real window of textured, lit, round (roundness
-    in [-0.2, 1], the squircle's powf: at most 0.2% of the pixels may
-    differ) and flipbook entries."""
+    """Each of the fifteen antialiased appearance variants (the painter's
+    SCENE on its atlas window) on a real window of textured, lit, round
+    (roundness in [-0.2, 1], the squircle's powf: at most 0.2% of the
+    pixels may differ) and flipbook entries; exact otherwise."""
     if mode == "scene":
         cfg, ap, texs, window, has = _painter_window(cuda, 2, True)
     else:
@@ -1654,13 +1746,16 @@ def test_painter_add_entries_clamp_alpha_like_plain(cuda, antialias):
     assert torch.equal(d_g, d_p)
 
 
-def test_unported_antialias_appearance_variant_raises(cuda):
-    """An antialiased appearance variant the kernel does not hold raises
-    before any launch (no fallback to the plain version)."""
-    cfg, ap, texs, window, has = _appearance_window(cuda, "textured triangles", "add", False)
-    with pytest.raises(NotImplementedError, match="antialiased appearance"):
-        raster.tile_blend(window, has, cfg.tile_size, cfg.tiles_x, cfg.tiles_y, (0, 0, 0, 0), "add",
-                          appearance=ap, textures=texs, antialias=True)
+def test_antialiased_additive_textured_flipbook_matches_plain(cuda):
+    """An additive textured flipbook antialiased, which the JAX package
+    renders: the kernel's ADD appearance variant launches (no refusal, no
+    fallback to the plain version) and matches the plain version exactly."""
+    cfg, ap, texs, window, has = _appearance_window(cuda, "flipbook", "add", False)
+    cfg = raster.RasterConfig(128, 128, tile_slots=0, antialias=True)
+    before = dict(raster.tile_blend.launches_antialias)
+    _check_blend(cfg, window, has, "add", False, False, appearance=ap, textures=texs,
+                 antialias=True)
+    assert raster.tile_blend.launches_antialias["add"] == before["add"] + 1
 
 
 def _painter_scene(device):

@@ -30,6 +30,18 @@ from bevy_hanabi_tpu_torch.render.raster import fast_mode as raster_mode
 from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
 
 REL = 0.005  # checksum tolerance (bench.py:155-161)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain raster path calls small vectorised ops thousands of times,
+    each of which wakes OpenMP: run PyTorch single-threaded here."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # the headline's three companions (bench.py:470-472, 550), cut to 128x128
 COMPANIONS = {
     "slots2": dict(tile_slots=2),

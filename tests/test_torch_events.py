@@ -7,6 +7,7 @@ plain versions are in ``test_torch_cuda.py``. Every result here is integer
 or a moved f32 bit pattern, so every comparison is bit for bit.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,7 +39,8 @@ def _torch(a):
 def _assert_buffers_equal(buf_t, buf_j):
     np.testing.assert_array_equal(buf_t.parent_slot.numpy().astype(np.uint32), np.asarray(buf_j.parent_slot))
     np.testing.assert_array_equal(buf_t.count.numpy().astype(np.uint32), np.asarray(buf_j.count))
-    assert buf_t.num_events.dtype == torch.int32 and int(buf_t.num_events) == int(buf_j.num_events)
+    assert buf_t.num_events.dtype == torch.int32
+    np.testing.assert_array_equal(buf_t.num_events.numpy(), np.asarray(buf_j.num_events))
     assert sorted(buf_t.payload) == sorted(buf_j.payload)
     for k, v in buf_j.payload.items():
         got = buf_t.payload[k].numpy()
@@ -102,6 +104,57 @@ def test_event_compact_plain_is_a_stable_partition():
     assert words[:, 0].tolist() == [0, 6, 10, 2, 4, 8]
 
 
+def _segments(i, n, seed, w=0):
+    """[I, N] emitters: segment 0 all inactive, segment 1 (where I > 1)
+    all active, the rest 5-60% active; W random payload words a lane."""
+    r = np.random.default_rng(seed)
+    mask = r.random((i, n)) < r.uniform(0.05, 0.6, (i, 1))
+    count = r.integers(0, 5, (i, n)).astype(np.uint32)
+    mask[0] = False
+    if i > 1:
+        mask[1], count[1] = True, r.integers(1, 5, n)
+    words = r.integers(-2**31, 2**31, (i, n, w), dtype=np.int64).astype(np.int32)
+    return mask, count, words
+
+
+@pytest.mark.parametrize("i,n,w", [(1, 1000, 3), (2, 512, 0), (5, 513, 13), (3, 1536, 24),
+                                   (16, 100, 5)])
+def test_event_compact_segmented_plain_equals_vmapped_build(i, n, w):
+    """Each row compacted as jax.vmap(build_event_buffer) compacts it, bit
+    for bit: N at, above and below 512-lane chunks, W from 0 to 24 words,
+    an all-inactive and an all-active segment."""
+    mask, count, words = _segments(i, n, 10 + i, w)
+    attrs = {"words": jnp.asarray(words)} if w else {}
+    buf_j = jax.vmap(ej.build_event_buffer)(jnp.asarray(mask), jnp.asarray(count), attrs)
+    slot, counts, num, out = et.event_compact_segmented_plain(
+        torch.from_numpy(mask), _torch(count), torch.from_numpy(words))
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(buf_j.parent_slot))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(buf_j.count))
+    assert num.dtype == torch.int32
+    np.testing.assert_array_equal(num.numpy(), np.asarray(buf_j.num_events))
+    assert int(num[0]) == 0 and (i == 1 or int(num[1]) == n)
+    if w:
+        np.testing.assert_array_equal(out.numpy(), np.asarray(buf_j.payload["words"]))
+    # and the wrapper on CPU tensors is the plain version
+    got = et.event_compact_segmented(torch.from_numpy(mask), _torch(count), torch.from_numpy(words))
+    assert all(torch.equal(a, b) for a, b in zip(got, (slot, counts, num, out)))
+
+
+def test_segmented_build_event_buffer_bit_exact():
+    """build_event_buffer over an instanced group's flat lanes: every field
+    with its [I] axis, equal to JAX's vmapped build bit for bit."""
+    i, n = 4, 600
+    mask, count, _ = _segments(i, n, 3)
+    _, _, attrs = _emitters(i * n, 4)
+    buf_j = jax.vmap(ej.build_event_buffer)(
+        jnp.asarray(mask), jnp.asarray(count),
+        {k: jnp.asarray(v.reshape((i, n) + v.shape[1:])) for k, v in attrs.items()})
+    buf_t = et.build_event_buffer(torch.from_numpy(mask.reshape(-1)), _torch(count.reshape(-1)),
+                                  {k: _torch(v) for k, v in attrs.items()}, instances=i)
+    np.testing.assert_array_equal(buf_t.num_events.numpy(), np.asarray(buf_j.num_events))
+    _assert_buffers_equal(buf_t, buf_j)
+
+
 def test_event_compact_rejects_what_the_kernel_does_not_take():
     mask = torch.zeros(8, dtype=torch.bool)
     with pytest.raises(TypeError):
@@ -110,6 +163,12 @@ def test_event_compact_rejects_what_the_kernel_does_not_take():
         et.event_compact(mask, torch.zeros(8, dtype=rng.U32), torch.zeros((7, 1), dtype=torch.int32))
     with pytest.raises(TypeError):
         et.build_event_buffer(mask, torch.zeros(8, dtype=rng.U32), {"x": torch.zeros(8, dtype=torch.float64)})
+    with pytest.raises(ValueError, match="shape"):
+        et.event_compact_segmented(mask.view(2, 4), torch.zeros((2, 4), dtype=rng.U32),
+                                   torch.zeros((2, 3, 1), dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"\[I, N, W\]"):
+        et.event_compact_segmented(mask.view(2, 4), torch.zeros((2, 4), dtype=rng.U32),
+                                   torch.zeros((8, 1), dtype=torch.int32))
 
 
 def _consume_pair(const_count, seed, n_child=8192, n_parent=4096):

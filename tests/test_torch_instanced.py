@@ -24,6 +24,8 @@ import bevy_hanabi_tpu.spawn  # noqa: F401
 import bevy_hanabi_tpu_torch as bt
 import bevy_hanabi_tpu_torch.models.examples  # noqa: F401
 import bevy_hanabi_tpu_torch.spawn  # noqa: F401
+from bevy_hanabi_tpu.models import firework_effect as firework_j
+from bevy_hanabi_tpu.models import firework_trail_effect as trail_j
 from bevy_hanabi_tpu.models import gradient_effect as gradient_j
 from bevy_hanabi_tpu.models import instancing_effect as instancing_j
 from bevy_hanabi_tpu.models import spawn_gravity_effect as gravity_j
@@ -163,6 +165,80 @@ def test_instanced_step_matches_jax_with_transforms_and_properties():
     _same_pools(pt, pj)
 
 
+def _same_events(ev_t, ev_j):
+    """An instanced step's buffers: every channel, every field with its [I]
+    axis; slots, counts and num_events bit for bit, the payload of each
+    instance's events within the gate (the attributes' own ULPs)."""
+    assert sorted(ev_t) == sorted(ev_j)
+    for ch, t in ev_t.items():
+        j = ev_j[ch]
+        np.testing.assert_array_equal(t.num_events.numpy(), np.asarray(j.num_events))
+        np.testing.assert_array_equal(t.parent_slot.numpy(), np.asarray(j.parent_slot))
+        np.testing.assert_array_equal(t.count.numpy(), np.asarray(j.count))
+        assert sorted(t.payload) == sorted(j.payload)
+        for k, v in t.payload.items():
+            want = np.asarray(j.payload[k])
+            assert v.shape == want.shape, k
+            for i, ne in enumerate(t.num_events.tolist()):
+                np.testing.assert_allclose(v[i, :ne].numpy(), want[i, :ne], rtol=1e-2, atol=1e-3,
+                                           err_msg=k)
+
+
+@pytest.mark.parametrize("method", ["step", "step_checked", "step_chunk"])
+def test_instanced_emitting_asset_matches_jax(method):
+    """The firework (one event channel, the rockets' death bursts) as 3
+    instances x 128 lanes, 100 frames of 0-2 spawns an instance: the
+    per-instance event buffers of every frame (step, step_checked) against
+    JAX's vmapped step, and the pools after the chunk (step_chunk, whose
+    events are dropped in both packages)."""
+    asset = firework_j(128)
+    fj, ft = InstJ(asset, 3), InstancedEffect(_port(asset), 3, device="cpu")
+    rng = np.random.default_rng(5)
+    frames = [dict(spawn_counts=rng.integers(0, 3, 3),
+                   frame_seeds=rng.integers(0, 2**32, 3, dtype=np.uint32)) for _ in range(100)]
+    if method == "step_chunk":
+        ii, ss = fj.effect.stack_frames(*_stack(fj, frames, bj.SimParams))
+        pj = fj.step_chunk(fj.create_pools(), ii, ss)
+        ii, ss = ft.effect.stack_frames(*_stack(ft, frames, bt.SimParams))
+        _same_pools(ft.step_chunk(ft.create_pools(), ii, ss), pj)
+        return
+    pj, pt, emitted = fj.create_pools(), ft.create_pools(), 0
+    for (ins_j, sim_j), (ins_t, sim_t) in zip(zip(*_stack(fj, frames, bj.SimParams)),
+                                              zip(*_stack(ft, frames, bt.SimParams))):
+        pj, ej = getattr(fj, method)(pj, ins_j, sim_j)
+        pt, et = getattr(ft, method)(pt, ins_t, sim_t)
+        _same_events(et, ej)
+        emitted += int(et[0].num_events.sum())
+    _same_pools(pt, pj)
+    assert emitted > 0
+
+
+def test_instanced_consuming_asset_raises_like_jax():
+    """An asset that consumes events has no parent as an instance: the
+    trail's inherited position raises JAX's ValueError, and a consuming
+    step raises JAX's "pass events_in" (effect.py:535-540)."""
+    from bevy_hanabi_tpu.runtime.effect import CompiledEffect as EffectJ
+
+    from bevy_hanabi_tpu_torch import CompiledEffect
+
+    msgs = []
+    for Inst, asset, Sim, kw in ((InstJ, trail_j(128), bj.SimParams, {}),
+                                 (InstancedEffect, _port(trail_j(128)), bt.SimParams,
+                                  {"device": "cpu"})):
+        fx = Inst(asset, 2, **kw)
+        with pytest.raises(ValueError) as err:
+            fx.step(fx.create_pools(), fx.make_inputs([3, 4], [1, 2]), Sim(delta_time=DT))
+        msgs.append(str(err.value))
+        parent = (firework_j(128) if Inst is InstJ else _port(firework_j(128))).particle_layout()
+        get = EffectJ.get if Inst is InstJ else CompiledEffect.get
+        fx.effect = get(asset, parent_layout=parent, **kw)
+        with pytest.raises(ValueError) as err:
+            fx.step(fx.create_pools(), fx.make_inputs([3, 4], [1, 2]), Sim(delta_time=DT))
+        msgs.append(str(err.value))
+    assert msgs[:2] == msgs[2:]
+    assert "requires a parent effect" in msgs[0] and "pass events_in" in msgs[1]
+
+
 def test_instanced_property_shapes_and_dtypes():
     """tests/test_runtime.py:351: make_inputs keeps declared dtypes and uses
     the declared shape to tell a shared vec-k from per-instance values."""
@@ -298,8 +374,9 @@ def test_instanced_render_chunk_refusals_and_checked_steps():
     ev = InstancedEffect(firework_effect(64), 2, device="cpu")
     with pytest.raises(ValueError, match="event-linked"):
         ev.step_render_chunk(ev.create_pools(), ii, ss, cam, cfg)
-    with pytest.raises(NotImplementedError, match="event-linked"):
-        ev.step(ev.create_pools(), ev.make_inputs([1, 1], [1, 2]), bt.SimParams())
+    pools, events = ev.step(ev.create_pools(), ev.make_inputs([1, 1], [1, 2]), bt.SimParams())
+    assert list(events) == [0] and tuple(events[0].parent_slot.shape) == (2, 64)
+    assert tuple(events[0].num_events.shape) == (2,)  # an emitting asset's step: its events
     fx_j = InstJ(instancing_j(64).with_simulation_space(bj.SimulationSpace.LOCAL), 2)
     ii_j, ss_j = fx_j.effect.stack_frames(*_stack(fx_j, [dict(spawn_counts=[1, 1],
                                                               frame_seeds=[1, 2])], bj.SimParams))

@@ -1,7 +1,10 @@
 """The port's mixed-scene path against the JAX package, on the CPU: the
 opaque, mask and painter (``scene``) equations, the depth test, the seeded
 framebuffer, the painter draw merge, ``HanabiScene.render`` through the
-split and painter pipelines, frustum culling, and ``update_render_chunk``.
+split and painter pipelines, frustum culling, and ``update_render_chunk``
+(its three long cases in ``test_torch_painter_chunk_auto.py``,
+``test_torch_painter_chunk_split.py`` and ``test_torch_painter_per_frame.py``,
+the mixed scene they share in ``torch_painter_mixed.py``).
 
 Every case feeds the same inputs to both packages: hand-built or
 numpy-seeded draws, or assets built in the JAX package that cross to the
@@ -16,7 +19,6 @@ pixels within 1e-5 on random draws (f32 blend rounding); checksums within
 """
 
 import dataclasses
-import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +27,6 @@ import torch
 
 import bevy_hanabi_tpu as bj
 import bevy_hanabi_tpu_torch as bt
-from bevy_hanabi_tpu.models import firework_effect as firework_j
-from bevy_hanabi_tpu.models import firework_trail_effect as trail_j
 from bevy_hanabi_tpu.models import gradient_effect as gradient_j
 from bevy_hanabi_tpu.models import spawn_gravity_effect as gravity_j
 from bevy_hanabi_tpu.render import camera as camera_j
@@ -34,22 +34,17 @@ from bevy_hanabi_tpu.render.extract import ParticleDrawData as DrawJ
 from bevy_hanabi_tpu.render.extract import concat_painter_draws as concat_j
 from bevy_hanabi_tpu.render.raster import RasterConfig as CfgJ
 from bevy_hanabi_tpu.render.raster import rasterize as rasterize_j
-from bevy_hanabi_tpu.runtime import HanabiScene as SceneJ
-from bevy_hanabi_tpu_torch import EffectAsset, HanabiScene, RasterConfig
+from bevy_hanabi_tpu_torch import EffectAsset, RasterConfig
 from bevy_hanabi_tpu_torch.models import spawn_gravity_effect
 from bevy_hanabi_tpu_torch.render import camera as camera_t
 from bevy_hanabi_tpu_torch.render import raster
 from bevy_hanabi_tpu_torch.render.extract import PAINTER_MODE_IDS, concat_painter_draws
 from bevy_hanabi_tpu_torch.render.extract import ParticleDrawData as DrawT
 from torch_jax_cache import jax_cache_of_the_module  # noqa: F401
+from torch_painter_mixed import one_torch_thread  # noqa: F401
+from torch_painter_mixed import REL, _close_sum, _debris, _mixed_pair, _persp, _scene_pair
 
 DT = 1.0 / 60.0
-REL = 0.005  # checksum tolerance (bench.py:155-161)
-
-
-def _close_sum(a, b):
-    a, b = float(np.asarray(a).sum()), float(np.asarray(b).sum())
-    assert abs(a - b) <= REL * max(abs(b), 1.0), (a, b)
 
 
 def _ortho(cam_mod, w=64, h=64):
@@ -57,14 +52,6 @@ def _ortho(cam_mod, w=64, h=64):
         view=cam_mod.look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0)),
         proj=cam_mod.orthographic(-1, 1, -1, 1, 0.1, 10.0),
         viewport=(w, h),
-    )
-
-
-def _persp(cam_mod, size=128, eye=(0.0, 0.0, 26.0)):
-    return cam_mod.CameraParams(
-        view=cam_mod.look_at(eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0)),
-        proj=cam_mod.perspective(math.radians(60.0), 1.0, 0.1, 200.0),
-        viewport=(size, size),
     )
 
 
@@ -294,23 +281,6 @@ def test_concat_painter_draws_matches_jax():
 # ---- assets in both packages -------------------------------------------------
 
 
-def _debris(pkg, capacity=65536):
-    """The mixed scene's opaque debris (bench.py:702-723) in ``pkg``."""
-    A = pkg.attributes
-    w = pkg.ExprWriter()
-    return (
-        pkg.EffectAsset("debris", capacity, pkg.SpawnerSettings.rate(capacity / 4.0), w.finish())
-        .init(pkg.SetPositionSphereModifier(w.module.lit((0.0, 0.0, 0.0)), w.module.lit(3.0),
-                                            pkg.ShapeDimension.VOLUME))
-        .init(pkg.SetVelocitySphereModifier(w.module.lit((0.0, 0.0, 0.0)), w.module.lit(1.0)))
-        .init(pkg.SetAttributeModifier(A.LIFETIME, w.lit(4.0).expr()))
-        .init(pkg.SetAttributeModifier(A.AGE, w.lit(0.0).expr()))
-        .init(pkg.SetAttributeModifier(A.HDR_COLOR, w.lit((0.9, 0.6, 0.2, 1.0)).expr()))
-        .render(pkg.SetSizeModifier((0.05,) * 3))
-        .with_alpha_mode(pkg.AlphaMode.OPAQUE)
-    )
-
-
 def _phase_asset(pkg, name, pos, mode, color, cutoff=0.5):
     """A 4-particle effect at one point (test_scene.py:1135-1154) in ``pkg``."""
     A = pkg.attributes
@@ -384,16 +354,6 @@ def _pools_from_jax(sj, st):
             np.asarray(p.seed), np.asarray(p.counter), device="cpu",
         )
     st.clock = copy.deepcopy(sj.clock)
-
-
-def _scene_pair(build, seed=0):
-    sj = SceneJ(seed=seed)
-    st = HanabiScene(seed=seed, device="cpu")
-    for args in build:
-        asset, name, kw = args
-        sj.add(asset, name, **kw)
-        st.add(EffectAsset.from_json(asset.to_json()), name, **kw)
-    return sj, st
 
 
 def _painter_3fx():
@@ -607,87 +567,6 @@ def test_update_render_chunk_culls_and_pauses_like_jax():
     img, _ = st.update_render_chunk(4, DT, _ortho(camera_t), RasterConfig(64, 64, tile_slots=1),
                                     background=(0.0, 0.0, 0.0, 0.0))
     assert float(img.max()) > 0.0
-
-
-# ---- update_render_chunk on the small mixed scene ----------------------------
-
-MIXED_K = 8
-
-
-def _mixed_build():
-    """bench.py:672-774 cut down: debris 1024 (opaque), gradient 4096,
-    rocket 512 -> trail 2048."""
-    return [
-        (_debris(bj, 1024), "debris", {}),
-        (gradient_j(4096), "grad", {}),
-        (firework_j(512), "rocket", {}),
-        (trail_j(2048), "trail", {"parent": "rocket"}),
-    ]
-
-
-def _mixed_pair():
-    # the trail's parent must be added before it in both scenes
-    return _scene_pair(_mixed_build(), seed=3)
-
-
-@pytest.fixture(scope="module", params=["auto", "split"])
-def mixed_chunks(request):
-    """Both scenes after three render chunks of 8 frames at a dt of 1/10 s:
-    the first burst's rockets die in the second chunk, so events flow, and
-    the second burst (at 2 s) is alive at the end."""
-    pipeline = request.param
-    sj, st = _mixed_pair()
-    out = []
-    for _ in range(3):
-        img_j, sums_j = sj.update_render_chunk(MIXED_K, 0.1, _persp(camera_j), CfgJ(128, 128, tile_slots=1),
-                                               pipeline=pipeline)
-        img_t, sums_t = st.update_render_chunk(MIXED_K, 0.1, _persp(camera_t), RasterConfig(128, 128, tile_slots=1),
-                                               pipeline=pipeline)
-        out.append((np.asarray(sums_j), sums_t.numpy()))
-    return pipeline, sj, st, out, np.asarray(img_j), img_t.numpy()
-
-
-def test_mixed_chunk_state_matches_jax_bit_for_bit(mixed_chunks):
-    _, sj, st, _, _, _ = mixed_chunks
-    for name in ("debris", "grad", "rocket", "trail"):
-        assert st[name].alive_count() == sj[name].alive_count()
-        _, alive, seed, counter = st[name].pool.to_numpy()
-        np.testing.assert_array_equal(alive, np.asarray(sj[name].pool.alive))
-        np.testing.assert_array_equal(seed, np.asarray(sj[name].pool.seed))
-        # the spawn counter: every effect spawned, the trail from events
-        assert int(counter) == int(sj[name].pool.counter) > 0
-    assert st["rocket"].alive_count() > 0  # the second burst
-    ev_j, ev_t = sj["rocket"].last_events[0], st["rocket"].last_events[0]
-    assert int(ev_t.num_events) == int(ev_j.num_events)
-    np.testing.assert_array_equal(ev_t.count.numpy().astype(np.uint32), np.asarray(ev_j.count))
-
-
-def test_mixed_chunk_checksums_match_jax(mixed_chunks):
-    _, _, _, out, img_j, img_t = mixed_chunks
-    for sums_j, sums_t in out:
-        assert sums_t.shape == (MIXED_K,)
-        for a, b in zip(sums_t.tolist(), sums_j.tolist()):
-            assert abs(a - b) <= REL * max(abs(b), 1.0), (a, b)
-    assert np.isfinite(img_t).all()
-    _close_sum(img_t, img_j)
-
-
-@pytest.mark.parametrize("pipeline", ["auto", "split"])
-def test_mixed_chunk_equals_per_frame_update_and_render(pipeline):
-    # test_scene.py:1307: the chunk is the per-frame path, frame for frame
-    _, sa = _mixed_pair()
-    _, sb = _mixed_pair()
-    cam, cfg = _persp(camera_t), RasterConfig(128, 128, tile_slots=1)
-    img_a, sums_a = sa.update_render_chunk(2 * MIXED_K, 0.1, cam, cfg, pipeline=pipeline)
-    for _ in range(2 * MIXED_K):
-        sb.update(0.1)
-        img_b = sb.render(cam, cfg, pipeline=pipeline)
-    assert int(sb["trail"].pool.counter) > 0  # events flowed
-    for name in ("debris", "grad", "rocket", "trail"):
-        for a, b in zip(sa[name].pool.to_numpy()[1:], sb[name].pool.to_numpy()[1:]):
-            np.testing.assert_array_equal(a, b)
-    assert torch.equal(img_a, img_b)
-    assert float(sums_a[-1]) == float(img_b.sum())
 
 
 def test_mixed_plan_is_the_painter_under_auto():

@@ -205,6 +205,47 @@ def test_sharded_step_chunk_and_checked():
         fx_t.shard_inputs(fx_t.make_inputs(*args)._replace(spawn_count=np.zeros(3, np.int32)))
 
 
+def test_sharded_emitting_asset_matches_instanced_and_jax():
+    """An emitting asset as a ShardedEffect: the firework as 8 instances x
+    128 lanes over (dp=4, sp=2), 90 frames of 0-2 spawns an instance. Each
+    frame's per-instance buffers equal the port's InstancedEffect's bit for
+    bit (the shards' lanes joined, each instance compacted whole), and the
+    JAX package's sharded step's: slots, counts and num_events bit for bit,
+    the events' payload within the gate. The pools as in the tests above."""
+    ninst, cap = 8, 128
+    asset_j = firework_j(cap)
+    fx_j = ShardedJ(asset_j, ninst, make_mesh_j(jax.devices()[:8], dp=4, sp=2), capacity=cap)
+    fx_t = ShardedEffect(_port(asset_j), ninst, make_mesh(CPUS, dp=4, sp=2), capacity=cap)
+    plain = InstancedEffect(_port(asset_j), ninst, capacity=cap, device="cpu")
+    pj, pt, pp = fx_j.create_pools(), fx_t.create_pools(), plain.create_pools()
+    rng = np.random.default_rng(6)
+    emitted = 0
+    for f in range(90):
+        spawn = rng.integers(0, 3, ninst).astype(np.int32)
+        seeds = rng.integers(0, 2**32, ninst, dtype=np.uint32)
+        pj, ej = fx_j.step(pj, fx_j.shard_inputs(fx_j.make_inputs(spawn, seeds)),
+                           bj.SimParams(time=f * DT, delta_time=DT))
+        sim = SimParams(time=f * DT, delta_time=DT)
+        pt, et = fx_t.step(pt, fx_t.shard_inputs(fx_t.make_inputs(spawn, seeds)), sim)
+        pp, ep = plain.step(pp, plain.make_inputs(spawn, seeds), sim)
+        assert sorted(et) == sorted(ep) == sorted(ej) == [0]
+        t, p, j = et[0], ep[0], ej[0]
+        for a, b in ((t.parent_slot, p.parent_slot), (t.count, p.count),
+                     (t.num_events, p.num_events), *((t.payload[k], p.payload[k]) for k in p.payload)):
+            assert torch.equal(a, b)
+        np.testing.assert_array_equal(t.num_events.numpy(), np.asarray(j.num_events))
+        np.testing.assert_array_equal(t.parent_slot.numpy(), np.asarray(j.parent_slot))
+        np.testing.assert_array_equal(t.count.numpy(), np.asarray(j.count))
+        for k, v in j.payload.items():
+            for i, ne in enumerate(t.num_events.tolist()):
+                np.testing.assert_allclose(t.payload[k][i, :ne].numpy(), np.asarray(v)[i, :ne],
+                                           rtol=1e-2, atol=1e-3, err_msg=k)
+        emitted += int(t.num_events.sum())
+    assert emitted > 0
+    _same_state(*pt.to_numpy(), pj)
+    _same_port(pt.to_numpy(), pp.to_numpy())
+
+
 # -- cross-shard spawn events --------------------------------------------------
 
 

@@ -78,6 +78,7 @@ def _cfg(Cfg, **kw):
 CAP = 128
 SPAWN = np.asarray([10, 2, 0, 128, 3, 1, 25, 65], np.int32)
 M = 128
+OVERFLOW_M = 8  # the overflow cases' slots a tile
 
 
 def _small(asset_j):
@@ -322,6 +323,53 @@ def test_sharded_render_slice_capacity_truncation_is_graceful():
     assert np.isfinite(tiny).all()
     assert 0.0 < tiny[..., :3].sum() <= full[..., :3].sum() + 1e-3
     _checksum_close(tiny, np.asarray(tiny_j))
+
+
+def _tile_counts(fx_t, pools_t, cam, cfg):
+    """Entries a tile of the assembled pools' draw at ``cfg``'s binning."""
+    draw = extract_draw_data(fx_t.asset, fx_t.assemble(pools_t).flatten(), cam)
+    tile = raster.project_bin_plain(
+        draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(), cam.view,
+        cam.proj, cam.viewport, cfg.tile_size, cfg.tiles_x, cfg.tiles_y, row=raster.ROW_QUAD,
+        tile_slots=cfg.tile_slots)[0]
+    tile = tile[tile < cfg.num_tiles]
+    return torch.bincount(tile.long(), minlength=cfg.num_tiles)
+
+
+@pytest.mark.parametrize("tile_slots", [0, 1])
+@pytest.mark.parametrize("mode", ["psum", "slice"])
+def test_sharded_render_under_overflow_matches_jax(mode, tile_slots):
+    """The regime where the sharded frame is not one device's: full-size
+    quads of 8 instances over (dp=4, sp=2) at M = 8, where most covered
+    tiles overflow. psum (ADD) keeps M entries of a tile on each shard and
+    sums them; slice (BLEND) keeps M of each slice's routed entries, which
+    at tile_slots=1 include quads clamped into a slice's edge row and at
+    tile_slots=0 are one device's. The port's overflowing frame against
+    JAX's overflowing frame: psum within atol 1e-4, slice within 0.5% of
+    the checksum, as the tests above."""
+    alpha = bj.AlphaMode.ADD if mode == "psum" else bj.AlphaMode.BLEND
+    asset_j = gravity_j(capacity=CAP, rate=0.0).with_alpha_mode(alpha)
+    fx_j, pj, fx_t, pt = _populated(asset_j, 4, 2)
+    cam = _camera(CameraParams)
+    kw = dict(max_entries_per_tile=OVERFLOW_M, tile_slots=tile_slots)
+    cfg_t = _cfg(RasterConfig, **kw)
+    counts = _tile_counts(fx_t, pt, cam, cfg_t)
+    covered, over = int((counts > 0).sum()), int((counts > OVERFLOW_M).sum())
+    assert over > covered // 2, (over, covered)  # most covered tiles overflow
+    img = ShardedRenderer(fx_t, cfg_t, mode=mode, slice_capacity_factor=8.0).render(pt, cam).numpy()
+    img_j = np.asarray(RendererJ(fx_j, _cfg(raster_j.RasterConfig, **kw), mode=mode,
+                                 slice_capacity_factor=8.0).render(pj, _camera(CamJ)))
+    assert np.abs(img_j[..., :3]).max() > 0.05, "reference image is empty"
+    single = _single(fx_t, pt, cam, cfg_t).numpy()
+    if mode == "slice" and tile_slots == 0:
+        # the exact binning has no clamp: each slice keeps one device's M
+        np.testing.assert_array_equal(img, single)
+    else:  # the overflow shows: the sharded frame is not the single-device one
+        assert np.abs(img - single).max() > 1e-3
+    if mode == "psum":
+        np.testing.assert_allclose(img, img_j, atol=1e-4)
+    else:
+        _checksum_close(img, img_j)
 
 
 @pytest.mark.parametrize("tile_slots", [0, 1, 2])

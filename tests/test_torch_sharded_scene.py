@@ -315,6 +315,19 @@ def test_sharded_capacity_divisibility_rejected():
             s.add(models.spawn_gravity_effect(capacity=512), "odd", mesh=mk(), capacity=500)
 
 
+def _update_settled(s):
+    """``s.update(DT)``, then a JAX scene's pools waited for, so that no two
+    of its 8-device programs are in flight at once: XLA's CPU client runs
+    every device's part on one pool of as many threads as the host has
+    cores, and two programs that each hold part of it in an all-gather wait
+    on each other until the 40 s rendezvous timeout aborts the process
+    (seen with conftest's 8 virtual devices on an 8-core host when 40 JAX
+    frames were dispatched back to back)."""
+    s.update(DT)
+    if isinstance(s, SceneJ):
+        jax.block_until_ready([inst.pool for inst in s.effects()])
+
+
 def test_sharded_checkpoint_crosses_between_packages():
     """A sharded tree saved mid-burst (events in flight) by the JAX package
     loads into the port's sharded tree; 20 frames later it agrees with the
@@ -328,7 +341,7 @@ def test_sharded_checkpoint_crosses_between_packages():
 
     sj, st, ref = _tree(JAX, seed=9), _tree(PORT, seed=9), _tree(PORT, seed=99)
     for _ in range(40):
-        sj.update(DT)
+        _update_settled(sj)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "tree.npz")
         save_j(sj, path)
@@ -340,7 +353,7 @@ def test_sharded_checkpoint_crosses_between_packages():
         load_scene_state(ref, path2)
     for _ in range(20):
         for s in (sj, st, ref):
-            s.update(DT)
+            _update_settled(s)
     assert st["c"].alive_count() > 0
     for n in ("p", "c"):
         _same_pool(st[n].pool, sj[n].pool)

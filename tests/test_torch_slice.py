@@ -205,7 +205,7 @@ def test_port_imports_without_jax():
 # for the reference's source paths, which the JAX copies cite by their
 # absolute location and the port as ``bevy_hanabi/src/``.
 COPIES = ["ron.py", "graph/node.py", "utils/diag.py", "properties.py", "cpu_value.py",
-          "modifiers/attr.py", "modifiers/event.py"]
+          "modifiers/attr.py", "modifiers/event.py", "native/src/hanabi_native.cpp"]
 
 
 @pytest.mark.parametrize("path", COPIES)
