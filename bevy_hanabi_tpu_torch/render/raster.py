@@ -91,6 +91,10 @@ __all__ = [
 # then depth, cutoff, mode (ROW) for the variants that read them
 ROW_QUAD, ROW = 10, 13
 COL_DEPTH, COL_CUTOFF, COL_MODE = 10, 11, 12
+# the largest |centre| coordinate of an entry that tile_blend's antialiased
+# warp-block cull may skip (csrc/tile_blend.cu's header: past it a lane's
+# coverage may be NaN, which must be written)
+AA_CULL_CENTRE = 2.0**32
 # the appearance columns a draw may append to its rows, in the JAX package's
 # order (raster.py:530-577), and their widths: the painter's per-entry
 # texture state ``tex`` is 2 + 4 * its layer count wide (None here)
@@ -888,7 +892,7 @@ def warp_entries_plain(window, has, T: int, ntx: int, tri_col: int = -1,
     S_v). ``triangle_bound=False`` takes the quad bound for triangles too
     (the first appearance kernel's). ``antialias`` takes the kernel's
     fringe bounds (only for entries whose edge lengths in f32 lie in
-    [2^-40, 2^60]): a quad's |N_u| beyond (|det| + |det| / (2 |h1|)) (1 +
+    [2^-40, 2^60] and whose centre lies in [-2^32, 2^32]^2): a quad's |N_u| beyond (|det| + |det| / (2 |h1|)) (1 +
     2 m) + m S_u (N_v likewise with |h2|); a triangle's sg N_u below
     -((|det| + max(|h2|, 1e-9)) / 2 (1 + 2 m) + m S_u), sg N_v below the same
     with |h1|, or sg (N_u + N_v) above max(|h2 - h1|, 1e-9) / 2 (1 + 2 m) +
@@ -899,11 +903,12 @@ def warp_entries_plain(window, has, T: int, ntx: int, tri_col: int = -1,
     clamped = det.abs() < 1e-9
     det = torch.where(clamped, 1e-9, det)
     cullable = torch.isfinite(r).all(-1) & torch.isfinite(det) & ~clamped
-    if antialias:  # the kernel's aa_cullable: the edge lengths as the lane computes them
+    if antialias:  # the kernel's entry_test: the edge lengths as the lane computes them
         for x, y in ((r[..., 2], r[..., 3]), (r[..., 4], r[..., 5]),
                      (r[..., 4] - r[..., 2], r[..., 5] - r[..., 3])):
             e = sqrt_f32(x * x + y * y)
             cullable &= (e >= 2.0**-40) & (e <= 2.0**60)
+        cullable &= (r[..., :2].abs() <= AA_CULL_CENTRE).all(-1)
     blocks = warp_blocks(T, ntx, nt, window.device)[:, :, None, :]  # [nt, W, 1, 4]
     cx, cy, a1x, a1y, a2x, a2y = (r[..., k].to(torch.float64)[:, None, :] for k in range(6))
     ad = det.abs().to(torch.float64)[:, None, :]

@@ -19,9 +19,12 @@ imports JAX. Phases, each of which fails the run on any error:
    beside it, the first version of ``ribbon_segments``, the streaming
    copy of its bytes (``experiments/ribbon_segments_variants/``) and the
    first appearance kernel of ``tile_blend``
-   (``experiments/tile_blend_variants/appear1.cu``) and the earlier
-   ``gather_window`` (``experiments/gather_window_variants/first.cu``), every
-   nvcc process started together;
+   (``experiments/tile_blend_variants/appear1.cu``), ``tile_blend`` before
+   the redesign of its painter and antialiased code (``appear2.cu`` there)
+   and the earlier ``gather_window``
+   (``experiments/gather_window_variants/first.cu``), every nvcc process
+   started together; print the registers and spill bytes of each
+   ``tile_blend`` instantiation, the port's beside appear2's;
 3. compare each raster kernel with its plain PyTorch version on the card,
    on a real 1M-particle headline frame, and time both: ``project_bin``
    (tiles, depths and depth range equal, rows at max abs err 0),
@@ -384,7 +387,11 @@ do; ``share`` is ``bound_ms / ms``. The ``gather_window`` rows also hold
 rows ``sort_ms`` and ``sort_int64_ms``; the ``tile_blend`` rows
 ``filled_entries`` and ``covered_pairs``, what their bound counts (the
 filled entries' rows, and the covered (entry, pixel) pairs' test and
-blend); the ``ribbon_keys`` row ``counter_ms`` and ``order_ms`` (each stage)
+blend), and ``first_ms``: the first appearance kernel's on the appearance
+rows, appear2's on the painter's SCENE with the atlas and every
+antialiased row (:data:`REDESIGNED_ROWS`, held exact against it too and
+printed beside it on a line before the kernel rows); the ``ribbon_keys``
+row ``counter_ms`` and ``order_ms`` (each stage)
 and ``sort_counter_ms`` and ``sort_order_ms`` (the stable sort of each
 stage's keys); the ``ribbon_segments`` row ``gather_rows_ms`` (its
 appearance gather alone, by ``gather_rows``), ``first_ms`` (the first
@@ -510,10 +517,14 @@ RIBBON_VARIANTS = (
     ("copy", _VARIANTS / "probe.cu", ["-DHANABI_PROBE=1"]),
 )
 # tile_blend's first appearance kernel, built beside the library and timed
-# beside the port's on every appearance row (``first_ms``)
+# beside the port's on every appearance row (``first_ms``); and the kernel
+# before the redesign of its painter and antialiased code (``appear2``),
+# timed as ``first_ms`` on those rows instead: the painter's SCENE with the
+# atlas and every antialiased row (:data:`REDESIGNED_ROWS`)
+_BLEND_VARIANTS = Path(__file__).resolve().parent / "experiments" / "tile_blend_variants"
 TILE_BLEND_VARIANTS = (
-    ("appear1", Path(__file__).resolve().parent / "experiments" / "tile_blend_variants"
-     / "appear1.cu", []),
+    ("appear1", _BLEND_VARIANTS / "appear1.cu", []),
+    ("appear2", _BLEND_VARIANTS / "appear2.cu", []),
 )
 # gather_window's earlier kernel, built beside the library and timed beside the port's
 # on every gather_window row (``first_ms``); it stages a tile's floats in
@@ -525,6 +536,14 @@ GATHER_WINDOW_VARIANTS = (
 )
 FIRST_WINDOW_FLOATS = 12288
 VARIANT_LIBS = {}  # phase 2's variant builds by label
+# compare_tile_blend's arguments on REDESIGNED_ROWS (set in phase 2): appear2
+# as ``first``
+REDESIGNED_KW = {}
+# the rows whose first_ms is appear2's, each held exact against it (and
+# phase 24's ten ``tile_blend[<mode>...,mesh,aa]``)
+REDESIGNED_ROWS = ("tile_blend[scene,atlas]", "tile_blend[scene,atlas,aa]", "tile_blend[blend,aa]",
+                   "tile_blend[mesh,aa]", "tile_blend[mesh,lit,aa]", "tile_blend[flipbook,aa]",
+                   "tile_blend[round,aa]", "tile_blend[add,flipbook,aa]")
 # bench.py::bench_instanced (bench.py:403-437): 256 instances x 4096 lanes
 INSTANCES, INSTANCE_CAPACITY = 256, 4096
 INSTANCED_GATE = (8, 4096)  # the instanced gate's instances x lanes (phase 19a)
@@ -550,6 +569,39 @@ SEGMENTED_WIDE = (256, 4096)  # phase 24c's second event_compact_segmented shape
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def ptxas_kernels(log: str, source: str = "tile_blend.cu") -> list:
+    """``(kernel, template arguments, registers, spill stores, spill loads)``
+    of each kernel that nvcc's ``-Xptxas -v`` report ``log`` gives for
+    ``source`` (the library's log holds a ``== source`` section a source; a
+    variant's log is its one source's), template arguments as written in the
+    mangled name (``Li4E`` an int, ``Lb1E`` a bool)."""
+    import re
+
+    if f"== {source}" in log:
+        log = log.split(f"== {source}", 1)[1].split("\n== ", 1)[0]
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            # _ZN <length><name>... I <args> E: the last name is the kernel's
+            i, kernel = name.find("_ZN") + 3, name
+            while 2 < i < len(name) and name[i].isdigit():
+                j = i
+                while name[j].isdigit():
+                    j += 1
+                kernel, i = name[j:j + int(name[i:j])], j + int(name[i:j])
+            args = re.findall(r"L[ib](\d+)E", name[i:].split("EE", 1)[0] + "E")
+            out.append((kernel, ",".join(args), int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return out
 
 
 def checksum_close(a: float, b: float) -> bool:
@@ -875,8 +927,9 @@ def compare_tile_blend(label: str, window, has, T: int, ntx: int, nty: int, back
     differ and the checksums agree within 0.5%, since the card's powf and
     PyTorch's pow may differ in the last ulp); both timed. ``first``: a
     library holding another build of the kernel (the first appearance
-    kernel), held to the same standard and timed beside it as
-    ``first_ms``. ``timed=False``: the comparison alone (the row holds
+    kernel, or on :data:`REDESIGNED_ROWS` the one before their redesign),
+    held to the same standard and timed beside it as ``first_ms``.
+    ``timed=False``: the comparisons alone (the row holds
     ``max_abs_err``). Returns the row and the kernel's depth plane (or
     None)."""
     import torch
@@ -911,6 +964,12 @@ def compare_tile_blend(label: str, window, has, T: int, ntx: int, nty: int, back
         return err, fb_k, d_k
 
     err, fb_k, d_k = check(raster.tile_blend(*args, **kw), "")
+
+    def run_first():
+        return raster.tile_blend_launch(first, window, has, T, ntx, background, mode, **kw)
+
+    if first is not None:
+        check(run_first(), " (first version)")
     if not timed:
         return {"max_abs_err": err}, d_k
     row = {
@@ -922,10 +981,6 @@ def compare_tile_blend(label: str, window, has, T: int, ntx: int, nty: int, back
                       kw.get("scene_depth"), ap, kw.get("textures", ()), kw.get("antialias", False)),
     }
     if first is not None:
-        def run_first():
-            return raster.tile_blend_launch(first, window, has, T, ntx, background, mode, **kw)
-
-        check(run_first(), " (first version)")
         row["first_ms"] = cuda_ms(run_first, 50)
     return row, d_k
 
@@ -1003,7 +1058,8 @@ def compare_kernels(dev):
     results["tile_blend"], _ = compare_tile_blend("blend", *win, T, ntx, nty, cfg.background, "blend")
     # the antialiased headline's pass: the same window, tile_blend's kAA variant
     results["tile_blend[blend,aa]"], _ = compare_tile_blend(
-        "blend (antialiased)", *win, T, ntx, nty, cfg.background, "blend", antialias=True)
+        "blend (antialiased)", *win, T, ntx, nty, cfg.background, "blend",
+        **REDESIGNED_KW, antialias=True)
 
     # MASK, which no main path runs: the headline's draw in 13-float rows
     # with rasterize's default cutoff (0.5), writing depth as the split
@@ -2436,8 +2492,8 @@ def mesh_frame(kernels, lit: bool, first=None, antialias=False):
     if antialias:  # the other kernels are the plain frame's, at the same shapes
         win = appearance_window(asset, pool, cam, config, textures)[:2]
         row, _ = compare_tile_blend(f"blend ({tag}, {ap.row}-float rows)", *win, T, ntx, nty,
-                                    config.background, "blend", appearance=ap, textures=textures,
-                                    antialias=True)
+                                    config.background, "blend", **REDESIGNED_KW,
+                                    appearance=ap, textures=textures, antialias=True)
         return {f"tile_blend[{tag}]": row}, launches
     results = {f"mesh_expand[{tag}]": compare_mesh_expand(draw, mesh, tag)}
     results[f"project_bin[{tag}]"], projected = compare_project_bin(
@@ -2506,7 +2562,8 @@ def example_kernels(example_runs, first=None, config=None) -> dict:
         if aa:
             results[f"tile_blend[{label},aa]"], _ = compare_tile_blend(
                 f"blend ({label}, {ap.row}-float rows, antialiased)", *win, T, ntx, nty,
-                config.background, "blend", appearance=ap, textures=texs, antialias=True)
+                config.background, "blend", **REDESIGNED_KW, appearance=ap,
+                textures=texs, antialias=True)
             continue
         results[f"gather_window[{label}]"] = gathered
         results[f"tile_blend[{label}]"], _ = compare_tile_blend(
@@ -2913,8 +2970,8 @@ def painter_frame(kernels):
         results[name], _ = compare_tile_blend(
             f"scene ({ap.row}-float rows, {ap.atlas_layers} atlas layer{'s' * (ap.atlas_layers > 1)}"
             f"{', antialiased' if aa else ''})", *win, T, ntx, nty, cfg.background, "scene",
-            framebuffer=fb0, depth_test=True, write_depth=True, appearance=ap, textures=texs,
-            antialias=aa)
+            **REDESIGNED_KW, framebuffer=fb0, depth_test=True, write_depth=True,
+            appearance=ap, textures=texs, antialias=aa)
     # each mesh effect fills tiles: its entries' covered pairs in the window
     pidx_sorted, starts, ends = raster.sort_tiles(*projected[:2], nt, None, projected[3])
     pidx, _ = raster.window_index(pidx_sorted, starts, ends, M)
@@ -4205,7 +4262,8 @@ def aa_appearance_phase(kernels):
         tag = f"{mode}{',depth' if dt else ''}{',write' if wd else ''}"
         new = (mode, dt, wd) in AA_APPEARANCE_NEW
         row, _ = compare_tile_blend(f"{tag} (mesh,aa, {ap.row}-float rows)", window, has, T, ntx,
-                                    nty, config.background, mode, plain_reps=1, timed=new, **kw)
+                                    nty, config.background, mode, plain_reps=1, timed=new,
+                                    **REDESIGNED_KW, **kw)
         if new:
             results[f"tile_blend[{tag},mesh,aa]"] = row
     del fx, pool, draw, windows
@@ -4244,7 +4302,8 @@ def aa_appearance_phase(kernels):
     window, has, ap = appearance_window(asset, p, cam, cfg, texs)
     results["tile_blend[add,flipbook,aa]"], _ = compare_tile_blend(
         f"add (flipbook,aa, {ap.row}-float rows)", window, has, cfg.tile_size, cfg.tiles_x,
-        cfg.tiles_y, cfg.background, "add", appearance=ap, textures=texs, antialias=True)
+        cfg.tiles_y, cfg.background, "add", **REDESIGNED_KW, appearance=ap,
+        textures=texs, antialias=True)
     print(f"phase 24b: the additive flipbook in {time.perf_counter() - t0:.1f} s")
     return results, launches
 
@@ -4408,6 +4467,20 @@ def main() -> int:
             fail(f"the variant {label!r} did not build")
         variants[label] = lib
     first_blend = variants.pop("appear1")
+    VARIANT_LIBS["appear2"] = variants.pop("appear2")
+    REDESIGNED_KW.update(first=VARIANT_LIBS["appear2"])
+    # registers and spills of tile_blend's instantiations, the port's beside
+    # appear2's: kernel, template arguments (equation, depth test, depth
+    # write[, compacted pairs], antialiased), registers, spill stores, loads
+    logs = [("port", lib_path.with_suffix(".log").read_text()),
+            ("appear2", variant_builds["appear2"][1])]
+    regs = {label: {(k, a): (n, st, ld) for k, a, n, st, ld in ptxas_kernels(log)}
+            for label, log in logs}
+    print("tile_blend registers and spill bytes (stores/loads): "
+          + ", ".join(label for label, _ in logs))
+    for key in sorted(regs["port"]):
+        print(f"  {key[0]}<{key[1]}>: " + ", ".join(
+            "{} ({}/{})".format(*regs[label].get(key, (0, 0, 0))) for label, _ in logs))
     for label, (lib, log) in window_builds.items():
         print(f"== gather_window variant {label}\n{log.strip()}")
         if lib is None:
@@ -4689,6 +4762,11 @@ def main() -> int:
         print(f"  {r['name']:28s} {r['launches']:6d} {r['ms']:.4f} {r['bound_ms']:.4f} "
               f"({r['bound_by']}) {100.0 * r['share']:.1f}% {r['plain_ms']:.4f} {r['library_ms']}"
               + (f" {r['first_ms']}" if "first_ms" in r else ""))
+    print("redesigned tile_blend rows: ms against appear2's first_ms")
+    for r in kernel_rows:
+        if r["name"] in REDESIGNED_ROWS or r["name"].endswith(",mesh,aa]"):
+            print(f"  {r['name']:36s} {r['ms']:.4f} against {r['first_ms']:.4f} "
+                  f"({r['ms'] / r['first_ms']:.3f}x)")
     print(json.dumps({"kernels": kernel_rows}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)

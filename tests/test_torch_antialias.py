@@ -213,6 +213,12 @@ def _coverage_grid(row, T):
     tiles = torch.arange(nt, dtype=torch.int32)
     py = ((tiles // NTX)[:, None, None] * T + ar[None, :, None]).to(torch.float32) + 0.5
     px = ((tiles % NTX)[:, None, None] * T + ar[None, None, :]).to(torch.float32) + 0.5
+    return _coverage_at(r, px, py)
+
+
+def _coverage_at(r, px, py):
+    """The plain coverage of entries ``r`` (f32 [n, 11]) at pixel centres
+    ``px``, ``py`` (f32 [n, h, w]): f32 [n, h, w]."""
     a1x, a1y, a2x, a2y = r[:, 2], r[:, 3], r[:, 4], r[:, 5]
     det_f = a1x * a2y - a1y * a2x
     det_f = torch.where(torch.abs(det_f) < 1e-9, 1e-9, det_f)
@@ -221,7 +227,7 @@ def _coverage_grid(row, T):
     u = (a2y[:, None, None] * dx - a2x[:, None, None] * dy) / det
     v = ((-a1y)[:, None, None] * dx + a1x[:, None, None] * dy) / det
     is_tri = (r[:, 10] > 0.5)[:, None, None]
-    has = torch.ones((nt, 1, 1), dtype=torch.bool)
+    has = torch.ones((r.shape[0], 1, 1), dtype=torch.bool)
     return raster._coverage(u, v, det_f, a1x, a1y, a2x, a2y, has, is_tri)
 
 
@@ -234,9 +240,11 @@ def _warp_of_pixel(T):
 
 def _check_bound(row, T):
     """No block that the antialiased bound culls holds a pixel of coverage
-    > 0; returns the blocks kept and the blocks holding covered pixels."""
+    > 0 or NaN (which PREMULTIPLY writes); returns the blocks kept and the
+    blocks holding such pixels."""
     with np.errstate(all="ignore"):
-        cov = (_coverage_grid(row, T) > 0.0).numpy()
+        c = _coverage_grid(row, T)
+        cov = ((c > 0.0) | torch.isnan(c)).numpy()
     window = torch.from_numpy(np.tile(np.asarray(row, np.float32), (NTX * NTX, 1, 1)))
     has = torch.ones((NTX * NTX, 1), dtype=torch.bool)
     kept = raster.warp_entries_plain(window, has, T, NTX, tri_col=10, antialias=True)[..., 0]
@@ -247,7 +255,7 @@ def _check_bound(row, T):
         for w in range(kept.shape[1]):
             hit = cov[tile][warp == w].any()
             covered_blocks += int(hit)
-            assert kept[tile, w] or not hit, f"a block with coverage > 0 was culled: {row.tolist()}"
+            assert kept[tile, w] or not hit, f"a block with coverage > 0 or NaN was culled: {row.tolist()}"
     return int(kept.sum()), covered_blocks
 
 
@@ -343,3 +351,80 @@ def test_antialias_bounds_still_cull_small_entries(tri):
         k, h = _check_bound(_row(a, b, c, tri), 16)
         kept, hit, blocks = kept + k, hit + h, blocks + NTX * NTX * 8
     assert kept < hit + 0.5 * (blocks - hit), (kept, hit, blocks)
+
+
+def _cullable_but_for_centre(rows):
+    """Whether each row (f32 [n, 11]) passes the kernel's antialiased cull
+    conditions other than the centre's: finite columns, a finite det above
+    the clamp, and edge lengths in f32 within [2^-40, 2^60]."""
+    r = torch.from_numpy(np.asarray(rows, np.float32))
+    det = r[:, 2] * r[:, 5] - r[:, 3] * r[:, 4]
+    ok = torch.isfinite(r[:, :6]).all(-1) & torch.isfinite(det) & (det.abs() >= 1e-9)
+    for x, y in ((r[:, 2], r[:, 3]), (r[:, 4], r[:, 5]), (r[:, 4] - r[:, 2], r[:, 5] - r[:, 3])):
+        e = raster.sqrt_f32(x * x + y * y)
+        ok &= (e >= 2.0**-40) & (e <= 2.0**60)
+    return ok.numpy()
+
+
+# finite entries that the fringe's edge and det conditions accept but whose
+# coverage is NaN: a quad whose num_u is inf - inf at every pixel (centre
+# 2^69 away, h2 = (2^59, 2^59)), the same with h1 = (2^58, -2^58), h2 =
+# (2^58, 2^59) at 2^71, and triangles whose u and v overflow with opposite
+# signs (u + v NaN in d3): one at 2^115 with edges of 2^-14, one at 2^40
+# with h1 = (2^59, 0), h2 = (2^59 + 2^36, 2^-88) (det 2^-29 just above the
+# clamp, so v = 2^59 2^40 / 2^-29 overflows)
+FAR_ROWS = {
+    "quad": [-2.0**69, -2.0**69, 2.0**59, -2.0**59, 2.0**59, 2.0**59, 1, 1, 1, 1, 0],
+    "quad71": [-2.0**71, -2.0**71, 2.0**58, -2.0**58, 2.0**58, 2.0**59, 1, 1, 1, 1, 0],
+    "tri": [-2.0**115, 2.0**115, 2.0**-14, 0.0, 0.0, 2.0**-14, 1, 1, 1, 1, 1],
+    "tri40": [0.0, -2.0**40, 2.0**59, 0.0, 2.0**59 + 2.0**36, 2.0**-88, 1, 1, 1, 1, 1],
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAR_ROWS))
+def test_antialias_bounds_keep_nan_coverage(name):
+    """The fringe cull keeps every block where a far entry's coverage is
+    NaN (the kernel leaves such an entry to its lanes, which write JAX's NaN
+    in PREMULTIPLY): its centre lies past raster.AA_CULL_CENTRE."""
+    row = np.asarray(FAR_ROWS[name], np.float32)
+    assert _cullable_but_for_centre(row[None])[0]
+    with np.errstate(all="ignore"):
+        assert bool(torch.isnan(_coverage_grid(row, 16)).any())  # the case this test is for
+    kept, hit = _check_bound(row, 16)
+    assert hit > 0 and kept >= hit
+
+
+def test_antialias_cullable_coverage_is_a_number():
+    """The header's claim behind the centre condition: an entry the fringe
+    cull may skip (every condition, |centre| <= raster.AA_CULL_CENTRE) has
+    a coverage that is a number at every pixel centre of any frame (they
+    lie in [0.5, 2^31]), so a lane it skips has coverage 0, never JAX's
+    NaN. Rows: every combination of centres at the bound's corners with
+    edges of 2^59 and 2^-14 in eight directions (products and quotients at
+    their largest), and 4 000 seeded rows of log-uniform magnitudes up to
+    the bound and to 2^59, quads and triangles."""
+    c = raster.AA_CULL_CENTRE
+    dirs = [(1, 1), (1, -1), (-1, 1), (-1, -1), (1, 0), (0, 1), (-1, 0), (0, -1)]
+    edges = [(s * a, s * b) for s in (2.0**59, 2.0**-14) for a, b in dirs]
+    rows = [[cx, cy, *h1, *h2, 1, 1, 1, 1, tri] for cx in (-c, c) for cy in (-c, c)
+            for h1 in edges for h2 in edges for tri in (0, 1)]
+    r = np.random.default_rng(41)
+    n = 4000
+    mag = lambda lo, hi: np.exp2(r.uniform(lo, hi, n)) * r.choice([-1.0, 1.0], n)
+    rand = np.zeros((n, 11))
+    rand[:, 0] = mag(0.0, np.log2(c))
+    rand[:, 1] = mag(0.0, np.log2(c))
+    for k in range(2, 6):
+        rand[:, k] = mag(-40.0, 59.0)
+    rand[:, 6:10] = 1.0
+    rand[:, 10] = r.integers(0, 2, n)
+    rows = np.concatenate([np.asarray(rows, np.float64), rand]).astype(np.float32)
+    rows = rows[_cullable_but_for_centre(rows) & (np.abs(rows[:, :2]) <= c).all(-1)]
+    assert len(rows) > 4000
+    p = torch.tensor([0.5, 2.0**20 + 0.5, 2.0**31], dtype=torch.float32)
+    px = p[None, None, :].expand(len(rows), 3, 3)
+    py = p[None, :, None].expand(len(rows), 3, 3)
+    with np.errstate(all="ignore"):
+        cov = _coverage_at(torch.from_numpy(rows), px, py)
+    bad = torch.isnan(cov).flatten(1).any(-1)
+    assert not bool(bad.any()), rows[bad.numpy()][:4].tolist()

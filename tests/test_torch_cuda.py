@@ -1389,6 +1389,98 @@ def test_tile_blend_appearance_adversarial_windows_match_plain(cuda, kind, mode,
         assert torch.equal(d_g, d_p)
 
 
+def _antialiased_adversarial(window, has, ap, texs, kernel, mode, depth_test):
+    """An adversarial window for the antialiased variants: its empty slots
+    zeroed (as gather_window writes them: JAX's coverage of a NaN row is
+    NaN even where has is false), cut to the quad kernel's row width for
+    ``kernel == "quad"`` (then no appearance)."""
+    window = torch.where(has[..., None], window, 0.0)
+    if kernel == "quad":
+        return window[..., :raster.row_width(mode, depth_test)].contiguous(), None, ()
+    return window, ap, texs
+
+
+@pytest.mark.parametrize("mode,depth_test,write_depth", ADVERSARIAL_VARIANTS)
+@pytest.mark.parametrize("kind", ["lattice", "clamp", "uv", "overflow", "compact"])
+@pytest.mark.parametrize("kernel", ["quad", "appearance"])
+def test_tile_blend_antialiased_adversarial_windows_match_plain(cuda, kernel, kind, mode,
+                                                                depth_test, write_depth):
+    """The antialiased variants (the per-entry edge lengths and fringe
+    bounds) on the adversarial windows: edges through pixel centres
+    (coverage exactly 0 or 1 on the fringe's edges), dets at the clamp,
+    non-finite columns, whole-tile triangles, the squircle column at
+    roundness <= 0; both kernels, exact (NaN where the plain version is
+    NaN)."""
+    window, has, ap, texs = _appearance_adversarial_window(cuda, kind, mode, depth_test)
+    window, ap, texs = _antialiased_adversarial(window, has, ap, texs, kernel, mode, depth_test)
+    nt, T = 4, 16
+    kw = dict(depth_test=depth_test, write_depth=write_depth, appearance=ap, textures=texs,
+              antialias=True)
+    if depth_test:
+        kw["scene_depth"] = torch.rand((nt, T, T), device=cuda) * 8.0
+    fb0 = torch.rand((nt, T, T, 4), device=cuda)
+    args = (window, has, T, 2, 2, (0.0, 0.0, 0.0, 0.0), mode)
+    got = raster.tile_blend(*args, framebuffer=fb0, **kw)
+    want = raster.tile_blend_plain(*args, framebuffer=fb0, **kw)
+    (fb_g, d_g), (fb_p, d_p) = (got, want) if write_depth else ((got, None), (want, None))
+    assert int(((fb_p - fb0).abs() > 0).any(-1).sum()) > 0
+    torch.testing.assert_close(fb_g, fb_p, rtol=0, atol=0, equal_nan=True)
+    if write_depth:
+        assert torch.equal(d_g, d_p)
+
+
+@pytest.mark.parametrize("mode,depth_test,write_depth", [("premultiply", False, False),
+                                                         ("premultiply", True, False),
+                                                         ("scene", True, True)])
+@pytest.mark.parametrize("kernel", ["quad", "appearance"])
+def test_tile_blend_nan_coverage_matches_plain(cuda, kernel, mode, depth_test, write_depth):
+    """Antialiased lanes whose coverage is NaN: rows with NaN and infinite
+    quad columns, and finite ones past the float range (num_u = inf - inf),
+    straight into tile_blend. JAX's PREMULTIPLY term rgb_s * coverage (and
+    SCENE's premultiply entries', cs = coverage) writes NaN RGB there,
+    depth test or not; the kernel writes the same, NaNs in the same places.
+    Among them, finite rows whose edge lengths and det the fringe cull
+    accepts but whose centre lies past 2^32: a quad whose num_u is inf - inf
+    at every pixel, and (appearance kernel) two triangles whose u and v
+    overflow with opposite signs, so that d3's u + v is NaN."""
+    window, has, ap, texs = _appearance_adversarial_window(cuda, "clamp", mode, depth_test, seed=17)
+    r = np.random.default_rng(17)
+    w = window.cpu().numpy()
+    nt, M, _ = w.shape
+    bad = r.random((nt, M)) < 0.25
+    col = r.integers(0, 6, (nt, M))
+    val = r.choice(np.asarray([np.nan, np.inf, -np.inf, 3e38, -3e38, 1e30], np.float32), (nt, M))
+    w[bad, col[bad]] = val[bad]
+    if mode == "scene":  # premultiply entries among the others
+        w[..., raster.COL_MODE] = r.choice(np.asarray([1, 1, 1, 0, 2, 3, 4, 5], np.float32), (nt, M))
+    # the far rows, in the first three slots of every tile (filled, and
+    # premultiply entries in SCENE)
+    far = np.asarray([[-2.0**69, -2.0**69, 2.0**59, -2.0**59, 2.0**59, 2.0**59],
+                      [-2.0**115, 2.0**115, 2.0**-14, 0.0, 0.0, 2.0**-14],
+                      [0.0, -2.0**40, 2.0**59, 0.0, 2.0**59 + 2.0**36, 2.0**-88]], np.float32)
+    w[:, :3, :6] = far
+    w[:, :3, ap.offset("tri")] = [0.0, 1.0, 1.0]
+    if mode == "scene":
+        w[:, :3, raster.COL_MODE] = 1.0
+    has[:, :3] = True
+    window = torch.from_numpy(w).to(cuda)
+    window, ap, texs = _antialiased_adversarial(window, has, ap, texs, kernel, mode, depth_test)
+    T = 16
+    kw = dict(depth_test=depth_test, write_depth=write_depth, appearance=ap, textures=texs,
+              antialias=True)
+    if depth_test:
+        kw["scene_depth"] = torch.rand((nt, T, T), device=cuda) * 8.0
+    fb0 = torch.rand((nt, T, T, 4), device=cuda)
+    args = (window, has, T, 2, 2, (0.0, 0.0, 0.0, 0.0), mode)
+    got = raster.tile_blend(*args, framebuffer=fb0, **kw)
+    want = raster.tile_blend_plain(*args, framebuffer=fb0, **kw)
+    (fb_g, d_g), (fb_p, d_p) = (got, want) if write_depth else ((got, None), (want, None))
+    assert bool(torch.isnan(fb_p).any())  # the case this test is for
+    torch.testing.assert_close(fb_g, fb_p, rtol=0, atol=0, equal_nan=True)
+    if write_depth:
+        assert torch.equal(d_g, d_p)
+
+
 @pytest.mark.parametrize("mode", ["premultiply", "multiply", "multiply first", "multiply ordered"])
 def test_premultiply_and_multiply_quads_match_plain(cuda, mode):
     """The standalone premultiply and multiply equations (multiply on each
@@ -1617,9 +1709,9 @@ def test_gather_window_at_painter_widths_is_bit_exact(cuda, F, from_start):
     assert torch.equal(got[1], want[1]) and _bits_equal(got[0], want[0])
 
 
-def _painter_window(cuda, layers, antialias=False):
+def _painter_window(cuda, layers, antialias=False, tile_size=16):
     view, proj, draw = _painter_draw(6000, cuda, layers)
-    cfg = raster.RasterConfig(128, 128, tile_slots=0, antialias=antialias)
+    cfg = raster.RasterConfig(128, 128, tile_size=tile_size, tile_slots=0, antialias=antialias)
     ap, inputs = raster.draw_appearance(draw, raster.ROW)
     extra = torch.stack([draw.alpha_cutoff, draw.mode_id.to(torch.float32)], dim=1)
     projected = raster.project_bin(draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color,
@@ -1649,12 +1741,52 @@ def _check_blend(cfg, window, has, mode, depth_test, write_depth, **kw):
         assert torch.equal(d_g, d_p)
 
 
+def _painter_branches(window, has, ap, seed=9):
+    """The binned painter window with its per-entry texture state and modes
+    edited so that every branch of the kernel's per-entry layer terms runs:
+    layer ids out of range, NaN and huge; true sizes non-integer, zero,
+    negative, NaN, past the atlas's extent and past 2^22; map codes 0-3,
+    NaN and others; grids of fractional columns and rows; and SCENE's
+    ADD entries (mode 2) among them. Empty slots stay zero."""
+    r = np.random.default_rng(seed)
+    w = window.cpu().numpy().copy()
+    nt, M, _ = w.shape
+    o = ap.offset("tex")
+
+    def pick(values, p_special=0.35, normal=None):
+        vals = np.asarray(values, np.float32)
+        out = r.choice(vals, (nt, M))
+        return out if normal is None else np.where(r.random((nt, M)) < p_special, out, normal)
+
+    w[..., o] = pick([1.0, 2.0, 3.0, 0.5, 2.5], normal=w[..., o])
+    w[..., o + 1] = pick([1.0, 2.0, 1.5], normal=w[..., o + 1])
+    for layer in range(ap.atlas_layers):
+        e = o + 2 + 4 * layer
+        w[..., e] = pick([-2.0, 0.0, 1.0, 2.0, 3.0, 7.0, np.nan, 1e10], normal=w[..., e])
+        for k in (1, 2):
+            w[..., e + k] = pick([32.0, 24.0, 17.0, 16.5, 0.0, -3.0, np.nan, 40.0, 2.0**23, 1e30,
+                                  0.25], normal=w[..., e + k])
+        w[..., e + 3] = r.choice(np.asarray([0.0, 1.0, 2.0, 3.0, np.nan, 1.5, 4.0, -1.0],
+                                            np.float32), (nt, M))
+    w[..., raster.COL_MODE] = r.choice(np.asarray([0, 1, 2, 2, 2, 3, 4, 5], np.float32), (nt, M))
+    hv = has.cpu().numpy()
+    w = np.where(hv[..., None], w, np.float32(0.0))
+    return torch.from_numpy(w).to(window.device)
+
+
 @pytest.mark.parametrize("antialias", [False, True])
 @pytest.mark.parametrize("layers", [1, 4])
-def test_tile_blend_atlas_variant_matches_plain(cuda, layers, antialias):
+@pytest.mark.parametrize("case", ["binned", "per-entry branches", "32x32 tiles"])
+def test_tile_blend_atlas_variant_matches_plain(cuda, case, layers, antialias):
     """SCENE with the painter's atlas and per-entry Lambert setups, plain
-    and antialiased, exactly."""
-    cfg, ap, texs, window, has = _painter_window(cuda, layers, antialias)
+    and antialiased, exactly: on the binned window (16x16 tiles: the
+    painter's compacted pass where not antialiased), on it with every
+    per-entry branch edited in (:func:`_painter_branches`), and on 32x32
+    tiles (the 1024-thread launch, pairs on their own lanes)."""
+    cfg, ap, texs, window, has = _painter_window(cuda, layers, antialias,
+                                                 32 if case == "32x32 tiles" else 16)
+    if case == "per-entry branches":
+        window = _painter_branches(window, has, ap)
     before = dict(raster.tile_blend.launches_antialias)
     _check_blend(cfg, window, has, "scene", True, True, appearance=ap, textures=texs,
                  antialias=antialias)
