@@ -81,8 +81,10 @@ SIGNATURES = {
                                      _P, _P, _P, _P],
     # (mask, count, payload, out_slot, out_count, out_payload, num_events, scratch, n, W, stream)
     "hanabi_event_compact": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
-    # (mask, count, payload, out_slot, out_count, out_payload, num_events, I, n, W, stream)
-    "hanabi_event_compact_segmented": [_P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _P],
+    # (mask, count, payload, out_slot, out_count, out_payload, num_events, scratch, I, n, W,
+    #  stream)
+    "hanabi_event_compact_segmented": [_P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I,
+                                       _P],
     # () -> lanes a CTA of event_compact scans at once
     "hanabi_event_compact_chunk": [],
     # (position, axis_x, axis_y, color, alive, geom, uv_t, nrm_t, vcol_t, pos_o, ax_o, ay_o,

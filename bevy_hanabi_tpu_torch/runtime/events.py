@@ -152,8 +152,9 @@ def event_compact_plain(mask, count, payload):
 
 @functools.lru_cache(maxsize=None)
 def _chunk_lanes() -> int:
-    """Lanes a CTA of the kernel scans at once: its scratch holds a word
-    for each such chunk (at most one CTA a chunk)."""
+    """Lanes a CTA of either kernel scans at once: the scratch holds a word
+    (``event_compact``) or a pair (``event_compact_segmented``) for each
+    such chunk (at most one CTA a chunk)."""
     return cuda_build.library().hanabi_event_compact_chunk()
 
 
@@ -213,7 +214,18 @@ def event_compact_segmented(mask, count, payload):
     ``payload`` int32 [I, N, W] words. Returns ``(slot int64 [I, N], count
     int64 [I, N], num_events int32 [I], payload int32 [I, N, W])``: each
     row as :func:`event_compact` compacts one array, slots the lane's index
-    in its row."""
+    in its row.
+
+    On the card, one launch over the 512-lane chunks of every row. Rows of
+    at most 8 chunks (N <= 4096): one CTA a chunk and one thread block
+    cluster a row, whose CTAs read each other's chunk counts from shared
+    memory after a cluster barrier. Longer rows: one cooperative launch
+    whose resident grid walks runs of chunks numbered row by row (a run may
+    cross rows, a row may span many CTAs); each CTA publishes its active
+    counts in the first and last row of its run to a scratch pair and,
+    after one grid barrier, reads the pairs of the CTAs that share those
+    rows (not a word a chunk), so the scratch holds one int2 a chunk at
+    most and needs no memset."""
     dev = mask.device
     if mask.dim() != 2:
         raise ValueError(f"mask must be [I, N], got shape {tuple(mask.shape)}")
@@ -230,9 +242,12 @@ def event_compact_segmented(mask, count, payload):
     counts = torch.empty((i, n), dtype=torch.int64, device=dev)
     num_events = torch.empty((i,), dtype=torch.int32, device=dev)
     words = torch.empty((i, n, W), dtype=torch.int32, device=dev)
+    chunks = i * max(1, -(-n // _chunk_lanes()))
+    scratch = torch.empty((max(1, chunks), 2), dtype=torch.int32, device=dev)
     code = cuda_build.library().hanabi_event_compact_segmented(
         mask.data_ptr(), count.data_ptr(), payload.data_ptr(), slot.data_ptr(),
-        counts.data_ptr(), words.data_ptr(), num_events.data_ptr(), i, n, W, _stream(),
+        counts.data_ptr(), words.data_ptr(), num_events.data_ptr(), scratch.data_ptr(), i, n, W,
+        _stream(),
     )
     cuda_build.check(code, "event_compact_segmented")
     event_compact_segmented.launches += 1

@@ -22,9 +22,12 @@ imports JAX. Phases, each of which fails the run on any error:
    (``experiments/tile_blend_variants/appear1.cu``), ``tile_blend`` before
    the redesign of its painter and antialiased code (``appear2.cu`` there)
    and the earlier ``gather_window``
-   (``experiments/gather_window_variants/first.cu``), every nvcc process
-   started together; print the registers and spill bytes of each
-   ``tile_blend`` instantiation, the port's beside appear2's;
+   (``experiments/gather_window_variants/first.cu``) and
+   ``event_compact_segmented`` before its redesign
+   (``experiments/event_compact_variants/segmented1.cu``), every nvcc
+   process started together; print the registers and spill bytes of each
+   ``tile_blend`` instantiation, the port's beside appear2's, and of the
+   segmented compaction, the port's beside segmented1's;
 3. compare each raster kernel with its plain PyTorch version on the card,
    on a real 1M-particle headline frame, and time both: ``project_bin``
    (tiles, depths and depth range equal, rows at max abs err 0),
@@ -336,9 +339,11 @@ imports JAX. Phases, each of which fails the run on any error:
        masks, seeds, counters and every frame's event slots, counts and
        num_events bit-equal, positions and the event payloads within rtol
        1e-2 / atol 1e-3; ``event_compact_segmented`` launched once a frame;
-       then against its plain version, exactly, on the last frame's
-       emissions (64 x 1024, the firework's payload words) and at 256 x
-       4096 (random lanes at the same active share), both timed.
+       then against its plain version and against segmented1 (the kernel
+       before its redesign), exactly, on the last frame's emissions (64 x
+       1024, the firework's payload words), at 256 x 4096 and at 4 x 65 536
+       (random lanes at the same active share), all three timed beside
+       segmented1.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -372,8 +377,8 @@ slices' windows together, and ``event_compact[sharded]`` with the sharded
 tree's) and phase 24's (``tile_blend[<mode>[,depth][,write],mesh,aa]`` for
 the ten new antialiased appearance variants with 0 launches,
 ``tile_blend[add,flipbook,aa]`` with the additive flipbook's launches,
-``event_compact[segmented]`` with the instanced firework's and
-``[segmented,256x4096]`` with 0). Each row holds the
+``event_compact[segmented]`` with the instanced firework's,
+``[segmented,256x4096]`` and ``[segmented,4x65536]`` with 0). Each row holds the
 path's launches, the kernel's and its plain version's device ms, the
 library call's (``index_select`` for the gathers, of the window's rows
 for ``gather_window``, of the appearance rows by the segment order for
@@ -390,7 +395,9 @@ filled entries' rows, and the covered (entry, pixel) pairs' test and
 blend), and ``first_ms``: the first appearance kernel's on the appearance
 rows, appear2's on the painter's SCENE with the atlas and every
 antialiased row (:data:`REDESIGNED_ROWS`, held exact against it too and
-printed beside it on a line before the kernel rows); the ``ribbon_keys``
+printed beside it on a line before the kernel rows); the
+``event_compact[segmented...]`` rows ``first_ms``, segmented1's (printed
+beside them on that line too); the ``ribbon_keys``
 row ``counter_ms`` and ``order_ms`` (each stage)
 and ``sort_counter_ms`` and ``sort_order_ms`` (the stable sort of each
 stage's keys); the ``ribbon_segments`` row ``gather_rows_ms`` (its
@@ -535,6 +542,13 @@ GATHER_WINDOW_VARIANTS = (
      / "first.cu", []),
 )
 FIRST_WINDOW_FLOATS = 12288
+# event_compact_segmented before its redesign (one CTA a segment), built
+# beside the library and timed beside the port's on phase 24c's rows
+# (``first_ms``); its C entry point takes no scratch
+EVENT_COMPACT_VARIANTS = (
+    ("segmented1", Path(__file__).resolve().parent / "experiments" / "event_compact_variants"
+     / "segmented1.cu", []),
+)
 VARIANT_LIBS = {}  # phase 2's variant builds by label
 # compare_tile_blend's arguments on REDESIGNED_ROWS (set in phase 2): appear2
 # as ``first``
@@ -565,6 +579,7 @@ FLIPBOOK_AA = dict(width=256, height=256, tile_span=2, max_entries_per_tile=64, 
 FLIPBOOK_FRAMES = 6
 INSTANCED_FIREWORK = (64, 1024, 60)  # phase 24c: instances, rockets, frames
 SEGMENTED_WIDE = (256, 4096)  # phase 24c's second event_compact_segmented shape
+SEGMENTED_LONG = (4, 65536)  # and its third: a few segments over many CTAs
 
 
 def fail(msg: str) -> None:
@@ -4308,9 +4323,41 @@ def aa_appearance_phase(kernels):
     return results, launches
 
 
+def segmented1_launcher(lib, mask, count, payload):
+    """``event_compact_segmented`` before its redesign (segmented1 of
+    :data:`EVENT_COMPACT_VARIANTS`) through its C entry point, which takes
+    no scratch: ``run()`` returns ``(slot, count, num_events, payload)`` as
+    the port's wrapper does."""
+    import ctypes
+
+    import torch
+
+    from bevy_hanabi_tpu_torch import cuda_build
+
+    fn = lib.hanabi_event_compact_segmented
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_void_p]
+    i, n, W = payload.shape
+    dev = mask.device
+
+    def run():
+        slot = torch.empty((i, n), dtype=torch.int64, device=dev)
+        counts = torch.empty((i, n), dtype=torch.int64, device=dev)
+        num = torch.empty((i,), dtype=torch.int32, device=dev)
+        words = torch.empty((i, n, W), dtype=torch.int32, device=dev)
+        code = fn(mask.data_ptr(), count.data_ptr(), payload.data_ptr(), slot.data_ptr(),
+                  counts.data_ptr(), words.data_ptr(), num.data_ptr(), i, n, W,
+                  cuda_build.current_stream())
+        cuda_build.check(code, "event_compact_segmented (segmented1)")
+        return slot, counts, num, words
+
+    return run
+
+
 def instanced_events_phase(kernels):
     """Phase 24c: an emitting asset's instanced steps, card against CPU,
-    and ``event_compact_segmented`` against its plain version."""
+    and ``event_compact_segmented`` against its plain version and the
+    kernel before its redesign (segmented1)."""
     import numpy as np
     import torch
 
@@ -4378,25 +4425,37 @@ def instanced_events_phase(kernels):
     W = payload.shape[1]
     payload = payload.reshape(i, cap, W).contiguous()
     share = float(active.float().mean())
-    wi, wn = SEGMENTED_WIDE
     gen = torch.Generator(device="cuda").manual_seed(24)
-    wide = (torch.rand((wi, wn), device="cuda", generator=gen) < share,
-            torch.randint(1, 5, (wi, wn), device="cuda", generator=gen),
-            torch.randint(-2**31, 2**31, (wi, wn, W), device="cuda", generator=gen,
-                          dtype=torch.int64).to(torch.int32))
+
+    def seeded(si, sn):
+        """[I, N] lanes at the firework's active share, W random words each."""
+        return (torch.rand((si, sn), device="cuda", generator=gen) < share,
+                torch.randint(1, 5, (si, sn), device="cuda", generator=gen),
+                torch.randint(-2**31, 2**31, (si, sn, W), device="cuda", generator=gen,
+                              dtype=torch.int64).to(torch.int32))
+
     results = {}
     for name, args in (("event_compact[segmented]", (mask, count, payload)),
-                       (f"event_compact[segmented,{wi}x{wn}]", wide)):
+                       ("event_compact[segmented,{}x{}]".format(*SEGMENTED_WIDE),
+                        seeded(*SEGMENTED_WIDE)),
+                       ("event_compact[segmented,{}x{}]".format(*SEGMENTED_LONG),
+                        seeded(*SEGMENTED_LONG))):
+        first = segmented1_launcher(VARIANT_LIBS["segmented1"], *args)
         got = events.event_compact_segmented(*args)
         want = events.event_compact_segmented_plain(*args)
+        got1 = first()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             fail(f"{name}: differs from the plain version")
+        if not all(torch.equal(a, b) for a, b in zip(got1, want)):
+            fail(f"{name}: segmented1 differs from the plain version")
         shape = tuple(args[2].shape)
-        print(f"{name}: [I, N, W] = {list(shape)}, {int(got[2].sum())} active lanes, bit-exact")
+        print(f"{name}: [I, N, W] = {list(shape)}, {int(got[2].sum())} active lanes, bit-exact, "
+              f"segmented1 too")
         results[name] = {
             "max_abs_err": 0.0,
             "ms": cuda_ms(lambda: events.event_compact_segmented(*args), 100),
+            "first_ms": cuda_ms(first, 100),
             "plain_ms": cuda_ms(lambda: events.event_compact_segmented_plain(*args), 20),
             "library_ms": None,
             **bound(nbytes(*args, *got)),
@@ -4448,13 +4507,16 @@ def main() -> int:
     # Phase 2: build the kernels from the checkout's sources, and beside them
     # the variants that phase 13 times, every nvcc process started together.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         ribbon_builds = ex.submit(cuda_build.build_variants, RIBBON_VARIANTS, "ribbon_segments")
         blend_builds = ex.submit(cuda_build.build_variants, TILE_BLEND_VARIANTS, "tile_blend")
         window_builds = ex.submit(cuda_build.build_variants, GATHER_WINDOW_VARIANTS,
                                   "gather_window")
+        compact_builds = ex.submit(cuda_build.build_variants, EVENT_COMPACT_VARIANTS,
+                                   "event_compact")
         lib_path = cuda_build.build()
-        variant_builds = {**ribbon_builds.result(), **blend_builds.result()}
+        variant_builds = {**ribbon_builds.result(), **blend_builds.result(),
+                          **compact_builds.result()}
         window_builds = window_builds.result()
     cuda_build.library()
     print(f"built {lib_path.name} and {len(variant_builds)} variants in "
@@ -4468,6 +4530,7 @@ def main() -> int:
         variants[label] = lib
     first_blend = variants.pop("appear1")
     VARIANT_LIBS["appear2"] = variants.pop("appear2")
+    VARIANT_LIBS["segmented1"] = variants.pop("segmented1")
     REDESIGNED_KW.update(first=VARIANT_LIBS["appear2"])
     # registers and spills of tile_blend's instantiations, the port's beside
     # appear2's: kernel, template arguments (equation, depth test, depth
@@ -4481,6 +4544,13 @@ def main() -> int:
     for key in sorted(regs["port"]):
         print(f"  {key[0]}<{key[1]}>: " + ", ".join(
             "{} ({}/{})".format(*regs[label].get(key, (0, 0, 0))) for label, _ in logs))
+    compact = {label: {k: (n, st, ld) for k, _, n, st, ld in ptxas_kernels(log, "event_compact.cu")}
+               for label, log in (("port", lib_path.with_suffix(".log").read_text()),
+                                  ("segmented1", variant_builds["segmented1"][1]))}
+    print("event_compact registers and spill bytes (stores/loads): port, segmented1")
+    for name in sorted(compact["port"]):
+        print(f"  {name}: " + ", ".join("{} ({}/{})".format(*compact[label].get(name, (0, 0, 0)))
+                                        for label in ("port", "segmented1")))
     for label, (lib, log) in window_builds.items():
         print(f"== gather_window variant {label}\n{log.strip()}")
         if lib is None:
@@ -4742,6 +4812,8 @@ def main() -> int:
              p24_launches["events"]["event_compact_segmented"]),
             ("event_compact[segmented,{}x{}]".format(*SEGMENTED_WIDE), "event_compact_segmented",
              0),
+            ("event_compact[segmented,{}x{}]".format(*SEGMENTED_LONG), "event_compact_segmented",
+             0),
         ]
     )
     kernel_rows = [
@@ -4762,9 +4834,11 @@ def main() -> int:
         print(f"  {r['name']:28s} {r['launches']:6d} {r['ms']:.4f} {r['bound_ms']:.4f} "
               f"({r['bound_by']}) {100.0 * r['share']:.1f}% {r['plain_ms']:.4f} {r['library_ms']}"
               + (f" {r['first_ms']}" if "first_ms" in r else ""))
-    print("redesigned tile_blend rows: ms against appear2's first_ms")
+    print("redesigned rows: ms against the first_ms of appear2 (tile_blend) and segmented1 "
+          "(event_compact_segmented)")
     for r in kernel_rows:
-        if r["name"] in REDESIGNED_ROWS or r["name"].endswith(",mesh,aa]"):
+        if (r["name"] in REDESIGNED_ROWS or r["name"].endswith(",mesh,aa]")
+                or r["name"].startswith("event_compact[segmented")):
             print(f"  {r['name']:36s} {r['ms']:.4f} against {r['first_ms']:.4f} "
                   f"({r['ms'] / r['first_ms']:.3f}x)")
     print(json.dumps({"kernels": kernel_rows}))

@@ -549,10 +549,20 @@ def test_event_compact_one_launch_is_bit_exact(cuda, n, W):
 
 # (I, N, W): one and many segments, N below, at and past a 512-lane chunk and
 # not a multiple of 4 (a segment's mask and count off the wide-load
-# alignment), W staged (<= 20 words) and read from memory (21-24)
+# alignment), W staged (<= 20 words) and read from memory (21-24); clusters
+# of 1-8 CTAs (N <= 4096: 1537, 1100, 2500 and 3500 lanes give 4, 3, 5 and
+# 7); past 4096 lanes the cooperative kernel: a few segments over many CTAs
+# (4 x 65 536), one segment over the whole resident grid with CTAs looping
+# over chunks (1 x 4M), CTA runs crossing segment boundaries (1000 x 5000;
+# at 4999 the segment starts are off the wide-load alignment too), an
+# unstaged payload across CTAs (2 x 65 536 x 21); 3000 x 700 and 701 in
+# clusters of 2
 @pytest.mark.parametrize("i,n,W", [(1, 0, 3), (2, 1, 0), (3, 1023, 13), (64, 1024, 3),
                                    (256, 4096, 13), (4096, 1024, 24), (1, 65536, 21),
-                                   (5, 513, 22)])
+                                   (5, 513, 22), (4, 65536, 8), (1, 4_194_304, 3),
+                                   (3000, 700, 8), (3000, 701, 8), (2, 65536, 21),
+                                   (7, 1537, 8), (9, 1100, 22), (5, 2500, 13), (2, 3500, 8),
+                                   (1000, 5000, 8), (1000, 4999, 3)])
 def test_event_compact_segmented_is_bit_exact(cuda, i, n, W):
     """One launch for all I segments, equal to the plain version's rows
     (segment 0 all inactive, segment 1 all active)."""

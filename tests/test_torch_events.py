@@ -118,11 +118,12 @@ def _segments(i, n, seed, w=0):
 
 
 @pytest.mark.parametrize("i,n,w", [(1, 1000, 3), (2, 512, 0), (5, 513, 13), (3, 1536, 24),
-                                   (16, 100, 5)])
+                                   (16, 100, 5), (4, 65536, 8), (7, 1537, 8)])
 def test_event_compact_segmented_plain_equals_vmapped_build(i, n, w):
     """Each row compacted as jax.vmap(build_event_buffer) compacts it, bit
-    for bit: N at, above and below 512-lane chunks, W from 0 to 24 words,
-    an all-inactive and an all-active segment."""
+    for bit: N at, above and below 512-lane chunks, segments over many
+    chunks and not a multiple of 512, W from 0 to 24 words, an
+    all-inactive and an all-active segment."""
     mask, count, words = _segments(i, n, 10 + i, w)
     attrs = {"words": jnp.asarray(words)} if w else {}
     buf_j = jax.vmap(ej.build_event_buffer)(jnp.asarray(mask), jnp.asarray(count), attrs)
