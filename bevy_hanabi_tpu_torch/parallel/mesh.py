@@ -31,6 +31,7 @@ from ..runtime.effect import StepInputs, Shard
 from ..runtime.events import build_event_buffer
 from ..runtime.instanced import InstancedEffect, stacked_pools
 from ..runtime.pool import ParticlePool, ShardedPool
+from ..utils.profiling import profile_span
 
 __all__ = ["Mesh", "make_mesh", "ShardedEffect"]
 
@@ -151,29 +152,31 @@ class ShardedEffect(InstancedEffect):
         instances' whole pools (:class:`~..runtime.effect.Shard`). Returns
         ``(pools, events_out)``: an emitting asset's buffers, each field
         with a leading [I] axis, on the effect's device, each instance's
-        events compacted over its whole lanes (:meth:`_events`)."""
+        events compacted over its whole lanes (:meth:`_events`). The frame
+        is one ``hanabi:step`` span."""
         il, nl = self._local_instances, self._local_capacity
-        dead = [[torch.sum(~p.alive, dim=-1, dtype=torch.int32) for p in row]
-                for row in pools.shards]
-        emitted = [[None] * len(row) for row in pools.shards]
-        for d, row in enumerate(pools.shards):
-            lo, hi = d * il, (d + 1) * il
-            ins = StepInputs(
-                _rows(inputs.spawn_count, lo, hi),
-                _rows(inputs.frame_seed, lo, hi),
-                _rows(inputs.transform, lo, hi),
-                {k: _rows(v, lo, hi) for k, v in inputs.properties.items()},
-            )
-            for s, p in enumerate(row):
-                dev = p.device
-                counts = [c.to(dev) for c in dead[d]]
-                base = (torch.stack(counts[:s]).sum(dim=0, dtype=torch.int32) if s
-                        else torch.zeros((il,), dtype=torch.int32, device=dev))
-                total = torch.stack(counts).sum(dim=0, dtype=torch.int32)
-                row[s], emitted[d][s] = InstancedEffect._step(
-                    self, p, ins, sim, checks, shard=Shard(base, total, s * nl, self.capacity),
-                    emissions=True)
-        return pools, self._events(emitted)
+        with profile_span("hanabi:step"):
+            dead = [[torch.sum(~p.alive, dim=-1, dtype=torch.int32) for p in row]
+                    for row in pools.shards]
+            emitted = [[None] * len(row) for row in pools.shards]
+            for d, row in enumerate(pools.shards):
+                lo, hi = d * il, (d + 1) * il
+                ins = StepInputs(
+                    _rows(inputs.spawn_count, lo, hi),
+                    _rows(inputs.frame_seed, lo, hi),
+                    _rows(inputs.transform, lo, hi),
+                    {k: _rows(v, lo, hi) for k, v in inputs.properties.items()},
+                )
+                for s, p in enumerate(row):
+                    dev = p.device
+                    counts = [c.to(dev) for c in dead[d]]
+                    base = (torch.stack(counts[:s]).sum(dim=0, dtype=torch.int32) if s
+                            else torch.zeros((il,), dtype=torch.int32, device=dev))
+                    total = torch.stack(counts).sum(dim=0, dtype=torch.int32)
+                    row[s], emitted[d][s] = InstancedEffect._step(
+                        self, p, ins, sim, checks,
+                        shard=Shard(base, total, s * nl, self.capacity), emissions=True)
+            return pools, self._events(emitted)
 
     def _events(self, emitted) -> dict:
         """Each channel's buffer from the shards' emissions: shard [d][s]'s

@@ -26,6 +26,7 @@ from ..asset import EffectAsset, SimulationSpace
 from ..compiler import RenderContext, SimParams
 from ..ops.linalg import affine3, mat4_mul, mvp_w, rotate3
 from ..runtime.pool import ParticlePool
+from ..utils.profiling import profile_span
 from .camera import CameraParams
 
 __all__ = [
@@ -114,146 +115,147 @@ def extract_draw_data(
     computes what the JAX package's extraction vmapped over the instances
     computes (instanced.py:236-258), ``PARTICLE_INDEX`` the lane's index in
     its instance."""
-    n = pool.alive.shape[-1]
-    dev = pool.device
-    particle = dict(pool.attrs)
-    # LOCAL-space effects run the whole vertex stage in emitter space, like
-    # the reference (vfx_render.wgsl:60-90, 117-124): the camera goes INTO
-    # effect space for the orient modes, the modifiers compute axes there,
-    # and the expanded frame goes back to world at the end (extract.py:213-240).
-    is_local = asset.simulation_space is SimulationSpace.LOCAL and transform is not None
-    ctx_camera = camera
-    if is_local:
-        tf = torch.as_tensor(transform, dtype=torch.float32)
-        m4 = torch.cat([tf.cpu(), torch.tensor([[0.0, 0.0, 0.0, 1.0]])], dim=0)
-        # view_local = world->view . local->world: every derived camera
-        # quantity (rotation, position, up) lands in effect space
-        ctx_camera = CameraParams(
-            view=mat4_mul(torch.as_tensor(camera.view, dtype=torch.float32), m4),
-            proj=camera.proj,
-            viewport=camera.viewport,
-        )
-        tf = tf.to(dev)
-    particle_index = torch.arange(n, dtype=torch.int64, device=dev)
-    if instances:
-        particle_index = particle_index % (n // instances)
+    with profile_span("hanabi:extract"):
+        n = pool.alive.shape[-1]
+        dev = pool.device
+        particle = dict(pool.attrs)
+        # LOCAL-space effects run the whole vertex stage in emitter space, like
+        # the reference (vfx_render.wgsl:60-90, 117-124): the camera goes INTO
+        # effect space for the orient modes, the modifiers compute axes there,
+        # and the expanded frame goes back to world at the end (extract.py:213-240).
+        is_local = asset.simulation_space is SimulationSpace.LOCAL and transform is not None
+        ctx_camera = camera
+        if is_local:
+            tf = torch.as_tensor(transform, dtype=torch.float32)
+            m4 = torch.cat([tf.cpu(), torch.tensor([[0.0, 0.0, 0.0, 1.0]])], dim=0)
+            # view_local = world->view . local->world: every derived camera
+            # quantity (rotation, position, up) lands in effect space
+            ctx_camera = CameraParams(
+                view=mat4_mul(torch.as_tensor(camera.view, dtype=torch.float32), m4),
+                proj=camera.proj,
+                viewport=camera.viewport,
+            )
+            tf = tf.to(dev)
+        particle_index = torch.arange(n, dtype=torch.int64, device=dev)
+        if instances:
+            particle_index = particle_index % (n // instances)
 
-    ctx = RenderContext(
-        asset.module,
-        particle,
-        pool.seed,
-        sim=sim if sim is not None else SimParams(),
-        properties=properties or {},
-        particle_index=particle_index,
-        alive=pool.alive,
-        camera=ctx_camera,
-        alpha_cutoff=0.0,
-        textures=list(textures or []),
-        lane_properties=bool(instances),
-    )
-
-    # ---- defaults (lib.rs:867-951) ----
-    if "color" in particle:
-        packed = particle["color"]
-        ctx.color = torch.stack(
-            [((packed >> (8 * i)) & 0xFF).to(torch.float32) / 255.0 for i in range(4)],
-            dim=-1,
-        )
-    elif "hdr_color" in particle:
-        ctx.color = particle["hdr_color"]
-    else:
-        ctx.color = torch.ones((n, 4), dtype=torch.float32, device=dev)
-    if "alpha" in particle:
-        ctx.color = torch.cat(
-            [ctx.color[:, :3], (ctx.color[:, 3] * particle["alpha"])[:, None]], dim=1
+        ctx = RenderContext(
+            asset.module,
+            particle,
+            pool.seed,
+            sim=sim if sim is not None else SimParams(),
+            properties=properties or {},
+            particle_index=particle_index,
+            alive=pool.alive,
+            camera=ctx_camera,
+            alpha_cutoff=0.0,
+            textures=list(textures or []),
+            lane_properties=bool(instances),
         )
 
-    # The FIRST size attribute in layout order wins (lib.rs:876-905).
-    size = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    size_attrs = [
-        a.name
-        for a in asset.particle_layout().attributes()
-        if a.name in ("size", "size2", "size3")
-    ]
-    if size_attrs:
-        first = size_attrs[0]
-        if first == "size":
-            size = size * particle["size"][:, None]
-        elif first == "size2":
-            size = torch.cat([size[:, :2] * particle["size2"], size[:, 2:]], dim=1)
+        # ---- defaults (lib.rs:867-951) ----
+        if "color" in particle:
+            packed = particle["color"]
+            ctx.color = torch.stack(
+                [((packed >> (8 * i)) & 0xFF).to(torch.float32) / 255.0 for i in range(4)],
+                dim=-1,
+            )
+        elif "hdr_color" in particle:
+            ctx.color = particle["hdr_color"]
         else:
-            size = particle["size3"].expand(n, 3)
-    ctx.size = size
+            ctx.color = torch.ones((n, 4), dtype=torch.float32, device=dev)
+        if "alpha" in particle:
+            ctx.color = torch.cat(
+                [ctx.color[:, :3], (ctx.color[:, 3] * particle["alpha"])[:, None]], dim=1
+            )
 
-    rot = ctx_camera.rotation.to(dev)
-    ctx.axis_x = rot[:, 0].expand(n, 3)
-    ctx.axis_y = rot[:, 1].expand(n, 3)
-    ctx.axis_z = rot[:, 2].expand(n, 3)
+        # The FIRST size attribute in layout order wins (lib.rs:876-905).
+        size = torch.ones((n, 3), dtype=torch.float32, device=dev)
+        size_attrs = [
+            a.name
+            for a in asset.particle_layout().attributes()
+            if a.name in ("size", "size2", "size3")
+        ]
+        if size_attrs:
+            first = size_attrs[0]
+            if first == "size":
+                size = size * particle["size"][:, None]
+            elif first == "size2":
+                size = torch.cat([size[:, :2] * particle["size2"], size[:, 2:]], dim=1)
+            else:
+                size = particle["size3"].expand(n, 3)
+        ctx.size = size
 
-    # ---- alpha-mask cutoff, per particle (extract.py:307-318) ----
-    alpha_cutoff = None
-    cutoff_handle = asset.alpha_mode.mask_cutoff
-    if cutoff_handle is not None:
-        alpha_cutoff = ctx.eval(cutoff_handle).to(torch.float32).expand(n).contiguous()
-        ctx.alpha_cutoff = alpha_cutoff
+        rot = ctx_camera.rotation.to(dev)
+        ctx.axis_x = rot[:, 0].expand(n, 3)
+        ctx.axis_y = rot[:, 1].expand(n, 3)
+        ctx.axis_z = rot[:, 2].expand(n, 3)
 
-    # ---- render modifiers ----
-    ctx.mesh_has_normals = (
-        asset.mesh is not None
-        and getattr(asset.mesh, "normals", None) is not None
-        and asset.mesh.num_triangles > 0
-    )
-    for m in asset.render_modifiers:
-        m.apply_render(asset.module, ctx)
+        # ---- alpha-mask cutoff, per particle (extract.py:307-318) ----
+        alpha_cutoff = None
+        cutoff_handle = asset.alpha_mode.mask_cutoff
+        if cutoff_handle is not None:
+            alpha_cutoff = ctx.eval(cutoff_handle).to(torch.float32).expand(n).contiguous()
+            ctx.alpha_cutoff = alpha_cutoff
 
-    position = ctx.particle.get("position")
-    if position is None:
-        position = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    if is_local:
-        # the whole particle frame to world: position affine, axes through
-        # the 3x3 (scale included, vfx_render.wgsl:293-295), broadcast math
-        rot3 = tf[:, :3]
-        position = affine3(position, rot3, tf[:, 3])
-        ctx.axis_x = rotate3(ctx.axis_x, rot3)
-        ctx.axis_y = rotate3(ctx.axis_y, rot3)
-        ctx.axis_z = rotate3(ctx.axis_z, rot3)
+        # ---- render modifiers ----
+        ctx.mesh_has_normals = (
+            asset.mesh is not None
+            and getattr(asset.mesh, "normals", None) is not None
+            and asset.mesh.num_triangles > 0
+        )
+        for m in asset.render_modifiers:
+            m.apply_render(asset.module, ctx)
 
-    # ---- screen-space size (output.rs:838-862) ----
-    sz = ctx.size
-    if ctx.screen_space_size:
-        mvp = mat4_mul(torch.as_tensor(camera.proj), torch.as_tensor(camera.view))
-        w_cs = mvp_w(mvp.to(dev), position)
-        wpx, hpx = camera.viewport
-        ps = camera.proj_scale
-        denom = float(torch.minimum(wpx * ps[0], hpx * ps[1]))
-        sz = sz * (w_cs[:, None] * 2.0) / denom
+        position = ctx.particle.get("position")
+        if position is None:
+            position = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        if is_local:
+            # the whole particle frame to world: position affine, axes through
+            # the 3x3 (scale included, vfx_render.wgsl:293-295), broadcast math
+            rot3 = tf[:, :3]
+            position = affine3(position, rot3, tf[:, 3])
+            ctx.axis_x = rotate3(ctx.axis_x, rot3)
+            ctx.axis_y = rotate3(ctx.axis_y, rot3)
+            ctx.axis_z = rotate3(ctx.axis_z, rot3)
 
-    # None (not zeros) when no RoundModifier ran: the rasterizer then reads
-    # no roundness column and runs no squircle pow()
-    roundness = ctx.roundness
-    if roundness is not None:
-        roundness = torch.as_tensor(roundness, dtype=torch.float32, device=dev).expand(n).contiguous()
-    sprite_index = particle.get("sprite_index")
-    if sprite_index is not None:
-        sprite_index = sprite_index.to(torch.int32)
+        # ---- screen-space size (output.rs:838-862) ----
+        sz = ctx.size
+        if ctx.screen_space_size:
+            mvp = mat4_mul(torch.as_tensor(camera.proj), torch.as_tensor(camera.view))
+            w_cs = mvp_w(mvp.to(dev), position)
+            wpx, hpx = camera.viewport
+            ps = camera.proj_scale
+            denom = float(torch.minimum(wpx * ps[0], hpx * ps[1]))
+            sz = sz * (w_cs[:, None] * 2.0) / denom
 
-    return ParticleDrawData(
-        position=position,
-        axis_x=ctx.axis_x * sz[:, 0:1],
-        axis_y=ctx.axis_y * sz[:, 1:2],
-        color=ctx.color,
-        alive=pool.alive,
-        roundness=roundness,
-        sprite_index=sprite_index,
-        sprite_grid_size=ctx.sprite_grid_size or (1, 1),
-        texture_layers=tuple(ctx.texture_layers),
-        needs_uv=ctx.needs_uv,
-        alpha_cutoff=alpha_cutoff,
-        ribbon_id=particle.get("ribbon_id"),
-        age=particle.get("age"),
-        counter=particle.get("particle_counter"),
-        lighting=ctx.mesh_lighting,
-    )
+        # None (not zeros) when no RoundModifier ran: the rasterizer then reads
+        # no roundness column and runs no squircle pow()
+        roundness = ctx.roundness
+        if roundness is not None:
+            roundness = torch.as_tensor(roundness, dtype=torch.float32, device=dev).expand(n).contiguous()
+        sprite_index = particle.get("sprite_index")
+        if sprite_index is not None:
+            sprite_index = sprite_index.to(torch.int32)
+
+        return ParticleDrawData(
+            position=position,
+            axis_x=ctx.axis_x * sz[:, 0:1],
+            axis_y=ctx.axis_y * sz[:, 1:2],
+            color=ctx.color,
+            alive=pool.alive,
+            roundness=roundness,
+            sprite_index=sprite_index,
+            sprite_grid_size=ctx.sprite_grid_size or (1, 1),
+            texture_layers=tuple(ctx.texture_layers),
+            needs_uv=ctx.needs_uv,
+            alpha_cutoff=alpha_cutoff,
+            ribbon_id=particle.get("ribbon_id"),
+            age=particle.get("age"),
+            counter=particle.get("particle_counter"),
+            lighting=ctx.mesh_lighting,
+        )
 
 
 def flatten_instance_axis(tree):
@@ -296,6 +298,11 @@ def concat_draws(draws) -> ParticleDrawData:
     concatenated into one draw set (the scene's batch pass,
     scene.py:2605-2636; no texture, mesh or mask effect is ever batched).
     The painter columns are :func:`concat_painter_draws`'."""
+    with profile_span("hanabi:extract"):
+        return _concat_quads(draws)
+
+
+def _concat_quads(draws) -> ParticleDrawData:
     return ParticleDrawData(
         **{f: torch.cat([getattr(d, f) for d in draws])
            for f in ("position", "axis_x", "axis_y", "color", "alive")},
@@ -408,42 +415,43 @@ def concat_painter_draws(draws, kinds, textures_per_draw=None) -> ParticleDrawDa
     with ``draws``, each effect's textures by slot; a textured mesh's
     vertex UVs ride ``uv_abc``, NaN on quads and on meshes without UVs,
     which keep the quad parameterisation."""
-    cutoff = torch.cat(
-        [
-            d.alpha_cutoff
-            if d.alpha_cutoff is not None
-            else torch.zeros(d.alive.shape, dtype=torch.float32, device=d.alive.device)
-            for d in draws
-        ]
-    )
-    mode_id = torch.cat(
-        [
-            torch.full(d.alive.shape, PAINTER_MODE_IDS[k], dtype=torch.int32, device=d.alive.device)
-            for d, k in zip(draws, kinds)
-        ]
-    )
-    lighting, nrm_abc, light_entry = _merge_lighting(draws)
-    atlas = tex_entry = uv_abc = sprite = None
-    if any(d.texture_layers for d in draws):
-        atlas, tex_entry = _merge_textures(draws, textures_per_draw)
-        uv_abc = _cat_or(draws, "uv_abc", float("nan"), width=6)
-    if any(d.sprite_index is not None for d in draws):
-        sprite = torch.cat([
-            d.sprite_index if d.sprite_index is not None
-            else torch.zeros(d.alive.shape, dtype=torch.int32, device=d.alive.device)
-            for d in draws
-        ])
-    return dataclasses.replace(
-        concat_draws(draws),
-        sprite_index=sprite,
-        alpha_cutoff=cutoff,
-        mode_id=mode_id,
-        tri=_cat_or(draws, "tri", 0.0),
-        uv_abc=uv_abc,
-        nrm_abc=nrm_abc,
-        vcol_abc=_cat_or(draws, "vcol_abc", 1.0, width=12),
-        lighting=lighting,
-        light_entry=light_entry,
-        atlas=atlas,
-        tex_entry=tex_entry,
-    )
+    with profile_span("hanabi:extract"):
+        cutoff = torch.cat(
+            [
+                d.alpha_cutoff
+                if d.alpha_cutoff is not None
+                else torch.zeros(d.alive.shape, dtype=torch.float32, device=d.alive.device)
+                for d in draws
+            ]
+        )
+        mode_id = torch.cat(
+            [
+                torch.full(d.alive.shape, PAINTER_MODE_IDS[k], dtype=torch.int32, device=d.alive.device)
+                for d, k in zip(draws, kinds)
+            ]
+        )
+        lighting, nrm_abc, light_entry = _merge_lighting(draws)
+        atlas = tex_entry = uv_abc = sprite = None
+        if any(d.texture_layers for d in draws):
+            atlas, tex_entry = _merge_textures(draws, textures_per_draw)
+            uv_abc = _cat_or(draws, "uv_abc", float("nan"), width=6)
+        if any(d.sprite_index is not None for d in draws):
+            sprite = torch.cat([
+                d.sprite_index if d.sprite_index is not None
+                else torch.zeros(d.alive.shape, dtype=torch.int32, device=d.alive.device)
+                for d in draws
+            ])
+        return dataclasses.replace(
+            _concat_quads(draws),
+            sprite_index=sprite,
+            alpha_cutoff=cutoff,
+            mode_id=mode_id,
+            tri=_cat_or(draws, "tri", 0.0),
+            uv_abc=uv_abc,
+            nrm_abc=nrm_abc,
+            vcol_abc=_cat_or(draws, "vcol_abc", 1.0, width=12),
+            lighting=lighting,
+            light_entry=light_entry,
+            atlas=atlas,
+            tex_entry=tex_entry,
+        )

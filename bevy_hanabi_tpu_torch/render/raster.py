@@ -60,6 +60,7 @@ from ..cuda_build import check_tensor as _check
 from ..cuda_build import current_stream as _stream
 from ..ops.gather import gather_window, window_index
 from ..ops.linalg import mat4_mul, sqrt_f32
+from ..utils.profiling import profile_span
 from .camera import CameraParams
 from .extract import ParticleDrawData
 
@@ -1176,23 +1177,24 @@ def sort_tiles(tile: torch.Tensor, depth: torch.Tensor, nt: int, mode=None, dept
     stable sort, or int32 decoded from the key; entry ``e`` is particle
     ``e mod N`` of :func:`project_bin`'s slot-major entries), ``starts
     [nt], ends [nt])``."""
-    n = tile.shape[0]
-    tile_shift, q_bits, idx_bits, _ = _key_layout(n, nt, mode)
-    if depth_range is None and q_bits:
-        if tile.is_cuda:
-            raise ValueError("sort_tiles: CUDA entries need project_bin's depth_range")
-        depth_range = depth_range_plain(depth)
-    key = bin_keys(tile, depth, depth_range, nt, mode)
-    if idx_bits:
-        key_sorted = torch.sort(key).values  # unique keys: the order is fixed
-        pidx_sorted = key_sorted & ((1 << idx_bits) - 1)  # the entry index
-    else:
-        # Stable, unlike lax.sort: equal (tile | depth) keys may blend in
-        # another order than the JAX package's, which the checksum
-        # tolerance absorbs.
-        key_sorted, pidx_sorted = torch.sort(key, stable=True)
-    r = torch.searchsorted(key_sorted, _tile_bounds(nt, tile_shift, tile.device))
-    return pidx_sorted, r[:-1], r[1:]
+    with profile_span("hanabi:sort"):
+        n = tile.shape[0]
+        tile_shift, q_bits, idx_bits, _ = _key_layout(n, nt, mode)
+        if depth_range is None and q_bits:
+            if tile.is_cuda:
+                raise ValueError("sort_tiles: CUDA entries need project_bin's depth_range")
+            depth_range = depth_range_plain(depth)
+        key = bin_keys(tile, depth, depth_range, nt, mode)
+        if idx_bits:
+            key_sorted = torch.sort(key).values  # unique keys: the order is fixed
+            pidx_sorted = key_sorted & ((1 << idx_bits) - 1)  # the entry index
+        else:
+            # Stable, unlike lax.sort: equal (tile | depth) keys may blend in
+            # another order than the JAX package's, which the checksum
+            # tolerance absorbs.
+            key_sorted, pidx_sorted = torch.sort(key, stable=True)
+        r = torch.searchsorted(key_sorted, _tile_bounds(nt, tile_shift, tile.device))
+        return pidx_sorted, r[:-1], r[1:]
 
 
 def untile(fb: torch.Tensor, config: RasterConfig) -> torch.Tensor:
@@ -1249,71 +1251,72 @@ def rasterize(
     as the sharded renderer's slice mode draws one slice a shard
     (raster.py:188-201).
     """
-    if alpha_mode not in BLEND_MODES:
-        raise ValueError(f"unknown alpha mode {alpha_mode!r}")
-    painter = alpha_mode == "scene"
-    if painter and draw.mode_id is None:
-        raise ValueError(
-            'alpha_mode="scene" needs per-entry blend modes: populate draw.mode_id '
-            "(0=blend 1=premultiply 2=add 3=multiply 4=opaque 5=mask)"
-        )
-    if return_depth and alpha_mode not in ("opaque", "mask", "scene"):
-        raise ValueError(
-            "return_depth requires an opaque or mask alpha mode (transparent modes are "
-            "read-only depth clients, like the reference's Transparent3d phase)"
-        )
-    # the painter pass always threads a depth plane: its opaque and mask
-    # entries write depth mid-loop for the transparent entries after them
-    depth_test = scene_depth is not None or return_depth or painter
-    write_depth = return_depth or painter
+    with profile_span("hanabi:raster"):
+        if alpha_mode not in BLEND_MODES:
+            raise ValueError(f"unknown alpha mode {alpha_mode!r}")
+        painter = alpha_mode == "scene"
+        if painter and draw.mode_id is None:
+            raise ValueError(
+                'alpha_mode="scene" needs per-entry blend modes: populate draw.mode_id '
+                "(0=blend 1=premultiply 2=add 3=multiply 4=opaque 5=mask)"
+            )
+        if return_depth and alpha_mode not in ("opaque", "mask", "scene"):
+            raise ValueError(
+                "return_depth requires an opaque or mask alpha mode (transparent modes are "
+                "read-only depth clients, like the reference's Transparent3d phase)"
+            )
+        # the painter pass always threads a depth plane: its opaque and mask
+        # entries write depth mid-loop for the transparent entries after them
+        depth_test = scene_depth is not None or return_depth or painter
+        write_depth = return_depth or painter
 
-    T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
-    n = draw.position.shape[0]
-    dev = draw.position.device
-    extra = None
-    if alpha_mode in ("mask", "scene"):
-        cutoff = draw.alpha_cutoff
-        if cutoff is None:
-            cutoff = torch.full((n,), float(alpha_cutoff), dtype=torch.float32, device=dev)
-        mode_col = (
-            draw.mode_id.to(torch.float32)
-            if painter
-            else torch.zeros((n,), dtype=torch.float32, device=dev)
+        T, ntx, nty, nt = config.tile_size, config.tiles_x, config.tiles_y, config.num_tiles
+        n = draw.position.shape[0]
+        dev = draw.position.device
+        extra = None
+        if alpha_mode in ("mask", "scene"):
+            cutoff = draw.alpha_cutoff
+            if cutoff is None:
+                cutoff = torch.full((n,), float(alpha_cutoff), dtype=torch.float32, device=dev)
+            mode_col = (
+                draw.mode_id.to(torch.float32)
+                if painter
+                else torch.zeros((n,), dtype=torch.float32, device=dev)
+            )
+            extra = torch.stack([cutoff.to(torch.float32), mode_col], dim=1)
+        row = row_width(alpha_mode, depth_test)
+        appearance, columns = draw_appearance(draw, row)
+        texs = ()
+        if appearance is not None and appearance.atlas_layers:
+            texs = (texture_tensor(draw.atlas, dev),)
+        if appearance is not None and appearance.layers:
+            for slot, _ in appearance.layers:
+                if slot >= len(textures):
+                    raise ValueError(
+                        f"texture slot {slot} is referenced by a ParticleTextureModifier but only "
+                        f"{len(textures)} texture(s) were provided — pass textures=[...] when "
+                        "creating the renderer / adding the effect"
+                    )
+            texs = [texture_tensor(t, dev) for t in textures]
+        tile_ids, depth, rows, depth_range = project_bin(
+            draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(),
+            camera.view, camera.proj, camera.viewport, T, ntx, nty,
+            raster_size=(config.width, config.height), extra=extra, row=row,
+            tile_slots=config.tile_slots, tile_span=config.tile_span, appearance=columns,
+            y_offset=0.0 if y_offset is None else float(y_offset),
         )
-        extra = torch.stack([cutoff.to(torch.float32), mode_col], dim=1)
-    row = row_width(alpha_mode, depth_test)
-    appearance, columns = draw_appearance(draw, row)
-    texs = ()
-    if appearance is not None and appearance.atlas_layers:
-        texs = (texture_tensor(draw.atlas, dev),)
-    if appearance is not None and appearance.layers:
-        for slot, _ in appearance.layers:
-            if slot >= len(textures):
-                raise ValueError(
-                    f"texture slot {slot} is referenced by a ParticleTextureModifier but only "
-                    f"{len(textures)} texture(s) were provided — pass textures=[...] when "
-                    "creating the renderer / adding the effect"
-                )
-        texs = [texture_tensor(t, dev) for t in textures]
-    tile_ids, depth, rows, depth_range = project_bin(
-        draw.position, draw.axis_x, draw.axis_y, draw.alive, draw.color.contiguous(),
-        camera.view, camera.proj, camera.viewport, T, ntx, nty,
-        raster_size=(config.width, config.height), extra=extra, row=row,
-        tile_slots=config.tile_slots, tile_span=config.tile_span, appearance=columns,
-        y_offset=0.0 if y_offset is None else float(y_offset),
-    )
-    mode = fast_mode(config, alpha_mode, tile_ids.shape[0])
-    pidx_sorted, starts, ends = sort_tiles(tile_ids, depth, nt, mode, depth_range)
-    M = config.max_entries_per_tile
-    window, has = gather_window(rows, pidx_sorted, starts, ends, M, from_start=mode is not None)
-    out = tile_blend(
-        window, has, T, ntx, nty, config.background, alpha_mode,
-        framebuffer=None if framebuffer is None else to_tiles(framebuffer, config, 0.0).to(dev),
-        scene_depth=None if scene_depth is None else to_tiles(scene_depth, config, torch.inf).to(dev),
-        depth_test=depth_test, write_depth=write_depth, appearance=appearance, textures=texs,
-        antialias=config.antialias,
-    )
-    fb, dbuf = out if write_depth else (out, None)
-    if return_depth:
-        return untile(fb, config), untile(dbuf, config)
-    return untile(fb, config)
+        mode = fast_mode(config, alpha_mode, tile_ids.shape[0])
+        pidx_sorted, starts, ends = sort_tiles(tile_ids, depth, nt, mode, depth_range)
+        M = config.max_entries_per_tile
+        window, has = gather_window(rows, pidx_sorted, starts, ends, M, from_start=mode is not None)
+        out = tile_blend(
+            window, has, T, ntx, nty, config.background, alpha_mode,
+            framebuffer=None if framebuffer is None else to_tiles(framebuffer, config, 0.0).to(dev),
+            scene_depth=None if scene_depth is None else to_tiles(scene_depth, config, torch.inf).to(dev),
+            depth_test=depth_test, write_depth=write_depth, appearance=appearance, textures=texs,
+            antialias=config.antialias,
+        )
+        fb, dbuf = out if write_depth else (out, None)
+        if return_depth:
+            return untile(fb, config), untile(dbuf, config)
+        return untile(fb, config)

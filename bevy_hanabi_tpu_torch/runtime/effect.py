@@ -44,6 +44,7 @@ from ..compiler import InitContext, SimParams, UpdateContext
 from ..ops import rng
 from ..ops.compaction import exclusive_rank
 from ..ops.linalg import affine3, rotate3
+from ..utils.profiling import profile_span
 from .events import EventBuffer, build_event_buffer, channel_emissions, consume_events
 from .pool import ParticlePool, ShardedPool, gathered, to_device
 
@@ -337,8 +338,9 @@ class CompiledEffect:
         [K] axis. Only for effects without event channels (events need the
         family chunk, :meth:`make_family_chunk_step`)."""
         self._refuse_events("step_chunk")
-        for inputs, sim in _unstack(inputs_stacked, sims_stacked):
-            pool, _ = self._step(pool, inputs, sim, None, None)
+        with profile_span("hanabi:chunk"):
+            for inputs, sim in _unstack(inputs_stacked, sims_stacked):
+                pool, _ = self._step(pool, inputs, sim, None, None)
         return pool
 
     def step_chunk_checked(self, pool: ParticlePool, inputs_stacked: StepInputs, sims_stacked):
@@ -378,30 +380,32 @@ class CompiledEffect:
         from ..render.ribbon import build_ribbon_segments
 
         self._refuse_events("step_render_chunk")
-        alpha_mode = self.asset.alpha_mode.kind
-        mesh = self.asset.mesh
-        textures = [texture_tensor(t, self.device) for t in textures]
-        ribbons = self.layout.contains("ribbon_id")
-        img = torch.zeros((config.height, config.width, 4), dtype=torch.float32, device=self.device)
-        sums = []
-        for inputs, sim in _unstack(inputs_stacked, sims_stacked):
-            pool, _ = self._step(pool, inputs, sim, None, None)
-            draw = extract_draw_data(
-                self.asset,
-                gathered(pool, self.device),
-                camera,
-                sim=sim,
-                properties=inputs.properties,
-                textures=list(textures),
-                transform=inputs.transform,
-            )
-            if ribbons:
-                draw = build_ribbon_segments(draw, camera)
-            elif mesh is not None:
-                draw = expand_mesh_draw(draw, mesh)
-            img = rasterize(draw, camera, config, alpha_mode=alpha_mode, textures=textures)
-            sums.append(img.sum())
-        return pool, img, torch.stack(sums)
+        with profile_span("hanabi:chunk"):
+            alpha_mode = self.asset.alpha_mode.kind
+            mesh = self.asset.mesh
+            textures = [texture_tensor(t, self.device) for t in textures]
+            ribbons = self.layout.contains("ribbon_id")
+            img = torch.zeros((config.height, config.width, 4), dtype=torch.float32,
+                              device=self.device)
+            sums = []
+            for inputs, sim in _unstack(inputs_stacked, sims_stacked):
+                pool, _ = self._step(pool, inputs, sim, None, None)
+                draw = extract_draw_data(
+                    self.asset,
+                    gathered(pool, self.device),
+                    camera,
+                    sim=sim,
+                    properties=inputs.properties,
+                    textures=list(textures),
+                    transform=inputs.transform,
+                )
+                if ribbons:
+                    draw = build_ribbon_segments(draw, camera)
+                elif mesh is not None:
+                    draw = expand_mesh_draw(draw, mesh)
+                img = rasterize(draw, camera, config, alpha_mode=alpha_mode, textures=textures)
+                sums.append(img.sum())
+            return pool, img, torch.stack(sums)
 
     @staticmethod
     def make_family_chunk_step(members, checked: bool = False):
@@ -502,9 +506,20 @@ class CompiledEffect:
         :class:`~.pool.ShardedPool` goes through :meth:`_step_sharded`.
         ``emissions``: each emitted channel's ``(mask, count, captured)``
         in place of its buffer (a sharded group's shard, whose instances'
-        lanes are compacted with those of the other shards)."""
-        if self.mesh is not None and shard is None:
-            return self._step_sharded(pool, inputs, sim, events_in, parent_pool, checks)
+        lanes are compacted with those of the other shards). A frame is one
+        ``hanabi:step`` span; a shard's step runs inside its frame's."""
+        if shard is not None:
+            return self._step_frame(pool, inputs, sim, events_in, parent_pool, instances, checks,
+                                    shard, emissions)
+        with profile_span("hanabi:step"):
+            if self.mesh is not None:
+                return self._step_sharded(pool, inputs, sim, events_in, parent_pool, checks)
+            return self._step_frame(pool, inputs, sim, events_in, parent_pool, instances, checks,
+                                    None, emissions)
+
+    def _step_frame(self, pool, inputs, sim, events_in, parent_pool, instances, checks, shard,
+                    emissions):
+        """The body of :meth:`_step`: one frame of ``pool`` on its device."""
         dev = pool.device
         n = pool.alive.shape[-1]
         group = instances > 0

@@ -22,6 +22,7 @@ import torch
 
 from ..asset import EffectAsset, SimulationSpace
 from ..compiler import SimParams
+from ..utils.profiling import profile_span
 from .effect import CompiledEffect, StepChecks, StepInputs, _unstack, identity_transform
 from .pool import ParticlePool, gathered, to_device
 
@@ -168,8 +169,9 @@ class InstancedEffect:
         K-frame loop here that only enqueues device work; an emitting
         asset's events are built each frame and dropped, as the scan drops
         them."""
-        for inputs, sim in _unstack(inputs_stacked, sims_stacked):
-            pools, _ = self._step(pools, inputs, sim)
+        with profile_span("hanabi:chunk"):
+            for inputs, sim in _unstack(inputs_stacked, sims_stacked):
+                pools, _ = self._step(pools, inputs, sim)
         return pools
 
     def step_render_chunk(self, pools: ParticlePool, inputs_stacked, sims_stacked, camera,
@@ -200,23 +202,25 @@ class InstancedEffect:
                 "(ribbons/meshes: render per instance)"
             )
         alpha_mode = self.asset.alpha_mode.kind
-        textures = [texture_tensor(t, self.device) for t in textures]
         i = self.num_instances
-        img = torch.zeros((config.height, config.width, 4), dtype=torch.float32,
-                          device=self.device)
-        sums = []
-        for inputs, sim in _unstack(inputs_stacked, sims_stacked):
-            pools, _ = self._step(pools, inputs, sim)
-            per_lane = {
-                k: to_device(np.asarray(v), self.device).repeat_interleave(self.capacity, dim=0)
-                for k, v in inputs.properties.items()
-            }
-            draw = extract_draw_data(self.asset, gathered(pools, self.device).flatten(), camera,
-                                     sim=sim,
-                                     properties=per_lane, textures=list(textures), instances=i)
-            img = rasterize(draw, camera, config, alpha_mode=alpha_mode, textures=textures)
-            sums.append(img.sum())
-        return pools, img, torch.stack(sums)
+        with profile_span("hanabi:chunk"):
+            textures = [texture_tensor(t, self.device) for t in textures]
+            img = torch.zeros((config.height, config.width, 4), dtype=torch.float32,
+                              device=self.device)
+            sums = []
+            for inputs, sim in _unstack(inputs_stacked, sims_stacked):
+                pools, _ = self._step(pools, inputs, sim)
+                per_lane = {
+                    k: to_device(np.asarray(v), self.device).repeat_interleave(self.capacity,
+                                                                               dim=0)
+                    for k, v in inputs.properties.items()
+                }
+                draw = extract_draw_data(self.asset, gathered(pools, self.device).flatten(),
+                                         camera, sim=sim, properties=per_lane,
+                                         textures=list(textures), instances=i)
+                img = rasterize(draw, camera, config, alpha_mode=alpha_mode, textures=textures)
+                sums.append(img.sum())
+            return pools, img, torch.stack(sums)
 
     def alive_counts(self, pools: ParticlePool) -> torch.Tensor:
         return torch.sum(pools.alive, dim=-1, dtype=torch.int32)

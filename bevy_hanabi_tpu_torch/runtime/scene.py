@@ -637,21 +637,22 @@ class HanabiScene:
     def _culled_names(self, cameras, for_render: bool = False) -> set:
         """Names of the entities taking part in culling whose padded AABB is
         outside EVERY given camera frustum."""
-        from ..render.camera import aabb_in_frustum, frustum_planes
+        with profile_span("hanabi:cull"):
+            from ..render.camera import aabb_in_frustum, frustum_planes
 
-        cameras = list(cameras)
-        if not cameras:
-            return set()
-        names = self._culling_names(for_render)
-        if not names:
-            return set()
-        aabbs = self._refresh_aabbs()
-        planes = [frustum_planes(c) for c in cameras]
-        return {
-            n
-            for n in names
-            if n in aabbs and not any(aabb_in_frustum(p, aabbs[n][0], aabbs[n][1]) for p in planes)
-        }
+            cameras = list(cameras)
+            if not cameras:
+                return set()
+            names = self._culling_names(for_render)
+            if not names:
+                return set()
+            aabbs = self._refresh_aabbs()
+            planes = [frustum_planes(c) for c in cameras]
+            return {
+                n
+                for n in names
+                if n in aabbs and not any(aabb_in_frustum(p, aabbs[n][0], aabbs[n][1]) for p in planes)
+            }
 
     def _per_view_visibility(self, cameras, insts, groups):
         """Per-camera visibility for multi-view rendering (scene.py:746-789,
@@ -660,22 +661,23 @@ class HanabiScene:
         n_groups]``, True where the entity's padded AABB meets THAT camera's
         frustum. Entities not taking part in culling are visible in every
         view. A view masks the alive lanes of what it does not see."""
-        from ..render.camera import aabb_in_frustum, frustum_planes
+        with profile_span("hanabi:cull"):
+            from ..render.camera import aabb_in_frustum, frustum_planes
 
-        planes = [frustum_planes(c) for c in cameras]
-        aabbs = self._refresh_aabbs()
-        names = self._culling_names(for_render=True)
+            planes = [frustum_planes(c) for c in cameras]
+            aabbs = self._refresh_aabbs()
+            names = self._culling_names(for_render=True)
 
-        def row(name):
-            if name not in names or name not in aabbs:
-                return [True] * len(planes)
-            mn, mx = aabbs[name]
-            return [bool(aabb_in_frustum(p, mn, mx)) for p in planes]
+            def row(name):
+                if name not in names or name not in aabbs:
+                    return [True] * len(planes)
+                mn, mx = aabbs[name]
+                return [bool(aabb_in_frustum(p, mn, mx)) for p in planes]
 
-        vis_eff = np.asarray([row(i.name) for i in insts], np.bool_).reshape(len(insts), len(planes)).T
-        vis_grp = np.asarray([row(g["name"]) for g in groups], np.bool_).reshape(
-            len(groups), len(planes)).T
-        return vis_eff, vis_grp
+            vis_eff = np.asarray([row(i.name) for i in insts], np.bool_).reshape(len(insts), len(planes)).T
+            vis_grp = np.asarray([row(g["name"]) for g in groups], np.bool_).reshape(
+                len(groups), len(planes)).T
+            return vis_eff, vis_grp
 
     # -- hot reload (≈ compile_effects change detection, lib.rs:1703-1838) ---
 
@@ -903,8 +905,14 @@ class HanabiScene:
         step is a checked step. ``last_frame_ms`` keeps the call's host wall
         time (the device work it enqueued may still run)."""
         t0 = time.perf_counter()
-        self._begin()
         self.debug.on_frame_start(self._new_effect_added)
+        with profile_span("hanabi:update"):
+            self._update(dt, cameras)
+        self.last_frame_ms = (time.perf_counter() - t0) * 1000.0
+
+    def _update(self, dt: float, cameras) -> None:
+        """The body of :meth:`update`."""
+        self._begin()
         self._new_effect_added = False
         if cameras is not None and not isinstance(cameras, (list, tuple)):
             cameras = [cameras]
@@ -930,25 +938,25 @@ class HanabiScene:
             frame_seed = np.uint32(inst.rng.integers(0, 2**32))
             props = inst.properties.as_dict()
             step = inst.fx.step_checked if validate else inst.fx.step
-            with profile_span(f"hanabi:step:{name}", self.device):
-                if inst.parent is not None:
-                    parent = self._effects[inst.parent]
-                    consumed.append((inst.parent, inst.child_channel))
-                    events_in = prev_events[inst.parent].get(inst.child_channel)
-                    if events_in is None:
-                        events_in = parent.fx.make_empty_events(parent.pool.capacity)
-                    inst.pool, events_out = step(
-                        inst.pool,
-                        StepInputs.make(0, frame_seed, inst.transform, props),
-                        sim,
-                        events_in=events_in,
-                        parent_pool=parent.pool,
-                    )
-                else:
+            if inst.parent is not None:
+                parent = self._effects[inst.parent]
+                consumed.append((inst.parent, inst.child_channel))
+                events_in = prev_events[inst.parent].get(inst.child_channel)
+                if events_in is None:
+                    events_in = parent.fx.make_empty_events(parent.pool.capacity)
+                inst.pool, events_out = step(
+                    inst.pool,
+                    StepInputs.make(0, frame_seed, inst.transform, props),
+                    sim,
+                    events_in=events_in,
+                    parent_pool=parent.pool,
+                )
+            else:
+                with profile_span("hanabi:spawn"):
                     n_spawn = inst.spawner.tick(self.clock.delta) if inst.spawner else 0
-                    inst.pool, events_out = step(
-                        inst.pool, StepInputs.make(n_spawn, frame_seed, inst.transform, props), sim
-                    )
+                inst.pool, events_out = step(
+                    inst.pool, StepInputs.make(n_spawn, frame_seed, inst.transform, props), sim
+                )
             inst.last_events = events_out
             stepped.add(name)
         # A parent that did not step (paused WhenVisible) keeps stale
@@ -961,15 +969,14 @@ class HanabiScene:
         for gname, g in self._groups.items():
             if self._group_paused(g, culled):
                 continue
-            counts = g["bank"].tick(self.clock.delta)
+            with profile_span("hanabi:spawn"):
+                counts = g["bank"].tick(self.clock.delta)
             seeds = self._rng.integers(0, 2**32, size=g["fx"].num_instances, dtype=np.uint32)
             inputs = g["fx"].make_inputs(counts, seeds, g["transforms"], g["properties"].as_dict())
             if g.get("sharded"):
                 inputs = g["fx"].shard_inputs(inputs)
             step = g["fx"].step_checked if validate else g["fx"].step
             g["pools"], _ = step(g["pools"], inputs, sim)
-        self.debug.on_frame_end()
-        self.last_frame_ms = (time.perf_counter() - t0) * 1000.0
 
     @staticmethod
     def _group_paused(g, culled) -> bool:
@@ -1289,73 +1296,74 @@ class HanabiScene:
         (no raster override) and the split plan has two or more passes;
         "painter" always does, and raises for an ineligible one; "split"
         never."""
-        if pipeline not in ("auto", "split", "painter"):
-            raise ValueError(f"pipeline must be 'auto', 'split' or 'painter'; got {pipeline!r}")
-        view_h = np.asarray(camera.view)
-        cam_pos = -view_h[:3, :3].T @ view_h[:3, 3]
+        with profile_span("hanabi:plan"):
+            if pipeline not in ("auto", "split", "painter"):
+                raise ValueError(f"pipeline must be 'auto', 'split' or 'painter'; got {pipeline!r}")
+            view_h = np.asarray(camera.view)
+            cam_pos = -view_h[:3, :3].T @ view_h[:3, 3]
 
-        def dist_key(i):
-            t = np.asarray(insts[i].transform)[:, 3]
-            return (-float(np.linalg.norm(cam_pos - t)), insts[i].asset.z_layer_2d)
+            def dist_key(i):
+                t = np.asarray(insts[i].transform)[:, 3]
+                return (-float(np.linalg.norm(cam_pos - t)), insts[i].asset.z_layer_2d)
 
-        vis_idx = sorted(
-            (i for i, inst in enumerate(insts) if inst.visible and inst.name not in culled),
-            key=dist_key,
-        )
-
-        def batch_key(inst):
-            """The blend state a batch shares; None for an effect that never
-            batches (mask cutoffs, ribbon segments, meshes and textures are
-            per effect)."""
-            asset = inst.asset
-            kind = asset.alpha_mode.kind
-            if (kind == "mask" or asset.particle_layout().contains("ribbon_id")
-                    or asset.mesh is not None or inst.textures or inst.raster_override
-                    or inst.fx.mesh is not None):
-                return None
-            return kind
-
-        def build_passes(idxs):
-            runs = []
-            for i in idxs:
-                key = batch_key(insts[i])
-                if runs and key is not None and runs[-1][0] == key:
-                    runs[-1][1].append(i)
-                else:
-                    runs.append([key, [i]])
-            passes = []
-            for key, members in runs:
-                if key is not None and len(members) > 1:
-                    passes.append(("batch", tuple(members), key))
-                else:
-                    passes.extend(("eff", i, insts[i].asset.alpha_mode.kind) for i in members)
-            return tuple(passes)
-
-        opaque = [i for i in vis_idx if insts[i].asset.alpha_mode.is_opaque()]
-        vis_groups = [gi for gi, g in enumerate(groups) if g["visible"] and g["name"] not in culled]
-        opq_groups = [gi for gi in vis_groups if groups[gi]["asset"].alpha_mode.is_opaque()]
-        opaque_passes = build_passes(opaque) + tuple(
-            ("grp", gi, groups[gi]["asset"].alpha_mode.kind) for gi in opq_groups
-        )
-        transp_passes = build_passes([i for i in vis_idx if i not in opaque]) + tuple(
-            ("grp", gi, groups[gi]["asset"].alpha_mode.kind)
-            for gi in vis_groups if gi not in opq_groups
-        )
-        if pipeline == "split":
-            return opaque_passes, transp_passes
-        eligible = not any(insts[i].raster_override for i in vis_idx) and not any(
-            groups[gi]["raster_override"] for gi in vis_groups
-        )
-        if pipeline == "painter" and not eligible:
-            raise ValueError(
-                "pipeline='painter' requires every visible effect/group to be "
-                "painter-eligible (no per-effect raster overrides) — use 'auto' to fall "
-                "back to the split pipeline automatically"
+            vis_idx = sorted(
+                (i for i, inst in enumerate(insts) if inst.visible and inst.name not in culled),
+                key=dist_key,
             )
-        n_passes = len(opaque_passes) + len(transp_passes)
-        if (vis_idx or vis_groups) and eligible and (pipeline == "painter" or n_passes >= 2):
-            return (), (("painter", tuple(vis_idx), tuple(vis_groups)),)
-        return opaque_passes, transp_passes
+
+            def batch_key(inst):
+                """The blend state a batch shares; None for an effect that never
+                batches (mask cutoffs, ribbon segments, meshes and textures are
+                per effect)."""
+                asset = inst.asset
+                kind = asset.alpha_mode.kind
+                if (kind == "mask" or asset.particle_layout().contains("ribbon_id")
+                        or asset.mesh is not None or inst.textures or inst.raster_override
+                        or inst.fx.mesh is not None):
+                    return None
+                return kind
+
+            def build_passes(idxs):
+                runs = []
+                for i in idxs:
+                    key = batch_key(insts[i])
+                    if runs and key is not None and runs[-1][0] == key:
+                        runs[-1][1].append(i)
+                    else:
+                        runs.append([key, [i]])
+                passes = []
+                for key, members in runs:
+                    if key is not None and len(members) > 1:
+                        passes.append(("batch", tuple(members), key))
+                    else:
+                        passes.extend(("eff", i, insts[i].asset.alpha_mode.kind) for i in members)
+                return tuple(passes)
+
+            opaque = [i for i in vis_idx if insts[i].asset.alpha_mode.is_opaque()]
+            vis_groups = [gi for gi, g in enumerate(groups) if g["visible"] and g["name"] not in culled]
+            opq_groups = [gi for gi in vis_groups if groups[gi]["asset"].alpha_mode.is_opaque()]
+            opaque_passes = build_passes(opaque) + tuple(
+                ("grp", gi, groups[gi]["asset"].alpha_mode.kind) for gi in opq_groups
+            )
+            transp_passes = build_passes([i for i in vis_idx if i not in opaque]) + tuple(
+                ("grp", gi, groups[gi]["asset"].alpha_mode.kind)
+                for gi in vis_groups if gi not in opq_groups
+            )
+            if pipeline == "split":
+                return opaque_passes, transp_passes
+            eligible = not any(insts[i].raster_override for i in vis_idx) and not any(
+                groups[gi]["raster_override"] for gi in vis_groups
+            )
+            if pipeline == "painter" and not eligible:
+                raise ValueError(
+                    "pipeline='painter' requires every visible effect/group to be "
+                    "painter-eligible (no per-effect raster overrides) — use 'auto' to fall "
+                    "back to the split pipeline automatically"
+                )
+            n_passes = len(opaque_passes) + len(transp_passes)
+            if (vis_idx or vis_groups) and eligible and (pipeline == "painter" or n_passes >= 2):
+                return (), (("painter", tuple(vis_idx), tuple(vis_groups)),)
+            return opaque_passes, transp_passes
 
     def _frame_config(self, camera, config, background):
         """The raster config aligned to the camera viewport, and the clear
@@ -1390,33 +1398,34 @@ class HanabiScene:
         merged with everything the opaque and mask entries wrote. Under
         ``debug.validate`` a phase-split frame must be finite
         (``FloatingPointError`` otherwise, scene.py:2515-2520)."""
-        self._begin()
-        config, background = self._frame_config(camera, config, background)
-        fb = torch.tensor(background, dtype=torch.float32, device=self.device).expand(
-            config.height, config.width, 4
-        )
-        insts = [self._effects[n] for n in self._order]
-        groups = list(self._groups.values())
-        plan = self._scene_render_plan(
-            insts, camera, pipeline, culled=self._culled_names([camera], for_render=True),
-            groups=groups,
-        )
-        inputs = [(inst.transform, inst.properties.as_dict()) for inst in insts]
-        out = self._render_frame(
-            insts, plan, inputs, self.clock.sim_params(), camera, config, fb, scene_depth,
-            return_depth, groups=groups,
-            group_props=[g["properties"].as_dict() for g in groups], sharded_passes=True,
-        )
-        painter = bool(plan[1]) and plan[1][0][0] == "painter"
-        if self.debug.validate and not painter:
-            img = out[0] if return_depth else out
-            if not bool(torch.isfinite(img).all()):
-                raise FloatingPointError(
-                    "debug validation: rendered framebuffer contains non-finite pixels — a "
-                    "nan or inf reached the raster output (poison read, bad color "
-                    "expression, or degenerate projection)"
-                )
-        return out
+        with profile_span("hanabi:render"):
+            self._begin()
+            config, background = self._frame_config(camera, config, background)
+            fb = torch.tensor(background, dtype=torch.float32, device=self.device).expand(
+                config.height, config.width, 4
+            )
+            insts = [self._effects[n] for n in self._order]
+            groups = list(self._groups.values())
+            plan = self._scene_render_plan(
+                insts, camera, pipeline, culled=self._culled_names([camera], for_render=True),
+                groups=groups,
+            )
+            inputs = [(inst.transform, inst.properties.as_dict()) for inst in insts]
+            out = self._render_frame(
+                insts, plan, inputs, self.clock.sim_params(), camera, config, fb, scene_depth,
+                return_depth, groups=groups,
+                group_props=[g["properties"].as_dict() for g in groups], sharded_passes=True,
+            )
+            painter = bool(plan[1]) and plan[1][0][0] == "painter"
+            if self.debug.validate and not painter:
+                img = out[0] if return_depth else out
+                if not bool(torch.isfinite(img).all()):
+                    raise FloatingPointError(
+                        "debug validation: rendered framebuffer contains non-finite pixels — a "
+                        "nan or inf reached the raster output (poison read, bad color "
+                        "expression, or degenerate projection)"
+                    )
+            return out
 
     @staticmethod
     def _view_pool(pool: ParticlePool, hidden: bool) -> ParticlePool:

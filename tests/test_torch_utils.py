@@ -11,6 +11,7 @@ bit for bit; float state rtol 1e-2 / atol 1e-3; bloom and the tonemaps
 atol 1e-5; a resumed run equals the uninterrupted one exactly.
 """
 
+import json
 import math
 import os
 
@@ -113,6 +114,19 @@ def _gravity_scene(seed=11):
     return s
 
 
+CAPTURE_CAMERA = camera_t.CameraParams(camera_t.look_at((0, 0, 26), (0, 0, 0)),
+                                        camera_t.perspective(math.radians(60), 1, 0.1, 200),
+                                        (64, 64))
+
+
+def _trace_spans(directory) -> list:
+    """The program spans of the one Chrome trace in ``directory``, in order."""
+    (name,) = os.listdir(directory)
+    with open(os.path.join(directory, name)) as f:
+        events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events if e.get("name", "").startswith("hanabi:")]
+
+
 def test_debug_capture_cycle(tmp_path):
     settings = DebugSettings(capture_dir=str(tmp_path / "trace"))
     s = _gravity_scene()
@@ -121,9 +135,17 @@ def test_debug_capture_cycle(tmp_path):
     settings.capture_frame_count = 2
     s.update(DT)
     assert settings.is_capturing
+    s.render(CAPTURE_CAMERA, RasterConfig(64, 64))
+    s.update(DT)
+    # a frame runs from one update to the next: the second one's render is to come
+    assert settings.is_capturing
+    s.render(CAPTURE_CAMERA, RasterConfig(64, 64))
     s.update(DT)
     assert not settings.is_capturing
     assert os.listdir(settings.capture_dir)  # a Chrome trace
+    spans = _trace_spans(settings.capture_dir)
+    assert spans.count("hanabi:update") == 2 and spans.count("hanabi:render") == 2
+    assert spans.count("hanabi:raster") == 2
 
 
 def test_capture_on_new_effect(tmp_path):
@@ -135,6 +157,13 @@ def test_capture_on_new_effect(tmp_path):
     s.add(spawn_gravity_effect(capacity=64, rate=10.0), "fx2")
     s.update(DT)
     assert os.path.isdir(str(tmp_path / "t2"))
+    # the one captured frame holds its render, and ends at the next update
+    assert s.debug.is_capturing
+    s.render(CAPTURE_CAMERA, RasterConfig(64, 64))
+    s.update(DT)
+    assert not s.debug.is_capturing
+    spans = _trace_spans(str(tmp_path / "t2"))
+    assert spans.count("hanabi:update") == 1 and "hanabi:raster" in spans
 
 
 # -- checkpoints ---------------------------------------------------------------
