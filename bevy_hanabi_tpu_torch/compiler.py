@@ -9,6 +9,12 @@ Array conventions: per-particle tensors are batched — scalars ``[N]``,
 vectors ``[N, k]``. Literals/builtins stay unbatched (``[]`` / ``[k]``) and
 broadcast lazily. ``UINT`` values ride int64 tensors holding uint32 bit
 patterns (see :mod:`.ops.rng`); arithmetic on them wraps modulo 2^32.
+
+:mod:`.codegen` writes the same walk out as one CUDA kernel, which steps
+most effects on the card and has to match this walk bit for bit. A change
+here to the rand draws' order, the memo rules or an op's semantics, or to a
+modifier's ``apply``, must be mirrored there; ``tests/test_torch_step_codegen.py``
+holds the two equal.
 """
 
 from __future__ import annotations

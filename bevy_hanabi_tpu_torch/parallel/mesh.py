@@ -145,7 +145,15 @@ class ShardedEffect(InstancedEffect):
         """K-frame stacked inputs: leaves are [K, I, ...] (mesh.py:109-119)."""
         return self._check_inputs(inputs_stacked, 1)
 
-    def _step(self, pools: ShardedPool, inputs: StepInputs, sim: SimParams, checks=None):
+    def _stage(self, inputs_stacked: StepInputs):
+        """No chunk of words: a shard's step is the eager one. (The group's
+        effect, shared with unsharded groups by ``CompiledEffect.get``, has
+        a generated step, so the group's ``_stage`` would upload words that
+        no shard reads.)"""
+        return None
+
+    def _step(self, pools: ShardedPool, inputs: StepInputs, sim: SimParams, checks=None,
+              staged=None):
         """One frame of every shard, in two phases: each shard counts the
         dead lanes of its instances, the counts cross to every shard of
         their row, then each shard steps its lanes ranked among its

@@ -27,6 +27,12 @@ trajectories are the unsharded ones bit for bit. Each shard compacts its
 own emitted events; the buffer keeps each shard's prefix in place, with
 zero-count gaps between them, and every shard of a child reads the whole
 buffer (effect.py:155-179, 697-750).
+
+On the card, an effect whose step :mod:`..codegen` can generate (no GPU
+events, no mesh, an emitter for every modifier and node) steps through that
+one kernel (:class:`~.fused.FusedStep`), which writes the pool's tensors in
+place; every unchecked, unsharded frame takes it. Every other frame takes
+the eager step. ``fused_frames`` and ``eager_frames`` count the two.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import codegen
 from ..asset import EffectAsset, MotionIntegration, SimulationSpace
 from ..attributes import ParticleLayout
 from ..compiler import InitContext, SimParams, UpdateContext
@@ -46,6 +53,7 @@ from ..ops.compaction import exclusive_rank
 from ..ops.linalg import affine3, rotate3
 from ..utils.profiling import profile_span
 from .events import EventBuffer, build_event_buffer, channel_emissions, consume_events
+from .fused import FusedStep
 from .pool import ParticlePool, ShardedPool, gathered, to_device
 
 __all__ = ["CompiledEffect", "StepInputs", "StepChecks", "identity_transform"]
@@ -146,13 +154,20 @@ class CompiledEffect:
     spawn events from a parent of that layout; ``parent_const_count`` the
     parent channel's constant emit count (``rank // K`` map);
     ``payload_attrs`` restricts the payload this effect's own events
-    capture. Pools passed to the step methods are updated in place (their
-    tensors are replaced, the JAX package donates them): do not keep using
-    the input pool's old tensors after a step.
+    capture. A step method takes over the pool passed to it, as the JAX
+    package donates it: the pool is updated in place, and its old tensors
+    may be overwritten (the generated step on the card writes them) or
+    replaced (the eager step). The rule is the same on every device and
+    path: use the returned pool, and ``clone()`` the tensors of a frame you
+    keep.
 
     ``mesh`` (a :class:`~..parallel.mesh.Mesh`) shards the pool's particle
     axis over all of its devices (the module's docstring); ``device`` is
     then where the effect's event buffers are assembled.
+
+    ``fused_step`` is the generated step (:class:`~.fused.FusedStep`), or
+    None and ``fuse_reason`` says why; ``fused_frames`` and
+    ``eager_frames`` count the frames each step took.
     """
 
     _CACHE: "dict" = {}
@@ -252,6 +267,17 @@ class CompiledEffect:
             and has("velocity")
         )
         self._global_space = asset.simulation_space is SimulationSpace.GLOBAL
+        source, self.fuse_reason = codegen.try_generate(asset, self.consumes_events,
+                                                         mesh is not None)
+        self.fused_step: Optional[FusedStep] = None if source is None else FusedStep(source)
+        self.fused_frames = 0
+        self.eager_frames = 0
+
+    @property
+    def fused_step_share(self) -> float:
+        """The share of this effect's frames the generated kernel stepped."""
+        total = self.fused_frames + self.eager_frames
+        return self.fused_frames / total if total else 0.0
 
     # -- pool ------------------------------------------------------------
 
@@ -308,7 +334,8 @@ class CompiledEffect:
     ):
         """Advance one frame. Returns ``(pool, events_out)`` where
         ``events_out`` is a dict channel→EventBuffer for child effects
-        (empty for an effect that emits nothing)."""
+        (empty for an effect that emits nothing). ``pool`` is taken over:
+        its tensors may be overwritten (the class's in-place rule)."""
         return self._step(pool, inputs, sim, events_in, parent_pool)
 
     def step_checked(
@@ -336,7 +363,8 @@ class CompiledEffect:
     def step_chunk(self, pool: ParticlePool, inputs_stacked: StepInputs, sims_stacked: SimParams):
         """Advance K frames; every leaf of the stacked inputs has a leading
         [K] axis. Only for effects without event channels (events need the
-        family chunk, :meth:`make_family_chunk_step`)."""
+        family chunk, :meth:`make_family_chunk_step`). ``pool`` is taken
+        over: its tensors may be overwritten (the class's in-place rule)."""
         self._refuse_events("step_chunk")
         with profile_span("hanabi:chunk"):
             for inputs, sim in _unstack(inputs_stacked, sims_stacked):
@@ -372,7 +400,8 @@ class CompiledEffect:
 
         Returns ``(pool, last_image, checksums)``: the image is
         [height, width, 4] f32 and ``checksums`` the [K] per-frame
-        framebuffer sums, all on the pool's device."""
+        framebuffer sums, all on the pool's device. ``pool`` is taken over:
+        its tensors may be overwritten (the class's in-place rule)."""
         from ..render.extract import extract_draw_data
         from ..render.mesh import expand_mesh_draw
         from ..render.raster import rasterize
@@ -488,6 +517,7 @@ class CompiledEffect:
         checks: Optional[StepChecks] = None,
         shard: Optional[Shard] = None,
         emissions: bool = False,
+        staged=None,
     ):
         """One frame. ``instances`` > 0 steps an instanced group
         (:class:`~.instanced.InstancedEffect`) in one pass: ``pool`` is the
@@ -506,12 +536,21 @@ class CompiledEffect:
         :class:`~.pool.ShardedPool` goes through :meth:`_step_sharded`.
         ``emissions``: each emitted channel's ``(mask, count, captured)``
         in place of its buffer (a sharded group's shard, whose instances'
-        lanes are compacted with those of the other shards). A frame is one
-        ``hanabi:step`` span; a shard's step runs inside its frame's."""
+        lanes are compacted with those of the other shards). ``staged``: a
+        group's chunk of words for the generated step and this frame's index
+        in it (:meth:`~.fused.FusedStep.stage`). A frame is one ``hanabi:step`` span; a
+        shard's step runs inside its frame's."""
         if shard is not None:
             return self._step_frame(pool, inputs, sim, events_in, parent_pool, instances, checks,
                                     shard, emissions)
         with profile_span("hanabi:step"):
+            fused = self.fused_step
+            if fused is not None and checks is None and events_in is None \
+                    and pool.device.type == "cuda":
+                pool = fused.step(pool, inputs, sim, instances, staged)
+                self.fused_frames += 1
+                return pool, {}
+            self.eager_frames += 1
             if self.mesh is not None:
                 return self._step_sharded(pool, inputs, sim, events_in, parent_pool, checks)
             return self._step_frame(pool, inputs, sim, events_in, parent_pool, instances, checks,

@@ -51,8 +51,10 @@ class InstancedEffect:
     Equivalent of the reference's EffectBatch (batch.rs:92): instances share
     the asset, layout and compiled step and differ only in per-instance
     runtime data. ``device`` is required, as for :class:`CompiledEffect`.
-    Pools passed to the step methods are updated in place (their tensors are
-    replaced, the JAX package donates them)."""
+    The step methods take over the pools passed to them, by
+    :class:`CompiledEffect`'s rule: the pools are updated in place and their
+    old tensors may be overwritten, on every device and path; use the
+    returned pools, and ``clone()`` the tensors of a frame you keep."""
 
     def __init__(self, asset: EffectAsset, num_instances: int, capacity: Optional[int] = None,
                  *, device) -> None:
@@ -112,8 +114,17 @@ class InstancedEffect:
             props,
         )
 
+    def _stage(self, inputs_stacked: StepInputs):
+        """A chunk's per-instance words for the generated step, uploaded once
+        (:meth:`~.fused.FusedStep.stage`); None where the eager step takes
+        the chunk."""
+        fused = self.effect.fused_step
+        if fused is None or self.device.type != "cuda":
+            return None
+        return fused.stage(inputs_stacked, self.num_instances, self.device)
+
     def _step(self, pools: ParticlePool, inputs: StepInputs, sim: SimParams,
-              checks=None, shard=None, emissions=False):
+              checks=None, shard=None, emissions=False, staged=None):
         """One frame of every instance: the flat step over the pools' view,
         its results written back in the [I, N, ...] shape. Returns
         ``(pools, events_out)``: an emitting asset's buffers, one a channel,
@@ -122,7 +133,8 @@ class InstancedEffect:
         ``instances``), as JAX's vmapped step returns them. ``checks``: a
         checked step's :class:`~.effect.StepChecks`; ``shard`` and
         ``emissions``: a sharded group's shard (:class:`~.effect.Shard`),
-        whose emissions its group compacts (:meth:`CompiledEffect._step`)."""
+        whose emissions its group compacts, and ``staged``, a chunk's words
+        for the generated step (:meth:`CompiledEffect._step`)."""
         i, n = pools.alive.shape
         flat = ParticlePool(
             {k: v.reshape((i * n,) + tuple(v.shape[2:])) for k, v in pools.attrs.items()},
@@ -131,7 +143,8 @@ class InstancedEffect:
             pools.counter,
         )
         flat, events = self.effect._step(flat, inputs, sim, None, None, instances=i,
-                                         checks=checks, shard=shard, emissions=emissions)
+                                         checks=checks, shard=shard, emissions=emissions,
+                                         staged=staged)
         pools.attrs = {k: v.reshape((i, n) + tuple(v.shape[1:])) for k, v in flat.attrs.items()}
         pools.alive = flat.alive.reshape(i, n)
         pools.seed = flat.seed.reshape(i, n)
@@ -142,7 +155,8 @@ class InstancedEffect:
         """Advance all instances one frame; returns ``(pools, events_out)``,
         an emitting asset's per-instance event buffers (instanced.py:111-121).
         An asset that consumes events raises as in the JAX package: an
-        instance has no parent."""
+        instance has no parent. ``pools`` is taken over: its tensors may be
+        overwritten (the class's in-place rule)."""
         return self._step(pools, inputs, sim)
 
     def step_checked(self, pools: ParticlePool, inputs: StepInputs, sim: SimParams):
@@ -168,10 +182,13 @@ class InstancedEffect:
         ...]; of ``sims_stacked`` [K]. The JAX package's ``lax.scan`` is a
         K-frame loop here that only enqueues device work; an emitting
         asset's events are built each frame and dropped, as the scan drops
-        them."""
+        them. ``pools`` is taken over: its tensors may be overwritten (the
+        class's in-place rule)."""
         with profile_span("hanabi:chunk"):
-            for inputs, sim in _unstack(inputs_stacked, sims_stacked):
-                pools, _ = self._step(pools, inputs, sim)
+            staged = self._stage(inputs_stacked)
+            for j, (inputs, sim) in enumerate(_unstack(inputs_stacked, sims_stacked)):
+                pools, _ = self._step(pools, inputs, sim,
+                                      staged=None if staged is None else (staged, j))
         return pools
 
     def step_render_chunk(self, pools: ParticlePool, inputs_stacked, sims_stacked, camera,
@@ -184,7 +201,8 @@ class InstancedEffect:
         meshes render per instance; LOCAL instances would need per-instance
         render transforms), as in the JAX package.
 
-        Returns ``(pools, last_image, checksums)``."""
+        Returns ``(pools, last_image, checksums)``. ``pools`` is taken over:
+        its tensors may be overwritten (the class's in-place rule)."""
         from ..render.extract import extract_draw_data
         from ..render.raster import rasterize, texture_tensor
 
@@ -208,8 +226,10 @@ class InstancedEffect:
             img = torch.zeros((config.height, config.width, 4), dtype=torch.float32,
                               device=self.device)
             sums = []
-            for inputs, sim in _unstack(inputs_stacked, sims_stacked):
-                pools, _ = self._step(pools, inputs, sim)
+            staged = self._stage(inputs_stacked)
+            for j, (inputs, sim) in enumerate(_unstack(inputs_stacked, sims_stacked)):
+                pools, _ = self._step(pools, inputs, sim,
+                                      staged=None if staged is None else (staged, j))
                 per_lane = {
                     k: to_device(np.asarray(v), self.device).repeat_interleave(self.capacity,
                                                                                dim=0)

@@ -504,9 +504,11 @@ class HanabiScene:
     def stats(self) -> dict:
         """Scene observability snapshot (scene.py:1241-1294; it reads back
         from the device, so call it off the hot path): per-effect alive
-        counts and event-buffer fill levels, group totals, and the last
-        ``update()``'s host wall time. Warns once per child when spawn events
-        arrive while its pool is already full: those spawns are dropped."""
+        counts and event-buffer fill levels, group totals, the share of each
+        effect's and group's frames its generated step kernel stepped
+        (``fused_step_share``, by name), and the last ``update()``'s host
+        wall time. Warns once per child when spawn events arrive while its
+        pool is already full: those spawns are dropped."""
         from ..utils.diag import warn_once
 
         effects = {}
@@ -544,6 +546,10 @@ class HanabiScene:
             "total_alive": self.total_alive(),
             "effects": effects,
             "groups": {name: {"alive": self.group_alive(name)} for name in self._groups},
+            "fused_step_share": {
+                **{name: inst.fx.fused_step_share for name, inst in self._effects.items()},
+                **{name: g["fx"].effect.fused_step_share for name, g in self._groups.items()},
+            },
         }
 
     # -- visibility: frustum vs pool AABB ----------------------------------

@@ -343,7 +343,17 @@ imports JAX. Phases, each of which fails the run on any error:
        before its redesign), exactly, on the last frame's emissions (64 x
        1024, the firework's payload words), at 256 x 4096 and at 4 x 65 536
        (random lanes at the same active share), all three timed beside
-       segmented1.
+       segmented1;
+25. the generated step kernel (``runtime/fused.py``) at the benchmark's
+    4,194,304 lanes: ``gradient_effect`` as one pool and
+    ``instancing_effect`` as 1024 x 4096, each warmed past its lifetime
+    through ``step_chunk``, then a 120-frame ``step_render_chunk`` (the
+    path the benchmark's chunk cells drive) with the kernels it launched
+    counted from 0 (``launches``, from the launcher's own count), then one
+    frame of the kernel exactly against the eager step (every tensor
+    bit-equal) and both timed; rows ``step[gradient,4M]`` and
+    ``step[instanced,1024x4096]`` with the eager step's ms as
+    ``plain_ms``.
 
 Prints a ``{"kernels": [...]}`` line with a row per kernel and path: the
 headline's (``tile_blend`` in BLEND, and ``tile_blend[mask]`` with the
@@ -4474,6 +4484,118 @@ def phase24(kernels):
     return {**aa_results, **ev_results}, {"aa": aa_launches, "events": ev_launches}
 
 
+FUSED_STEP_SHAPES = ((1, 1 << 22), (1024, 4096))  # instances x lanes: phase 25
+
+
+def fused_step_phase() -> list:
+    """Phase 25: the generated step kernel against the eager step it
+    replaces, exactly, and both timed, at the benchmark's pools. Returns
+    its kernel rows."""
+    import numpy as np
+    import torch
+
+    from bevy_hanabi_tpu_torch import (CompiledEffect, EffectSpawner, InstancedEffect,
+                                       RasterConfig, SimParams, StepInputs)
+    from bevy_hanabi_tpu_torch.models import gradient_effect, instancing_effect
+    from bevy_hanabi_tpu_torch.runtime.pool import ParticlePool
+    from bevy_hanabi_tpu_torch.spawn import make_spawner_bank
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    rows = []
+    for instances, lanes in FUSED_STEP_SHAPES:
+        group = instances > 1
+        r = np.random.default_rng(25)
+        if group:
+            fx = InstancedEffect(instancing_effect(lanes), instances, device=dev)
+            effect, pool = fx.effect, fx.create_pools()
+            bank = make_spawner_bank(fx.asset.spawner, instances, seed=25)
+            name = f"step[instanced,{instances}x{lanes}]"
+
+            def inputs():
+                return fx.make_inputs(bank.tick(DT), r.integers(0, 2**32, instances,
+                                                                dtype=np.uint32))
+        else:
+            fx = effect = CompiledEffect(gradient_effect(lanes), device=dev)
+            pool = fx.create_pool()
+            spawner = EffectSpawner(fx.asset.spawner, rng=np.random.default_rng(25))
+            name = "step[gradient,4M]"
+
+            def inputs():
+                return StepInputs.make(spawner.tick(DT), int(r.integers(0, 2**32)))
+
+        def stacked(frame):
+            ins = [inputs() for _ in range(K)]
+            sims = [SimParams(time=(frame + j) * DT, delta_time=DT) for j in range(K)]
+            return effect.stack_frames(ins, sims)
+
+        fused = effect.fused_step
+        frame = 0
+        for _ in range(int(6.0 / DT) // K + 1):  # past either effect's lifetime
+            pool = fx.step_chunk(pool, *stacked(frame))
+            frame += K
+        chunk = stacked(frame)
+        fused.launches = 0
+        pool, _, _ = fx.step_render_chunk(pool, *chunk, headline_camera(),
+                                          RasterConfig(512, 512, tile_slots=1))
+        launches = fused.launches
+        frame += K
+        torch.cuda.synchronize()
+        one = inputs()
+        sim = SimParams(time=frame * DT, delta_time=DT)
+        staged = fused.stage(effect.stack_frames([one], [sim])[0], instances, dev) if group \
+            else None
+
+        def flat(p):
+            if not group:
+                return p
+            return ParticlePool({k: v.reshape((instances * lanes,) + tuple(v.shape[2:]))
+                                 for k, v in p.attrs.items()}, p.alive.reshape(-1),
+                                p.seed.reshape(-1), p.counter)
+
+        def copy(p):
+            return ParticlePool({k: v.clone() for k, v in p.attrs.items()}, p.alive.clone(),
+                                p.seed.clone(), p.counter.clone())
+
+        base = flat(pool)
+        k_pool, e_pool = copy(base), copy(base)
+        fused.step(k_pool, one, sim, instances if group else 0,
+                   None if staged is None else (staged, 0))
+        effect._step_frame(e_pool, one, sim, None, None, instances if group else 0, None, None,
+                           False)
+        torch.cuda.synchronize()
+        for key, a, b in [("alive", k_pool.alive, e_pool.alive), ("seed", k_pool.seed, e_pool.seed),
+                          ("counter", k_pool.counter, e_pool.counter)] + \
+                [(k, k_pool.attrs[k], e_pool.attrs[k]) for k in e_pool.attrs]:
+            a = a.contiguous()
+            b = b.contiguous()
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                fail(f"{name}: {key} differs from the eager step's")
+        alive = int(base.alive.sum())
+        moved = 2 * nbytes(*base.attrs.values(), base.alive, base.seed, base.counter)
+        ms = cuda_ms(lambda: fused.step(k_pool, one, sim, instances if group else 0,
+                                        None if staged is None else (staged, 0)), 100)
+        plain_ms = cuda_ms(lambda: effect._step_frame(e_pool, one, sim, None, None,
+                                                      instances if group else 0, None, None,
+                                                      False), 10)
+        print(f"{name}: {instances} x {lanes} lanes, {alive} alive, bit-exact against the eager "
+              f"step; {launches} kernels launched in a {K}-frame step_render_chunk")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "generated by bevy_hanabi_tpu_torch/codegen.py (runtime/fused.py)",
+            "replaces": "bevy_hanabi_tpu/runtime/effect.py:518 (XLA's fusion of _step)",
+            "launches": launches,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **bound(moved),
+        })
+        rows[-1]["share"] = rows[-1]["bound_ms"] / ms
+        del pool, base, k_pool, e_pool
+    print(f"phase 25 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4687,6 +4809,9 @@ def main() -> int:
     # instanced event path.
     p24_results, p24_launches = phase24(kernels)
 
+    # Phase 25: the generated step kernel.
+    step_rows = fused_step_phase()
+
     results.update(fw_results)
     results.update(mx_results)
     results.update(rb_results)
@@ -4827,7 +4952,7 @@ def main() -> int:
             "share": results[name]["bound_ms"] / results[name]["ms"],
         }
         for name, kernel, count in rows
-    ]
+    ] + step_rows
     print("kernel rows: name, launches, ms, bound ms (by), share of the bound, plain ms, library ms"
           " (, the first version's ms)")
     for r in kernel_rows:

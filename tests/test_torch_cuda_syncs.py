@@ -34,30 +34,21 @@ SEED = 2_718_281_828
 
 # "file under bevy_hanabi_tpu_torch/::function" -> [syncs a frame, syncs a call].
 # Every one but the culling readback is an upload of a host value (pageable,
-# so the copy waits on the stream): a constant of the compiled modifiers or
-# of a gradient, the camera's rotation, the frame's inputs.
+# so the copy waits on the stream): a constant of a gradient, the camera's
+# rotation. The step of either configuration is its generated kernel
+# (runtime/fused.py), fed by launch arguments and a pinned upload: none.
 _GRADIENT = {
-    "compiler.py::const": [6, 0],
     "gradient.py::const": [8, 0],
     "modifiers/output.py::apply_render": [1, 0],
     "render/extract.py::extract_draw_data": [1, 0],
-    "runtime/effect.py::_step_frame": [1, 0],
-    "runtime/pool.py::to_device": [4, 0],
 }
 SITES = {
     "gradient_4m.chunk": _GRADIENT,
     "instancing_1024x4096.chunk": {
-        "compiler.py::const": [8, 0],
         "gradient.py::const": [3, 0],
         "render/extract.py::extract_draw_data": [1, 0],
-        "runtime/effect.py::_step_frame": [3, 0],
-        "runtime/pool.py::to_device": [4, 0],
     },
-    "instancing_1024x4096.sim": {
-        "compiler.py::const": [8, 0],
-        "runtime/effect.py::_step_frame": [3, 0],
-        "runtime/pool.py::to_device": [4, 0],
-    },
+    "instancing_1024x4096.sim": {},
     "gradient_4m.scene": {
         **_GRADIENT,
         "runtime/scene.py::_refresh_aabbs": [1, 0],  # the culling readback
