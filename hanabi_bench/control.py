@@ -26,15 +26,15 @@ from hanabi_bench import spec, verify
 __all__ = ["control_record", "main"]
 
 
-def _state(ref: verify.Reference) -> dict:
-    return {k: v.clone() for k, v in ref.pool.items()}
+def _state(ref) -> dict:
+    return {m: {k: v.clone() for k, v in s.items()} for m, s in ref.pool.items()}
 
 
 def control_record(cell: spec.Cell, seed: int, device, ft=torch.bfloat16) -> verify.Record:
-    """The record of two calls of the cell's mix produced by the reference
-    in ``ft``."""
+    """The record of two calls of the cell's mix produced by the
+    configuration's reference (:func:`verify.reference`) in ``ft``."""
     traffic = cell.traffic
-    ref = verify.Reference(cell, seed, device, ft)
+    ref = verify.reference(cell, seed, device, ft)
     warm = bench_inputs.warm_frames(cell.config, traffic)
     ref.advance(warm)
     record = verify.Record(warm, _state(ref))
@@ -45,7 +45,7 @@ def control_record(cell: spec.Cell, seed: int, device, ft=torch.bfloat16) -> ver
         sums = (torch.tensor([float(images[j].sum()) for j in range(k)], dtype=torch.float64)
                 if images else None)
         span = verify.Span(first, k, None if i == 0 else start, sums,
-                           images.get(k - 1), _state(ref), int(ref.pool["alive"].sum()))
+                           images.get(k - 1), _state(ref), verify.alive_total(ref.pool))
         record.spans.append(span)
     return record
 

@@ -4,10 +4,11 @@ comparison needs. Every loop is closed: each call waits for its own
 readback (``chunk``) or present (``scene``).
 
 - ``chunk``: ``frames_per_call`` frames a call; after each call one
-  readback of its per-frame checksums and the alive count. Before each
-  call the pools are copied on the device, so the last call's starting
-  pools are at hand for the comparison. Frames per second are all the
-  window's frames over the time from its start to its last readback.
+  readback of its per-frame checksums and the alive count (summed over
+  the members of a tree). Before each call the pools are copied on the
+  device, so the last call's starting pools are at hand for the
+  comparison. Frames per second are all the window's frames over the
+  time from its start to its last readback.
 - ``scene``: one ``update`` and ``render`` a frame with at most
   ``in_flight`` frames enqueued; before frame ``n + in_flight`` is
   enqueued the loop waits on frame ``n``'s completion event, and that wait
@@ -16,7 +17,10 @@ readback (``chunk``) or present (``scene``).
 
 Set-up warms the pools to steady state through the window's own call, a
 lifetime of frames from empty pools, so every shape the window uses is
-built before it.
+built before it. The state is the program's, by member (its pools, and
+the event buffers a tree's members pass on). A traced run's summary gets
+the program's ``counters()``, where it has them, once the window has
+closed.
 """
 
 from __future__ import annotations
@@ -57,7 +61,22 @@ def _sync(device: torch.device) -> None:
 
 
 def _copy(state):
-    return {k: v.clone() for k, v in state.items()}
+    return {m: {k: v.clone() for k, v in s.items()} for m, s in state.items()}
+
+
+def _copy_into(snap, state) -> None:
+    for m, s in state.items():
+        for key, v in s.items():
+            snap[m][key].copy_(v)
+
+
+def _alive(state) -> torch.Tensor:
+    """The lanes alive over every member, a device scalar."""
+    total = None
+    for s in state.values():
+        n = s["alive"].sum()
+        total = n if total is None else total + n
+    return total
 
 
 def run_window(cell, seed: int, seconds: float, trace: bool, device, t_start: float) -> Window:
@@ -74,7 +93,7 @@ def run_window(cell, seed: int, seconds: float, trace: bool, device, t_start: fl
 def _start(prog, warm: int, device, t_start: float, out: Window):
     """After the warm-up: the starting pools on the host, the set-up's
     peak memory, and a fresh peak for the window."""
-    start = {k: v.cpu() for k, v in prog.state().items()}
+    start = {m: {k: v.cpu() for k, v in s.items()} for m, s in prog.state().items()}
     _sync(device)
     if device.type == "cuda":
         out.memory_peak = torch.cuda.max_memory_allocated(device)
@@ -85,13 +104,17 @@ def _start(prog, warm: int, device, t_start: float, out: Window):
     return t0
 
 
-def _finish(device, out: Window, prof, frames: int) -> None:
+def _finish(prog, device, out: Window, prof, frames: int) -> None:
+    """After the window: its peak memory, and a traced run's summary with
+    the program's counters, read now and never inside the window."""
     _sync(device)
     if device.type == "cuda":
         out.memory_window = torch.cuda.max_memory_allocated(device)
         out.memory_peak = max(out.memory_peak, out.memory_window)
     if prof is not None:
         out.summary = bench_trace.summarize(prof, frames)
+        if hasattr(prog, "counters"):
+            out.summary.counters = prog.counters()
 
 
 def _chunk_loop(prog, traffic, warm, seconds, trace, device, t_start) -> Window:
@@ -112,14 +135,13 @@ def _chunk_loop(prog, traffic, warm, seconds, trace, device, t_start) -> Window:
                 first = f
                 try:
                     with bench_trace.span("bench:snapshot"):
-                        for key, v in prog.state().items():
-                            snap[key].copy_(v)
+                        _copy_into(snap, prog.state())
                     with bench_trace.span("bench:inputs"):
                         stacked = prog.inputs(f, k)
                     with bench_trace.span("bench:call"):
                         sums, img = prog.call(stacked)
                     with bench_trace.span("bench:readback"):
-                        alive = prog.state()["alive"].sum().view(1).double()
+                        alive = _alive(prog.state()).view(1).double()
                         back = (alive if sums is None else torch.cat([sums.double(), alive])).cpu()
                 except (RuntimeError, ValueError) as exc:  # a call that raises fails its frames
                     out.failed += k
@@ -136,7 +158,7 @@ def _chunk_loop(prog, traffic, warm, seconds, trace, device, t_start) -> Window:
                 if (out.frames >= target) if trace else (t_last - t0 >= seconds):
                     break
         out.seconds = t_last - t0
-    _finish(device, out, prof, out.frames)
+    _finish(prog, device, out, prof, out.frames)
     if last is None:
         return out
     first, back, img = last
@@ -179,8 +201,7 @@ def _scene_loop(prog, traffic, warm, seconds, trace, device, t_start) -> Window:
                 try:
                     if (f - warm) % span_frames == 0:
                         with bench_trace.span("bench:snapshot"):
-                            for key, v in prog.state().items():
-                                snap[key].copy_(v)
+                            _copy_into(snap, prog.state())
                         snap_at = f
                     with bench_trace.span("bench:update+render"):
                         img = prog.frame()
@@ -203,7 +224,7 @@ def _scene_loop(prog, traffic, warm, seconds, trace, device, t_start) -> Window:
             while pending:
                 present()
         out.seconds = (out.presents[-1] - t0) if out.presents else 0.0
-    _finish(device, out, prof, out.frames)
+    _finish(prog, device, out, prof, out.frames)
     if not out.frames:
         return out
     checks = torch.stack(sums).double().cpu()

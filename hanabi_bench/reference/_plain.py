@@ -5,10 +5,13 @@ order the program under test keeps (a frozen copy of that order, so that
 the comparison can be tight): the PCG random stream
 (vfx_common.wgsl:260-364), a rate spawner's tick (spawn.rs:838-921), a
 frame of spawn, init and update over a pool of lanes or a group of
-instances, the camera, and the tile rasterizer's ordered BLEND pass
+instances, burst and once spawners (spawn.rs's ``SpawnerSettings::burst`` and
+``::once``), the camera, and the tile rasterizer's ordered BLEND pass
 (project, bin, far-first sort, the nearest ``M`` a tile, back-to-front
-blend). Nothing here imports the program; a configuration's reference
-supplies its effect's modifiers.
+blend) and its ADD pass (the order-independent keys of raster.py:336-423:
+the first ``M`` a tile in key order, added), and the composite of a pass
+onto the frame. Nothing here imports the program; a configuration's
+reference supplies its effect's modifiers.
 
 Every float tensor is made in ``ft``, the reference's float type: float32
 for the reference, bfloat16 for the control in its place.
@@ -78,6 +81,66 @@ class RateSpawner:
         counts = np.floor(self.remainder)
         self.remainder = self.remainder - counts
         return counts.astype(np.int32)
+
+
+class CycleSpawner:
+    """One spawner of constant ``SpawnerSettings``: cycles of ``period``
+    seconds, each spawning ``count`` over its first ``spawn_duration``
+    seconds (all of it in the cycle's first frame where that is under
+    ``max(1e-5, dt / 100)``), ``cycles`` of them (0: forever), the
+    fractional remainder carried to the next frame, a frame that spans
+    cycle ends catching up on each (spawn.rs:838-921). :meth:`burst` and
+    :meth:`once` are spawn.rs's ``SpawnerSettings::burst`` and ``::once``;
+    ``tick`` returns int32 ``[1]``, the count of one instance."""
+
+    def __init__(self, count: float, spawn_duration: float, period: float, cycles: int) -> None:
+        self.count, self.spawn_duration = float(count), float(spawn_duration)
+        self.period, self.cycles = float(period), int(cycles)
+        self.cycle_time = 0.0
+        self.cycle_period = 0.0  # 0: the next frame starts a cycle
+        self.cycle_duration = 0.0
+        self.remainder = 0.0
+        self.completed = 0
+
+    @classmethod
+    def burst(cls, count: float, period: float) -> "CycleSpawner":
+        return cls(count, 0.0, period, 0)
+
+    @classmethod
+    def once(cls, count: float) -> "CycleSpawner":
+        return cls(count, 0.0, 0.0, 1)
+
+    def tick(self, dt: float) -> np.ndarray:
+        if self.cycles and self.completed >= self.cycles:
+            return np.zeros(1, np.int32)
+        while True:
+            if self.cycle_period == 0.0:
+                if self.cycles == 1:
+                    self.cycle_duration = self.spawn_duration
+                    self.cycle_period = max(self.spawn_duration, 1e-12)
+                else:
+                    self.cycle_period = self.period
+                    self.cycle_duration = min(max(self.spawn_duration, 0.0), self.period)
+            new_time = self.cycle_time + dt
+            if self.cycle_time <= self.cycle_duration:
+                if self.cycle_duration < max(1e-5, dt / 100.0):
+                    self.remainder += self.count
+                else:
+                    ratio = ((min(new_time, self.cycle_duration) - self.cycle_time)
+                             / self.cycle_duration)
+                    self.remainder += self.count * min(max(ratio, 0.0), 1.0)
+            self.cycle_time = new_time
+            if self.cycle_time < self.cycle_period:
+                break
+            dt = self.cycle_time - self.cycle_period
+            self.cycle_time = 0.0
+            self.completed += 1
+            self.cycle_period = 0.0
+            if self.cycles and self.completed >= self.cycles:
+                break
+        count = np.floor(self.remainder)
+        self.remainder -= count
+        return np.asarray([count], np.int32)
 
 
 # -- camera ------------------------------------------------------------------
@@ -323,13 +386,36 @@ def project_bin(position, axis_x, axis_y, alive, color, cam: Camera, raster: dic
     return tile, depth, rows
 
 
-def sort_tiles(tile, depth, nt: int):
+def _bits(x: int) -> int:
+    """``ceil(log2(x))``, at least 1."""
+    return max(1, (int(x) - 1).bit_length())
+
+
+def fast_mode(raster: dict, alpha_mode: str, entries: int) -> Optional[str]:
+    """The key of an ADD pass over ``entries`` entries, as the JAX
+    package's rasterizer picks it by default (raster.py:336-358: order
+    independent, the nearest kept): ``"depth"`` (tile, at most 8 bits of
+    near-first depth, entry index) where at least 4 bits are left for the
+    depth, else ``"payload"`` (tile, at most 22 bits of near-first depth,
+    stably sorted); None (the ordered path, far first) for BLEND."""
+    if alpha_mode != "add":
+        return None
+    nt = -(-raster["width"] // raster["tile_size"]) * -(-raster["height"] // raster["tile_size"])
+    return "depth" if 32 - _bits(nt + 2) - _bits(max(entries, 2)) >= 4 else "payload"
+
+
+def sort_tiles(tile, depth, nt: int, mode: Optional[str] = None):
     """Entries by tile, each tile far first: the 32-bit key ``tile << s |
     (2**s - 1 - q)``, ``q`` the depth quantised over the binned range to
-    ``s = min(22, 32 - tile bits)`` bits, stably sorted. Returns the sorted
-    entry indices and each tile's ``[start, end)``."""
+    ``s = min(22, 32 - tile bits)`` bits, stably sorted. ``mode`` (a
+    :func:`fast_mode`) orders each tile near first (``q`` itself), and for
+    ``"depth"`` the key ends in the entry index (unique keys), below ``q``
+    of at most 8 bits. Returns the sorted entry indices and each tile's
+    ``[start, end)``."""
     tile_bits = max(1, int(np.ceil(np.log2(nt + 2))))
-    shift = min(22, 32 - tile_bits)
+    idx_bits = _bits(max(tile.shape[0], 2)) if mode == "depth" else 0
+    q_bits = min(32 - tile_bits - idx_bits, 8) if mode == "depth" else min(22, 32 - tile_bits)
+    shift = q_bits + idx_bits
     binned = depth > -torch.inf
     lo = torch.where(binned, depth, torch.inf).min()
     hi = torch.where(binned, depth, -torch.inf).max()
@@ -338,8 +424,12 @@ def sort_tiles(tile, depth, nt: int):
     dmax = torch.where(any_binned, hi, -torch.inf)
     span = torch.fmax(dmax - dmin, depth.new_tensor(1e-9))
     x = torch.clamp(torch.fmax((depth - dmin) / span, depth.new_zeros(())), max=1.0)
-    q = (x.float() * float((1 << shift) - 1)).to(torch.int64)
-    key = (tile.to(torch.int64) << shift) | (((1 << shift) - 1) - q)
+    q = (x.float() * float((1 << q_bits) - 1)).to(torch.int64)
+    if mode is None:
+        q = ((1 << q_bits) - 1) - q
+    key = (tile.to(torch.int64) << shift) | (q << idx_bits)
+    if idx_bits:
+        key = key | torch.arange(tile.shape[0], dtype=torch.int64, device=tile.device)
     key = (key - (1 << 31)).to(torch.int32)
     key_sorted, order = torch.sort(key, stable=True)
     bounds = (np.arange(nt + 1, dtype=np.int64) << shift) - (1 << 31)
@@ -347,11 +437,12 @@ def sort_tiles(tile, depth, nt: int):
     return order, r[:-1], r[1:]
 
 
-def window(rows, order, starts, ends, M: int):
-    """Each tile's nearest ``M`` entries, back to front: ``(rows [nt, M, F],
-    has [nt, M])``; entry ``e`` reads row ``e mod N``."""
+def window(rows, order, starts, ends, M: int, from_start: bool = False):
+    """Each tile's nearest ``M`` entries, back to front (the last ``M`` of
+    its run), or with ``from_start`` the first ``M`` of its run: ``(rows
+    [nt, M, F], has [nt, M])``; entry ``e`` reads row ``e mod N``."""
     n, nt = order.shape[0], starts.shape[0]
-    base = torch.maximum(ends - M, starts)
+    base = starts if from_start else torch.maximum(ends - M, starts)
     raw = base[:, None] + torch.arange(M, dtype=base.dtype, device=base.device)[None, :]
     has = raw < ends[:, None]
     pidx = torch.remainder(order[torch.clamp(raw, max=n - 1)], rows.shape[0])
@@ -359,9 +450,9 @@ def window(rows, order, starts, ends, M: int):
     return torch.where(has[..., None], win, 0.0), has
 
 
-def blend(win, has, T: int, ntx: int, ft):
-    """BLEND of every tile's window over a transparent black target, entry
-    by entry, each pixel's quad test in its ``(u, v)`` frame."""
+def blend(win, has, T: int, ntx: int, ft, alpha_mode: str = "blend"):
+    """BLEND (or ADD) of every tile's window over a transparent black
+    target, entry by entry, each pixel's quad test in its ``(u, v)`` frame."""
     nt, M, _ = win.shape
     dev = win.device
     ar = torch.arange(T, dtype=torch.int32, device=dev)
@@ -384,26 +475,49 @@ def blend(win, has, T: int, ntx: int, ft):
         src = r[:, None, None, 6:10]
         a = torch.where(covered, (src[..., 3] * coverage)[..., None], 0.0)
         rgb_s = torch.where(covered, src[..., :3], 0.0)
-        rgb = rgb_s * a + fb[..., :3] * (1.0 - a)
-        alpha = a + fb[..., 3:4] * (1.0 - a)
+        if alpha_mode == "add":
+            rgb = rgb_s * a + fb[..., :3]
+            alpha = torch.clamp(a + fb[..., 3:4], max=1.0)
+        else:
+            rgb = rgb_s * a + fb[..., :3] * (1.0 - a)
+            alpha = a + fb[..., 3:4] * (1.0 - a)
         fb = torch.cat([rgb, alpha], dim=-1)
     return fb
 
 
-def rasterize(position, axis_x, axis_y, alive, color, cam: Camera, raster: dict, ft):
-    """The BLEND frame as a ``[height, width, 4]`` image."""
+def rasterize(position, axis_x, axis_y, alive, color, cam: Camera, raster: dict, ft,
+              alpha_mode: str = "blend"):
+    """The BLEND (or ADD) frame as a ``[height, width, 4]`` image."""
+    if alpha_mode not in ("blend", "add"):
+        raise ValueError(f"the reference draws BLEND and ADD, not {alpha_mode!r}")
     T = raster["tile_size"]
     ntx, nty = -(-raster["width"] // T), -(-raster["height"] // T)
     tile, depth, rows = project_bin(position, axis_x, axis_y, alive, color, cam, raster, ft)
-    order, starts, ends = sort_tiles(tile, depth, ntx * nty)
-    win, has = window(rows, order, starts, ends, raster["max_entries_per_tile"])
-    fb = blend(win, has, T, ntx, ft)
+    mode = fast_mode(raster, alpha_mode, tile.shape[0])
+    order, starts, ends = sort_tiles(tile, depth, ntx * nty, mode)
+    win, has = window(rows, order, starts, ends, raster["max_entries_per_tile"],
+                      from_start=mode is not None)
+    fb = blend(win, has, T, ntx, ft, alpha_mode)
     img = fb.reshape(nty, ntx, T, T, 4).transpose(1, 2).reshape(nty * T, ntx * T, 4)
     return img[: raster["height"], : raster["width"]]
 
 
-def render(pool, effect: Effect, cam: Camera, raster: dict, ft):
+def composite(layer, frame, alpha_mode: str = "blend"):
+    """A pass's layer (drawn over transparent black) onto the frame by the
+    pass's equation (asset.rs:212-240): ADD adds, its alpha clamped to 1;
+    BLEND draws over."""
+    if alpha_mode == "add":
+        rgb = frame[..., :3] + layer[..., :3]
+        alpha = torch.clamp(frame[..., 3:4] + layer[..., 3:4], max=1.0)
+    else:
+        a = layer[..., 3:4]
+        rgb = layer[..., :3] + frame[..., :3] * (1.0 - a)
+        alpha = a + frame[..., 3:4] * (1.0 - a)
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+def render(pool, effect: Effect, cam: Camera, raster: dict, ft, alpha_mode: str = "blend"):
     rot = camera_rotation(cam.view).to(pool["alive"].device).to(ft)
     axis_x, axis_y, color = effect.render(pool, rot, ft)
     return rasterize(pool["position"], axis_x, axis_y, pool["alive"], color.contiguous(), cam,
-                     raster, ft)
+                     raster, ft, alpha_mode)

@@ -55,6 +55,7 @@ class Cell:
     limits: dict
     end_to_end: tuple  # the end-to-end metrics this cell reports
     per_layer: tuple  # the per-layer metrics this cell reports
+    references: Path = HERE / "reference"  # the folder of its configuration's reference
 
 
 def _metric(entry: dict) -> Metric:
@@ -106,12 +107,13 @@ _NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 _MODULES: Dict[Path, ModuleType] = {}
 
 
-def load_module(kind: str, name: str) -> ModuleType:
+def load_module(kind: str, name: str, folder: Optional[Path] = None) -> ModuleType:
     """The module ``<kind>/<name>.py`` of this folder (``metrics`` or
-    ``reference``), loaded from its file: a metric's name may hold dots."""
+    ``reference``), or ``<name>.py`` of ``folder``, loaded from its file: a
+    metric's name may hold dots."""
     if not _NAME.match(name):
         raise ValueError(f"not a benchmark name: {name!r}")
-    path = HERE / kind / f"{name}.py"
+    path = (folder or HERE / kind) / f"{name}.py"
     mod = _MODULES.get(path)
     if mod is None:
         spec = importlib.util.spec_from_file_location(f"hanabi_bench.{kind}.{name}", path)

@@ -1,6 +1,7 @@
 """The same whole runs on the card, at the tiny size: the program's CUDA
-kernels and the reference agree, and the control fails. Skips without a
-card (decided inside each test)."""
+kernels and the reference agree, and the control fails; and so for the
+test tree of ``test_bench_tree.py``. Skips without a card (decided inside
+each test)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import pytest
 import torch
 
 from hanabi_bench import control, run, spec, verify
-from hanabi_bench.tests._tiny import TinyBench
+from hanabi_bench.tests._tiny import TREE_MIXES, TinyBench, TreeBench
 
 CELLS = sorted(spec.load().workloads)
 
@@ -31,5 +32,16 @@ def test_run_on_card(name):
 def test_control_on_card(name):
     dev = _card()
     cell = TinyBench(lanes=2048).cell(name)
+    readings = verify.compare(control.control_record(cell, 5, dev), cell, 5, dev)
+    assert not verify.judge(readings, cell.limits), readings
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", sorted(TREE_MIXES))
+def test_tree_on_card(mix):
+    dev = _card()
+    out = run.run(TreeBench(), f"firework_tree.{mix}", 99, 0.5, False, dev)
+    assert out["correct"], out["readings"]
+    cell = TreeBench().cell(f"firework_tree.{mix}")
     readings = verify.compare(control.control_record(cell, 5, dev), cell, 5, dev)
     assert not verify.judge(readings, cell.limits), readings

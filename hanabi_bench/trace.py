@@ -2,10 +2,14 @@
 :class:`Summary` that the per-layer metric readers read.
 
 The benchmark marks its own spans with ``record_function`` (``bench:``
-names) around its calls into the program; everything else in the summary
-is the profiler's: the device's operations with their intervals, and the
-host's calls by name. A summary read back from JSON (:meth:`Summary.load`)
-lets the readers be tested on a recorded one.
+names) around its calls into the program; the summary holds the
+profiler's device operations with their intervals and the host's calls by
+name, the benchmark's spans, the program's own spans (``hanabi:`` names)
+with what :mod:`~hanabi_bench.spans` puts down to each, and the program's
+counters, which the loop reads once the window has closed. A summary read
+back from JSON (:meth:`Summary.load`) lets the readers be tested on a
+recorded one; one recorded before the program's spans and counters were
+kept reads them as empty.
 """
 
 from __future__ import annotations
@@ -30,6 +34,9 @@ class Summary:
     host_calls: Dict[str, int]  # host calls and ops by name, within the window
     spans: Dict[str, List[int]] = field(default_factory=dict)  # bench spans: durations, ns
     idle_gaps: List[Tuple[str, float]] = field(default_factory=list)  # by the host's label, s
+    # the program's spans ("none": under none): spans.FIELDS, ns and counts over the window
+    program_spans: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    counters: Dict[str, float] = field(default_factory=dict)  # the program's, at the window's close
 
     @property
     def window_s(self) -> float:
@@ -125,7 +132,10 @@ def _label_gaps(gaps, host) -> List[Tuple[str, float]]:
 
 
 def summarize(prof, frames: int) -> Summary:
-    """The profiler's events over the ``bench:window`` span."""
+    """The profiler's events over the ``bench:window`` span, and the
+    program's spans attributed by :func:`~hanabi_bench.spans.attribute`."""
+    from hanabi_bench import spans as program_spans
+
     events = prof.profiler.kineto_results.events()
     win = [e for e in events if e.name() == WINDOW_SPAN]
     if not win:
@@ -159,8 +169,9 @@ def summarize(prof, frames: int) -> Summary:
         cur = max(cur, b)
     if w1 > cur:
         gaps.append((cur, w1))
+    by_span = program_spans.attribute(program_spans.record(prof, frames))["by_span"]
     return Summary(frames, (w0, w1), device, dict(host_calls), dict(spans),
-                   _label_gaps(gaps, host))
+                   _label_gaps(gaps, host), by_span)
 
 
 def breakdown(summary: Summary) -> dict:
