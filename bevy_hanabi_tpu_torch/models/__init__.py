@@ -1,6 +1,7 @@
 """Ported benchmark effects, reference examples and texture helpers."""
 
 from .benchmarks import (  # noqa: F401
+    debris_effect,
     firework_effect,
     firework_trail_effect,
     force_field_effect,

@@ -4,7 +4,8 @@ Ported so far: ``gradient_effect`` (the benchmark headline's effect),
 ``spawn_gravity_effect`` (the opaque effect of the painter device gate),
 ``force_field_effect`` (the attractor and kill box of BASELINE config 3),
 the firework event tree, ``firework_effect`` with its trail child
-``firework_trail_effect``, the ribbon effects ``ribbon_bench_effect``
+``firework_trail_effect``, ``debris_effect`` (the opaque member of the
+JAX package's mixed-blend scene, bench.py:702-723), the ribbon effects ``ribbon_bench_effect``
 and ``ribbon_order_check_effect``, the textured-mesh gate's
 ``textured_mesh_check_effect``, and ``instancing_effect``, the per-instance
 effect of the instanced benchmark (hundreds of instances through
@@ -46,6 +47,7 @@ __all__ = [
     "force_field_effect",
     "firework_effect",
     "firework_trail_effect",
+    "debris_effect",
     "ribbon_bench_effect",
     "ribbon_order_check_effect",
     "textured_mesh_check_effect",
@@ -204,6 +206,28 @@ def firework_trail_effect(capacity: int = 262144) -> EffectAsset:
         .render(ColorOverLifetimeModifier(color))
         .render(SizeOverLifetimeModifier(Gradient.linear((0.02,), (0.0,))))
         .with_alpha_mode(AlphaMode.ADD)
+    )
+
+
+def debris_effect(capacity: int = 65536) -> EffectAsset:
+    """The opaque debris of the JAX package's mixed-blend scene
+    (bench.py:702-723): spawned in a ball of radius 3, moving away from its
+    centre at 1 unit a second, living 4 s, HDR orange, size 0.05, OPAQUE;
+    a quarter of the pool spawned a second."""
+    w = ExprWriter()
+    return (
+        EffectAsset("debris", capacity, SpawnerSettings.rate(capacity / 4.0), w.finish())
+        .init(
+            SetPositionSphereModifier(
+                w.module.lit((0.0, 0.0, 0.0)), w.module.lit(3.0), ShapeDimension.VOLUME
+            )
+        )
+        .init(SetVelocitySphereModifier(w.module.lit((0.0, 0.0, 0.0)), w.module.lit(1.0)))
+        .init(SetAttributeModifier(A.LIFETIME, w.lit(4.0).expr()))
+        .init(SetAttributeModifier(A.AGE, w.lit(0.0).expr()))
+        .init(SetAttributeModifier(A.HDR_COLOR, w.lit((0.9, 0.6, 0.2, 1.0)).expr()))
+        .render(SetSizeModifier((0.05,) * 3))
+        .with_alpha_mode(AlphaMode.OPAQUE)
     )
 
 

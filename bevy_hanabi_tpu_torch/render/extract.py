@@ -414,8 +414,8 @@ def concat_painter_draws(draws, kinds, textures_per_draw=None) -> ParticleDrawDa
     stacked atlas (:func:`_merge_textures`): ``textures_per_draw`` aligns
     with ``draws``, each effect's textures by slot; a textured mesh's
     vertex UVs ride ``uv_abc``, NaN on quads and on meshes without UVs,
-    which keep the quad parameterisation."""
-    with profile_span("hanabi:extract"):
+    which keep the quad parameterisation. A ``hanabi:painter`` span."""
+    with profile_span("hanabi:painter"):
         cutoff = torch.cat(
             [
                 d.alpha_cutoff

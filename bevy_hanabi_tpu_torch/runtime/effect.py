@@ -52,7 +52,7 @@ from ..ops import rng
 from ..ops.compaction import exclusive_rank
 from ..ops.linalg import affine3, rotate3
 from ..utils.profiling import profile_span
-from .events import EventBuffer, build_event_buffer, channel_emissions, consume_events
+from .events import EventBuffer, EventTally, build_event_buffer, channel_emissions, consume_events
 from .fused import FusedStep
 from .pool import ParticlePool, ShardedPool, gathered, to_device
 
@@ -456,14 +456,16 @@ class CompiledEffect:
 
         ``checked=True`` checks every member's every frame as
         :meth:`step_checked` does, with one readback after the chunk, for
-        ``DebugSettings.validate``.
+        ``DebugSettings.validate``. ``tallies`` (one :class:`~.events.EventTally`
+        or None a member) count each member's events on the device.
         """
         fxs = tuple(m[0] for m in members)
         parent_idx = tuple(m[1] for m in members)
         chans = tuple(m[2] for m in members)
 
-        def fam_chunk(carry, member_inputs, sims):
+        def fam_chunk(carry, member_inputs, sims, tallies=None):
             pools, pendings = list(carry[0]), tuple(carry[1])
+            tallies = tallies or (None,) * len(fxs)
             frames = [list(_unstack(ins, sims)) for ins in member_inputs]
             checks = StepChecks() if checked else None
             for j in range(len(frames[0]) if frames else 0):
@@ -471,7 +473,8 @@ class CompiledEffect:
                 for i, fx in enumerate(fxs):
                     ev_in = None if parent_idx[i] is None else pendings[parent_idx[i]][chans[i]]
                     inputs, sim = frames[i][j]
-                    pools[i], ev_out = fx._step(pools[i], inputs, sim, ev_in, None, checks=checks)
+                    pools[i], ev_out = fx._step(pools[i], inputs, sim, ev_in, None, checks=checks,
+                                                tally=tallies[i])
                     new_pendings.append(ev_out)
                 pendings = tuple(new_pendings)
             if checks is not None:
@@ -518,6 +521,7 @@ class CompiledEffect:
         shard: Optional[Shard] = None,
         emissions: bool = False,
         staged=None,
+        tally: Optional[EventTally] = None,
     ):
         """One frame. ``instances`` > 0 steps an instanced group
         (:class:`~.instanced.InstancedEffect`) in one pass: ``pool`` is the
@@ -538,11 +542,15 @@ class CompiledEffect:
         in place of its buffer (a sharded group's shard, whose instances'
         lanes are compacted with those of the other shards). ``staged``: a
         group's chunk of words for the generated step and this frame's index
-        in it (:meth:`~.fused.FusedStep.stage`). A frame is one ``hanabi:step`` span; a
-        shard's step runs inside its frame's."""
+        in it (:meth:`~.fused.FusedStep.stage`). ``tally`` (a scene member's
+        :class:`~.events.EventTally`) takes the frame's emitted events and,
+        for a child, the spawns requested and made. A frame is one
+        ``hanabi:step`` span; a shard's step runs inside its frame's, and
+        each emission's compaction and a child's consumption are
+        ``hanabi:events`` spans inside it."""
         if shard is not None:
             return self._step_frame(pool, inputs, sim, events_in, parent_pool, instances, checks,
-                                    shard, emissions)
+                                    shard, emissions, tally)
         with profile_span("hanabi:step"):
             fused = self.fused_step
             if fused is not None and checks is None and events_in is None \
@@ -552,13 +560,16 @@ class CompiledEffect:
                 return pool, {}
             self.eager_frames += 1
             if self.mesh is not None:
-                return self._step_sharded(pool, inputs, sim, events_in, parent_pool, checks)
+                return self._step_sharded(pool, inputs, sim, events_in, parent_pool, checks,
+                                          tally)
             return self._step_frame(pool, inputs, sim, events_in, parent_pool, instances, checks,
-                                    None, emissions)
+                                    None, emissions, tally)
 
     def _step_frame(self, pool, inputs, sim, events_in, parent_pool, instances, checks, shard,
-                    emissions):
-        """The body of :meth:`_step`: one frame of ``pool`` on its device."""
+                    emissions, tally=None):
+        """The body of :meth:`_step`: one frame of ``pool`` on its device.
+        ``tally`` takes the frame's counts in one :meth:`~.events.EventTally.add`;
+        a shard's, only the spawns (:meth:`_step_sharded` adds the emissions)."""
         dev = pool.device
         n = pool.alive.shape[-1]
         group = instances > 0
@@ -589,21 +600,24 @@ class CompiledEffect:
             num_free = shard.num_free
 
         parent_payload: Dict[str, torch.Tensor] = {}
+        spawns = None  # a child's (requested, spawned) device scalars
         if self.consumes_events:
             if events_in is None:
                 raise ValueError(
                     f"effect {self.asset.name!r} consumes GPU spawn events; pass events_in"
                 )
-            parent_slot, requested, parent_payload = consume_events(
-                events_in,
-                free_rank,
-                attrs=self._inherited_attrs,
-                const_count=self.parent_const_count,
-                checks=checks,
-                lanes=None if shard is None else shard.lanes,
-            )
-            # the request is a device scalar: no readback
-            spawn_total = torch.minimum(requested, num_free)
+            with profile_span("hanabi:events"):
+                parent_slot, requested, parent_payload = consume_events(
+                    events_in,
+                    free_rank,
+                    attrs=self._inherited_attrs,
+                    const_count=self.parent_const_count,
+                    checks=checks,
+                    lanes=None if shard is None else shard.lanes,
+                )
+                # the request is a device scalar: no readback
+                spawn_total = torch.minimum(requested, num_free)
+            spawns = (requested, spawn_total)
         elif group:
             # one request an instance, host data
             requested = torch.as_tensor(
@@ -720,25 +734,27 @@ class CompiledEffect:
         # ---- emitted events, aggregated per channel ----
         events_out: Dict[int, EventBuffer] = {}
         if self.num_event_channels:
-            per_channel = channel_emissions(uctx.events_out)
-            if self.payload_attrs is None:
-                captured = uctx.particle
-            else:
-                captured = {k: uctx.particle[k] for k in self.payload_attrs if k in uctx.particle}
-            for channel in range(self.num_event_channels):
-                if channel not in per_channel:
-                    buf = self.make_empty_events(per)
-                    events_out[channel] = buf.stacked(instances) if group else buf
-                elif emissions:
-                    events_out[channel] = (*per_channel[channel], captured)
+            with profile_span("hanabi:events"):
+                per_channel = channel_emissions(uctx.events_out)
+                if self.payload_attrs is None:
+                    captured = uctx.particle
                 else:
-                    mask, counts = per_channel[channel]
-                    buf = build_event_buffer(mask, counts, parent_attrs=captured,
-                                             instances=instances)
-                    if shard is not None:
-                        # the global slot of the emitting lane, gap rows too
-                        buf.parent_slot = buf.parent_slot + shard.lane_base
-                    events_out[channel] = buf
+                    captured = {k: uctx.particle[k] for k in self.payload_attrs
+                                if k in uctx.particle}
+                for channel in range(self.num_event_channels):
+                    if channel not in per_channel:
+                        buf = self.make_empty_events(per)
+                        events_out[channel] = buf.stacked(instances) if group else buf
+                    elif emissions:
+                        events_out[channel] = (*per_channel[channel], captured)
+                    else:
+                        mask, counts = per_channel[channel]
+                        buf = build_event_buffer(mask, counts, parent_attrs=captured,
+                                                 instances=instances)
+                        if shard is not None:
+                            # the global slot of the emitting lane, gap rows too
+                            buf.parent_slot = buf.parent_slot + shard.lane_base
+                        events_out[channel] = buf
 
         if checks is not None:
             checks.finite(uctx.particle, f"the step of effect {self.asset.name!r}")
@@ -746,14 +762,18 @@ class CompiledEffect:
         pool.alive = uctx.alive
         pool.seed = uctx.seed
         pool.counter = counter
+        if tally is not None:
+            tally.add(spawns, events_out if shard is None else {})
         return pool, events_out
 
-    def _step_sharded(self, pool: ShardedPool, inputs, sim, events_in, parent_pool, checks):
+    def _step_sharded(self, pool: ShardedPool, inputs, sim, events_in, parent_pool, checks,
+                      tally=None):
         """One frame of a pool split over the mesh (the module's docstring).
         Phase 1 counts each shard's dead lanes; phase 2 steps each shard on
         its device with its :class:`Shard` from those counts, reading the
         whole parent buffer there; the shards' event buffers are assembled
-        on the effect's device (effect.py:697-750)."""
+        on the effect's device (effect.py:697-750). Every shard makes the
+        whole pool's spawns: ``tally`` takes them from the first."""
         shards = pool.flat
         size = shards[0].capacity
         dead = [torch.sum(~p.alive, dtype=torch.int32) for p in shards]
@@ -769,9 +789,12 @@ class CompiledEffect:
                 lanes=size * len(shards),
             )
             ev_in = None if events_in is None else events_in.to(dev)
-            _, ev_out = self._step(p, inputs, sim, ev_in, parent_pool, checks=checks, shard=shard)
+            _, ev_out = self._step(p, inputs, sim, ev_in, parent_pool, checks=checks, shard=shard,
+                                   tally=tally if d == 0 else None)
             outs.append(ev_out)
         events = {ch: EventBuffer.concat([o[ch] for o in outs], self.device) for ch in outs[0]}
+        if tally is not None:
+            tally.add(None, events)
         return pool, events
 
 

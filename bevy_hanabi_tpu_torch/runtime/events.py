@@ -23,7 +23,7 @@ package's bit for bit.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +38,7 @@ from ..ops.gather import gather_rows
 
 __all__ = [
     "EventBuffer",
+    "EventTally",
     "build_event_buffer",
     "channel_emissions",
     "consume_events",
@@ -134,6 +135,44 @@ class EventBuffer:
             torch.zeros((), dtype=torch.int32, device=device),
             payload,
         )
+
+
+class EventTally:
+    """One scene member's GPU spawn events over its life, in one device
+    vector: as a child, the spawns its parent's events requested and the
+    lanes it spawned from them (the rest were dropped at a full pool); then
+    the events it emitted on each channel. A step adds its frame in one
+    accumulate (:meth:`add`); only :meth:`read` reads the vector back."""
+
+    def __init__(self) -> None:
+        self.totals: Optional[torch.Tensor] = None  # int64 [2 + channels]
+        self.consumes = False
+
+    def add(self, spawns, events: Dict[int, "EventBuffer"]) -> None:
+        """Add one frame: ``spawns`` a child's ``(requested, spawned)``
+        device scalars or None, ``events`` its emitted buffers by channel."""
+        counts = [*(spawns or ()), *(events[c].num_events for c in range(len(events)))]
+        if not counts:
+            return
+        lo, hi = (0 if spawns is not None else 2), 2 + len(events)
+        self.consumes |= spawns is not None
+        frame = torch.stack(counts)
+        if self.totals is None or self.totals.shape[0] < hi:
+            grown = torch.zeros(hi, dtype=torch.int64, device=frame.device)
+            if self.totals is not None:
+                grown[: self.totals.shape[0]] = self.totals
+            self.totals = grown
+        self.totals[lo:hi] += frame
+
+    def read(self) -> dict:
+        """``{"emitted": {channel: events}}`` and, for a child,
+        ``requested``, ``spawned`` and ``dropped``, read back."""
+        totals = [] if self.totals is None else self.totals.tolist()
+        out = {"emitted": dict(enumerate(totals[2:]))}
+        if self.consumes:
+            requested, spawned = totals[:2]
+            out.update(requested=requested, spawned=spawned, dropped=requested - spawned)
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,7 @@ from ..spawn import EffectSpawner
 from ..time import EffectSimulationClock
 from ..utils.profiling import DebugSettings, profile_span
 from .effect import CompiledEffect, StepChecks, StepInputs, identity_transform
-from .events import EventBuffer
+from .events import EventBuffer, EventTally
 from .instanced import InstancedEffect
 from .pool import ParticlePool, ShardedPool, gathered
 
@@ -100,6 +100,9 @@ class EffectInstance:
     # explicit capacity passed to add() (None = asset.capacity); a hot
     # reload that leaves asset.capacity alone keeps it
     capacity_override: Optional[int] = None
+    # device counters of the events this instance emits and consumes, read
+    # by HanabiScene.stats()
+    tally: EventTally = field(default_factory=EventTally)
 
     def alive_count(self) -> int:
         return int(self.pool.alive_count())
@@ -135,6 +138,9 @@ class HanabiScene:
         self._frustum_sim = False
         self.render_culling: Optional[bool] = None
         self.last_frame_ms: Optional[float] = None  # the last update()'s host wall time
+        # painter passes drawn and the rows merged into them, over the scene's life
+        self._painter_frames = 0
+        self._painter_rows = 0
 
     # -- authoring-world API ------------------------------------------------
 
@@ -507,8 +513,13 @@ class HanabiScene:
         counts and event-buffer fill levels, group totals, the share of each
         effect's and group's frames its generated step kernel stepped
         (``fused_step_share``, by name), and the last ``update()``'s host
-        wall time. Warns once per child when spawn events arrive while its
-        pool is already full: those spawns are dropped."""
+        wall time. Over the scene's life: ``event_totals`` by emitting or
+        consuming effect, the events emitted on each channel and a child's
+        spawns requested, spawned and dropped at a full pool (the effect's
+        :class:`~.events.EventTally`), and ``painter``, the painter passes
+        drawn and the rows merged into them. Warns once per child when spawn
+        events arrive while its pool is already full: those spawns are
+        dropped."""
         from ..utils.diag import warn_once
 
         effects = {}
@@ -550,6 +561,9 @@ class HanabiScene:
                 **{name: inst.fx.fused_step_share for name, inst in self._effects.items()},
                 **{name: g["fx"].effect.fused_step_share for name, g in self._groups.items()},
             },
+            "event_totals": {name: inst.tally.read() for name, inst in self._effects.items()
+                             if inst.parent is not None or inst.fx.num_event_channels},
+            "painter": {"frames": self._painter_frames, "rows": self._painter_rows},
         }
 
     # -- visibility: frustum vs pool AABB ----------------------------------
@@ -943,26 +957,32 @@ class HanabiScene:
                 continue
             frame_seed = np.uint32(inst.rng.integers(0, 2**32))
             props = inst.properties.as_dict()
-            step = inst.fx.step_checked if validate else inst.fx.step
+            # step_checked's validation, with the member's event tally
+            checks = StepChecks() if validate else None
             if inst.parent is not None:
                 parent = self._effects[inst.parent]
                 consumed.append((inst.parent, inst.child_channel))
                 events_in = prev_events[inst.parent].get(inst.child_channel)
                 if events_in is None:
                     events_in = parent.fx.make_empty_events(parent.pool.capacity)
-                inst.pool, events_out = step(
+                inst.pool, events_out = inst.fx._step(
                     inst.pool,
                     StepInputs.make(0, frame_seed, inst.transform, props),
                     sim,
-                    events_in=events_in,
-                    parent_pool=parent.pool,
+                    events_in,
+                    parent.pool,
+                    checks=checks,
+                    tally=inst.tally,
                 )
             else:
                 with profile_span("hanabi:spawn"):
                     n_spawn = inst.spawner.tick(self.clock.delta) if inst.spawner else 0
-                inst.pool, events_out = step(
-                    inst.pool, StepInputs.make(n_spawn, frame_seed, inst.transform, props), sim
+                inst.pool, events_out = inst.fx._step(
+                    inst.pool, StepInputs.make(n_spawn, frame_seed, inst.transform, props), sim,
+                    None, None, checks=checks, tally=inst.tally,
                 )
+            if checks is not None:
+                checks.raise_if_failed()
             inst.last_events = events_out
             stepped.add(name)
         # A parent that did not step (paused WhenVisible) keeps stale
@@ -1110,7 +1130,7 @@ class HanabiScene:
                 for inst in insts
             )
             carry = (tuple(inst.pool for inst in insts), pendings)
-            pools, pendings = fam_fn(carry, member_inputs, ss)
+            pools, pendings = fam_fn(carry, member_inputs, ss, tuple(i.tally for i in insts))
             for inst, pool, pend in zip(insts, pools, pendings):
                 inst.pool = pool
                 inst.last_events = pend
@@ -1189,13 +1209,16 @@ class HanabiScene:
         for j in range(frames):
             new_pendings = []
             for inst in insts:
-                ev_in = (
-                    None
-                    if inst.parent is None
-                    else pendings[index[inst.parent]][inst.child_channel]
-                )
+                ev_in = None
+                if inst.parent is not None:
+                    # a channel the parent's step left out reads as empty, as in update()
+                    ev_in = pendings[index[inst.parent]].get(inst.child_channel)
+                    if ev_in is None:
+                        parent = insts[index[inst.parent]]
+                        ev_in = parent.fx.make_empty_events(parent.pool.capacity)
                 inst.pool, ev_out = inst.fx._step(
-                    inst.pool, per_effect_inputs[inst.name][j], sims[j], ev_in, None, checks=checks
+                    inst.pool, per_effect_inputs[inst.name][j], sims[j], ev_in, None, checks=checks,
+                    tally=inst.tally,
                 )
                 new_pendings.append(ev_out)
             pendings = new_pendings
@@ -1622,5 +1645,7 @@ class HanabiScene:
             draws.append(draw)
         flat = concat_painter_draws(draws, [e[0].alpha_mode.kind for e in entries],
                                     textures_per_draw=textures)
+        self._painter_frames += 1
+        self._painter_rows += int(flat.position.shape[0])
         return rasterize(flat, camera, config, alpha_mode="scene", scene_depth=scene_depth,
                          framebuffer=fb, return_depth=return_depth)

@@ -27,7 +27,7 @@ __all__ = ["profile_span", "DebugSettings", "SPANS"]
 SPANS = (
     "hanabi:chunk",  # a K-frame step_chunk / step_render_chunk call
     "hanabi:step",  # one frame's step: spawn, init, update, the inputs' uploads
-    "hanabi:extract",  # draw data from a pool; the painter's and batches' merges
+    "hanabi:extract",  # draw data from a pool; the batches' merge
     "hanabi:raster",  # rasterize: project_bin, the sort, gather_window, tile_blend
     "hanabi:sort",  # sort_tiles, inside hanabi:raster
     "hanabi:update",  # HanabiScene.update
@@ -35,6 +35,8 @@ SPANS = (
     "hanabi:cull",  # the scene's frustum culling and its AABB readback
     "hanabi:plan",  # the scene's render plan
     "hanabi:spawn",  # the scene's spawner and spawner-bank ticks
+    "hanabi:events",  # inside hanabi:step: an emission's compaction, a child's consumption
+    "hanabi:painter",  # the painter pass's merge of every effect's draw data
 )
 
 

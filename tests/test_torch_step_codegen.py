@@ -68,6 +68,7 @@ def _model_assets():
 
 # Which assets the generated step takes, and why the rest keep the eager one.
 ENGAGEMENT = {
+    "debris_effect": None,
     "firework_effect": "it emits GPU spawn events",
     "firework_trail_effect": "init modifier InheritAttributeModifier has no emitter",
     "force_field_effect": "update modifier ConformToSphereModifier has no emitter",

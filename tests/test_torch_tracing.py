@@ -103,7 +103,10 @@ def test_scene_frame_spans():
             ("hanabi:raster", "hanabi:render"): 1, ("hanabi:sort", "hanabi:raster"): 1}
     got = _spans(prof)
     assert got == _per_frame(want)
-    assert {name for name, _ in got} | {"hanabi:chunk"} == set(SPANS)
+    # every span but the chunk's and those of events and the painter pass,
+    # which a single effect never opens (test_torch_mixed_tracing.py)
+    assert {name for name, _ in got} | {"hanabi:chunk", "hanabi:events",
+                                        "hanabi:painter"} == set(SPANS)
 
 
 def test_scene_group_spawn_span():
